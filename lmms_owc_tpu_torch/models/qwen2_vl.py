@@ -1,0 +1,588 @@
+"""Qwen2-VL model adapter of the port: engine requests -> batched GPU generation.
+
+Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` on the unpooled bf16/f32
+path. The host side is the same: requests are grouped by generation kwargs,
+sorted by estimated prompt tokens (text + vision), packed into token-budget
+macro batches, LEFT-padded to length buckets and decoded together. Images are
+resized on the host, grouped by patch bucket and run through the vision tower
+in batches whose row count is padded to ``VISION_ROW_BUCKETS``.
+
+Not ported yet (see ROADMAP.md): checkpoint loading, int8/W8A8/int4 weights,
+the decode pool (``LMMS_OWC_DECODE_POOL`` > 1 raises), ``loglikelihood``,
+``generate_until_multi_round`` and the Qwen2.5-VL tower.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import re
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+from lmms_owc_tpu.utils import Collator, get_logger, pad_to_bucket
+from lmms_owc_tpu_torch.models._api import register_model
+from lmms_owc_tpu_torch.models._base import Model
+from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
+from lmms_owc_tpu_torch.ops.image import (
+    patchify_images_batch,
+    resize_host_batch,
+    smart_resize,
+)
+
+log = get_logger(__name__)
+
+__all__ = ["PRESET_CONFIGS", "Qwen2VL"]
+
+DEFAULT_MAX_PIXELS = 1024 * 28 * 28
+DEFAULT_MIN_PIXELS = 4 * 28 * 28
+DEFAULT_MAX_NEW_TOKENS = 128
+
+# Architecture presets (HF config.json form) so random-init runs need no checkpoint.
+PRESET_CONFIGS = {
+    "qwen2-vl-2b": dict(
+        vocab_size=151936, hidden_size=1536, num_hidden_layers=28, num_attention_heads=12,
+        num_key_value_heads=2, intermediate_size=8960, tie_word_embeddings=True,
+    ),
+    "qwen2-vl-7b": dict(
+        vocab_size=152064, hidden_size=3584, num_hidden_layers=28, num_attention_heads=28,
+        num_key_value_heads=4, intermediate_size=18944, tie_word_embeddings=False,
+    ),
+    # CPU-testable miniature (same special-token space, tiny everything else).
+    "qwen2-vl-tiny": dict(
+        vocab_size=152064, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, intermediate_size=128, tie_word_embeddings=True,
+        rope_scaling={"type": "mrope", "mrope_section": [2, 3, 3]},
+        vision_config=dict(depth=2, embed_dim=32, num_heads=4, mlp_ratio=2.0, hidden_size=64),
+    ),
+}
+
+_IM_START = "<|im_start|>"
+_IM_END = "<|im_end|>"
+_VISION_START = "<|vision_start|>"
+_VISION_END = "<|vision_end|>"
+_IMAGE_PAD = "<|image_pad|>"
+
+# Qwen2-VL special token ids (tokenizer_config.json of the released checkpoints).
+SPECIAL_IDS = {
+    "<|endoftext|>": 151643,
+    _IM_START: 151644,
+    _IM_END: 151645,
+    _VISION_START: 151652,
+    _VISION_END: 151653,
+    _IMAGE_PAD: 151655,
+    "<|video_pad|>": 151656,
+}
+
+PATCH_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+# Vision-tower batch (row) buckets: ~12.5% granularity bounds the work spent
+# on replicated rows while keeping the set of tower shapes small.
+VISION_ROW_BUCKETS = (
+    1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64,
+    80, 96, 112, 128, 160, 192, 224, 256, 320, 384,
+)
+GEN_LEN_BUCKETS = (64, 128, 256, 512)
+
+
+def _assemble_embeds(
+    embed_table: torch.Tensor,
+    input_ids: torch.Tensor,
+    vision_flat: torch.Tensor | None,
+    index_map: torch.Tensor | None,
+) -> torch.Tensor:
+    """Token embeddings with vision tokens gathered in where ``index_map >= 0``."""
+    tok = torch.nn.functional.embedding(input_ids, embed_table)
+    if vision_flat is None:
+        return tok
+    gathered = vision_flat[index_map.clamp(min=0)].to(tok.dtype)
+    return torch.where((index_map >= 0)[..., None], gathered, tok)
+
+
+class _FallbackTokenizer:
+    """Deterministic hash tokenizer for random-init runs (no checkpoint).
+
+    Same ids as the JAX package's fallback tokenizer: the Qwen special tokens
+    exactly, plain words hashed to stable ids below the first special id. The
+    config (source of truth for special ids and vocab size) keeps ids in range.
+    """
+
+    def __init__(self, config=None) -> None:
+        self.special_ids = dict(SPECIAL_IDS)
+        vocab = 152064
+        if config is not None:
+            vocab = config.vocab_size
+            self.special_ids.update({
+                _IM_END: config.eos_token_id,
+                "<|endoftext|>": config.pad_token_id,
+                _VISION_START: config.vision_start_token_id,
+                _IMAGE_PAD: config.image_token_id,
+                "<|video_pad|>": config.video_token_id,
+                # Not in the config; released checkpoints place them adjacent.
+                _IM_START: max(config.eos_token_id - 1, 1),
+                _VISION_END: config.vision_start_token_id + 1,
+            })
+        self.eos_token_id = self.special_ids[_IM_END]
+        self.pad_token_id = self.special_ids["<|endoftext|>"]
+        self._plain_span = max(1000, min(vocab, min(self.special_ids.values())) - 1001)
+        self._pattern = re.compile("|".join(re.escape(s) for s in self.special_ids))
+        self._inverse = {v: k for k, v in self.special_ids.items()}
+
+    def encode(self, text: str) -> list[int]:
+        ids: list[int] = []
+        pos = 0
+        for match in self._pattern.finditer(text):
+            ids.extend(self._encode_plain(text[pos : match.start()]))
+            ids.append(self.special_ids[match.group()])
+            pos = match.end()
+        ids.extend(self._encode_plain(text[pos:]))
+        return ids
+
+    def _encode_plain(self, text: str) -> list[int]:
+        return [
+            1000 + int.from_bytes(hashlib.md5(w.encode()).digest()[:3], "little") % self._plain_span
+            for w in text.split()
+        ]
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        words = []
+        for i in ids:
+            i = int(i)
+            if i in self._inverse:
+                if not skip_special_tokens:
+                    words.append(self._inverse[i])
+            else:
+                words.append(f"tok{i}")
+        return " ".join(words)
+
+
+class Qwen2VL(Model):
+    """Qwen2-VL on the PyTorch/CUDA stack."""
+
+    def __init__(
+        self,
+        pretrained: str | None = None,
+        preset: str = "qwen2-vl-2b",
+        max_pixels: int = DEFAULT_MAX_PIXELS,
+        min_pixels: int = DEFAULT_MIN_PIXELS,
+        random_init: bool = False,
+        system_prompt: str = "You are a helpful assistant.",
+        seed: int = 1234,
+        jax_params: dict | None = None,
+        time_phases: bool = False,
+        **kwargs,
+    ) -> None:
+        """Weights come from ``jax_params`` (the JAX package's parameter tree
+        as numpy arrays, see :func:`lmms_owc_tpu_torch.nn.qwen2_vl.params_from_jax`)
+        or are drawn on the device from ``seed``. Checkpoint loading is not
+        ported, so ``random_init`` is accepted only for the JAX adapter's
+        signature. ``time_phases``
+        synchronizes the device around the vision, prefill and decode phases
+        and sums their wall seconds into :attr:`phase_seconds` (with several
+        chunks the next chunk's vision runs beside the current decode, so
+        the phases then overlap)."""
+        if pretrained is not None:
+            raise NotImplementedError(
+                "loading a Qwen2-VL checkpoint is not ported yet; use random_init=True "
+                "or jax_params (ROADMAP.md, Queue 1)"
+            )
+        if preset not in PRESET_CONFIGS:
+            raise ValueError(f"unknown preset {preset!r}; available: {sorted(PRESET_CONFIGS)}")
+        self.preset = preset
+        self.max_pixels = int(max_pixels)
+        self.min_pixels = int(min_pixels)
+        self.system_prompt = system_prompt
+        self.seed = int(seed)
+        self._jax_params = jax_params
+        self.time_phases = bool(time_phases)
+        self.phase_seconds: dict[str, float] = defaultdict(float)
+        super().__init__(model_id=preset, **kwargs)
+
+    # ------------------------------------------------------------------- load
+
+    def load_model(self) -> None:
+        self.config = qvl.Qwen2VLConfig.from_hf_dict(PRESET_CONFIGS[self.preset])
+        self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device=self.device)
+        if self._jax_params is not None:
+            qvl.params_from_jax(self.model, self._jax_params)
+            self._jax_params = None
+            log.info("loaded %s from a JAX parameter tree", self.preset)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            qvl.init_params(self.model, gen)
+            log.warning("random-init %s on %s (no checkpoint)", self.preset, self.device)
+        self.tokenizer = _FallbackTokenizer(self.config)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    @property
+    def eos_token_ids(self) -> list[int]:
+        ids = {int(self.config.eos_token_id), int(self.config.pad_token_id)}
+        eos = getattr(self.tokenizer, "eos_token_id", None)
+        if eos is not None:
+            ids.add(int(eos))
+        return sorted(ids)
+
+    @contextmanager
+    def _phase(self, name: str):
+        """Wall seconds of one phase, device work included (``time_phases`` only)."""
+        if not self.time_phases:
+            yield
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.phase_seconds[name] += time.perf_counter() - t0
+
+    # -------------------------------------------------------------- prompting
+
+    def _build_prompt(self, context: str, num_images: int) -> str:
+        """Chat-formatted prompt with one vision block per image (Qwen2-VL template)."""
+        vision = f"{_VISION_START}{_IMAGE_PAD}{_VISION_END}" * num_images
+        return (
+            f"{_IM_START}system\n{self.system_prompt}{_IM_END}\n"
+            f"{_IM_START}user\n{vision}{context}{_IM_END}\n"
+            f"{_IM_START}assistant\n"
+        )
+
+    def apply_chat_template(self, messages: list[dict]) -> str:
+        parts = [f"{_IM_START}{msg['role']}\n{msg['content']}{_IM_END}\n" for msg in messages]
+        parts.append(f"{_IM_START}assistant\n")
+        return "".join(parts)
+
+    @property
+    def chat_template(self) -> str:
+        return "qwen2-vl"
+
+    @property
+    def tokenizer_name(self) -> str:
+        return f"qwen2_vl_{self.preset}"
+
+    def _tokenize_with_images(self, prompt: str, image_token_counts: list[int]) -> list[int]:
+        """Tokenize, expanding each single <|image_pad|> to its merged token count."""
+        image_pad = self.config.image_token_id
+        out: list[int] = []
+        img_idx = 0
+        for tok in self.tokenizer.encode(prompt):
+            if tok == image_pad:
+                out.extend([image_pad] * image_token_counts[img_idx])
+                img_idx += 1
+            else:
+                out.append(tok)
+        return out
+
+    # ----------------------------------------------------------------- vision
+
+    @torch.inference_mode()
+    def _encode_images_flat(self, all_visuals: list):
+        """Encode every image of a macro batch.
+
+        Host resize -> group by resized size (patchify needs a common H, W) ->
+        group sizes by patch bucket -> one tower call per bucket segment, rows
+        padded to a ``VISION_ROW_BUCKETS`` count by replicating the last row
+        (real data, so no all-masked softmax rows).
+
+        Returns (vision_flat [K, hidden] on the device or None, per-image
+        (flat_offset, token_count), grids).
+        """
+        if not all_visuals:
+            return None, [], []
+        v = self.config.vision
+        merge_sq = v.spatial_merge_size**2
+        factor = v.patch_size * v.spatial_merge_size
+        dtype = self.model.dtype
+        dev = self.device
+
+        resized = resize_host_batch(all_visuals, self.min_pixels, self.max_pixels, factor)
+        grids = [(1, hw[0] // v.patch_size, hw[1] // v.patch_size) for _, hw in resized]
+
+        by_size: dict[tuple[int, int], list[int]] = {}
+        for idx, (_, hw) in enumerate(resized):
+            by_size.setdefault(hw, []).append(idx)
+
+        by_bucket: dict[int, list[tuple[list[int], int, torch.Tensor]]] = {}
+        for hw, indices in by_size.items():
+            stacked = torch.from_numpy(np.stack([resized[i][0] for i in indices])).to(dev)
+            num_patches = (hw[0] // v.patch_size) * (hw[1] // v.patch_size)
+            bucket = pad_to_bucket(num_patches, PATCH_BUCKETS)
+            patches = patchify_images_batch(
+                stacked, v.patch_size, v.temporal_patch_size, v.spatial_merge_size, dtype
+            )
+            patches = torch.nn.functional.pad(patches, (0, 0, 0, bucket - num_patches))
+            by_bucket.setdefault(bucket, []).append((indices, num_patches, patches))
+
+        group_outputs: list[torch.Tensor] = []
+        spans: dict[int, tuple[int, int]] = {}  # image idx -> (flat offset, merged count)
+        flat_offset = 0
+        for bucket, entries in by_bucket.items():
+            patches = torch.cat([e[2] for e in entries]) if len(entries) > 1 else entries[0][2]
+            n = patches.shape[0]
+            freq_table = np.zeros((len(entries), bucket, v.head_dim // 2), np.float32)
+            mask_table = np.zeros((len(entries), bucket), np.int32)
+            gids: list[int] = []
+            row_info: list[tuple[int, int]] = []  # (image idx, merged count) per row
+            all_full = True
+            for g, (indices, num_patches, _) in enumerate(entries):
+                freq_table[g, :num_patches] = qvl.vision_rope_cos_sin([grids[indices[0]]], v)
+                mask_table[g, :num_patches] = 1
+                all_full = all_full and num_patches == bucket
+                for idx in indices:
+                    gids.append(g)
+                    row_info.append((idx, num_patches // merge_sq))
+            gids_np = np.asarray(gids, np.int64)
+            freq_table_dev = torch.from_numpy(freq_table).to(dev)
+            mask_table_dev = None if all_full else torch.from_numpy(mask_table).to(dev)
+            merged_bucket = bucket // merge_sq
+            # Cap each tower call at batch_size x 1024 patch tokens.
+            cap = max(1, (self.batch_size * 1024) // bucket)
+            for s in range(0, n, cap):
+                seg_patches = patches[s : s + cap]
+                m = seg_patches.shape[0]
+                seg_gids = gids_np[s : s + cap]
+                m_rows = pad_to_bucket(m, VISION_ROW_BUCKETS)
+                if m_rows > m:
+                    seg_patches = torch.cat(
+                        [seg_patches, seg_patches[-1:].expand(m_rows - m, *seg_patches.shape[1:])]
+                    )
+                    seg_gids = np.concatenate([seg_gids, np.repeat(seg_gids[-1:], m_rows - m)])
+                gids_dev = torch.from_numpy(seg_gids).to(dev)
+                freqs = freq_table_dev[gids_dev]
+                patch_mask = None if all_full else mask_table_dev[gids_dev]
+                out = self.model.vision(seg_patches, freqs, patch_mask)  # [m_rows, merged, hidden]
+                group_outputs.append(out.reshape(m_rows * merged_bucket, -1))
+                for row, (idx, merged_count) in enumerate(row_info[s : s + cap]):
+                    spans[idx] = (flat_offset + row * merged_bucket, merged_count)
+                flat_offset += m_rows * merged_bucket
+
+        vision_flat = torch.cat(group_outputs) if len(group_outputs) > 1 else group_outputs[0]
+        return vision_flat, [spans[i] for i in range(len(all_visuals))], grids
+
+    # ------------------------------------------------------------- generation
+
+    @torch.inference_mode()
+    def _build_batch_inputs(self, batch: list[tuple], vision_flat=None):
+        """Inputs for one macro batch of (token_ids, vision_spans, grids):
+        left-padded ids and mask, M-RoPE positions, and the token embeddings
+        with vision embeddings gathered in.
+
+        Returns (embeds [B, L, hidden] on the device, position_ids [3, B, L] np,
+        attention_mask [B, L] np, next_pos [B] np, bucket_len).
+        """
+        bsz = len(batch)
+        bucket_len = pad_to_bucket(max(len(ids) for ids, _, _ in batch))
+        input_ids = np.full((bsz, bucket_len), self.config.pad_token_id, np.int64)
+        attention_mask = np.zeros((bsz, bucket_len), np.int64)
+        index_map = np.full((bsz, bucket_len), -1, np.int64)
+        for row, (ids, spans, _) in enumerate(batch):
+            offset = bucket_len - len(ids)
+            input_ids[row, offset:] = ids
+            attention_mask[row, offset:] = 1
+            positions = np.where(np.asarray(ids) == self.config.image_token_id)[0]
+            cursor = 0
+            for span_off, span_count in spans:
+                span_positions = positions[cursor : cursor + span_count]
+                index_map[row, offset + span_positions] = span_off + np.arange(span_count)
+                cursor += span_count
+
+        all_grids = [g for _, _, grids in batch for g in grids]
+        position_ids, next_pos = qvl.get_rope_index(input_ids, attention_mask, all_grids, self.config)
+        dev = self.device
+        embeds = _assemble_embeds(
+            self.model.embed_tokens,
+            torch.from_numpy(input_ids).to(dev),
+            vision_flat,
+            torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,
+        )
+        return embeds, position_ids, attention_mask, next_pos, bucket_len
+
+    def _detokenize(self, tokens: np.ndarray) -> list[str]:
+        """Trim each row at the first EOS/pad token and decode to text."""
+        texts = []
+        eos_set = set(self.eos_token_ids) | {self.config.pad_token_id}
+        for row in range(tokens.shape[0]):
+            ids = []
+            for tok in tokens[row]:
+                if int(tok) in eos_set:
+                    break
+                ids.append(int(tok))
+            texts.append(self.tokenizer.decode(ids, skip_special_tokens=True))
+        return texts
+
+    def _run_batch(self, batch: list[tuple], gen_kwargs: dict, vision_flat=None) -> list[str]:
+        """Generate for one macro batch of (token_ids, vision_spans, grids)."""
+        max_new_tokens = int(gen_kwargs.get("max_new_tokens", DEFAULT_MAX_NEW_TOKENS))
+        embeds, position_ids, attention_mask, next_pos, bucket_len = self._build_batch_inputs(
+            batch, vision_flat
+        )
+        dev = self.device
+        cache_len = bucket_len + pad_to_bucket(max_new_tokens, GEN_LEN_BUCKETS)
+        tokens = qvl.greedy_generate(
+            self.model,
+            embeds,
+            torch.from_numpy(position_ids).to(dev),
+            torch.from_numpy(attention_mask.astype(np.int32)).to(dev),
+            torch.from_numpy(next_pos).to(dev),
+            max_new_tokens=max_new_tokens,
+            cache_len=cache_len,
+            eos_ids=torch.tensor(self.eos_token_ids, dtype=torch.long, device=dev),
+            generator=self.generator,
+            do_sample=bool(gen_kwargs.get("do_sample", False)),
+            temperature=float(gen_kwargs.get("temperature") or 1.0),
+            top_p=float(gen_kwargs.get("top_p") or 1.0),
+            phase=self._phase,
+        )
+        return self._detokenize(tokens.cpu().numpy())
+
+    @staticmethod
+    def _trim_until(text: str, until: list[str] | None) -> str:
+        for stop in until or []:
+            if stop and stop in text:
+                text = text.split(stop)[0]
+        return text
+
+    def _fetch_visuals(self, args: tuple) -> list:
+        _ctx, _gen_kwargs, doc_to_visual, doc_id, task_name, split = args[:6]
+        task = self.task_dict.get(task_name)
+        if isinstance(task, tuple):
+            task = task[1]
+        if task is None or doc_to_visual is None:
+            return []
+        return doc_to_visual(task.dataset[split][doc_id]) or []
+
+    def _prepare_requests_batch(self, chunk: list[tuple]) -> tuple[list[tuple], object]:
+        """One batched vision pass over every image of the chunk, then
+        per-request tokenization. Returns (rows, vision_flat); each row is
+        (token_ids, vision_spans, grids)."""
+        all_visuals: list = []
+        counts: list[int] = []
+        for args in chunk:
+            visuals = self._fetch_visuals(args)
+            counts.append(len(visuals))
+            all_visuals.extend(visuals)
+
+        with self._phase("vision"):
+            vision_flat, spans, flat_grids = self._encode_images_flat(all_visuals)
+
+        merge_sq = self.config.vision.spatial_merge_size**2
+        rows = []
+        offset = 0
+        for args, n_images in zip(chunk, counts):
+            row_spans = spans[offset : offset + n_images]
+            grids = flat_grids[offset : offset + n_images]
+            offset += n_images
+            token_counts = [(g[0] * g[1] * g[2]) // merge_sq for g in grids]
+            ids = self._tokenize_with_images(self._build_prompt(args[0], n_images), token_counts)
+            rows.append((ids, row_spans, grids))
+        return rows, vision_flat
+
+    def _estimate_prompt_tokens(self, args: tuple) -> int:
+        """Collator sort key: estimated prompt tokens (text + vision, from the
+        smart-resize arithmetic on ``img.size``), so like-size images share a
+        chunk and short prompts stay in short buckets."""
+        est = len(args[0]) // 4
+        try:
+            visuals = self._fetch_visuals(args)
+        except Exception:
+            return est
+        v = self.config.vision
+        merge_sq = v.spatial_merge_size**2
+        factor = v.patch_size * v.spatial_merge_size
+        for img in visuals:
+            try:
+                width, height = img.size
+                rh, rw = smart_resize(
+                    height, width, factor=factor, min_pixels=self.min_pixels,
+                    max_pixels=self.max_pixels,
+                )
+                est += (rh // v.patch_size) * (rw // v.patch_size) // merge_sq
+            except Exception:
+                continue
+        return est
+
+    def generate_until(self, requests) -> list[str]:
+        pool_n = int(os.environ.get("LMMS_OWC_DECODE_POOL", "1"))
+        if pool_n > 1:
+            raise NotImplementedError(
+                f"LMMS_OWC_DECODE_POOL={pool_n}: the decode pool is not ported yet "
+                "(ROADMAP.md, Queue 1: the decode pool)"
+            )
+        batch_fn = None
+        if self.batch_size > 1 and bool(int(os.environ.get("LMMS_OWC_SORT_BY_VISION", "1"))):
+            est_cache: dict[int, int] = {}
+
+            def _est(args) -> int:
+                key = id(args)
+                if key not in est_cache:
+                    est_cache[key] = self._estimate_prompt_tokens(args)
+                return est_cache[key]
+
+            sort_fn = lambda args: -_est(args)  # noqa: E731
+            # Token-budget chunking: each batch's row count is set by its
+            # leader (the longest item) so rows x prompt_bucket stays near
+            # batch_size x 320, the uniform-448 chunk's token footprint.
+            budget = self.batch_size * 320
+            state = {"flushed": -1, "cap": self.batch_size}
+
+            def batch_fn(n_flushed, args):
+                if n_flushed != state["flushed"]:  # first item of a new batch
+                    state["flushed"] = n_flushed
+                    bucket = pad_to_bucket(_est(args) + 48)
+                    state["cap"] = max(8, min(2 * self.batch_size, budget // bucket))
+                return state["cap"]
+        else:
+            sort_fn = lambda args: -len(args[0])  # noqa: E731
+        collator = Collator(
+            [req.args for req in requests],
+            sort_fn=sort_fn,
+            group_fn=lambda args: repr(args[1]),
+            group_by="gen_kwargs",
+        )
+        chunks = list(collator.get_batched(n=self.batch_size, batch_fn=batch_fn))
+
+        def run(chunk, prepared):
+            rows, vision_flat = prepared
+            gen_kwargs = dict(chunk[0][1] or {})
+            until = gen_kwargs.get("until") or []
+            if isinstance(until, str):
+                until = [until]
+            texts = self._run_batch(rows, gen_kwargs, vision_flat)
+            return [self._trim_until(t, until).strip() for t in texts]
+
+        # Host prep and the vision encode of the next chunks overlap the decode
+        # of the current one (a worker thread; the kernels queue on one stream).
+        results = self._foreach_chunk_pipelined(chunks, self._prepare_requests_batch, run)
+        return collator.get_original(results)
+
+    def loglikelihood(self, requests) -> list[tuple[float, bool]]:
+        raise NotImplementedError(
+            "Qwen2VL.loglikelihood is not ported yet "
+            "(ROADMAP.md, Queue 1: loglikelihood and generate_until_multi_round)"
+        )
+
+
+@register_model("qwen2-vl-7b")
+def qwen2_vl_7b(**kwargs) -> Qwen2VL:
+    """Qwen2-VL-7B-Instruct architecture."""
+    kwargs.setdefault("preset", "qwen2-vl-7b")
+    return Qwen2VL(**kwargs)
+
+
+@register_model("qwen2-vl-2b")
+def qwen2_vl_2b(**kwargs) -> Qwen2VL:
+    """Qwen2-VL-2B-Instruct architecture."""
+    kwargs.setdefault("preset", "qwen2-vl-2b")
+    return Qwen2VL(**kwargs)
+
+
+@register_model("qwen2-vl-tiny")
+def qwen2_vl_tiny(**kwargs) -> Qwen2VL:
+    """Miniature Qwen2-VL for CPU tests."""
+    kwargs.setdefault("preset", "qwen2-vl-tiny")
+    return Qwen2VL(**kwargs)

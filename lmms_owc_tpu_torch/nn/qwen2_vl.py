@@ -1,0 +1,643 @@
+"""Qwen2-VL in PyTorch: vision tower, M-RoPE decoder prefill and KV-cache decode.
+
+Counterpart of :mod:`lmms_owc_tpu.nn.qwen2_vl` (bf16/f32, token-major vision
+tower, unpooled decode). The JAX package stacks decoder layers on a leading
+axis for ``lax.scan``; here each layer is its own module in a ``ModuleList``
+and the loops are Python loops. Attention goes through
+:mod:`lmms_owc_tpu_torch.ops.attention`: the vision tower through
+``vision_qkv_attention`` (port of K1), the prefill through ``flash_attention``
+(K2), each decode step through ``gqa_decode_attention`` (K3).
+
+Prompts are left-padded to shape buckets so decode writes the KV cache at one
+position for the whole batch. The KV cache is one stacked ``[L, B, KVH, S, D]``
+tensor per role, updated in place.
+"""
+
+from __future__ import annotations
+
+from contextlib import nullcontext
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+from torch import nn
+
+from lmms_owc_tpu_torch.nn.layers import (
+    LayerNorm,
+    Linear,
+    RMSNorm,
+    apply_rope,
+    embedding,
+    gelu,
+    mlp_swiglu,
+    quick_gelu,
+)
+from lmms_owc_tpu_torch.ops.attention import (
+    flash_attention,
+    gqa_decode_attention,
+    vision_qkv_attention,
+)
+
+__all__ = [
+    "Qwen2VLConfig",
+    "Qwen2VLModel",
+    "Qwen2VLVisionConfig",
+    "VisionTower",
+    "decode_step",
+    "get_rope_index",
+    "greedy_generate",
+    "init_params",
+    "mrope_cos_sin",
+    "params_from_jax",
+    "prefill",
+    "vision_rope_cos_sin",
+]
+
+
+@dataclass(frozen=True)
+class Qwen2VLVisionConfig:
+    depth: int = 32
+    embed_dim: int = 1280
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    in_channels: int = 3
+    patch_size: int = 14
+    temporal_patch_size: int = 2
+    spatial_merge_size: int = 2
+    hidden_act: str = "quick_gelu"
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.temporal_patch_size * self.patch_size**2
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+
+@dataclass(frozen=True)
+class Qwen2VLConfig:
+    vocab_size: int = 151936
+    hidden_size: int = 1536
+    num_layers: int = 28
+    num_heads: int = 12
+    num_kv_heads: int = 2
+    intermediate_size: int = 8960
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1000000.0
+    max_position_embeddings: int = 32768
+    tie_word_embeddings: bool = True
+    mrope_section: tuple = (16, 24, 24)
+    image_token_id: int = 151655
+    video_token_id: int = 151656
+    vision_start_token_id: int = 151652
+    eos_token_id: int = 151645
+    pad_token_id: int = 151643
+    vision: Qwen2VLVisionConfig = field(default_factory=Qwen2VLVisionConfig)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def from_hf_dict(cls, cfg: dict) -> "Qwen2VLConfig":
+        """Build from an HF config.json dict (qwen2_vl)."""
+        text = cfg.get("text_config", cfg)
+        vis = cfg.get("vision_config", {})
+        vision = Qwen2VLVisionConfig(
+            depth=vis.get("depth", 32),
+            embed_dim=vis.get("embed_dim", vis.get("hidden_size", 1280)),
+            num_heads=vis.get("num_heads", 16),
+            mlp_ratio=vis.get("mlp_ratio", 4.0),
+            in_channels=vis.get("in_channels", vis.get("in_chans", 3)),
+            patch_size=vis.get("patch_size", 14),
+            temporal_patch_size=vis.get("temporal_patch_size", 2),
+            spatial_merge_size=vis.get("spatial_merge_size", 2),
+            hidden_act=vis.get("hidden_act", "quick_gelu"),
+        )
+        rope_scaling = text.get("rope_scaling") or {}
+        eos = text.get("eos_token_id", 151645)
+        return cls(
+            vocab_size=text["vocab_size"],
+            hidden_size=text["hidden_size"],
+            num_layers=text["num_hidden_layers"],
+            num_heads=text["num_attention_heads"],
+            num_kv_heads=text.get("num_key_value_heads", text["num_attention_heads"]),
+            intermediate_size=text["intermediate_size"],
+            rms_norm_eps=text.get("rms_norm_eps", 1e-6),
+            rope_theta=text.get("rope_theta", 1000000.0),
+            max_position_embeddings=text.get("max_position_embeddings", 32768),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", text.get("tie_word_embeddings", False)),
+            mrope_section=tuple(rope_scaling.get("mrope_section", (16, 24, 24))),
+            image_token_id=cfg.get("image_token_id", 151655),
+            video_token_id=cfg.get("video_token_id", 151656),
+            vision_start_token_id=cfg.get("vision_start_token_id", 151652),
+            eos_token_id=eos[0] if isinstance(eos, list) else eos,
+            pad_token_id=cfg.get("pad_token_id", 151643) or 151643,
+            vision=vision,
+        )
+
+
+_VISION_ACTS = {"quick_gelu": quick_gelu, "gelu": gelu, "silu": torch.nn.functional.silu}
+
+
+# ======================================================================== modules
+
+
+class VisionBlock(nn.Module):
+    def __init__(self, v: Qwen2VLVisionConfig, dtype, device) -> None:
+        super().__init__()
+        e = v.embed_dim
+        self.norm1 = LayerNorm(e, 1e-6, dtype, device)
+        self.qkv = Linear(e, 3 * e, True, dtype, device)
+        self.proj = Linear(e, e, True, dtype, device)
+        self.norm2 = LayerNorm(e, 1e-6, dtype, device)
+        self.fc1 = Linear(e, v.mlp_hidden, True, dtype, device)
+        self.fc2 = Linear(v.mlp_hidden, e, True, dtype, device)
+
+
+class PatchMerger(nn.Module):
+    def __init__(self, v: Qwen2VLVisionConfig, hidden_size: int, dtype, device) -> None:
+        super().__init__()
+        merge_dim = v.embed_dim * v.spatial_merge_size**2
+        self.ln_q = LayerNorm(v.embed_dim, 1e-6, dtype, device)
+        self.fc1 = Linear(merge_dim, merge_dim, True, dtype, device)
+        self.fc2 = Linear(merge_dim, hidden_size, True, dtype, device)
+
+
+class VisionTower(nn.Module):
+    """Token-major Qwen2-VL ViT plus the patch merger."""
+
+    def __init__(self, v: Qwen2VLVisionConfig, hidden_size: int, dtype, device) -> None:
+        super().__init__()
+        self.config = v
+        self.patch_embed = Linear(v.patch_dim, v.embed_dim, False, dtype, device)
+        self.blocks = nn.ModuleList(VisionBlock(v, dtype, device) for _ in range(v.depth))
+        self.merger = PatchMerger(v, hidden_size, dtype, device)
+
+    @torch.inference_mode()
+    def forward(
+        self,
+        patches: torch.Tensor,
+        rope_freqs: torch.Tensor,
+        patch_mask: torch.Tensor | None,
+    ) -> torch.Tensor:
+        """Vision tower over a batch of images' packed (padded) patches.
+
+        Counterpart of the token-major branch of ``vision_encode_batch``: images
+        never attend across each other, so independently padded rows are exact.
+
+        Args:
+            patches: [N, P, patch_dim] flattened conv patches (P padded to a bucket).
+            rope_freqs: [N, P, head_dim/2] from :func:`vision_rope_cos_sin`.
+            patch_mask: [N, P] 1 = real patch (a prefix run), or None when all are real.
+        Returns: [N, P/merge^2, hidden_size] merged embeddings (padding rows garbage).
+        """
+        v = self.config
+        act = _VISION_ACTS[v.hidden_act]
+        x = self.patch_embed(patches.to(self.patch_embed.weight.dtype))
+        n = x.shape[0]
+        freqs = rope_freqs.float()
+        cos, sin = torch.cos(freqs), torch.sin(freqs)
+        for blk in self.blocks:
+            # The kernel reads q/k/v in place from the qkv output and writes the
+            # [N, P, H*D] layout proj consumes; rope rides its q/k tile loads.
+            attn = vision_qkv_attention(
+                blk.qkv(blk.norm1(x)), v.num_heads, v.head_dim,
+                kv_mask=patch_mask, rope_cos=cos, rope_sin=sin,
+            )
+            x = x + blk.proj(attn)
+            x = x + blk.fc2(act(blk.fc1(blk.norm2(x))))
+        merged_dim = v.embed_dim * v.spatial_merge_size**2
+        x = self.merger.ln_q(x).reshape(n, -1, merged_dim)
+        return self.merger.fc2(gelu(self.merger.fc1(x)))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, c: "Qwen2VLConfig", dtype, device) -> None:
+        super().__init__()
+        h, hd = c.hidden_size, c.head_dim
+        self.input_ln = RMSNorm(h, c.rms_norm_eps, dtype, device)
+        self.q = Linear(h, c.num_heads * hd, True, dtype, device)
+        self.k = Linear(h, c.num_kv_heads * hd, True, dtype, device)
+        self.v = Linear(h, c.num_kv_heads * hd, True, dtype, device)
+        self.o = Linear(c.num_heads * hd, h, False, dtype, device)
+        self.post_ln = RMSNorm(h, c.rms_norm_eps, dtype, device)
+        self.gate = Linear(h, c.intermediate_size, False, dtype, device)
+        self.up = Linear(h, c.intermediate_size, False, dtype, device)
+        self.down = Linear(c.intermediate_size, h, False, dtype, device)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_swiglu(self.post_ln(x), self.gate.weight, self.up.weight, self.down.weight)
+
+
+class Qwen2VLModel(nn.Module):
+    """Qwen2-VL decoder plus vision tower. Parameters are uninitialised until
+    :func:`init_params` or :func:`params_from_jax` fills them."""
+
+    def __init__(self, config: Qwen2VLConfig, dtype=torch.bfloat16, device="cpu") -> None:
+        super().__init__()
+        self.config = config
+        c = config
+        self.embed_tokens = nn.Parameter(
+            torch.empty(c.vocab_size, c.hidden_size, dtype=dtype, device=device), requires_grad=False
+        )
+        self.layers = nn.ModuleList(DecoderLayer(c, dtype, device) for _ in range(c.num_layers))
+        self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, dtype, device)
+        self.lm_head = (
+            None if c.tie_word_embeddings else Linear(c.hidden_size, c.vocab_size, False, dtype, device)
+        )
+        self.vision = VisionTower(c.vision, c.hidden_size, dtype, device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed_tokens.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_tokens.device
+
+
+# ======================================================================== weights
+
+
+@torch.no_grad()
+def init_params(model: Qwen2VLModel, generator: torch.Generator) -> Qwen2VLModel:
+    """Random-init in place on the model's device: every linear weight and the
+    token embedding ~ N(0, 1) * 0.02, biases zero, norm scales one (the
+    distribution of the JAX ``init_params``; the values differ).
+
+    ``generator`` must live on the model's device; a 7B model is then drawn on
+    the card in seconds instead of minutes on the host.
+    """
+    model.embed_tokens.normal_(0.0, 0.02, generator=generator)
+    for module in model.modules():
+        if isinstance(module, Linear):
+            module.weight.normal_(0.0, 0.02, generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, (LayerNorm, RMSNorm)):
+            module.weight.fill_(1.0)
+            if isinstance(module, LayerNorm):
+                module.bias.zero_()
+    return model
+
+
+def _copy(dst: torch.Tensor, src: np.ndarray) -> None:
+    t = torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32))
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not fit parameter {tuple(dst.shape)}")
+    dst.copy_(t.to(dtype=dst.dtype))
+
+
+def _load_linear(lin: Linear, tree: dict, layer: int | None = None) -> None:
+    w = np.asarray(tree["w"], np.float32)
+    _copy(lin.weight, (w if layer is None else w[layer]).T)
+    if lin.bias is not None:
+        b = np.asarray(tree["b"], np.float32)
+        _copy(lin.bias, b if layer is None else b[layer])
+
+
+def _load_norm(norm: nn.Module, tree: dict, layer: int | None = None) -> None:
+    pick = (lambda a: a) if layer is None else (lambda a: a[layer])
+    _copy(norm.weight, pick(np.asarray(tree["scale"], np.float32)))
+    if "bias" in tree:
+        _copy(norm.bias, pick(np.asarray(tree["bias"], np.float32)))
+
+
+@torch.no_grad()
+def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
+    """Load the JAX package's parameter tree (leaves as numpy arrays) in place.
+
+    The tree is the token-major layout of ``lmms_owc_tpu.nn.qwen2_vl.init_params``
+    / ``convert_hf_weights`` (not the feature-major ``vision_params_to_fm`` one).
+    Layout rule: a JAX linear kernel ``w`` is ``[in, out]`` and becomes the port's
+    ``weight = w.T`` (``[out, in]``); biases, norm scales (``scale`` -> ``weight``)
+    and the ``[vocab, hidden]`` embedding copy as they are. Stacked ``[L, ...]``
+    leaves are split into the per-layer modules. Values are cast to the model's dtype.
+    """
+    c = model.config
+    _copy(model.embed_tokens, np.asarray(tree["embed_tokens"], np.float32))
+    lt = tree["layers"]
+    for i, layer in enumerate(model.layers):
+        _load_norm(layer.input_ln, lt["input_ln"], i)
+        _load_norm(layer.post_ln, lt["post_ln"], i)
+        for role in ("q", "k", "v", "o"):
+            _load_linear(getattr(layer, role), lt["attn"][role], i)
+        for role in ("gate", "up", "down"):
+            _load_linear(getattr(layer, role), lt["mlp"][role], i)
+    _load_norm(model.final_norm, tree["final_norm"])
+    if not c.tie_word_embeddings:
+        _load_linear(model.lm_head, tree["lm_head"])
+
+    vt = tree["vision"]
+    tower = model.vision
+    _load_linear(tower.patch_embed, vt["patch_embed"])
+    vl = vt["layers"]
+    for i, blk in enumerate(tower.blocks):
+        _load_norm(blk.norm1, vl["norm1"], i)
+        _load_norm(blk.norm2, vl["norm2"], i)
+        for role in ("qkv", "proj", "fc1", "fc2"):
+            _load_linear(getattr(blk, role), vl[role], i)
+    _load_norm(tower.merger.ln_q, vt["merger"]["ln_q"])
+    _load_linear(tower.merger.fc1, vt["merger"]["fc1"])
+    _load_linear(tower.merger.fc2, vt["merger"]["fc2"])
+    return model
+
+
+# ====================================================================== positions
+
+
+def vision_rope_cos_sin(grid_thw: list[tuple[int, int, int]], config: Qwen2VLVisionConfig) -> np.ndarray:
+    """Host-side 2D rotary table per packed patch, shape [num_patches, head_dim/2] (f32).
+
+    Follows HF rot_pos_emb: h/w position ids are permuted into spatial-merge-window
+    order before lookup.
+    """
+    merge = config.spatial_merge_size
+    dim = config.head_dim // 2  # rotary dim (half for h, half for w)
+    inv_freq = 1.0 / (10000.0 ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+
+    pos_list = []
+    for t, h, w in grid_thw:
+        hpos = np.arange(h)[:, None].repeat(w, axis=1)
+        hpos = hpos.reshape(h // merge, merge, w // merge, merge).transpose(0, 2, 1, 3).reshape(-1)
+        wpos = np.arange(w)[None, :].repeat(h, axis=0)
+        wpos = wpos.reshape(h // merge, merge, w // merge, merge).transpose(0, 2, 1, 3).reshape(-1)
+        pos = np.stack([hpos, wpos], axis=-1)
+        pos_list.append(np.tile(pos, (t, 1)))
+    pos = np.concatenate(pos_list, axis=0)  # [P, 2]
+
+    freqs_h = pos[:, 0:1].astype(np.float32) * inv_freq[None, :]
+    freqs_w = pos[:, 1:2].astype(np.float32) * inv_freq[None, :]
+    return np.concatenate([freqs_h, freqs_w], axis=-1)  # [P, head_dim/2]
+
+
+def get_rope_index(
+    input_ids: np.ndarray,
+    attention_mask: np.ndarray,
+    image_grid_thw: list[tuple[int, int, int]],
+    config: Qwen2VLConfig,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side 3D (t/h/w) position ids, shape [3, B, L]; plus per-seq next position.
+
+    Semantics match HF Qwen2VLModel.get_rope_index: text tokens advance all three
+    dims together; each image block advances t by timestep and h/w by grid position,
+    then text resumes at max+1.
+    """
+    bsz, seqlen = input_ids.shape
+    position_ids = np.ones((3, bsz, seqlen), dtype=np.int64)
+    next_pos = np.zeros(bsz, dtype=np.int64)
+    merge = config.vision.spatial_merge_size
+    image_index = 0
+
+    for i in range(bsz):
+        mask = attention_mask[i] == 1
+        ids = input_ids[i][mask]
+        tokens = ids.tolist()
+        pos_chunks = []
+        st = 0
+        vision_starts = np.where(ids == config.vision_start_token_id)[0]
+        n_imgs = int(np.sum(ids[vision_starts + 1] == config.image_token_id)) if len(vision_starts) else 0
+
+        for _ in range(n_imgs):
+            ed = tokens.index(config.image_token_id, st)
+            t, h, w = image_grid_thw[image_index]
+            image_index += 1
+            gt, gh, gw = t, h // merge, w // merge
+            text_len = ed - st
+            st_idx = pos_chunks[-1].max() + 1 if pos_chunks else 0
+            pos_chunks.append(np.tile(np.arange(text_len), (3, 1)) + st_idx)
+            t_idx = np.repeat(np.arange(gt), gh * gw)
+            h_idx = np.tile(np.repeat(np.arange(gh), gw), gt)
+            w_idx = np.tile(np.arange(gw), gt * gh)
+            pos_chunks.append(np.stack([t_idx, h_idx, w_idx]) + text_len + st_idx)
+            st = ed + gt * gh * gw
+
+        if st < len(tokens):
+            st_idx = pos_chunks[-1].max() + 1 if pos_chunks else 0
+            pos_chunks.append(np.tile(np.arange(len(tokens) - st), (3, 1)) + st_idx)
+
+        positions = np.concatenate(pos_chunks, axis=1)
+        position_ids[:, i, mask] = positions
+        next_pos[i] = positions.max() + 1
+    return position_ids, next_pos
+
+
+def mrope_cos_sin(position_ids: torch.Tensor, config: Qwen2VLConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Combine t/h/w rotary tables into [B, L, head_dim/2] cos/sin (f32).
+
+    ``position_ids`` [3, B, L]; the result lives on its device.
+    """
+    hd2 = config.head_dim // 2
+    exponent = torch.arange(0, hd2, dtype=torch.float32, device=position_ids.device) / hd2
+    inv_freq = 1.0 / (config.rope_theta ** exponent)
+    freqs = position_ids[..., None].float() * inv_freq  # [3, B, L, hd/2]
+    chunks = torch.split(freqs, list(config.mrope_section), dim=-1)
+    combined = torch.cat([chunk[i % 3] for i, chunk in enumerate(chunks)], dim=-1)
+    return torch.cos(combined), torch.sin(combined)
+
+
+# ======================================================================== decoder
+
+
+def _qkv(layer: DecoderLayer, x: torch.Tensor, config: Qwen2VLConfig):
+    """Rotated-later q [B, H, L, D], k and v [B, KVH, L, D] as views of the projections."""
+    b, l, _ = x.shape
+    nh, kvh, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    q = layer.q(x).view(b, l, nh, hd).transpose(1, 2)
+    k = layer.k(x).view(b, l, kvh, hd).transpose(1, 2)
+    v = layer.v(x).view(b, l, kvh, hd).transpose(1, 2)
+    return q, k, v
+
+
+def _head_logits(model: Qwen2VLModel, x: torch.Tensor) -> torch.Tensor:
+    """LM head in f32 for [B, H] hidden states; tied heads read the embedding.
+
+    The product multiplies in the stored dtype and accumulates in f32, so a
+    bf16 vocab matrix is read at bf16 bytes while the logits stay f32.
+    """
+    w = model.lm_head.weight if model.lm_head is not None else model.embed_tokens  # [V, H]
+    x = x.to(w.dtype)
+    if w.dtype == torch.float32:
+        return torch.matmul(x, w.t())
+    if w.is_cuda:
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return torch.matmul(x.float(), w.float().t())
+
+
+@torch.inference_mode()
+def prefill(
+    model: Qwen2VLModel,
+    input_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    cache_len: int,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full forward over the left-padded prompt; returns last logits and the KV cache.
+
+    Args:
+        input_embeds: [B, L, hidden] (text embeddings with vision embeds scattered in).
+        position_ids: [3, B, L] M-RoPE positions.
+        attention_mask: [B, L] 1 = real token (one contiguous run per row).
+        cache_len: cache capacity (>= L + max_new_tokens).
+    Returns: (logits [B, vocab] f32 at the last position, (cache_k, cache_v), each
+        [num_layers, B, KVH, cache_len, D] with positions >= L zero).
+    """
+    c = model.config
+    b, l, _ = input_embeds.shape
+    cos, sin = mrope_cos_sin(position_ids, c)
+    shape = (c.num_layers, b, c.num_kv_heads, cache_len, c.head_dim)
+    cache_k = torch.zeros(shape, dtype=input_embeds.dtype, device=input_embeds.device)
+    cache_v = torch.zeros_like(cache_k)
+    x = input_embeds
+    for i, layer in enumerate(model.layers):
+        q, k, v = _qkv(layer, layer.input_ln(x), c)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        cache_k[i, :, :, :l] = k
+        cache_v[i, :, :, :l] = v
+        # The prefill padding mask is one contiguous run per row, so the kernel
+        # reads it as (start, end) scalars.
+        attn = flash_attention(q, k, v, causal=True, kv_mask=attention_mask, kv_mask_contiguous=True)
+        x = x + layer.o(attn.transpose(1, 2).reshape(b, l, -1))
+        x = x + layer.mlp(x)
+    x = model.final_norm(x[:, -1])  # left-padded: the last position is the newest token
+    return _head_logits(model, x), (cache_k, cache_v)
+
+
+@torch.inference_mode()
+def decode_step(
+    model: Qwen2VLModel,
+    token_ids: torch.Tensor,
+    position_ids: torch.Tensor,
+    cache: tuple[torch.Tensor, torch.Tensor],
+    cache_pos: int,
+    kv_mask: torch.Tensor,
+) -> torch.Tensor:
+    """One decode step: token_ids [B], position_ids [3, B, 1] -> logits [B, vocab] f32.
+
+    The new token's K and V are point-written IN PLACE into the stacked
+    ``cache`` ([num_layers, B, KVH, S, D] each) at ``cache_pos``; the caller's
+    cache tensors hold the update afterwards. ``kv_mask`` [B, S] must already
+    mark ``cache_pos`` valid.
+    """
+    c = model.config
+    cache_k, cache_v = cache
+    b = token_ids.shape[0]
+    x = embedding(model.embed_tokens, token_ids)[:, None, :]
+    cos, sin = mrope_cos_sin(position_ids, c)
+    for i, layer in enumerate(model.layers):
+        q, k, v = _qkv(layer, layer.input_ln(x), c)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        cache_k[i, :, :, cache_pos] = k[:, :, 0]
+        cache_v[i, :, :, cache_pos] = v[:, :, 0]
+        attn = gqa_decode_attention(q[:, :, 0], cache_k, cache_v, i, kv_mask)
+        x = x + layer.o(attn.reshape(b, 1, -1))
+        x = x + layer.mlp(x)
+    return _head_logits(model, model.final_norm(x[:, 0]))
+
+
+def _sample_token(
+    logits: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature: float,
+    top_p: float,
+    do_sample: bool,
+) -> torch.Tensor:
+    """Greedy argmax, or top-p sampling from ``generator`` (on the logits' device)."""
+    if not do_sample:
+        return torch.argmax(logits, dim=-1)
+    scaled = logits / max(temperature, 1e-6)
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    cumprobs = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    cutoff_idx = torch.sum(cumprobs < top_p, dim=-1, keepdim=True)
+    cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+    filtered = torch.where(scaled >= cutoff, scaled, torch.full_like(scaled, float("-inf")))
+    probs = torch.softmax(filtered, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.inference_mode()
+def _decode_loop(
+    model: Qwen2VLModel,
+    logits: torch.Tensor,
+    cache: tuple[torch.Tensor, torch.Tensor],
+    kv_mask: torch.Tensor,
+    next_positions: torch.Tensor,
+    max_new_tokens: int,
+    prompt_len: int,
+    eos_ids: torch.Tensor,
+    generator: torch.Generator | None,
+    do_sample: bool,
+    temperature: float,
+    top_p: float,
+) -> torch.Tensor:
+    """Decode until every row has emitted EOS or ``max_new_tokens`` are out.
+
+    ``prompt_len`` is the cache position of the first generated token. Tokens
+    after a row's EOS are ``pad_token_id``. Returns [B, max_new_tokens] int64.
+    The loop stops early once every row is done; the JAX loop then runs one more
+    step whose output it discards, so the tokens are the same.
+    """
+    c = model.config
+    b = logits.shape[0]
+    tokens = torch.full((b, max_new_tokens), c.pad_token_id, dtype=torch.long, device=logits.device)
+    done = torch.zeros(b, dtype=torch.bool, device=logits.device)
+    token = _sample_token(logits, generator, temperature, top_p, do_sample)
+    for step in range(max_new_tokens):
+        token = torch.where(done, torch.full_like(token, c.pad_token_id), token)
+        tokens[:, step] = token
+        done = done | torch.isin(token, eos_ids)
+        if step + 1 == max_new_tokens or bool(done.all()):
+            break
+        pos = (next_positions + step)[None, :, None].expand(3, b, 1)
+        kv_mask[:, prompt_len + step] = 1
+        logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask)
+        token = _sample_token(logits, generator, temperature, top_p, do_sample)
+    return tokens
+
+
+@torch.inference_mode()
+def greedy_generate(
+    model: Qwen2VLModel,
+    input_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    next_positions: torch.Tensor,
+    max_new_tokens: int,
+    cache_len: int,
+    eos_ids: torch.Tensor,
+    generator: torch.Generator | None = None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_p: float = 1.0,
+    phase=None,
+) -> torch.Tensor:
+    """Prefill + decode-until-EOS. Returns generated tokens [B, max_new_tokens]
+    (positions after a sequence's EOS hold pad_token_id).
+
+    Args:
+        next_positions: [B] first M-RoPE position of the generated text per row.
+        eos_ids: [num_eos] token ids that end a sequence.
+        phase: optional ``phase(name)`` context-manager factory wrapped around
+            the "prefill" and "decode" halves (the adapter's phase timer).
+    """
+    phase = phase or (lambda name: nullcontext())
+    l = input_embeds.shape[1]
+    with phase("prefill"):
+        logits, cache = prefill(model, input_embeds, position_ids, attention_mask, cache_len)
+    with phase("decode"):
+        kv_mask = torch.zeros(
+            (attention_mask.shape[0], cache_len), dtype=torch.int32, device=attention_mask.device
+        )
+        kv_mask[:, :l] = attention_mask
+        return _decode_loop(
+            model, logits, cache, kv_mask, next_positions, max_new_tokens, l, eos_ids,
+            generator, do_sample, temperature, top_p,
+        )

@@ -1,0 +1,412 @@
+"""Attention: hand-written CUDA kernels for Hopper, and their plain PyTorch versions.
+
+Counterpart of :mod:`lmms_owc_tpu.ops.attention`. Three entries carry the
+Qwen2-VL main path:
+
+  - :func:`flash_attention` — decoder prefill (port of the Pallas ``_flash_kernel``,
+    K2): causal GQA with contiguous key masks, ``csrc/flash_attn.cu``.
+  - :func:`vision_qkv_attention` — the ViT (port of ``_flash_kernel_fm``, K1,
+    token-major): reads q/k/v in place from the qkv projection output, rope
+    in the kernel; same CUDA kernel.
+  - :func:`gqa_decode_attention` — decode (port of ``_decode_kernel``, K3) against
+    one layer of the stacked KV cache, ``csrc/decode_attn.cu``.
+
+Each wrapper takes its plain version (``*_plain``, built on
+:func:`attention_reference` and :func:`gqa_attention_reference`) only when the
+tensors lie on the CPU. For a
+CUDA tensor it launches the kernel or raises; it never falls back. Every launch
+adds one to :data:`launch_counts` under the wrapper's name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from lmms_owc_tpu_torch.nn.layers import apply_rope
+from lmms_owc_tpu_torch.ops import _build
+
+__all__ = [
+    "attention_reference",
+    "flash_attention",
+    "flash_attention_plain",
+    "gqa_attention_reference",
+    "gqa_decode_attention",
+    "gqa_decode_attention_plain",
+    "launch_counts",
+    "reset_launch_counts",
+    "vision_qkv_attention",
+    "vision_qkv_attention_plain",
+]
+
+_NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
+
+launch_counts: dict[str, int] = {
+    "flash_attention": 0,
+    "vision_qkv_attention": 0,
+    "gqa_decode_attention": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ----------------------------------------------------------------- plain versions
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain attention, q/k/v [B, H, L, D]: f32 scores, ``-1e30`` masking, f32
+    softmax cast to the v dtype before the PV product (as the JAX reference)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        lq, lk = q.shape[2], k.shape[2]
+        q_idx = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        k_idx = torch.arange(lk, device=q.device)[None, :]
+        scores = scores.masked_fill(k_idx > q_idx, _NEG_INF)
+    if kv_mask is not None:
+        scores = scores.masked_fill(~kv_mask.bool()[:, None, None, :], _NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+
+
+def gqa_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Grouped-query plain attention: q [B, H, Lq, D], k/v [B, KVH, Lk, D] with
+    H % KVH == 0 (consecutive query heads share a KV head); no repeated KV."""
+    b, h, lq, d = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kvh, g, lq, d)
+    scores = torch.einsum("bkgqd,bkld->bkgql", qg.float(), k.float()) * scale
+    if causal:
+        lk = k.shape[2]
+        q_idx = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        k_idx = torch.arange(lk, device=q.device)[None, :]
+        scores = scores.masked_fill(k_idx > q_idx, _NEG_INF)
+    if kv_mask is not None:
+        scores = scores.masked_fill(~kv_mask.bool()[:, None, None, None, :], _NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgql,bkld->bkgqd", weights.to(v.dtype), v)
+    return out.reshape(b, h, lq, d)
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`: rotate, then plain (GQA) attention."""
+    if rope_cos is not None:
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
+    if k.shape[1] != q.shape[1]:
+        return gqa_attention_reference(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale)
+    return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale)
+
+
+def _qkv_views(qkv: torch.Tensor, h: int, d: int):
+    """q, k, v as [N, H, P, D] strided views of a role-major [N, P, 3*H*D] projection."""
+    n, p, _ = qkv.shape
+    return (qkv.view(n, p, 3, h, d)[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+
+
+def vision_qkv_attention_plain(
+    qkv: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    *,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`vision_qkv_attention`: [N, P, 3*H*D] -> [N, P, H*D]."""
+    n, p, _ = qkv.shape
+    q, k, v = _qkv_views(qkv, num_heads, head_dim)
+    out = flash_attention_plain(
+        q, k, v, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin
+    )
+    return out.permute(0, 2, 1, 3).reshape(n, p, num_heads * head_dim)
+
+
+def gqa_decode_attention_plain(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    layer_idx: int,
+    kv_mask: torch.Tensor,
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`gqa_decode_attention`: [B, H, D] against ``cache[layer_idx]``."""
+    out = gqa_attention_reference(
+        q[:, :, None, :], cache_k[layer_idx], cache_v[layer_idx], kv_mask=kv_mask, scale=scale
+    )
+    return out[:, :, 0, :]
+
+
+# ----------------------------------------------------------------- kernel launches
+
+
+def _check_operands(tensors: dict[str, torch.Tensor]) -> torch.dtype:
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{name}: expected a CUDA tensor on {first.device}, got {t.device}")
+        if t.dtype not in _DTYPE_CODES or t.dtype != first.dtype:
+            raise ValueError(f"{name}: expected bf16 or f32 matching q, got {t.dtype}")
+    return first.dtype
+
+
+def _stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on_error(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
+
+
+def _mask_start_end(kv_mask: torch.Tensor) -> torch.Tensor:
+    """[B, L] mask with one contiguous run of ones per row -> [B, 2] int32 (start, end)."""
+    m = kv_mask.to(torch.int32)
+    first = torch.argmax(m, dim=1).to(torch.int32)
+    count = m.sum(dim=1, dtype=torch.int32)
+    return torch.stack([first, first + count], dim=1).contiguous()
+
+
+def _rope_table(table: torch.Tensor, batch: int, length: int, half: int) -> torch.Tensor:
+    table = table.to(torch.float32).contiguous()
+    if table.dim() == 2:
+        table = table[None]
+    if table.shape[1:] != (length, half) or table.shape[0] not in (1, batch):
+        raise ValueError(f"rope table {tuple(table.shape)} does not fit [{batch}, {length}, {half}]")
+    return table
+
+
+def _launch_flash(
+    q: torch.Tensor,  # [B, H, Lq, D] any strides, unit last stride
+    k: torch.Tensor,  # [B, KVH, Lk, D]
+    v: torch.Tensor,
+    out: torch.Tensor,  # [B, H, Lq, D] view of the output
+    *,
+    causal: bool,
+    kv_mask: torch.Tensor | None,
+    scale: float,
+    rope_cos: torch.Tensor | None,
+    rope_sin: torch.Tensor | None,
+) -> None:
+    lib = _build.load_library()
+    dtype = _check_operands({"q": q, "k": k, "v": v, "out": out})
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    if k.shape != (b, kvh, lk, d) or v.shape != k.shape or out.shape != q.shape:
+        raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}, out {out.shape}")
+    if h % kvh != 0:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} KV heads")
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not built; supported: {_FLASH_HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: head_dim must be the unit-stride axis, strides {t.stride()}")
+    if dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            # Tiles are read from shared memory as bf16 pairs: keep rows 4-byte aligned.
+            if t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:-1]):
+                raise ValueError(f"{name}: bf16 rows must be 4-byte aligned, strides {t.stride()}")
+    mask_se = cos = sin = None
+    if kv_mask is not None:
+        if kv_mask.shape != (b, lk):
+            raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {lk}]")
+        mask_se = _mask_start_end(kv_mask.to(q.device))
+    if rope_cos is not None:
+        if lq != lk:
+            raise ValueError("fused rope expects self-attention (Lq == Lk)")
+        cos = _rope_table(rope_cos, b, lq, d // 2).to(q.device)
+        sin = _rope_table(rope_sin, b, lq, d // 2).to(q.device)
+    args = _build.FlashArgs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        mask_se.data_ptr() if mask_se is not None else None,
+        cos.data_ptr() if cos is not None else None,
+        sin.data_ptr() if sin is not None else None,
+        0 if cos is None or cos.shape[0] == 1 else cos.stride(0),
+        b, h, kvh, lq, lk, d, int(causal), _DTYPE_CODES[dtype],
+        scale * _LOG2E,
+    )
+    code = lib.owc_flash_attention(ctypes.byref(args), _stream_handle(q.device))
+    _raise_on_error(code, "flash_attention")
+
+
+# ----------------------------------------------------------------- public entries
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    kv_mask_contiguous: bool = False,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Multi-head attention, q [B, H, Lq, D], k/v [B, KVH, Lk, D] (GQA when KVH < H).
+
+    ``causal`` aligns the diagonal to the sequence end. ``kv_mask`` [B, Lk] marks
+    valid keys (1 = attend); ``kv_mask_contiguous`` promises one contiguous run
+    per row, which the CUDA kernel needs (it reads each row as (start, end)).
+    ``rope_cos``/``rope_sin`` [B or 1, L, D/2] rotate q and k (self-attention).
+    Inputs may be strided views with a unit stride along D; the result is a new
+    contiguous [B, H, Lq, D]. Query rows with no valid key are zeros on the
+    card (the plain version averages over all keys there); callers never read them.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if rope_cos is not None and q.shape[2] != k.shape[2]:
+        raise ValueError("fused rope expects self-attention (Lq == Lk)")
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, kv_mask=kv_mask, scale=scale,
+            rope_cos=rope_cos, rope_sin=rope_sin,
+        )
+    if kv_mask is not None and not kv_mask_contiguous:
+        raise NotImplementedError(
+            "the CUDA flash kernel takes contiguous key masks only; the gappy-mask "
+            "form of K2 is still to be ported (ROADMAP.md)"
+        )
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_flash(
+        q, k, v, out, causal=causal, kv_mask=kv_mask, scale=scale,
+        rope_cos=rope_cos, rope_sin=rope_sin,
+    )
+    launch_counts["flash_attention"] += 1
+    return out
+
+
+def vision_qkv_attention(
+    qkv: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    *,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Non-causal self-attention over a combined qkv projection output.
+
+    ``qkv`` [N, P, 3*H*D] is the token-major output of the vision tower's qkv
+    dense, role-major (q heads, then k, then v). The kernel reads q, k and v as
+    strided views of it in place and writes [N, P, H*D] for the output
+    projection: no transposes. ``kv_mask`` [N, P] holds one contiguous valid run
+    per row (the ``[:num_patches]`` prefix); ``rope_cos``/``rope_sin`` are
+    [N or 1, P, D/2] f32.
+    """
+    n, p, c = qkv.shape
+    h, d = num_heads, head_dim
+    if c != 3 * h * d:
+        raise ValueError(f"qkv channels {c} != 3*{h}*{d}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if qkv.device.type == "cpu":
+        return vision_qkv_attention_plain(
+            qkv, h, d, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin
+        )
+    q, k, v = _qkv_views(qkv, h, d)
+    out = torch.empty((n, p, h * d), dtype=qkv.dtype, device=qkv.device)
+    _launch_flash(
+        q, k, v, out.view(n, p, h, d).permute(0, 2, 1, 3), causal=False, kv_mask=kv_mask,
+        scale=scale, rope_cos=rope_cos, rope_sin=rope_sin,
+    )
+    launch_counts["vision_qkv_attention"] += 1
+    return out
+
+
+def gqa_decode_attention(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    layer_idx: int,
+    kv_mask: torch.Tensor,
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-token GQA attention against layer ``layer_idx`` of a stacked cache.
+
+    Args:
+        q: [B, H, D] current-token queries (consecutive query heads share a KV head).
+        cache_k, cache_v: [L, B, KVH, S, D] stacked caches (contiguous on the card).
+        layer_idx: the layer to attend against (a host int).
+        kv_mask: [B, S], nonzero = attend.
+    Returns: [B, H, D] in q.dtype.
+    """
+    b, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return gqa_decode_attention_plain(q, cache_k, cache_v, layer_idx, kv_mask, scale=scale)
+    lib = _build.load_library()
+    dtype = _check_operands({"q": q, "cache_k": cache_k, "cache_v": cache_v})
+    layers, cb, kvh, s, cd = cache_k.shape
+    if cb != b or cd != d or cache_v.shape != cache_k.shape or h % kvh != 0:
+        raise ValueError(f"shape mismatch: q {q.shape}, cache {cache_k.shape} / {cache_v.shape}")
+    if not 0 <= layer_idx < layers:
+        raise ValueError(f"layer_idx {layer_idx} outside [0, {layers})")
+    vec = 16 // q.element_size()  # the kernel reads cache rows as 16-byte vectors
+    if h // kvh > 8 or d > 128 or d % vec:
+        raise ValueError(
+            f"decode kernel takes groups <= 8 and head_dim <= 128 divisible by {vec}, "
+            f"got {h // kvh}, {d}"
+        )
+    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
+        raise ValueError("the caches must start 16-byte aligned")
+    if kv_mask.shape != (b, s):
+        raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {s}]")
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    args = _build.DecodeArgs(
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], scale,
+    )
+    code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
+    _raise_on_error(code, "gqa_decode_attention")
+    launch_counts["gqa_decode_attention"] += 1
+    return out

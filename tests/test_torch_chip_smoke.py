@@ -1,0 +1,66 @@
+"""``chip_smoke.py`` without a GPU: it must fail clearly and print no result."""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(cwd: Path) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True, timeout=300
+    )
+
+
+def test_exits_nonzero_without_gpu():
+    proc = _run(REPO_ROOT)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok": true' not in proc.stdout
+
+
+def test_exits_nonzero_alone_in_a_directory(tmp_path):
+    shutil.copy(REPO_ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_main_returns_1_when_cuda_is_absent(monkeypatch, capsys):
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr()
+    assert "needs an NVIDIA GPU" in out.err and out.out == ""
+
+
+def test_requests_match_the_main_path_workload():
+    """Six 448x448 and two 336x448 images (the second size pads 768 patches to
+    the 1024 bucket, so the masked vision path runs), 64 greedy tokens."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    model = get_model("qwen2-vl-tiny", batch_size=8, dtype="float32", device="cpu")
+    reqs = chip_smoke._requests(model)
+    assert len(reqs) == chip_smoke.NUM_REQUESTS == 8
+    sizes = [model._fetch_visuals(r.args)[0].size for r in reqs]
+    assert sizes.count((448, 448)) == 6 and sizes.count((448, 336)) == 2
+    assert all(r.args[1]["max_new_tokens"] == 64 and not r.args[1]["do_sample"] for r in reqs)
+    assert set(chip_smoke.MIN_LAUNCHES) == set(chip_smoke.KERNELS)
+
+
+@pytest.mark.parametrize("name", ["vision_qkv_attention", "flash_attention", "gqa_decode_attention"])
+def test_kernel_sources_exist(name):
+    import chip_smoke
+
+    source, replaces = chip_smoke.KERNELS[name]
+    assert (REPO_ROOT / source).is_file()
+    path, line = replaces.split(":")
+    lines = (REPO_ROOT / path).read_text().splitlines()
+    assert lines[int(line) - 1].startswith("def _")  # the Pallas kernel body
