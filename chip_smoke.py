@@ -8,20 +8,34 @@ Run from the repository root with no arguments::
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: needs CUDA; prints the card's name and power limit; turns TF32
-   off; builds the hand-written kernels (``lmms_owc_tpu_torch/csrc/*.cu``)
-   into ``build/kernels/``.
+   off; builds the hand-written kernels (``lmms_owc_tpu_torch/csrc/*.cu``,
+   one ``nvcc`` per source, side by side) into ``build/kernels/``.
 2. Kernel parity: each kernel against its plain PyTorch version on the card,
-   in bf16 at the main path's shapes, within ``atol = rtol = 2e-2``, with the
+   in bf16 at the main paths' shapes, within ``atol = rtol = 2e-2``, with the
    kernel's and the plain version's times: the median per call between CUDA
    events (launch overhead included) and the device time the profiler records.
-   The kernels' f32 forms are checked at small ragged shapes.
-3. Main path: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn on
-   the card answers 8 image requests (64 greedy tokens) through
+   K4 (``int4_matmul``) runs every 7B decode product at M = 96 and M = 8; the
+   int8-cache decode runs at the pooled shape. The kernels' f32 forms are
+   checked at small ragged shapes.
+3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
+   on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
 4. Whole model: on one chunk, the prefill's last-position logits through the
    kernels against the same chunk through the plain versions (relative L2),
    in bf16 (held to the plain path's own distance from f32 attention) and
    with the weights in f32 (held to ``LOGITS_REL_L2``).
+5. Quantized pooled serving (the JAX bench's configuration): ``qwen2-vl-7b``
+   with int8 weights drawn and quantized on the card, W8A8, a decode pool of
+   2 and the int8 KV cache answers 96 448x448 requests at batch 48; images/s,
+   phase seconds, peak device memory and launches are printed, and the int8
+   decode kernel must run at least 28 times per decode step. The same
+   requests unpooled must give the same tokens on at least 95% of the rows;
+   one pooled decode step's logits through the kernel are held to the plain
+   versions as in phase 4.
+6. int4: ``qwen2-vl-7b`` with int4 weights answers 8 requests unpooled; K4
+   must run on every decode-step product (7 x 28 + 1 per step), and one
+   decode step's logits through K4 are held to the plain version within
+   ``LOGITS_REL_L2``.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -29,7 +43,9 @@ and times; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -43,16 +59,45 @@ LOGITS_REL_L2 = 2e-2
 NUM_REQUESTS = 8
 MAX_NEW_TOKENS = 64
 PROMPT = "What type of object is in this photo?"
+POOL_BATCH = 48
+POOL_REQUESTS = 96
+MIN_POOL_AGREEMENT = 0.95  # rows with the unpooled run's tokens (expected 1.0)
+# Phase 3 (bf16): launches per generate_until call.
 MIN_LAUNCHES = {"vision_qkv_attention": 32, "flash_attention": 28, "gqa_decode_attention": 28}
+# Phases 5 and 6: launches per decode step (28 layers; int4: 7 products each plus the head).
+MIN_LAUNCHES_PER_DECODE_STEP = {"gqa_decode_attention_int8": 28, "int4_matmul": 7 * 28 + 1}
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
     "gqa_decode_attention": ("lmms_owc_tpu_torch/csrc/decode_attn.cu", "lmms_owc_tpu/ops/attention.py:838"),
+    "int4_matmul": ("lmms_owc_tpu_torch/csrc/int4_matmul.cu", "lmms_owc_tpu/ops/int4_matmul.py:72"),
+    "gqa_decode_attention_int8": ("lmms_owc_tpu_torch/csrc/decode_attn.cu", "lmms_owc_tpu/ops/attention.py:838"),
 }
+# K4 parity: the 7B decode products (K -> N) at the pooled and unpooled row counts.
+INT4_SHAPES = {
+    "q/o": (3584, 3584), "k/v": (3584, 512), "gate/up": (3584, 18944),
+    "down": (18944, 3584), "lm_head": (3584, 152064),
+}
+INT4_ROWS = (96, 8)
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def _reset_counts() -> None:
+    from lmms_owc_tpu_torch.ops import attention as att
+    from lmms_owc_tpu_torch.ops import int4_matmul as i4
+
+    att.reset_launch_counts()
+    i4.reset_launch_counts()
+
+
+def _counts() -> dict[str, int]:
+    from lmms_owc_tpu_torch.ops import attention as att
+    from lmms_owc_tpu_torch.ops import int4_matmul as i4
+
+    return {**att.launch_counts, **i4.launch_counts}
 
 
 def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -121,7 +166,7 @@ def check_kernels(dev) -> dict[str, dict]:
     """Phase 2: every kernel against its plain version at the main path's shapes."""
     import torch
 
-    from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLVisionConfig, vision_rope_cos_sin
+    from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLVisionConfig, quantize_kv_cache, vision_rope_cos_sin
     from lmms_owc_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -187,6 +232,27 @@ def check_kernels(dev) -> dict[str, dict]:
         **_timings(lambda: att.gqa_decode_attention(qd, ck, cv, layers - 1, dmask),
                    lambda: att.gqa_decode_attention_plain(qd, ck, cv, layers - 1, dmask)),
     )
+    # Decode, int8 cache (K3 int8): the pooled shape, q [96, 28, 128] against
+    # cache [28, 96, 4, 384, 128] int8 with [28, 96, 4, 384] scales.
+    pb = POOL_BATCH * 2
+    qp = randn(pb, nh, hd)
+    kq, vq, sk, sv = quantize_kv_cache(randn(layers, pb, kvh, s, hd), randn(layers, pb, kvh, s, hd))
+    pstarts = torch.arange(pb, device=dev) % 64
+    pmask = ((spos[None, :] >= pstarts[:, None]) & (spos[None, :] < l + 5)).to(torch.int32)
+    errs = []
+    for layer in (0, layers - 1):
+        got = att.gqa_decode_attention(qp, kq, vq, layer, pmask, sk, sv)
+        want = att.gqa_decode_attention_plain(qp, kq, vq, layer, pmask, sk, sv)
+        errs.append(_compare(f"gqa_decode_attention_int8[layer {layer}]", got, want))
+    results["gqa_decode_attention_int8"] = dict(
+        shape=f"q [{pb}, {nh}, {hd}] bf16, cache [{layers}, {pb}, {kvh}, {s}, {hd}] int8 + f32 scales, "
+              f"layers 0 and {layers - 1}",
+        max_abs_err=max(errs),
+        **_timings(lambda: att.gqa_decode_attention(qp, kq, vq, layers - 1, pmask, sk, sv),
+                   lambda: att.gqa_decode_attention_plain(qp, kq, vq, layers - 1, pmask, sk, sv)),
+    )
+    del kq, vq, sk, sv
+    results["int4_matmul"] = check_int4(dev, gen)
     for name, r in results.items():
         log(f"parity {name}: {r['shape']}: max abs err {r['max_abs_err']:.3e}; per call "
             f"(median of 20, CUDA events) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
@@ -195,11 +261,46 @@ def check_kernels(dev) -> dict[str, dict]:
     return results
 
 
+def check_int4(dev, gen) -> dict:
+    """K4 against its plain version on every 7B decode product at M = 96 and 8.
+    Returns the gate/up M = 96 entry (the largest per-layer product) for the
+    kernels line, with every shape's numbers under ``all``."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops import int4_matmul as i4
+    from lmms_owc_tpu_torch.ops.quant import quantize_int4
+
+    rows = {}
+    for name, (k, n) in INT4_SHAPES.items():
+        qp = quantize_int4(torch.randn((n, k), generator=gen, device=dev) * 0.02)
+        q4, scale = qp["q4"], qp["scale"]
+        del qp
+        for m in INT4_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            err = _compare(f"int4_matmul[{name}, M={m}]", i4.int4_matmul(x, q4, scale), i4.int4_matmul_plain(x, q4, scale))
+            t = _timings(lambda: i4.int4_matmul(x, q4, scale), lambda: i4.int4_matmul_plain(x, q4, scale))
+            rows[f"{name} M={m}"] = dict(shape=f"x [{m}, {k}] bf16, q4 [{n}, {k // 2}] int8, scale [{n}, {k // 128}]",
+                                         max_abs_err=err, **t)
+            log(f"parity int4_matmul {name} (K={k}, N={n}) M={m}: max abs err {err:.3e}; per call kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; device kernel {t['device_ms']} ms, "
+                f"plain {t['plain_device_ms']} ms")
+        del q4, scale
+        torch.cuda.empty_cache()
+    head = dict(rows["gate/up M=96"])
+    head["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    head["shape"] = "gate/up " + head["shape"] + " (max abs err over all shapes)"
+    head["all"] = rows
+    return head
+
+
 def check_f32_kernels(dev, gen) -> None:
     """The kernels' f32 forms at small, ragged shapes (not on the bf16 main path)."""
     import torch
 
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
     from lmms_owc_tpu_torch.ops import attention as att
+    from lmms_owc_tpu_torch.ops import int4_matmul as i4
+    from lmms_owc_tpu_torch.ops.quant import quantize_int4
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
@@ -221,18 +322,27 @@ def check_f32_kernels(dev, gen) -> None:
     dmask = torch.ones((2, 100), dtype=torch.int32, device=dev)
     dmask[0, :30] = 0
     errs.append((att.gqa_decode_attention(qd, ck, cv, 1, dmask) - att.gqa_decode_attention_plain(qd, ck, cv, 1, dmask)).abs().max())
+    cache8 = quantize_kv_cache(ck, cv)
+    errs.append((att.gqa_decode_attention(qd, *cache8[:2], 1, dmask, *cache8[2:])
+                 - att.gqa_decode_attention_plain(qd, *cache8[:2], 1, dmask, *cache8[2:])).abs().max())
+    x = randn(5, 512)
+    for group in (128, 64, 8):  # 8: scales change inside a 16-byte weight load
+        qp = quantize_int4(randn(256, 512) * 0.02, group=group)
+        errs.append((i4.int4_matmul(x, qp["q4"], qp["scale"]) - i4.int4_matmul_plain(x, qp["q4"], qp["scale"])).abs().max())
     errs = [float(e) for e in errs]
-    log(f"f32 forms (vision D=80, prefill D=64 L=130, decode D=64): max abs errs {errs}")
+    log(f"f32 forms (vision D=80, prefill D=64 L=130, decode D=64 with an f32 and an int8 cache, "
+        f"int4 M=5 K=512 N=256 in groups of 128, 64, 8): max abs errs {errs}")
     if not all(e <= tol for e in errs):
         raise AssertionError(f"f32 kernel forms disagree with their plain versions beyond {tol}: {errs}")
 
 
-def _requests(model):
-    """8 requests as the JAX bench builds them: six 448x448 and two 336x448 images."""
+def _requests(model, sizes=None):
+    """Image requests as the JAX bench builds them; by default 8: six 448x448
+    and two 336x448 images."""
     from PIL import Image
 
     rng = np.random.RandomState(0)
-    sizes = [(448, 448)] * 6 + [(336, 448)] * 2
+    sizes = sizes or [(448, 448)] * 6 + [(336, 448)] * 2
     docs = [
         {"image": Image.fromarray(rng.randint(0, 255, (hh, ww, 3), dtype=np.uint8))}
         for hh, ww in sizes
@@ -256,7 +366,6 @@ def run_main_path(dev) -> tuple[object, list, dict[str, int]]:
     import torch
 
     from lmms_owc_tpu_torch.models import get_model
-    from lmms_owc_tpu_torch.ops import attention as att
 
     t0 = time.perf_counter()
     model = get_model(
@@ -269,26 +378,12 @@ def run_main_path(dev) -> tuple[object, list, dict[str, int]]:
         f"{time.perf_counter() - t0:.1f} s")
     requests = _requests(model)
     model.generate_until(requests)  # warm-up: cuBLAS handles, allocator, kernel library
-
-    model.phase_seconds.clear()
-    att.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outputs = model.generate_until(requests)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = dict(att.launch_counts)
-
-    if len(outputs) != NUM_REQUESTS or not all(isinstance(o, str) and o for o in outputs):
-        raise AssertionError(f"expected {NUM_REQUESTS} non-empty strings, got {outputs!r}")
+    run = _serve(model, requests)
+    _log_run("bf16, unpooled", run)
     for name, least in MIN_LAUNCHES.items():
-        if counts[name] < least:
-            raise AssertionError(f"{name} launched {counts[name]} times in the main path, expected >= {least}")
-    phases = {k: round(v, 4) for k, v in model.phase_seconds.items()}
-    log(f"generate_until: {NUM_REQUESTS} images in {seconds:.3f} s = "
-        f"{NUM_REQUESTS / seconds:.3f} images/s; phase seconds {phases}; launches {counts}")
-    log(f"sample output: {outputs[0][:80]!r}")
-    return model, requests, counts
+        if run["counts"][name] < least:
+            raise AssertionError(f"{name} launched {run['counts'][name]} times in the main path, expected >= {least}")
+    return model, requests, run["counts"]
 
 
 def _exact_flash(q, k, v, **kw):
@@ -313,12 +408,8 @@ def _attention(flash, vision):
     """Route the model's prefill and vision attention through other functions."""
     from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
 
-    saved = nnq.flash_attention, nnq.vision_qkv_attention
-    nnq.flash_attention, nnq.vision_qkv_attention = flash, vision
-    try:
+    with _route(nnq, "flash_attention", flash), _route(nnq, "vision_qkv_attention", vision):
         yield
-    finally:
-        nnq.flash_attention, nnq.vision_qkv_attention = saved
 
 
 def _rel_l2(a, b) -> float:
@@ -381,6 +472,237 @@ def check_whole_model(model, requests) -> dict[str, float]:
     return rel
 
 
+@contextmanager
+def _env(**values):
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+@contextmanager
+def _route(module, name, fn):
+    """Point ``module.name`` at ``fn`` for the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextmanager
+def _decode_steps(capture: dict | None = None):
+    """Counts decode steps (yields the list of calls); with ``capture``, keeps a
+    copy of the first step's inputs."""
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    real = nnq.decode_step
+    calls = []
+
+    def spy(model, token_ids, position_ids, cache, cache_pos, kv_mask):
+        if capture is not None and not capture:
+            capture.update(
+                token_ids=token_ids.clone(), position_ids=position_ids.clone(),
+                cache=tuple(c.clone() for c in cache), cache_pos=cache_pos, kv_mask=kv_mask.clone(),
+            )
+        calls.append(1)
+        return real(model, token_ids, position_ids, cache, cache_pos, kv_mask)
+
+    with _route(nnq, "decode_step", spy):
+        yield calls
+
+
+@contextmanager
+def _tokens(model, out: list):
+    """Collects the token arrays ``generate_until`` detokenizes, in order."""
+    detok = model._detokenize
+    model._detokenize = lambda tokens: out.append(np.asarray(tokens).copy()) or detok(tokens)
+    try:
+        yield out
+    finally:
+        del model._detokenize
+
+
+def _serve(model, requests, tokens: list | None = None) -> dict:
+    """One measured generate_until with the counts set to 0 just before it."""
+    import torch
+
+    model.phase_seconds.clear()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _decode_steps() as steps, _tokens(model, tokens if tokens is not None else []):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs = model.generate_until(requests)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = _counts()
+    if len(outputs) != len(requests) or not all(isinstance(o, str) and o for o in outputs):
+        raise AssertionError(f"expected {len(requests)} non-empty strings, got {outputs[:4]!r}...")
+    return dict(
+        images=len(requests), seconds=seconds, images_per_s=len(requests) / seconds,
+        phase_seconds={k: round(v, 4) for k, v in model.phase_seconds.items()},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, decode_steps=len(steps), counts=counts,
+        sample=outputs[0][:60],
+    )
+
+
+def _check_min_per_step(run: dict, name: str) -> None:
+    least = MIN_LAUNCHES_PER_DECODE_STEP[name] * run["decode_steps"]
+    if run["decode_steps"] == 0 or run["counts"][name] < least:
+        raise AssertionError(
+            f"{name} launched {run['counts'][name]} times over {run['decode_steps']} decode steps, "
+            f"expected >= {least}"
+        )
+
+
+def _step_logits(model, cap):
+    """One decode step on a fresh copy of captured inputs -> logits [B, vocab] f32."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    cache = tuple(c.clone() for c in cap["cache"])
+    out = nnq.decode_step(model.model, cap["token_ids"], cap["position_ids"], cache, cap["cache_pos"],
+                          cap["kv_mask"].clone())
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("decode-step logits have non-finite values")
+    return out
+
+
+def check_decode_step(model, cap, module, name, plain, exact, label: str) -> dict:
+    """Phase 4's rule on one decode step: the kernel path's logits may be no
+    farther from the f32 ("exact") path than the plain path is (+25%), or
+    within LOGITS_REL_L2 of it."""
+    got = _step_logits(model, cap)
+    with _route(module, name, plain):
+        want = _step_logits(model, cap)
+    with _route(module, name, exact):
+        ref = _step_logits(model, cap)
+    rel = {
+        "kernel_vs_plain": _rel_l2(got, want),
+        "kernel_vs_exact": _rel_l2(got, ref),
+        "plain_vs_exact": _rel_l2(want, ref),
+        "argmax_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+    }
+    log(f"{label}: one decode step, logits {tuple(got.shape)}: {rel}")
+    if rel["kernel_vs_exact"] > max(LOGITS_REL_L2, 1.25 * rel["plain_vs_exact"]):
+        raise AssertionError(f"{label}: kernel path farther from the f32 path than the plain path: {rel}")
+    return rel
+
+
+def _log_run(label: str, run: dict) -> None:
+    log(f"{label}: {run['images']} images in {run['seconds']:.3f} s = {run['images_per_s']:.3f} images/s; "
+        f"phase seconds {run['phase_seconds']}; peak device memory {run['peak_gb']:.3f} GB; "
+        f"{run['decode_steps']} decode steps; launches {run['counts']}; sample {run['sample']!r}")
+
+
+def _free() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_quantized_pool(dev) -> dict:
+    """Phase 5: int8 weights, W8A8, a decode pool of 2 and the int8 KV cache."""
+    import torch
+
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+    from lmms_owc_tpu_torch.nn.layers import set_int8_activations
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    with _env(LMMS_OWC_DECODE_POOL="2", LMMS_OWC_KV_INT8="1"):
+        t0 = time.perf_counter()
+        model = get_model(
+            "qwen2-vl-7b", random_init=True, dtype="bfloat16", batch_size=POOL_BATCH, device=str(dev),
+            time_phases=True, load_in_8bit=True, int8_activations=True,
+        )
+        torch.cuda.synchronize()
+        log(f"qwen2-vl-7b int8: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+        requests = _requests(model, [(448, 448)] * POOL_REQUESTS)
+        capture: dict = {}
+        with _decode_steps(capture):
+            model.generate_until(requests)  # warm-up; keeps one pooled decode step's inputs
+        pooled_tokens: list = []
+        run = _serve(model, requests, pooled_tokens)
+        _log_run("int8 + W8A8 + pool 2 + int8 KV", run)
+        _check_min_per_step(run, "gqa_decode_attention_int8")
+        if len(pooled_tokens) != 1 or pooled_tokens[0].shape[0] != POOL_REQUESTS:
+            raise AssertionError(f"expected one pool of {POOL_REQUESTS} rows, got {[t.shape for t in pooled_tokens]}")
+
+        os.environ["LMMS_OWC_DECODE_POOL"] = "1"
+        unpooled_tokens: list = []
+        unpooled = _serve(model, requests, unpooled_tokens)
+        _log_run("int8 + W8A8 + int8 KV, unpooled", unpooled)
+        same = (np.concatenate(pooled_tokens) == np.concatenate(unpooled_tokens)).all(axis=1)
+        run["unpooled_same_rows"] = float(same.mean())
+        log(f"rows with the same tokens pooled and unpooled: {int(same.sum())} of {same.size} = "
+            f"{run['unpooled_same_rows']:.4f} (required >= {MIN_POOL_AGREEMENT})")
+        if run["unpooled_same_rows"] < MIN_POOL_AGREEMENT:
+            raise AssertionError(f"pooled and unpooled tokens agree on {run['unpooled_same_rows']:.4f} of the rows")
+
+        def exact(q, ck, cv, i, mask, *scales):
+            return att.gqa_decode_attention_plain(q.float(), ck, cv, i, mask, *scales).to(q.dtype)
+
+        run["decode_step"] = check_decode_step(
+            model, capture, nnq, "gqa_decode_attention", att.gqa_decode_attention_plain, exact,
+            "int8 pool decode step (int8 decode kernel vs plain)",
+        )
+    set_int8_activations(False)
+    del model, capture
+    _free()
+    return run
+
+
+def run_int4(dev) -> dict:
+    """Phase 6: int4 weights, 8 requests unpooled; K4 on every decode product."""
+    import torch
+
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.nn import layers
+    from lmms_owc_tpu_torch.ops import int4_matmul as i4
+    from lmms_owc_tpu_torch.ops.quant import dequantize_int4
+
+    with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
+        t0 = time.perf_counter()
+        model = get_model(
+            "qwen2-vl-7b", random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS, device=str(dev),
+            time_phases=True, load_in_4bit=True,
+        )
+        torch.cuda.synchronize()
+        log(f"qwen2-vl-7b int4: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+        requests = _requests(model)
+        capture: dict = {}
+        with _decode_steps(capture):
+            model.generate_until(requests)  # warm-up; keeps one decode step's inputs
+        run = _serve(model, requests)
+        _log_run("int4, unpooled", run)
+        _check_min_per_step(run, "int4_matmul")
+
+        def exact(x, q4, scale):
+            w = dequantize_int4({"q4": q4, "scale": scale})
+            return (x.float() @ w.t()).to(x.dtype)
+
+        run["decode_step"] = check_decode_step(
+            model, capture, layers, "int4_matmul", i4.int4_matmul_plain, exact,
+            "int4 decode step (K4 vs plain)",
+        )
+    del model, capture
+    _free()
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -406,16 +728,32 @@ def main() -> int:
     parity = check_kernels(dev)
     model, requests, counts = run_main_path(dev)
     check_whole_model(model, requests)
+    del model, requests
+    _free()
+    pool = run_quantized_pool(dev)
+    int4 = run_int4(dev)
 
+    # Each kernel's launches from the main path that carries it: phase 3 (bf16),
+    # phase 5 (int8 cache) or phase 6 (int4).
+    launches = {name: counts[name] for name in MIN_LAUNCHES}
+    launches["gqa_decode_attention_int8"] = pool["counts"]["gqa_decode_attention_int8"]
+    launches["int4_matmul"] = int4["counts"]["int4_matmul"]
     kernels = [
         dict(
             name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
-            launches=counts[name], max_abs_err=parity[name]["max_abs_err"],
+            launches=launches[name], max_abs_err=parity[name]["max_abs_err"],
             ms=parity[name]["ms"], plain_ms=parity[name]["plain_ms"],
             device_ms=parity[name]["device_ms"], plain_device_ms=parity[name]["plain_device_ms"],
+            shape=parity[name]["shape"],
         )
         for name in KERNELS
     ]
+    for label, run in (("int8_w8a8_pool2_kv_int8", pool), ("int4", int4)):
+        summary = {k: run[k] for k in ("images", "seconds", "images_per_s", "phase_seconds", "peak_gb",
+                                       "decode_steps", "counts", "decode_step") if k in run}
+        if "unpooled_same_rows" in run:
+            summary["unpooled_same_rows"] = run["unpooled_same_rows"]
+        log(f"summary {label}: {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -1,9 +1,10 @@
 """Model adapter base class of the port (counterpart of :mod:`lmms_owc_tpu.models._base`).
 
 The engine is not ported yet, so this base keeps what the adapters of the
-slice use: the constructor contract (batch size, dtype, device), ``rank`` and
-``world_size``, the request handlers, and the chunk pipeline. Weight
-quantization is not ported: asking for it raises.
+slice use: the constructor contract (batch size, dtype, device, the
+``load_in_8bit``/``load_in_4bit`` flags), ``rank`` and ``world_size``, the
+request handlers, and the chunk pipeline. Each adapter's ``load_model``
+applies the quantization flags.
 """
 
 from __future__ import annotations
@@ -36,10 +37,12 @@ class Model(abc.ABC):
         load_in_4bit: bool = False,
         **kwargs,
     ) -> None:
-        if load_in_8bit or load_in_4bit:
-            raise NotImplementedError(
-                "int8/int4 weights are not ported yet (ROADMAP.md: int8 weights with W8A8 dense)"
-            )
+        # Weight-only int8/int4 (the bitsandbytes load_in_8bit/load_in_4bit
+        # equivalents of the JAX package, lmms_owc_tpu_torch.ops.quant).
+        self.load_in_8bit = bool(load_in_8bit)
+        self.load_in_4bit = bool(load_in_4bit)
+        if self.load_in_8bit and self.load_in_4bit:
+            raise ValueError("load_in_8bit and load_in_4bit are mutually exclusive")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r} not supported; choose from {sorted(_DTYPES)}")
         self.model_id = model_id

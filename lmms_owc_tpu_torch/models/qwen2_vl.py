@@ -1,14 +1,16 @@
 """Qwen2-VL model adapter of the port: engine requests -> batched GPU generation.
 
-Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` on the unpooled bf16/f32
-path. The host side is the same: requests are grouped by generation kwargs,
-sorted by estimated prompt tokens (text + vision), packed into token-budget
-macro batches, LEFT-padded to length buckets and decoded together. Images are
-resized on the host, grouped by patch bucket and run through the vision tower
-in batches whose row count is padded to ``VISION_ROW_BUCKETS``.
+Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` for ``generate_until``.
+The host side is the same: requests are grouped by generation kwargs, sorted
+by estimated prompt tokens (text + vision), packed into token-budget macro
+batches, LEFT-padded to length buckets and decoded together. Images are resized
+on the host, grouped by patch bucket and run through the vision tower in
+batches whose row count is padded to ``VISION_ROW_BUCKETS``. Weights are
+bf16/f32, int8 (``load_in_8bit``, with W8A8 under ``int8_activations``) or
+int4 (``load_in_4bit``); ``LMMS_OWC_DECODE_POOL`` > 1 decodes several chunks
+as one pool, and ``LMMS_OWC_KV_INT8`` keeps the decode cache in int8.
 
-Not ported yet (see ROADMAP.md): checkpoint loading, int8/W8A8/int4 weights,
-the decode pool (``LMMS_OWC_DECODE_POOL`` > 1 raises), ``loglikelihood``,
+Not ported yet (see ROADMAP.md): checkpoint loading, ``loglikelihood``,
 ``generate_until_multi_round`` and the Qwen2.5-VL tower.
 """
 
@@ -28,6 +30,8 @@ from lmms_owc_tpu.utils import Collator, get_logger, pad_to_bucket
 from lmms_owc_tpu_torch.models._api import register_model
 from lmms_owc_tpu_torch.models._base import Model
 from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
+from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear, set_int8_activations
+from lmms_owc_tpu_torch.ops import quant
 from lmms_owc_tpu_torch.ops.image import (
     patchify_images_batch,
     resize_host_batch,
@@ -36,7 +40,7 @@ from lmms_owc_tpu_torch.ops.image import (
 
 log = get_logger(__name__)
 
-__all__ = ["PRESET_CONFIGS", "Qwen2VL"]
+__all__ = ["PRESET_CONFIGS", "Qwen2VL", "plan_decode_pools"]
 
 DEFAULT_MAX_PIXELS = 1024 * 28 * 28
 DEFAULT_MIN_PIXELS = 4 * 28 * 28
@@ -86,6 +90,55 @@ VISION_ROW_BUCKETS = (
     80, 96, 112, 128, 160, 192, 224, 256, 320, 384,
 )
 GEN_LEN_BUCKETS = (64, 128, 256, 512)
+
+
+def plan_decode_pools(
+    chunks: list, pool_n: int, batch_size: int, bucket_fn=None, device=None
+) -> list[list]:
+    """Group consecutive same-gen-kwargs chunks into decode pools (the JAX rule).
+
+    Up to ``pool_n`` chunks always pool. A pool then extends past ``pool_n``
+    while its rows are below ``pool_n x batch_size`` and its estimated KV
+    footprint, rows x (prompt bucket + gen bucket), stays within
+    ``LMMS_OWC_POOL_KV_CAP_X`` (default 1.5) times the uniform pool's
+    (``pool_n x batch_size x (320 + 64)``); an int8 KV cache (on ``device``,
+    see :func:`~lmms_owc_tpu_torch.nn.qwen2_vl.kv_cache_int8_enabled`) admits
+    1.6x the row-tokens. ``bucket_fn(chunk)`` estimates a chunk's prompt
+    bucket (320 without it).
+    """
+    pools: list[list] = []
+    cur_key = None
+    rows = bucket = 0
+    cap_x = float(os.environ.get("LMMS_OWC_POOL_KV_CAP_X", "1.5"))
+    kv_cap = int(cap_x * pool_n * batch_size * (320 + 64))
+    if qvl.kv_cache_int8_enabled(device):
+        kv_cap = int(kv_cap * 1.6)  # 128 B values + 32 B scales per token vs 256 B bf16
+    for chunk in chunks:
+        key = repr(chunk[0][1])
+        n_rows = len(chunk)
+        c_bucket = bucket_fn(chunk) if bucket_fn is not None else 320
+        gk = dict(chunk[0][1] or {})
+        gen_bucket = pad_to_bucket(int(gk.get("max_new_tokens", DEFAULT_MAX_NEW_TOKENS)), GEN_LEN_BUCKETS)
+        if (
+            pools
+            and key == cur_key
+            and (
+                len(pools[-1]) < pool_n
+                or (
+                    rows < pool_n * batch_size
+                    and (rows + n_rows) * (max(bucket, c_bucket) + gen_bucket) <= kv_cap
+                )
+            )
+        ):
+            pools[-1].append(chunk)
+            rows += n_rows
+            bucket = max(bucket, c_bucket)
+        else:
+            pools.append([chunk])
+            cur_key = key
+            rows = n_rows
+            bucket = c_bucket
+    return pools
 
 
 def _assemble_embeds(
@@ -173,17 +226,20 @@ class Qwen2VL(Model):
         seed: int = 1234,
         jax_params: dict | None = None,
         time_phases: bool = False,
+        int8_activations: bool = False,
         **kwargs,
     ) -> None:
         """Weights come from ``jax_params`` (the JAX package's parameter tree
-        as numpy arrays, see :func:`lmms_owc_tpu_torch.nn.qwen2_vl.params_from_jax`)
-        or are drawn on the device from ``seed``. Checkpoint loading is not
-        ported, so ``random_init`` is accepted only for the JAX adapter's
-        signature. ``time_phases``
-        synchronizes the device around the vision, prefill and decode phases
-        and sums their wall seconds into :attr:`phase_seconds` (with several
-        chunks the next chunk's vision runs beside the current decode, so
-        the phases then overlap)."""
+        as numpy arrays, float or quantized, see
+        :func:`lmms_owc_tpu_torch.nn.qwen2_vl.params_from_jax`) or are drawn on
+        the device from ``seed`` (with ``load_in_8bit``/``load_in_4bit``, drawn
+        and quantized one layer at a time). Checkpoint loading is not ported, so
+        ``random_init`` is accepted only for the JAX adapter's signature.
+        ``int8_activations`` turns on W8A8 for the process, as the JAX adapter
+        does. ``time_phases`` synchronizes the device around the vision,
+        prefill and decode phases and sums their wall seconds into
+        :attr:`phase_seconds` (with several chunks the next chunk's vision runs
+        beside the current decode, so the phases then overlap)."""
         if pretrained is not None:
             raise NotImplementedError(
                 "loading a Qwen2-VL checkpoint is not ported yet; use random_init=True "
@@ -199,19 +255,32 @@ class Qwen2VL(Model):
         self._jax_params = jax_params
         self.time_phases = bool(time_phases)
         self.phase_seconds: dict[str, float] = defaultdict(float)
+        if int8_activations:
+            set_int8_activations(True)
         super().__init__(model_id=preset, **kwargs)
 
     # ------------------------------------------------------------------- load
 
     def load_model(self) -> None:
         self.config = qvl.Qwen2VLConfig.from_hf_dict(PRESET_CONFIGS[self.preset])
-        self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device=self.device)
+        bits = 4 if self.load_in_4bit else (8 if self.load_in_8bit else None)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
         if self._jax_params is not None:
+            self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device=self.device)
             qvl.params_from_jax(self.model, self._jax_params)
             self._jax_params = None
+            quantized = any(isinstance(m, (Int8Linear, Int4Linear)) for m in self.model.modules())
+            if bits is not None and not quantized:  # a float tree, served quantized
+                (quant.quantize_params_int8 if bits == 8 else quant.quantize_params_int4)(self.model)
             log.info("loaded %s from a JAX parameter tree", self.preset)
+        elif bits is not None:
+            # The full-precision tree never exists: modules are built on the
+            # meta device, then each weight is drawn and quantized in turn.
+            self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device="meta")
+            quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=self.torch_dtype)
+            log.warning("random-init int%d %s on %s (no checkpoint)", bits, self.preset, self.device)
         else:
-            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device=self.device)
             qvl.init_params(self.model, gen)
             log.warning("random-init %s on %s (no checkpoint)", self.preset, self.device)
         self.tokenizer = _FallbackTokenizer(self.config)
@@ -507,13 +576,8 @@ class Qwen2VL(Model):
         return est
 
     def generate_until(self, requests) -> list[str]:
-        pool_n = int(os.environ.get("LMMS_OWC_DECODE_POOL", "1"))
-        if pool_n > 1:
-            raise NotImplementedError(
-                f"LMMS_OWC_DECODE_POOL={pool_n}: the decode pool is not ported yet "
-                "(ROADMAP.md, Queue 1: the decode pool)"
-            )
         batch_fn = None
+        pool_bucket_fn = None
         if self.batch_size > 1 and bool(int(os.environ.get("LMMS_OWC_SORT_BY_VISION", "1"))):
             est_cache: dict[int, int] = {}
 
@@ -536,6 +600,9 @@ class Qwen2VL(Model):
                     bucket = pad_to_bucket(_est(args) + 48)
                     state["cap"] = max(8, min(2 * self.batch_size, budget // bucket))
                 return state["cap"]
+
+            def pool_bucket_fn(chunk):
+                return pad_to_bucket(_est(chunk[0]) + 48)
         else:
             sort_fn = lambda args: -len(args[0])  # noqa: E731
         collator = Collator(
@@ -545,6 +612,10 @@ class Qwen2VL(Model):
             group_by="gen_kwargs",
         )
         chunks = list(collator.get_batched(n=self.batch_size, batch_fn=batch_fn))
+
+        pool_n = int(os.environ.get("LMMS_OWC_DECODE_POOL", "1"))
+        if pool_n > 1:
+            return collator.get_original(self._generate_pooled(chunks, pool_n, pool_bucket_fn))
 
         def run(chunk, prepared):
             rows, vision_flat = prepared
@@ -559,6 +630,89 @@ class Qwen2VL(Model):
         # of the current one (a worker thread; the kernels queue on one stream).
         results = self._foreach_chunk_pipelined(chunks, self._prepare_requests_batch, run)
         return collator.get_original(results)
+
+    def _generate_pooled(self, chunks: list, pool_n: int, bucket_fn=None) -> list[str]:
+        """Decode-pool scheduling: consecutive chunks that share gen_kwargs pool
+        (:func:`plan_decode_pools`); each chunk prefills at its own shape and the
+        pool decodes as one batch (:meth:`_run_pooled`). The host-prep and
+        vision pipeline runs at pool granularity."""
+        pools = plan_decode_pools(chunks, pool_n, self.batch_size, bucket_fn, self.device)
+
+        def prepare(pool):
+            return [self._prepare_requests_batch(c) for c in pool]
+
+        def run(pool, prepared):
+            gen_kwargs = dict(pool[0][0][1] or {})
+            until = gen_kwargs.get("until") or []
+            if isinstance(until, str):
+                until = [until]
+            texts = self._run_pooled(prepared, gen_kwargs)
+            return [self._trim_until(t, until).strip() for t in texts]
+
+        return self._foreach_chunk_pipelined(pools, prepare, run)
+
+    @torch.inference_mode()
+    def _run_pooled(self, prepared_list: list, gen_kwargs: dict) -> list[str]:
+        """Prefill each chunk of a pool at its own (batch, bucket) shape, write
+        its KV into one preallocated pool cache (front-padded to the pool's
+        longest prompt bucket, int8 before the write when the int8 cache is on,
+        so a bf16 pool never exists), then decode every row together. Peak
+        memory is the pool plus one chunk. Returns the texts in chunk order."""
+        max_new_tokens = int(gen_kwargs.get("max_new_tokens", DEFAULT_MAX_NEW_TOKENS))
+        dev = self.device
+        bucket_lens = [pad_to_bucket(max(len(ids) for ids, _, _ in rows)) for rows, _ in prepared_list]
+        l_max = max(bucket_lens)
+        cache_len = l_max + pad_to_bucket(max_new_tokens, GEN_LEN_BUCKETS)
+        total_rows = sum(len(rows) for rows, _ in prepared_list)
+        kv_mask = torch.zeros((total_rows, cache_len), dtype=torch.int32, device=dev)
+        kv_int8 = qvl.kv_cache_int8_enabled(dev)
+        cache: tuple = ()
+        logits_all, next_all = [], []
+        row_offset = 0
+        for (rows, vision_flat), bucket_len in zip(prepared_list, bucket_lens):
+            with self._phase("prefill"):
+                embeds, position_ids, attention_mask, next_pos, _ = self._build_batch_inputs(rows, vision_flat)
+                mask = torch.from_numpy(attention_mask.astype(np.int32)).to(dev)
+                logits, ks, vs = qvl.prefill_logits(
+                    self.model, embeds, torch.from_numpy(position_ids).to(dev), mask
+                )
+                if not cache:
+                    shape = (ks.shape[0], total_rows, ks.shape[2], cache_len, ks.shape[4])
+                    kv_dtype = torch.int8 if kv_int8 else ks.dtype
+                    cache = (torch.zeros(shape, dtype=kv_dtype, device=dev),
+                             torch.zeros(shape, dtype=kv_dtype, device=dev))
+                    if kv_int8:
+                        cache += (torch.zeros(shape[:4], dtype=torch.float32, device=dev),
+                                  torch.zeros(shape[:4], dtype=torch.float32, device=dev))
+                front = l_max - bucket_len
+                if kv_int8:
+                    kq, vq, sk, sv = qvl.quantize_kv_cache(ks, vs)
+                    del ks, vs
+                    qvl.write_pool_chunk(cache[0], cache[1], kq, vq, row_offset, front)
+                    qvl.write_pool_scales(cache[2], cache[3], sk, sv, row_offset, front)
+                else:
+                    qvl.write_pool_chunk(cache[0], cache[1], ks, vs, row_offset, front)
+                kv_mask[row_offset : row_offset + len(rows), front : front + bucket_len] = mask
+                logits_all.append(logits)
+                next_all.append(next_pos)
+                row_offset += len(rows)
+
+        with self._phase("decode"):
+            tokens = qvl.decode_pool(
+                self.model,
+                cache,
+                torch.cat(logits_all),
+                kv_mask,
+                torch.from_numpy(np.concatenate(next_all)).to(dev),
+                max_new_tokens=max_new_tokens,
+                prompt_len=l_max,
+                eos_ids=torch.tensor(self.eos_token_ids, dtype=torch.long, device=dev),
+                generator=self.generator,
+                do_sample=bool(gen_kwargs.get("do_sample", False)),
+                temperature=float(gen_kwargs.get("temperature") or 1.0),
+                top_p=float(gen_kwargs.get("top_p") or 1.0),
+            )
+        return self._detokenize(tokens.cpu().numpy())
 
     def loglikelihood(self, requests) -> list[tuple[float, bool]]:
         raise NotImplementedError(

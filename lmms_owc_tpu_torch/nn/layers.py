@@ -1,10 +1,12 @@
 """Transformer layers as functions on tensors, plus thin parameter-holding modules.
 
-Counterpart of :mod:`lmms_owc_tpu.nn.layers` (bf16/f32 forms; the int8, W8A8
-and int4 branches of ``dense`` are not ported yet). Layout rule: the JAX
-package stores a linear kernel ``w`` as ``[in, out]``; the port stores
-``weight = w.T`` as ``[out, in]`` (the ``nn.Linear`` layout) and computes
-``x @ weight.T (+ bias)``.
+Counterpart of :mod:`lmms_owc_tpu.nn.layers`. Layout rule: the JAX package
+stores a linear kernel ``w`` as ``[in, out]``; the port stores ``weight = w.T``
+as ``[out, in]`` (the ``nn.Linear`` layout) and computes ``x @ weight.T (+ bias)``.
+The quantized branches of the JAX ``dense`` are :func:`dense_q8` (weight-only
+int8, or W8A8 under :func:`set_int8_activations`) and :func:`dense_q4` (int4,
+through the K4 kernel at decode row counts on the card), held by the
+:class:`Int8Linear` and :class:`Int4Linear` siblings of :class:`Linear`.
 """
 
 from __future__ import annotations
@@ -13,24 +15,115 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lmms_owc_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_supported
+from lmms_owc_tpu_torch.ops.quant import quantize_int4, quantize_int8, unpack_int4
+
 __all__ = [
+    "Int4Linear",
+    "Int8Linear",
     "LayerNorm",
     "Linear",
     "RMSNorm",
     "apply_rope",
     "dense",
+    "dense_q4",
+    "dense_q8",
     "embedding",
     "gelu",
     "layer_norm",
     "mlp_swiglu",
     "quick_gelu",
     "rms_norm",
+    "set_int8_activations",
 ]
+
+# W8A8 (per-token int8 activations against int8 weights): process-wide, as in
+# the JAX package, and read by every dense_q8 call (nothing caches it).
+_INT8_ACTIVATIONS = False
+
+
+def set_int8_activations(value: bool) -> None:
+    """Set the process-wide W8A8 mode of :func:`dense_q8`."""
+    global _INT8_ACTIVATIONS
+    _INT8_ACTIVATIONS = bool(value)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ weight.T (+ bias)`` with ``weight`` [out, in], in the dtype of ``x``."""
     out = torch.matmul(x, weight.t())
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _int8_mm(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact s8 x s8 -> s32 product ``a @ q.T`` for a [M, K] and q [N, K].
+
+    ``torch._int_mm`` on CUDA takes M > 16 and K, N multiples of 8: fewer rows
+    are zero-padded (and cut off after); other K or N raise. There is no float
+    fallback.
+    """
+    m = a.shape[0]
+    if a.device.type != "cpu":
+        k, n = a.shape[1], q.shape[0]
+        if k % 8 or n % 8:
+            raise ValueError(f"W8A8 on CUDA needs K and N multiples of 8, got K={k}, N={n}")
+        if m <= 16:
+            a = F.pad(a, (0, 0, 0, 32 - m))
+    return torch._int_mm(a, q.t())[:m]
+
+
+def dense_q8(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None
+) -> torch.Tensor:
+    """int8 ``dense``: ``q`` [out, in] int8, ``scale`` [out] f32; result in ``x.dtype``.
+
+    Weight-only: ``(x @ q.T) * scale`` in ``x.dtype``. Under W8A8
+    (:func:`set_int8_activations`): per-token ``amax / 127`` (floored at 1e-6)
+    quantizes ``x`` to int8, the s8 x s8 product accumulates in int32, and
+    ``(acc * sx) * scale`` in f32 is cast to ``x.dtype``, as the JAX package.
+    """
+    if _INT8_ACTIVATIONS:
+        xf = x.float()
+        sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
+        xq = torch.round(xf / sx).to(torch.int8)
+        acc = _int8_mm(xq.reshape(-1, x.shape[-1]), q).reshape(*x.shape[:-1], q.shape[0])
+        out = (acc.float() * sx * scale).to(x.dtype)
+    else:
+        out = torch.matmul(x, q.to(x.dtype).t()) * scale.to(x.dtype)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def dense_q4(
+    x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None
+) -> torch.Tensor:
+    """int4 ``dense``: ``q4`` [out, in/2] (halves layout), ``scale`` [out, in/group] f32.
+
+    Off the CPU, at most 256 rows and a shape K4 takes launch
+    :func:`~lmms_owc_tpu_torch.ops.int4_matmul.int4_matmul`, as the JAX
+    package dispatches its Pallas kernel; otherwise (and always on the CPU,
+    where the JAX package has no kernel either) the weight is dequantized in
+    ``x.dtype`` and multiplied.
+    """
+    d_out, d_in = q4.shape[-2], 2 * q4.shape[-1]
+    n_groups = scale.shape[-1]
+    m_rows = x.numel() // d_in
+    if (
+        x.device.type != "cpu"
+        and q4.dim() == 2
+        and m_rows <= 256
+        and int4_matmul_supported(d_in, d_out, n_groups)
+    ):
+        out = int4_matmul(x, q4, scale)
+    else:
+        w_int = unpack_int4({"q4": q4, "scale": scale})
+        w = (
+            w_int.reshape(*w_int.shape[:-1], n_groups, d_in // n_groups).to(x.dtype)
+            * scale[..., None].to(x.dtype)
+        ).reshape(*w_int.shape)
+        out = torch.matmul(x, w.transpose(-1, -2))
     if bias is not None:
         out = out + bias
     return out
@@ -109,6 +202,74 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.weight, self.bias)
+
+
+class Int8Linear(nn.Module):
+    """int8 sibling of :class:`Linear`: buffers ``q`` [out, in] int8 and
+    ``scale`` [out] f32, optional ``bias`` [out] in the compute dtype; forward
+    is :func:`dense_q8`."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device) -> None:
+        super().__init__()
+        self.register_buffer("q", torch.empty((d_out, d_in), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty((d_out,), dtype=torch.float32, device=device))
+        self.bias = _param((d_out,), dtype, device, 0.0) if bias else None
+
+    @classmethod
+    @torch.no_grad()
+    def from_weight(cls, weight: torch.Tensor, bias: bool, dtype) -> "Int8Linear":
+        d_out, d_in = weight.shape
+        new = cls(d_in, d_out, bias, dtype, weight.device)
+        qp = quantize_int8(weight)
+        new.q.copy_(qp["q"])
+        new.scale.copy_(qp["scale"])
+        return new
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: Linear) -> "Int8Linear":
+        new = cls.from_weight(lin.weight, lin.bias is not None, lin.weight.dtype)
+        if lin.bias is not None:
+            new.bias.copy_(lin.bias)
+        return new
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_q8(x, self.q, self.scale, self.bias)
+
+
+class Int4Linear(nn.Module):
+    """int4 sibling of :class:`Linear`: buffers ``q4`` [out, in/2] int8 (byte
+    ``j`` of row ``o`` holds input column ``j`` in its low nibble and column
+    ``j + in/2`` in its high nibble) and ``scale`` [out, in/group] f32, optional
+    ``bias`` [out]; forward is :func:`dense_q4`."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device, group: int = 128) -> None:
+        super().__init__()
+        groups = d_in // group if d_in % group == 0 else 1
+        self.register_buffer("q4", torch.empty((d_out, d_in // 2), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty((d_out, groups), dtype=torch.float32, device=device))
+        self.bias = _param((d_out,), dtype, device, 0.0) if bias else None
+
+    @classmethod
+    @torch.no_grad()
+    def from_weight(cls, weight: torch.Tensor, bias: bool, dtype, group: int = 128) -> "Int4Linear":
+        d_out, d_in = weight.shape
+        new = cls(d_in, d_out, bias, dtype, weight.device, group)
+        qp = quantize_int4(weight, group)
+        new.q4.copy_(qp["q4"])
+        new.scale.copy_(qp["scale"])
+        return new
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: Linear, group: int = 128) -> "Int4Linear":
+        new = cls.from_weight(lin.weight, lin.bias is not None, lin.weight.dtype, group)
+        if lin.bias is not None:
+            new.bias.copy_(lin.bias)
+        return new
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_q4(x, self.q4, self.scale, self.bias)
 
 
 class LayerNorm(nn.Module):

@@ -1,20 +1,23 @@
 """Qwen2-VL in PyTorch: vision tower, M-RoPE decoder prefill and KV-cache decode.
 
-Counterpart of :mod:`lmms_owc_tpu.nn.qwen2_vl` (bf16/f32, token-major vision
-tower, unpooled decode). The JAX package stacks decoder layers on a leading
-axis for ``lax.scan``; here each layer is its own module in a ``ModuleList``
-and the loops are Python loops. Attention goes through
-:mod:`lmms_owc_tpu_torch.ops.attention`: the vision tower through
+Counterpart of :mod:`lmms_owc_tpu.nn.qwen2_vl` (token-major vision tower;
+bf16/f32 weights or their int8/int4 forms from :mod:`lmms_owc_tpu_torch.ops.quant`;
+unpooled and pooled decode; bf16/f32 or int8 KV cache). The JAX package stacks
+decoder layers on a leading axis for ``lax.scan``; here each layer is its own
+module in a ``ModuleList`` and the loops are Python loops. Attention goes
+through :mod:`lmms_owc_tpu_torch.ops.attention`: the vision tower through
 ``vision_qkv_attention`` (port of K1), the prefill through ``flash_attention``
 (K2), each decode step through ``gqa_decode_attention`` (K3).
 
 Prompts are left-padded to shape buckets so decode writes the KV cache at one
 position for the whole batch. The KV cache is one stacked ``[L, B, KVH, S, D]``
-tensor per role, updated in place.
+tensor per role, updated in place; an int8 cache (``LMMS_OWC_KV_INT8``) adds
+one ``[L, B, KVH, S]`` f32 scale tensor per role.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 
@@ -23,13 +26,14 @@ import torch
 from torch import nn
 
 from lmms_owc_tpu_torch.nn.layers import (
+    Int4Linear,
+    Int8Linear,
     LayerNorm,
     Linear,
     RMSNorm,
     apply_rope,
     embedding,
     gelu,
-    mlp_swiglu,
     quick_gelu,
 )
 from lmms_owc_tpu_torch.ops.attention import (
@@ -43,14 +47,20 @@ __all__ = [
     "Qwen2VLModel",
     "Qwen2VLVisionConfig",
     "VisionTower",
+    "decode_pool",
     "decode_step",
     "get_rope_index",
     "greedy_generate",
     "init_params",
+    "kv_cache_int8_enabled",
     "mrope_cos_sin",
     "params_from_jax",
     "prefill",
+    "prefill_logits",
+    "quantize_kv_cache",
     "vision_rope_cos_sin",
+    "write_pool_chunk",
+    "write_pool_scales",
 ]
 
 
@@ -232,7 +242,10 @@ class DecoderLayer(nn.Module):
         self.down = Linear(c.intermediate_size, h, False, dtype, device)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_swiglu(self.post_ln(x), self.gate.weight, self.up.weight, self.down.weight)
+        """Gated MLP on the post-attention norm (``mlp_swiglu`` through the modules,
+        so int8/int4 projections take their own dense)."""
+        h = self.post_ln(x)
+        return self.down(torch.nn.functional.silu(self.gate(h)) * self.up(h))
 
 
 class Qwen2VLModel(nn.Module):
@@ -288,18 +301,45 @@ def init_params(model: Qwen2VLModel, generator: torch.Generator) -> Qwen2VLModel
 
 
 def _copy(dst: torch.Tensor, src: np.ndarray) -> None:
-    t = torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32))
+    t = torch.from_numpy(np.array(src, dtype=np.float32))
     if tuple(t.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(t.shape)} does not fit parameter {tuple(dst.shape)}")
     dst.copy_(t.to(dtype=dst.dtype))
 
 
-def _load_linear(lin: Linear, tree: dict, layer: int | None = None) -> None:
-    w = np.asarray(tree["w"], np.float32)
-    _copy(lin.weight, (w if layer is None else w[layer]).T)
-    if lin.bias is not None:
-        b = np.asarray(tree["b"], np.float32)
-        _copy(lin.bias, b if layer is None else b[layer])
+def _copy_exact(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Copy an int8 or f32 quantization leaf without a round trip through another type."""
+    t = torch.from_numpy(np.array(src))
+    if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
+        raise ValueError(f"{tuple(t.shape)} {t.dtype} does not fit {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(t)
+
+
+def _load_linear(parent: nn.Module, role: str, tree: dict, layer: int | None = None) -> None:
+    """Load ``parent.<role>`` from a JAX dense leaf-dict: ``w`` into the float
+    ``Linear``; ``w_q8`` / ``w_q4`` into a new ``Int8Linear`` / ``Int4Linear``
+    that replaces it (the JAX ``[in, out]``, ``[in/2, out]`` and
+    ``[groups, out]`` leaves transposed)."""
+    pick = (lambda a: np.asarray(a)) if layer is None else (lambda a: np.asarray(a)[layer])
+    lin = getattr(parent, role)
+    if not isinstance(lin, Linear):
+        raise ValueError(f"{role}: expected the model's float Linear, got {type(lin).__name__}")
+    d_out, d_in = lin.weight.shape
+    bias, dtype, device = lin.bias is not None, lin.weight.dtype, lin.weight.device
+    if "w_q8" in tree:
+        lin = Int8Linear(d_in, d_out, bias, dtype, device)
+        _copy_exact(lin.q, pick(tree["w_q8"]["q"]).T)
+        _copy_exact(lin.scale, pick(tree["w_q8"]["scale"]))
+    elif "w_q4" in tree:
+        scale = pick(tree["w_q4"]["scale"]).T
+        lin = Int4Linear(d_in, d_out, bias, dtype, device, group=d_in // scale.shape[1])
+        _copy_exact(lin.q4, pick(tree["w_q4"]["q4"]).T)
+        _copy_exact(lin.scale, scale)
+    else:
+        _copy(lin.weight, pick(tree["w"]).astype(np.float32).T)
+    if bias:
+        _copy(lin.bias, pick(tree["b"]).astype(np.float32))
+    setattr(parent, role, lin)
 
 
 def _load_norm(norm: nn.Module, tree: dict, layer: int | None = None) -> None:
@@ -314,11 +354,15 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
     """Load the JAX package's parameter tree (leaves as numpy arrays) in place.
 
     The tree is the token-major layout of ``lmms_owc_tpu.nn.qwen2_vl.init_params``
-    / ``convert_hf_weights`` (not the feature-major ``vision_params_to_fm`` one).
-    Layout rule: a JAX linear kernel ``w`` is ``[in, out]`` and becomes the port's
-    ``weight = w.T`` (``[out, in]``); biases, norm scales (``scale`` -> ``weight``)
-    and the ``[vocab, hidden]`` embedding copy as they are. Stacked ``[L, ...]``
-    leaves are split into the per-layer modules. Values are cast to the model's dtype.
+    / ``convert_hf_weights`` (not the feature-major ``vision_params_to_fm`` one),
+    float or quantized by ``lmms_owc_tpu.ops.quant``. Layout rule: a JAX linear
+    kernel ``w`` is ``[in, out]`` and becomes the port's ``weight = w.T``
+    (``[out, in]``); a ``w_q8`` leaf becomes an ``Int8Linear`` (``q.T``, the
+    ``[out]`` scale as is) and a ``w_q4`` leaf an ``Int4Linear`` (``q4.T``,
+    ``scale.T``), replacing the float module; biases, norm scales (``scale`` ->
+    ``weight``) and the ``[vocab, hidden]`` embedding copy as they are. Stacked
+    ``[L, ...]`` leaves are split into the per-layer modules. Float values are
+    cast to the model's dtype; quantized leaves are copied exactly.
     """
     c = model.config
     _copy(model.embed_tokens, np.asarray(tree["embed_tokens"], np.float32))
@@ -327,25 +371,25 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
         _load_norm(layer.input_ln, lt["input_ln"], i)
         _load_norm(layer.post_ln, lt["post_ln"], i)
         for role in ("q", "k", "v", "o"):
-            _load_linear(getattr(layer, role), lt["attn"][role], i)
+            _load_linear(layer, role, lt["attn"][role], i)
         for role in ("gate", "up", "down"):
-            _load_linear(getattr(layer, role), lt["mlp"][role], i)
+            _load_linear(layer, role, lt["mlp"][role], i)
     _load_norm(model.final_norm, tree["final_norm"])
     if not c.tie_word_embeddings:
-        _load_linear(model.lm_head, tree["lm_head"])
+        _load_linear(model, "lm_head", tree["lm_head"])
 
     vt = tree["vision"]
     tower = model.vision
-    _load_linear(tower.patch_embed, vt["patch_embed"])
+    _load_linear(tower, "patch_embed", vt["patch_embed"])
     vl = vt["layers"]
     for i, blk in enumerate(tower.blocks):
         _load_norm(blk.norm1, vl["norm1"], i)
         _load_norm(blk.norm2, vl["norm2"], i)
         for role in ("qkv", "proj", "fc1", "fc2"):
-            _load_linear(getattr(blk, role), vl[role], i)
+            _load_linear(blk, role, vl[role], i)
     _load_norm(tower.merger.ln_q, vt["merger"]["ln_q"])
-    _load_linear(tower.merger.fc1, vt["merger"]["fc1"])
-    _load_linear(tower.merger.fc2, vt["merger"]["fc2"])
+    _load_linear(tower.merger, "fc1", vt["merger"]["fc1"])
+    _load_linear(tower.merger, "fc2", vt["merger"]["fc2"])
     return model
 
 
@@ -455,19 +499,32 @@ def _qkv(layer: DecoderLayer, x: torch.Tensor, config: Qwen2VLConfig):
     return q, k, v
 
 
-def _head_logits(model: Qwen2VLModel, x: torch.Tensor) -> torch.Tensor:
-    """LM head in f32 for [B, H] hidden states; tied heads read the embedding.
-
-    The product multiplies in the stored dtype and accumulates in f32, so a
-    bf16 vocab matrix is read at bf16 bytes while the logits stay f32.
-    """
-    w = model.lm_head.weight if model.lm_head is not None else model.embed_tokens  # [V, H]
-    x = x.to(w.dtype)
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` multiplied in the operands' dtype, accumulated and returned in f32."""
     if w.dtype == torch.float32:
         return torch.matmul(x, w.t())
     if w.is_cuda:
         return torch.mm(x, w.t(), out_dtype=torch.float32)
     return torch.matmul(x.float(), w.float().t())
+
+
+def _head_logits(model: Qwen2VLModel, x: torch.Tensor) -> torch.Tensor:
+    """LM head in f32 for [B, H] hidden states; tied heads read the embedding.
+
+    The product multiplies in the stored dtype and accumulates in f32, so a
+    bf16 vocab matrix is read at bf16 bytes while the logits stay f32. An int8
+    head multiplies bf16 x by its values in bf16 (f32 accumulation), then by the
+    channel scale; an int4 head is its ``dense`` on bf16 x (K4 at decode rows),
+    as the JAX package. The int8 head's bf16 copy of the vocab matrix is made
+    on each call.
+    """
+    head = model.lm_head
+    if isinstance(head, Int8Linear):
+        return _mm_f32(x.to(torch.bfloat16), head.q.to(torch.bfloat16)) * head.scale
+    if isinstance(head, Int4Linear):
+        return head(x.to(torch.bfloat16)).float()
+    w = head.weight if head is not None else model.embed_tokens  # [V, H]
+    return _mm_f32(x.to(w.dtype), w)
 
 
 @torch.inference_mode()
@@ -510,6 +567,78 @@ def prefill(
     return _head_logits(model, x), (cache_k, cache_v)
 
 
+def prefill_logits(
+    model: Qwen2VLModel,
+    input_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill for the decode pool: last-position logits and the UNPADDED KV,
+    each [num_layers, B, KVH, L, D]; :func:`write_pool_chunk` places it."""
+    logits, (ks, vs) = prefill(model, input_embeds, position_ids, attention_mask, input_embeds.shape[1])
+    return logits, ks, vs
+
+
+# ------------------------------------------------------------- int8 cache, pool
+
+
+def kv_cache_int8_enabled(device: torch.device | str | None = None) -> bool:
+    """Gate for the int8 KV cache (``LMMS_OWC_KV_INT8``), read on every call.
+
+    ``force`` enables it anywhere (CPU parity tests); ``1`` on CUDA (the
+    ``device`` given, or the default CUDA device when None).
+    """
+    mode = os.environ.get("LMMS_OWC_KV_INT8", "")
+    if mode == "force":
+        return True
+    if mode != "1":
+        return False
+    return torch.device(device).type == "cuda" if device is not None else torch.cuda.is_available()
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector symmetric int8 over the trailing head_dim axis: (q int8 [..., D],
+    scale f32 [...]) with x ~= q * scale; all-zero vectors get scale 1e-6/127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def quantize_kv_cache(
+    ks: torch.Tensor, vs: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[L, B, KVH, S, D] caches -> (k_q, v_q int8, k_scale, v_scale f32 [L, B, KVH, S])."""
+    kq, sk = _quantize_kv(ks)
+    vq, sv = _quantize_kv(vs)
+    return kq, vq, sk, sv
+
+
+def write_pool_chunk(
+    cache_k: torch.Tensor, cache_v: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    row_offset: int, front: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one chunk's prefill KV ([L, B_i, KVH, L_i, D], left-padded prompts)
+    into the preallocated pool IN PLACE: rows from ``row_offset``, the sequence
+    axis FRONT-padded by ``front`` to the pool's common prompt bucket (masked
+    off by the caller's kv_mask like ordinary left padding). Peak memory is the
+    pool plus one chunk. Returns the pool tensors."""
+    b, l = ks.shape[1], ks.shape[3]
+    cache_k[:, row_offset : row_offset + b, :, front : front + l] = ks
+    cache_v[:, row_offset : row_offset + b, :, front : front + l] = vs
+    return cache_k, cache_v
+
+
+def write_pool_scales(
+    scale_k: torch.Tensor, scale_v: torch.Tensor, sk: torch.Tensor, sv: torch.Tensor,
+    row_offset: int, front: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scale-pool companion of :func:`write_pool_chunk` for an int8 pool: one
+    chunk's [L, B_i, KVH, S_i] scales, written in place at the same offsets.
+    The token axis is axis 3 of the scales as of the cache (the JAX package's
+    scales carry a TPU sublane axis before it), so this is the same write."""
+    return write_pool_chunk(scale_k, scale_v, sk, sv, row_offset, front)
+
+
 @torch.inference_mode()
 def decode_step(
     model: Qwen2VLModel,
@@ -521,13 +650,15 @@ def decode_step(
 ) -> torch.Tensor:
     """One decode step: token_ids [B], position_ids [3, B, 1] -> logits [B, vocab] f32.
 
-    The new token's K and V are point-written IN PLACE into the stacked
-    ``cache`` ([num_layers, B, KVH, S, D] each) at ``cache_pos``; the caller's
-    cache tensors hold the update afterwards. ``kv_mask`` [B, S] must already
-    mark ``cache_pos`` valid.
+    ``cache`` is (cache_k, cache_v), each [num_layers, B, KVH, S, D], or the
+    int8 form (k_q, v_q, k_scale, v_scale) of :func:`quantize_kv_cache`. The new
+    token's K and V (quantized per vector for an int8 cache, with their scales)
+    are point-written IN PLACE at ``cache_pos``; the caller's cache tensors
+    hold the update afterwards. ``kv_mask`` [B, S] must already mark
+    ``cache_pos`` valid.
     """
     c = model.config
-    cache_k, cache_v = cache
+    cache_k, cache_v, *scales = cache
     b = token_ids.shape[0]
     x = embedding(model.embed_tokens, token_ids)[:, None, :]
     cos, sin = mrope_cos_sin(position_ids, c)
@@ -535,9 +666,16 @@ def decode_step(
         q, k, v = _qkv(layer, layer.input_ln(x), c)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        cache_k[i, :, :, cache_pos] = k[:, :, 0]
-        cache_v[i, :, :, cache_pos] = v[:, :, 0]
-        attn = gqa_decode_attention(q[:, :, 0], cache_k, cache_v, i, kv_mask)
+        if scales:
+            (kq, k_sc), (vq, v_sc) = _quantize_kv(k[:, :, 0]), _quantize_kv(v[:, :, 0])
+            cache_k[i, :, :, cache_pos] = kq
+            cache_v[i, :, :, cache_pos] = vq
+            scales[0][i, :, :, cache_pos] = k_sc
+            scales[1][i, :, :, cache_pos] = v_sc
+        else:
+            cache_k[i, :, :, cache_pos] = k[:, :, 0]
+            cache_v[i, :, :, cache_pos] = v[:, :, 0]
+        attn = gqa_decode_attention(q[:, :, 0], cache_k, cache_v, i, kv_mask, *scales)
         x = x + layer.o(attn.reshape(b, 1, -1))
         x = x + layer.mlp(x)
     return _head_logits(model, model.final_norm(x[:, 0]))
@@ -622,6 +760,9 @@ def greedy_generate(
     """Prefill + decode-until-EOS. Returns generated tokens [B, max_new_tokens]
     (positions after a sequence's EOS hold pad_token_id).
 
+    With ``LMMS_OWC_KV_INT8`` on (:func:`kv_cache_int8_enabled`) the cache is
+    quantized after the prefill and the decode runs on the int8 cache.
+
     Args:
         next_positions: [B] first M-RoPE position of the generated text per row.
         eos_ids: [num_eos] token ids that end a sequence.
@@ -632,6 +773,8 @@ def greedy_generate(
     l = input_embeds.shape[1]
     with phase("prefill"):
         logits, cache = prefill(model, input_embeds, position_ids, attention_mask, cache_len)
+        if kv_cache_int8_enabled(input_embeds.device):
+            cache = quantize_kv_cache(*cache)  # the decode-resident cache goes int8
     with phase("decode"):
         kv_mask = torch.zeros(
             (attention_mask.shape[0], cache_len), dtype=torch.int32, device=attention_mask.device
@@ -641,3 +784,35 @@ def greedy_generate(
             model, logits, cache, kv_mask, next_positions, max_new_tokens, l, eos_ids,
             generator, do_sample, temperature, top_p,
         )
+
+
+@torch.inference_mode()
+def decode_pool(
+    model: Qwen2VLModel,
+    cache: tuple,
+    logits0: torch.Tensor,
+    kv_mask: torch.Tensor,
+    next_positions: torch.Tensor,
+    max_new_tokens: int,
+    prompt_len: int,
+    eos_ids: torch.Tensor,
+    generator: torch.Generator | None = None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_p: float = 1.0,
+) -> torch.Tensor:
+    """Decode-until-EOS over a pooled cache (``LMMS_OWC_DECODE_POOL`` serving).
+
+    ``cache`` comes from :func:`write_pool_chunk` (and :func:`write_pool_scales`
+    for an int8 pool) and is updated in place; a float pool is quantized here
+    when the int8 cache is on. ``prompt_len`` is the pool's common prompt
+    bucket, the cache position of the first generated token; ``kv_mask``
+    [B, S] marks the pool's valid prompt positions and is updated in place.
+    Returns [B, max_new_tokens] tokens.
+    """
+    if kv_cache_int8_enabled(logits0.device) and len(cache) == 2:
+        cache = quantize_kv_cache(*cache)
+    return _decode_loop(
+        model, logits0, cache, kv_mask, next_positions, max_new_tokens, prompt_len, eos_ids,
+        generator, do_sample, temperature, top_p,
+    )

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``lmms_owc_tpu_torch/csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with :mod:`ctypes`. The library
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared library
+with a plain C interface, loaded with :mod:`ctypes`. The library
 lands in ``build/kernels/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads as
 is. Nothing outside the repository and the CUDA toolkit is included. A missing
@@ -27,6 +28,7 @@ __all__ = [
     "BUILD_DIR",
     "DecodeArgs",
     "FlashArgs",
+    "Int4MatmulArgs",
     "KernelBuildError",
     "build",
     "load_library",
@@ -36,7 +38,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 # Where nvcc is looked for when it is not on PATH.
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
@@ -74,11 +76,31 @@ class DecodeArgs(ctypes.Structure):
     _fields_ = [
         ("q", ctypes.c_void_p), ("k_cache", ctypes.c_void_p), ("v_cache", ctypes.c_void_p),
         ("mask", ctypes.c_void_p), ("o", ctypes.c_void_p),
+        ("k_scale", ctypes.c_void_p), ("v_scale", ctypes.c_void_p),
         ("layers", ctypes.c_int), ("batch", ctypes.c_int), ("heads", ctypes.c_int),
         ("kv_heads", ctypes.c_int), ("seq", ctypes.c_int), ("head_dim", ctypes.c_int),
-        ("layer", ctypes.c_int), ("dtype", ctypes.c_int),
+        ("layer", ctypes.c_int), ("dtype", ctypes.c_int), ("cache_int8", ctypes.c_int),
         ("scale", ctypes.c_float),
     ]
+
+
+class Int4MatmulArgs(ctypes.Structure):
+    """Mirror of ``Int4MatmulArgs`` in csrc/int4_matmul.cu (field order and types)."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p), ("q4", ctypes.c_void_p), ("scale", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("m", ctypes.c_int), ("n", ctypes.c_int), ("k", ctypes.c_int),
+        ("groups", ctypes.c_int), ("dtype", ctypes.c_int),
+    ]
+
+
+# (C entry, its argument struct): each takes (const Args*, cudaStream_t) -> int.
+_ENTRIES = (
+    ("owc_flash_attention", FlashArgs),
+    ("owc_gqa_decode_attention", DecodeArgs),
+    ("owc_int4_matmul", Int4MatmulArgs),
+)
 
 
 def _sources() -> list[Path]:
@@ -106,27 +128,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libowc_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in cmds]
+    errors = [proc.communicate()[1] for proc in procs]  # waits for every process
+    for cmd, proc, err in zip(cmds, procs, errors):
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err[-4000:]}")
+
+
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its path."""
     path = library_path()
     if path.exists():
         return path
     nvcc = _nvcc()
-    units = [str(p) for p in _sources() if p.suffix == ".cu"]
+    units = [p for p in _sources() if p.suffix == ".cu"]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *units]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-4000:]}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objects = [str(Path(tmpdir) / f"{p.stem}.o") for p in units]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o", obj]
+            for src, obj in zip(units, objects)
+        ])
+        tmp = str(Path(tmpdir) / "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]])
         os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return path
 
 
@@ -139,9 +166,9 @@ def load_library() -> ctypes.CDLL:
         if _LIBRARY is not None:
             return _LIBRARY
         lib = ctypes.CDLL(str(build()))
-        lib.owc_flash_attention.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
-        lib.owc_flash_attention.restype = ctypes.c_int
-        lib.owc_gqa_decode_attention.argtypes = [ctypes.POINTER(DecodeArgs), ctypes.c_void_p]
-        lib.owc_gqa_decode_attention.restype = ctypes.c_int
+        for name, args in _ENTRIES:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _LIBRARY = lib
         return _LIBRARY

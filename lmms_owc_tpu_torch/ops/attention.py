@@ -9,13 +9,15 @@ Qwen2-VL main path:
     token-major): reads q/k/v in place from the qkv projection output, rope
     in the kernel; same CUDA kernel.
   - :func:`gqa_decode_attention` — decode (port of ``_decode_kernel``, K3) against
-    one layer of the stacked KV cache, ``csrc/decode_attn.cu``.
+    one layer of the stacked KV cache, bf16/f32 or int8 with per-position
+    scales, ``csrc/decode_attn.cu``.
 
 Each wrapper takes its plain version (``*_plain``, built on
 :func:`attention_reference` and :func:`gqa_attention_reference`) only when the
 tensors lie on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back. Every launch
-adds one to :data:`launch_counts` under the wrapper's name.
+adds one to :data:`launch_counts` under the wrapper's name (the int8-cache
+decode under ``gqa_decode_attention_int8``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ launch_counts: dict[str, int] = {
     "flash_attention": 0,
     "vision_qkv_attention": 0,
     "gqa_decode_attention": 0,
+    "gqa_decode_attention_int8": 0,
 }
 
 
@@ -167,13 +170,21 @@ def gqa_decode_attention_plain(
     cache_v: torch.Tensor,
     layer_idx: int,
     kv_mask: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     *,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Plain version of :func:`gqa_decode_attention`: [B, H, D] against ``cache[layer_idx]``."""
-    out = gqa_attention_reference(
-        q[:, :, None, :], cache_k[layer_idx], cache_v[layer_idx], kv_mask=kv_mask, scale=scale
-    )
+    """Plain version of :func:`gqa_decode_attention`: [B, H, D] against ``cache[layer_idx]``.
+
+    An int8 cache is dequantized to ``q.dtype`` first (values times scales in
+    f32), as the JAX package's fallback does.
+    """
+    ck, cv = cache_k[layer_idx], cache_v[layer_idx]
+    if k_scale is not None:
+        ck = (ck.float() * k_scale[layer_idx][..., None]).to(q.dtype)
+        cv = (cv.float() * v_scale[layer_idx][..., None]).to(q.dtype)
+    out = gqa_attention_reference(q[:, :, None, :], ck, cv, kv_mask=kv_mask, scale=scale)
     return out[:, :, 0, :]
 
 
@@ -363,6 +374,8 @@ def gqa_decode_attention(
     cache_v: torch.Tensor,
     layer_idx: int,
     kv_mask: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     *,
     scale: float | None = None,
 ) -> torch.Tensor:
@@ -370,30 +383,52 @@ def gqa_decode_attention(
 
     Args:
         q: [B, H, D] current-token queries (consecutive query heads share a KV head).
-        cache_k, cache_v: [L, B, KVH, S, D] stacked caches (contiguous on the card).
+        cache_k, cache_v: [L, B, KVH, S, D] stacked caches (contiguous on the card),
+            in q's dtype or int8.
         layer_idx: the layer to attend against (a host int).
         kv_mask: [B, S], nonzero = attend.
+        k_scale, v_scale: [L, B, KVH, S] f32 per-position dequant scales of an
+            int8 cache (the JAX package's [L, B, KVH, 8, S] without the TPU
+            sublane replication); required with an int8 cache.
     Returns: [B, H, D] in q.dtype.
     """
     b, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    int8 = cache_k.dtype == torch.int8
+    if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache takes k_scale and v_scale, a float cache neither")
     if q.device.type == "cpu":
-        return gqa_decode_attention_plain(q, cache_k, cache_v, layer_idx, kv_mask, scale=scale)
+        return gqa_decode_attention_plain(
+            q, cache_k, cache_v, layer_idx, kv_mask, k_scale, v_scale, scale=scale
+        )
     lib = _build.load_library()
-    dtype = _check_operands({"q": q, "cache_k": cache_k, "cache_v": cache_v})
+    if int8:
+        dtype = _check_operands({"q": q})
+        for name, t in (("cache_k", cache_k), ("cache_v", cache_v), ("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != q.device:
+                raise ValueError(f"{name}: expected a tensor on {q.device}, got {t.device}")
+        if cache_v.dtype != torch.int8 or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise ValueError("an int8 cache takes int8 k/v and f32 scales")
+    else:
+        dtype = _check_operands({"q": q, "cache_k": cache_k, "cache_v": cache_v})
     layers, cb, kvh, s, cd = cache_k.shape
     if cb != b or cd != d or cache_v.shape != cache_k.shape or h % kvh != 0:
         raise ValueError(f"shape mismatch: q {q.shape}, cache {cache_k.shape} / {cache_v.shape}")
+    if int8 and (k_scale.shape != (layers, b, kvh, s) or v_scale.shape != k_scale.shape):
+        raise ValueError(f"scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)} != [{layers}, {b}, {kvh}, {s}]")
     if not 0 <= layer_idx < layers:
         raise ValueError(f"layer_idx {layer_idx} outside [0, {layers})")
-    vec = 16 // q.element_size()  # the kernel reads cache rows as 16-byte vectors
+    vec = 16 // cache_k.element_size()  # the kernel reads cache rows as 16-byte vectors
     if h // kvh > 8 or d > 128 or d % vec:
         raise ValueError(
             f"decode kernel takes groups <= 8 and head_dim <= 128 divisible by {vec}, "
             f"got {h // kvh}, {d}"
         )
-    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+    operands = (("q", q), ("cache_k", cache_k), ("cache_v", cache_v))
+    if int8:
+        operands += (("k_scale", k_scale), ("v_scale", v_scale))
+    for name, t in operands:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
@@ -404,9 +439,11 @@ def gqa_decode_attention(
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     args = _build.DecodeArgs(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], scale,
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
+        layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], int(int8), scale,
     )
     code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
-    _raise_on_error(code, "gqa_decode_attention")
-    launch_counts["gqa_decode_attention"] += 1
+    name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
+    _raise_on_error(code, name)
+    launch_counts[name] += 1
     return out

@@ -52,10 +52,14 @@ def test_requests_match_the_main_path_workload():
     sizes = [model._fetch_visuals(r.args)[0].size for r in reqs]
     assert sizes.count((448, 448)) == 6 and sizes.count((448, 336)) == 2
     assert all(r.args[1]["max_new_tokens"] == 64 and not r.args[1]["do_sample"] for r in reqs)
-    assert set(chip_smoke.MIN_LAUNCHES) == set(chip_smoke.KERNELS)
+    assert set(chip_smoke.MIN_LAUNCHES) | set(chip_smoke.MIN_LAUNCHES_PER_DECODE_STEP) == set(chip_smoke.KERNELS)
+    assert chip_smoke.MIN_LAUNCHES_PER_DECODE_STEP == {"gqa_decode_attention_int8": 28, "int4_matmul": 197}
 
 
-@pytest.mark.parametrize("name", ["vision_qkv_attention", "flash_attention", "gqa_decode_attention"])
+@pytest.mark.parametrize(
+    "name",
+    ["vision_qkv_attention", "flash_attention", "gqa_decode_attention", "int4_matmul", "gqa_decode_attention_int8"],
+)
 def test_kernel_sources_exist(name):
     import chip_smoke
 
@@ -64,3 +68,17 @@ def test_kernel_sources_exist(name):
     path, line = replaces.split(":")
     lines = (REPO_ROOT / path).read_text().splitlines()
     assert lines[int(line) - 1].startswith("def _")  # the Pallas kernel body
+
+
+def test_pool_phase_workload():
+    """Phase 5 is the JAX bench's serving shape: 96 448x448 requests at batch
+    48, so two chunks of 48 rows make one pool of 96."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    model = get_model("qwen2-vl-tiny", batch_size=chip_smoke.POOL_BATCH, dtype="float32", device="cpu")
+    reqs = chip_smoke._requests(model, [(448, 448)] * chip_smoke.POOL_REQUESTS)
+    assert (chip_smoke.POOL_BATCH, chip_smoke.POOL_REQUESTS) == (48, 96) and len(reqs) == 96
+    assert {model._fetch_visuals(r.args)[0].size for r in reqs} == {(448, 448)}
+    assert set(chip_smoke.INT4_ROWS) == {96, 8}
+    assert chip_smoke.INT4_SHAPES["down"] == (18944, 3584) and chip_smoke.INT4_SHAPES["lm_head"] == (3584, 152064)

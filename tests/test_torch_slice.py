@@ -106,17 +106,35 @@ def test_mixed_sizes_generate_until_identical(adapters, monkeypatch):
 
 
 def test_decode_pool_raises(adapters, monkeypatch):
+    """The decode pool is ported: ``LMMS_OWC_DECODE_POOL=2`` no longer raises,
+    and pooled serving gives the port's unpooled answers (the pattern of
+    ``tests/test_decode_pool.py``): mixed prompt buckets, so the pool
+    front-pads the shorter chunk, and an empty request list."""
     _, port = adapters
+    rng = np.random.RandomState(11)
+    docs = [{"image": Image.fromarray(rng.randint(0, 255, (56, 56, 3), dtype=np.uint8))} for _ in range(6)]
+
+    class _Task:
+        dataset = {"test": docs}
+
+    port.task_dict["pool"] = _Task()
+    gen_kwargs = {"max_new_tokens": 8, "do_sample": False, "until": None}
+    contexts = ["Describe the scene in detail. " * 12] * 2 + ["What?", "Name it.", "What is shown?", "Say it."]
+    requests = [_Req((contexts[i], gen_kwargs, lambda d: [d["image"]], i, "pool", "test")) for i in range(6)]
+    monkeypatch.setenv("LMMS_OWC_SORT_BY_VISION", "0")  # chunks of 4 and 2 rows, two buckets
+    monkeypatch.delenv("LMMS_OWC_DECODE_POOL", raising=False)
+    base = port.generate_until(requests)
     monkeypatch.setenv("LMMS_OWC_DECODE_POOL", "2")
-    with pytest.raises(NotImplementedError, match="decode pool"):
-        port.generate_until([])
+    assert port.generate_until([]) == []
+    pooled = port.generate_until(requests)
+    assert pooled == base and len(pooled) == 6
 
 
 def test_unported_surfaces_raise():
     from lmms_owc_tpu_torch.models import get_model
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        get_model("qwen2-vl-tiny", device="cpu", load_in_8bit=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        get_model("qwen2-vl-tiny", device="cpu", load_in_8bit=True, load_in_4bit=True)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         get_model("qwen2-vl-tiny", device="cpu", pretrained="/nonexistent")
 
@@ -138,6 +156,18 @@ def test_port_imports_no_jax():
         "from lmms_owc_tpu_torch.models import get_model\n"
         "m = get_model('qwen2-vl-tiny', batch_size=2, dtype='float32', device='cpu')\n"
         "assert m.config.hidden_size == 64\n"
+        "import os\n"
+        "import numpy as np\n"
+        "from PIL import Image\n"
+        "q = get_model('qwen2-vl-tiny', batch_size=2, dtype='float32', device='cpu', load_in_8bit=True)\n"
+        "class T:\n"
+        "    dataset = {'test': [{'image': Image.fromarray(np.zeros((56, 56, 3), np.uint8))}] * 3}\n"
+        "q.task_dict['t'] = T()\n"
+        "class R:\n"
+        "    def __init__(self, i):\n"
+        "        self.args = ('What?', {'max_new_tokens': 3}, lambda d: [d['image']], i, 't', 'test')\n"
+        "os.environ.update(LMMS_OWC_DECODE_POOL='2', LMMS_OWC_KV_INT8='force')\n"
+        "assert len(q.generate_until([R(i) for i in range(3)])) == 3\n"
         "loaded = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not loaded, loaded\n"
         "print('NO_JAX_OK')\n"
