@@ -15,8 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's and the plain version's times: the median per call between CUDA
    events (launch overhead included) and the device time the profiler records.
    K4 (``int4_matmul``) runs every 7B decode product at M = 96 and M = 8; the
-   int8-cache decode runs at the pooled shape. The kernels' f32 forms are
-   checked at small ragged shapes.
+   int8-cache decode runs at the pooled shape; K2's combined-qkv entry runs
+   at the Qwen2.5-VL tower's global and window shapes with the gappy mask of a
+   392x448 image's window layout, K2's tensor-mask form also at the prefill
+   shape, and K5's packed entry at the Qwen2-VL tower's shape. The kernels'
+   f32 forms are checked at small ragged shapes.
 3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
    on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
@@ -36,6 +39,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    must run on every decode-step product (7 x 28 + 1 per step), and one
    decode step's logits through K4 are held to the plain version within
    ``LOGITS_REL_L2``.
+7. Qwen2.5-VL: ``qwen2.5-vl-7b`` with random bf16 weights answers 8 requests
+   (six 448x448, two 392x448; the second size pads windows, so the tower's
+   attention takes K2's tensor mask) through ``generate_until``; images/s,
+   phase seconds, peak memory and launches are printed, and one chunk's
+   prefill logits are held to the plain versions by phase 4's rule.
+8. K5: phase 3's ``qwen2-vl-7b`` tower (run right after phase 3, before
+   phase 4 turns the weights to f32) encodes phase 3's images with
+   ``LMMS_OWC_VISION_PACKED=1`` and without; the packed call must launch
+   ``packed_vision_attention`` once per layer, and the merged embeddings of
+   real patches must agree with the unpacked ones as closely as the plain
+   versions' do (+25%), or within ``PACKED_REL_L2``.
 
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -50,7 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 import numpy as np
 
@@ -66,9 +80,21 @@ MIN_POOL_AGREEMENT = 0.95  # rows with the unpooled run's tokens (expected 1.0)
 MIN_LAUNCHES = {"vision_qkv_attention": 32, "flash_attention": 28, "gqa_decode_attention": 28}
 # Phases 5 and 6: launches per decode step (28 layers; int4: 7 products each plus the head).
 MIN_LAUNCHES_PER_DECODE_STEP = {"gqa_decode_attention_int8": 28, "int4_matmul": 7 * 28 + 1}
+# Phase 7 (qwen2.5-vl-7b, bf16): six 448x448 and two 392x448 requests; launches
+# per generate_until call: 32 tower layers for each of the two grids, the
+# padded grid's with a tensor mask, 28 prefill layers, 28 per decode step.
+V25_SIZES = [(448, 448)] * 6 + [(392, 448)] * 2
+MIN_LAUNCHES_V25 = {
+    "fused_qkv_attention": 64, "flash_attention_tensor_mask": 32,
+    "flash_attention": 28, "gqa_decode_attention": 28,
+}
+PACKED_LAUNCHES = 32  # phase 8: one packed tower call, one launch per layer
+PACKED_REL_L2 = 5e-2  # the JAX packed-vs-unpacked tower test's bound
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
+    "fused_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
+    "packed_vision_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:630"),
     "gqa_decode_attention": ("lmms_owc_tpu_torch/csrc/decode_attn.cu", "lmms_owc_tpu/ops/attention.py:838"),
     "int4_matmul": ("lmms_owc_tpu_torch/csrc/int4_matmul.cu", "lmms_owc_tpu/ops/int4_matmul.py:72"),
     "gqa_decode_attention_int8": ("lmms_owc_tpu_torch/csrc/decode_attn.cu", "lmms_owc_tpu/ops/attention.py:838"),
@@ -252,12 +278,122 @@ def check_kernels(dev) -> dict[str, dict]:
                    lambda: att.gqa_decode_attention_plain(qp, kq, vq, layers - 1, pmask, sk, sv)),
     )
     del kq, vq, sk, sv
+    results.update(check_tower_entries(dev, gen))
     results["int4_matmul"] = check_int4(dev, gen)
     for name, r in results.items():
-        log(f"parity {name}: {r['shape']}: max abs err {r['max_abs_err']:.3e}; per call "
-            f"(median of 20, CUDA events) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
-            f"device time (profiler) kernel {r['device_ms']} ms, plain {r['plain_device_ms']} ms")
+        for label, row in [(name, r)] + [(f"{name} ({k})", v) for k, v in r.get("also", {}).items()]:
+            log(f"parity {label}: {row['shape']}: max abs err {row['max_abs_err']:.3e}; per call "
+                f"(median of 20, CUDA events) kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
+                f"device time (profiler) kernel {row['device_ms']} ms, plain {row['plain_device_ms']} ms")
+    # The gappy-mask prefill is K2's tensor-mask form through flash_attention.
+    gappy = results.pop("flash_attention_tensor_mask")
+    results["flash_attention"]["also"] = {"tensor_mask": gappy}
+    results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"], gappy["max_abs_err"])
     check_f32_kernels(dev, gen)
+    return results
+
+
+def _v25_window_layout(grid):
+    """(slot_src, valid [W*S] int32, tok_idx, W, S) of one image in the
+    Qwen2.5-VL-7B window layout, as the adapter builds it."""
+    from lmms_owc_tpu_torch.nn.qwen2_5_vl import Qwen25VisionConfig, get_window_layout
+
+    v25 = Qwen25VisionConfig()
+    mu = v25.spatial_merge_size**2
+    slot_src, wn, s = get_window_layout(grid, v25)
+    valid_units = slot_src >= 0
+    tok_idx = (np.where(valid_units, slot_src, 0)[:, None] * mu + np.arange(mu)).reshape(-1)
+    return slot_src, np.repeat(valid_units, mu).astype(np.int32), tok_idx, wn, s
+
+
+def check_tower_entries(dev, gen) -> dict[str, dict]:
+    """Phase 2, the entries of this slice: K2's combined-qkv entry at the
+    Qwen2.5-VL tower's global and window shapes, K2's tensor mask at the
+    prefill shape, and K5's packed entry at the Qwen2-VL tower's shape."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.qwen2_5_vl import Qwen25VisionConfig, vision25_rope_freqs
+    from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLVisionConfig, vision_rope_cos_sin
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    results = {}
+    # Qwen2.5-VL tower: 8 images of 392x448 (28x32 patches; 14x16 merge units
+    # in 4x4-unit windows, so the last window row pads: 896 of 1024 slots
+    # valid, the gaps inside the global layers' key run), token-major qkv of
+    # 16 heads of 80, rope in slot order, as the tower calls the entry.
+    n, h, d = 8, 16, 80
+    grid = (1, 28, 32)
+    _, valid, tok_idx, wn, s = _v25_window_layout(grid)
+    l = wn * s
+    freqs = torch.from_numpy(vision25_rope_freqs(grid, Qwen25VisionConfig())[tok_idx] * valid[:, None]).to(dev)
+    freqs = freqs.float()[None].expand(n, l, d // 2).reshape(n * l, d // 2)
+    cos, sin = torch.cos(freqs), torch.sin(freqs)
+    mask = torch.from_numpy(valid).to(dev)[None].expand(n, l).reshape(n * l)
+    qkv = randn(n, l, 3 * h, d)
+    shapes = {"global": (n, l), "window": (n * wn, s)}
+    rows = {}
+    for label, (b, length) in shapes.items():
+        kw = dict(kv_mask=mask.view(b, length), rope_cos=cos.view(b, length, -1),
+                  rope_sin=sin.view(b, length, -1), token_major=True)
+        x = qkv.view(b, length, 3 * h, d)
+        err = _compare(f"fused_qkv_attention[{label}]", att.fused_qkv_attention(x, h, h, **kw),
+                       att.fused_qkv_attention_plain(x, h, h, **kw))
+        rows[label] = dict(
+            shape=f"qkvh [{b}, {3 * h}, {length}, {d}] bf16 (token-major view), rope, the window mask of "
+                  f"a 392x448 image ({int(valid.sum())} of {l} slots valid)",
+            max_abs_err=err,
+            **_timings(lambda: att.fused_qkv_attention(x, h, h, **kw),
+                       lambda: att.fused_qkv_attention_plain(x, h, h, **kw)),
+        )
+    # The head-major [B, H + 2*KVH, L, D] form of the same entry, parity only.
+    kw = dict(kv_mask=mask.view(n, l), rope_cos=cos.view(n, l, -1), rope_sin=sin.view(n, l, -1))
+    head_major = qkv.permute(0, 2, 1, 3).contiguous()
+    err = _compare("fused_qkv_attention[head-major]", att.fused_qkv_attention(head_major, h, h, **kw),
+                   att.fused_qkv_attention_plain(head_major, h, h, **kw))
+    results["fused_qkv_attention"] = dict(rows["global"], also={"window layers": rows["window"]})
+    results["fused_qkv_attention"]["max_abs_err"] = max(err, rows["global"]["max_abs_err"], rows["window"]["max_abs_err"])
+    del qkv, head_major
+
+    # K2's tensor mask at the prefill shape: causal GQA with random holes and
+    # a masked head run per row; query rows that see no valid key are skipped.
+    b, nh, kvh, l, hd = 8, 28, 4, 320, 128
+    q, k, v = randn(b, nh, l, hd), randn(b, kvh, l, hd), randn(b, kvh, l, hd)
+    gmask = (torch.rand((b, l), generator=gen, device=dev) > 0.3).to(torch.int32)
+    gmask[torch.arange(l, device=dev)[None, :] < torch.arange(b, device=dev)[:, None] * 20] = 0
+    kw = dict(causal=True, kv_mask=gmask)
+    seen = (torch.cumsum(gmask, dim=1) > 0)[:, None, :].expand(b, nh, l)
+    err = _compare("flash_attention[tensor mask]", att.flash_attention(q, k, v, **kw),
+                   att.flash_attention_plain(q, k, v, **kw), seen)
+    results["flash_attention_tensor_mask"] = dict(
+        shape=f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, gappy mask "
+              f"({int(gmask.sum())} of {b * l} keys valid)",
+        max_abs_err=err,
+        **_timings(lambda: att.flash_attention(q, k, v, **kw), lambda: att.flash_attention_plain(q, k, v, **kw)),
+    )
+    del q, k, v
+
+    # K5: the Qwen2-VL tower's packed qkv, [8, 1024, 3*16*128] with each
+    # head's 80 columns zero-padded to 128, rope freqs of a 32x32 patch grid,
+    # every row masked to its first 768 patches.
+    n, p, hp = 8, 1024, 128
+    packed = torch.nn.functional.pad(randn(n, p, 3, h, d), (0, hp - d)).reshape(n, p, 3 * h * hp)
+    pfreqs = torch.from_numpy(vision_rope_cos_sin([(1, 32, 32)], Qwen2VLVisionConfig())).to(dev)[None].expand(n, p, d // 2)
+    pmask = torch.zeros((n, p), dtype=torch.int32, device=dev)
+    pmask[:, :768] = 1
+    kw = dict(kv_mask=pmask, freqs=pfreqs)
+    got = att.packed_vision_attention(packed, h, d, **kw)
+    err = _compare("packed_vision_attention", got, att.packed_attention_reference(packed, h, d, **kw))
+    if bool(got.view(n, p, h, hp)[..., d:].any()):
+        raise AssertionError("packed_vision_attention: padding columns are not zero")
+    results["packed_vision_attention"] = dict(
+        shape=f"qkv [{n}, {p}, 3*{h}*{hp}] bf16 (head_dim {d} padded to {hp}), freqs, mask (0, 768) on every row",
+        max_abs_err=err,
+        **_timings(lambda: att.packed_vision_attention(packed, h, d, **kw),
+                   lambda: att.packed_attention_reference(packed, h, d, **kw)),
+    )
     return results
 
 
@@ -318,6 +454,15 @@ def check_f32_kernels(dev, gen) -> None:
     got = att.flash_attention(q, k, v, causal=True, kv_mask=pmask, kv_mask_contiguous=True)
     want = att.flash_attention_plain(q, k, v, causal=True, kv_mask=pmask)
     errs.append(torch.cat([(got - want)[0].flatten(), (got - want)[1, :, 70:].flatten()]).abs().max())
+    gappy = (randn(2, 130) > -0.5).to(torch.int32)  # K2's tensor mask, non-causal
+    gappy[:, 3] = 1
+    errs.append((att.flash_attention(q, k, v, kv_mask=gappy) - att.flash_attention_plain(q, k, v, kv_mask=gappy)).abs().max())
+    qkvh = randn(2, 100, 3 * 2 * 80)
+    fmask = (randn(2, 100) > -0.5).to(torch.int32)
+    fmask[:, 0] = 1
+    kw = dict(kv_mask=fmask, rope_cos=cos[:, :100], rope_sin=sin[:, :100], token_major=True)
+    errs.append((att.fused_qkv_attention(qkvh.view(2, 100, 6, 80), 2, 2, **kw)
+                 - att.fused_qkv_attention_plain(qkvh.view(2, 100, 6, 80), 2, 2, **kw)).abs().max())
     qd, ck, cv = randn(2, 8, 64), randn(3, 2, 2, 100, 64), randn(3, 2, 2, 100, 64)
     dmask = torch.ones((2, 100), dtype=torch.int32, device=dev)
     dmask[0, :30] = 0
@@ -330,7 +475,8 @@ def check_f32_kernels(dev, gen) -> None:
         qp = quantize_int4(randn(256, 512) * 0.02, group=group)
         errs.append((i4.int4_matmul(x, qp["q4"], qp["scale"]) - i4.int4_matmul_plain(x, qp["q4"], qp["scale"])).abs().max())
     errs = [float(e) for e in errs]
-    log(f"f32 forms (vision D=80, prefill D=64 L=130, decode D=64 with an f32 and an int8 cache, "
+    log(f"f32 forms (vision D=80, prefill D=64 L=130, the same with a gappy mask, combined qkv D=80 "
+        f"L=100 with a gappy mask, decode D=64 with an f32 and an int8 cache, "
         f"int4 M=5 K=512 N=256 in groups of 128, 64, 8): max abs errs {errs}")
     if not all(e <= tol for e in errs):
         raise AssertionError(f"f32 kernel forms disagree with their plain versions beyond {tol}: {errs}")
@@ -361,29 +507,49 @@ def _requests(model, sizes=None):
     return [_Req(i) for i in range(len(docs))]
 
 
-def run_main_path(dev) -> tuple[object, list, dict[str, int]]:
-    """Phase 3: Qwen2-VL-7B random bf16 weights, 8 requests through generate_until."""
+def serve_bf16(dev, preset: str, sizes, min_launches: dict[str, int], label: str) -> tuple[object, list, dict]:
+    """``preset`` with random bf16 weights drawn on the card answers 8 image
+    requests through generate_until (a warm-up call, then the measured one);
+    each kernel in ``min_launches`` must have run at least that often."""
     import torch
 
     from lmms_owc_tpu_torch.models import get_model
 
     t0 = time.perf_counter()
     model = get_model(
-        "qwen2-vl-7b", random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS,
+        preset, random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS,
         device=str(dev), time_phases=True,
     )
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.model.parameters())
-    log(f"qwen2-vl-7b: {n_params / 1e9:.3f} B parameters drawn on the card in "
+    log(f"{preset}: {n_params / 1e9:.3f} B parameters drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    requests = _requests(model)
+    requests = _requests(model, sizes)
     model.generate_until(requests)  # warm-up: cuBLAS handles, allocator, kernel library
     run = _serve(model, requests)
-    _log_run("bf16, unpooled", run)
-    for name, least in MIN_LAUNCHES.items():
+    _log_run(label, run)
+    for name, least in min_launches.items():
         if run["counts"][name] < least:
-            raise AssertionError(f"{name} launched {run['counts'][name]} times in the main path, expected >= {least}")
+            raise AssertionError(f"{name} launched {run['counts'][name]} times in the {preset} run, expected >= {least}")
+    return model, requests, run
+
+
+def run_main_path(dev) -> tuple[object, list, dict[str, int]]:
+    """Phase 3: Qwen2-VL-7B random bf16 weights, 8 requests through generate_until."""
+    model, requests, run = serve_bf16(dev, "qwen2-vl-7b", None, MIN_LAUNCHES, "bf16, unpooled")
     return model, requests, run["counts"]
+
+
+def run_v25(dev) -> dict:
+    """Phase 7: Qwen2.5-VL-7B random bf16 weights, six 448x448 and two 392x448
+    requests through generate_until, then phase 4's bf16 logits rule."""
+    model, requests, run = serve_bf16(
+        dev, "qwen2.5-vl-7b", V25_SIZES, MIN_LAUNCHES_V25, "qwen2.5-vl-7b bf16, unpooled"
+    )
+    run["logits"] = check_bf16_logits(model, requests, "qwen2.5-vl-7b bf16")
+    del model, requests
+    _free()
+    return run
 
 
 def _exact_flash(q, k, v, **kw):
@@ -397,6 +563,12 @@ def _exact_vision(qkv, num_heads, head_dim, **kw):
     return att.vision_qkv_attention_plain(qkv.float(), num_heads, head_dim, **kw).to(qkv.dtype)
 
 
+def _exact_fused(qkvh, num_q_heads, num_kv_heads, **kw):
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    return att.fused_qkv_attention_plain(qkvh.float(), num_q_heads, num_kv_heads, **kw).to(qkvh.dtype)
+
+
 def _plain_flash(*args, kv_mask_contiguous=False, **kw):
     from lmms_owc_tpu_torch.ops import attention as att
 
@@ -404,12 +576,25 @@ def _plain_flash(*args, kv_mask_contiguous=False, **kw):
 
 
 @contextmanager
-def _attention(flash, vision):
-    """Route the model's prefill and vision attention through other functions."""
+def _attention(**fns):
+    """Route the model's attention entries, by name, through other functions."""
+    from lmms_owc_tpu_torch.nn import qwen2_5_vl as nnq25
     from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
 
-    with _route(nnq, "flash_attention", flash), _route(nnq, "vision_qkv_attention", vision):
+    with ExitStack() as stack:
+        for name, fn in fns.items():
+            stack.enter_context(_route(nnq25 if name == "fused_qkv_attention" else nnq, name, fn))
         yield
+
+
+def _plain_attention():
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    return _attention(
+        flash_attention=_plain_flash, vision_qkv_attention=att.vision_qkv_attention_plain,
+        fused_qkv_attention=att.fused_qkv_attention_plain,
+        packed_vision_attention=att.packed_attention_reference,
+    )
 
 
 def _rel_l2(a, b) -> float:
@@ -418,58 +603,111 @@ def _rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def check_whole_model(model, requests) -> dict[str, float]:
-    """Phase 4: last-position prefill logits of one chunk (vision tower, then
-    prefill), through the kernels and through the plain versions.
-
-    In bf16 the two paths differ by bf16 rounding amplified through 60 random
-    layers, and so does the plain path from the same model with its attention
-    computed in f32 ("exact"); the kernel path must be no farther from exact
-    than the plain path is (with 25% headroom). Then the same weights in f32:
-    kernel path against plain path within LOGITS_REL_L2.
-    """
+def _chunk_logits(model, requests):
+    """Last-position prefill logits of one chunk of requests (vision tower, then prefill)."""
     import torch
 
     from lmms_owc_tpu_torch.nn.qwen2_vl import prefill
-    from lmms_owc_tpu_torch.ops import attention as att
 
-    chunk = [r.args for r in requests]
+    rows, vision_flat = model._prepare_requests_batch([r.args for r in requests])
+    embeds, pos, mask, _, bucket = model._build_batch_inputs(rows, vision_flat)
+    out, _ = prefill(
+        model.model, embeds, torch.from_numpy(pos).to(model.device),
+        torch.from_numpy(mask.astype(np.int32)).to(model.device), bucket,
+    )
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("prefill logits have non-finite values")
+    return out
 
-    def logits():
-        rows, vision_flat = model._prepare_requests_batch(chunk)
-        embeds, pos, mask, _, bucket = model._build_batch_inputs(rows, vision_flat)
-        out, _ = prefill(
-            model.model, embeds, torch.from_numpy(pos).to(model.device),
-            torch.from_numpy(mask.astype(np.int32)).to(model.device), bucket,
-        )
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError("prefill logits have non-finite values")
-        return out
 
-    got = logits()
-    with _attention(_plain_flash, att.vision_qkv_attention_plain):
-        plain = logits()
-    with _attention(_exact_flash, _exact_vision):
-        exact = logits()
+def check_bf16_logits(model, requests, label: str) -> dict[str, float]:
+    """Phase 4's bf16 rule on one chunk's prefill logits. The kernel and plain
+    paths differ by bf16 rounding amplified through the random layers, and so
+    does the plain path from the same model with its attention computed in
+    f32 ("exact"); the kernel path must be no farther from exact than the
+    plain path is (with 25% headroom)."""
+    got = _chunk_logits(model, requests)
+    with _plain_attention():
+        plain = _chunk_logits(model, requests)
+    with _attention(flash_attention=_exact_flash, vision_qkv_attention=_exact_vision,
+                    fused_qkv_attention=_exact_fused):
+        exact = _chunk_logits(model, requests)
     rel = {
         "kernel_vs_plain": _rel_l2(got, plain),
         "kernel_vs_exact": _rel_l2(got, exact),
         "plain_vs_exact": _rel_l2(plain, exact),
     }
-    log(f"whole model bf16: prefill logits {tuple(got.shape)} relative L2 {rel}")
+    log(f"{label}: prefill logits {tuple(got.shape)} relative L2 {rel}")
     if rel["kernel_vs_exact"] > max(LOGITS_REL_L2, 1.25 * rel["plain_vs_exact"]):
-        raise AssertionError(f"kernel path farther from f32 attention than the plain path: {rel}")
+        raise AssertionError(f"{label}: kernel path farther from f32 attention than the plain path: {rel}")
+    return rel
 
+
+def check_whole_model(model, requests) -> dict[str, float]:
+    """Phase 4: last-position prefill logits of one chunk (vision tower, then
+    prefill), through the kernels and through the plain versions: in bf16 by
+    :func:`check_bf16_logits`, then with the weights in f32, kernel path
+    against plain path within LOGITS_REL_L2.
+    """
+    rel = check_bf16_logits(model, requests, "whole model bf16")
     model.model.float()
-    got = logits()
-    with _attention(_plain_flash, att.vision_qkv_attention_plain):
-        plain = logits()
+    got = _chunk_logits(model, requests)
+    with _plain_attention():
+        plain = _chunk_logits(model, requests)
     rel["f32_kernel_vs_plain"] = _rel_l2(got, plain)
     log(f"whole model f32: relative L2 kernel vs plain {rel['f32_kernel_vs_plain']:.3e} "
         f"(bound {LOGITS_REL_L2}), argmax agreement {float((got.argmax(-1) == plain.argmax(-1)).float().mean()):.3f}")
     if rel["f32_kernel_vs_plain"] > LOGITS_REL_L2:
         raise AssertionError(f"f32 prefill logits relative L2 {rel['f32_kernel_vs_plain']:.3e} > {LOGITS_REL_L2}")
     return rel
+
+
+def check_packed_tower(model, requests) -> dict:
+    """Phase 8: the Qwen2-VL tower packed (K5) and unpacked (K1) on the same
+    images, through the kernels and through the plain versions."""
+    import torch
+
+    images = [model._fetch_visuals(r.args)[0] for r in requests]
+
+    def encode(mode: str):
+        with _env(LMMS_OWC_VISION_PACKED=mode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flat, spans, _ = model._encode_images_flat(images)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        real = torch.cat([flat[off : off + count] for off, count in spans]).float()  # rows of real patches
+        if not bool(torch.isfinite(real).all()):
+            raise AssertionError(f"packed={mode!r}: vision embeddings have non-finite values")
+        return real, seconds
+
+    encode("1")  # builds the padded weights once
+    runs = {}
+    for mode in ("1", "", "1", ""):  # packed, unpacked, packed, unpacked: the second pair is kept
+        _reset_counts()
+        out, seconds = encode(mode)
+        runs[mode] = (out, seconds, _counts())
+    (packed, packed_s, packed_counts), (unpacked, unpacked_s, unpacked_counts) = runs["1"], runs[""]
+    if packed_counts["packed_vision_attention"] != PACKED_LAUNCHES or packed_counts["vision_qkv_attention"]:
+        raise AssertionError(f"packed tower launches {packed_counts}, expected {PACKED_LAUNCHES} packed")
+    if unpacked_counts["vision_qkv_attention"] != PACKED_LAUNCHES or unpacked_counts["packed_vision_attention"]:
+        raise AssertionError(f"unpacked tower launches {unpacked_counts}, expected {PACKED_LAUNCHES} unpacked")
+    with _plain_attention():
+        plain_packed, _ = encode("1")
+        plain_unpacked, _ = encode("")
+    rel = {
+        "kernel_packed_vs_unpacked": _rel_l2(packed, unpacked),
+        "plain_packed_vs_unpacked": _rel_l2(plain_packed, plain_unpacked),
+        "packed_kernel_vs_plain": _rel_l2(packed, plain_packed),
+    }
+    bound = max(PACKED_REL_L2, 1.25 * rel["plain_packed_vs_unpacked"])
+    log(f"packed tower ({len(images)} images, {tuple(packed.shape)} real rows): relative L2 {rel} (bound "
+        f"{bound:.3e}); vision seconds packed {packed_s:.4f}, unpacked {unpacked_s:.4f}; "
+        f"launches {packed_counts['packed_vision_attention']}")
+    if rel["kernel_packed_vs_unpacked"] > bound:
+        raise AssertionError(f"packed tower disagrees with the unpacked one beyond {bound:.3e}: {rel}")
+    return dict(rel, bound=bound, packed_seconds=packed_s, unpacked_seconds=unpacked_s,
+                launches=packed_counts["packed_vision_attention"])
 
 
 @contextmanager
@@ -727,33 +965,38 @@ def main() -> int:
 
     parity = check_kernels(dev)
     model, requests, counts = run_main_path(dev)
+    packed = check_packed_tower(model, requests)  # phase 8, on phase 3's bf16 weights
     check_whole_model(model, requests)
     del model, requests
     _free()
     pool = run_quantized_pool(dev)
     int4 = run_int4(dev)
+    v25 = run_v25(dev)
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
-    # phase 5 (int8 cache) or phase 6 (int4).
+    # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed).
     launches = {name: counts[name] for name in MIN_LAUNCHES}
     launches["gqa_decode_attention_int8"] = pool["counts"]["gqa_decode_attention_int8"]
     launches["int4_matmul"] = int4["counts"]["int4_matmul"]
+    launches["fused_qkv_attention"] = v25["counts"]["fused_qkv_attention"]
+    launches["packed_vision_attention"] = packed["launches"]
     kernels = [
         dict(
             name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
             launches=launches[name], max_abs_err=parity[name]["max_abs_err"],
             ms=parity[name]["ms"], plain_ms=parity[name]["plain_ms"],
             device_ms=parity[name]["device_ms"], plain_device_ms=parity[name]["plain_device_ms"],
-            shape=parity[name]["shape"],
+            shape=parity[name]["shape"], **{k: parity[name][k] for k in ("also",) if k in parity[name]},
         )
         for name in KERNELS
     ]
-    for label, run in (("int8_w8a8_pool2_kv_int8", pool), ("int4", int4)):
+    for label, run in (("int8_w8a8_pool2_kv_int8", pool), ("int4", int4), ("qwen2.5-vl-7b_bf16", v25)):
         summary = {k: run[k] for k in ("images", "seconds", "images_per_s", "phase_seconds", "peak_gb",
-                                       "decode_steps", "counts", "decode_step") if k in run}
+                                       "decode_steps", "counts", "decode_step", "logits") if k in run}
         if "unpooled_same_rows" in run:
             summary["unpooled_same_rows"] = run["unpooled_same_rows"]
         log(f"summary {label}: {json.dumps(summary)}")
+    log(f"summary packed tower: {json.dumps(packed)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

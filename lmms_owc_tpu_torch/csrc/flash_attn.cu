@@ -1,15 +1,22 @@
 // Tiled online-softmax attention for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of lmms_owc_tpu/ops/attention.py:
-//   * _flash_kernel (K2, reached through flash_attention): the decoder prefill,
-//     causal GQA with one contiguous (start, end) valid key run per batch row;
+// Replaces three Pallas TPU kernels of lmms_owc_tpu/ops/attention.py:
+//   * _flash_kernel (K2, reached through flash_attention and
+//     fused_qkv_attention): the decoder prefill, causal GQA with one contiguous
+//     (start, end) valid key run per batch row, and the Qwen2.5-VL vision
+//     tower's window and global layers, whose window padding leaves gaps in the
+//     key run (the [B, Lk] tensor-mask form);
 //   * _flash_kernel_fm (K1, reached through fused_qkv_attention_fm): the vision
 //     tower's non-causal MHA over the combined qkv projection, with the HF
-//     half-split rope applied to q and k inside the kernel.
-// One kernel template serves both. The caller passes base pointers plus element
-// strides for (batch, head, token) with a unit stride along head_dim, so the
-// vision entry reads q, k and v as views of the [N, P, 3, H, D] qkv projection
-// output and writes [N, P, H, D] with no copies on either side.
+//     half-split rope applied to q and k inside the kernel;
+//   * _packed_kernel (K5, reached through packed_vision_attention): the same
+//     attention over a qkv projection whose heads are zero-padded to 128
+//     columns; the padding exists for TPU lane tiling, so here it is only a
+//     wider token stride, and the caller zeroes the output's padding columns.
+// One kernel template serves all three. The caller passes base pointers plus
+// element strides for (batch, head, token) with a unit stride along head_dim, so
+// each entry reads q, k and v as views of one qkv projection output (token- or
+// head-major, padded or not) and writes its output layout with no copies.
 //
 // What bounds it on the H100: both uses are compute-bound at the main-path
 // shapes. Per 64-row q block the kernel does 4*64*L*D flops against 2*L*D
@@ -20,7 +27,10 @@
 // cores as mma.sync m16n8k16 bf16 tiles with f32 accumulation; the score tile
 // never leaves registers (its accumulator fragments are re-packed as the A
 // operand of the PV product). Blocks that the causal diagonal or the (start,
-// end) key range exclude are skipped. Left for later work: TMA or cp.async
+// end) key range exclude are skipped; with a tensor mask (its own template
+// instance, so the other forms compile as before), the tile's 64 mask entries
+// are staged in shared memory beside k/v, and a tile with no valid key is
+// skipped before its k/v loads. Left for later work: TMA or cp.async
 // double buffering (loads here are synchronous), wgmma, and warp specialisation.
 //
 // Numerics: scores in f32, scaled by scale*log2(e) in f32, online softmax in
@@ -47,6 +57,7 @@ struct FlashArgs {
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   const int* mask_se;  // [B, 2] int32 (start, end) of each row's valid keys, or null
+  const int* mask;     // [B, Lk] int32 contiguous, nonzero = attend, or null (exclusive with mask_se)
   const float* cos;    // [B or 1, L, D/2] f32 contiguous, or null (no rope)
   const float* sin;
   long long rope_sb;   // batch stride of cos/sin in elements (0 broadcasts one table)
@@ -218,7 +229,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 
   __syncwarp();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kTensorMask>
 __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   constexpr int kLd = D + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -226,6 +237,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   T* ks = qs + kBQ * kLd;
   T* vs = ks + kBK * kLd;
   float* ps = reinterpret_cast<float*>(vs + kBK * kLd);  // f32 form only: [4 warps][16][kBK]
+  __shared__ int mask_tile[kBK];  // the k tile's entries of a tensor mask
 
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.heads / a.kv_heads);
@@ -239,6 +251,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
   const float* cs = a.cos != nullptr ? a.cos + b * a.rope_sb : nullptr;
   const float* sn = a.sin != nullptr ? a.sin + b * a.rope_sb : nullptr;
+  const int* mrow = kTensorMask ? a.mask + static_cast<long long>(b) * a.lk : nullptr;
 
   // Valid keys of this CTA: the row's (start, end) run, clipped by the causal
   // diagonal (aligned to the sequence end) of the block's last query row.
@@ -262,6 +275,15 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
 
   for (int kb0 = (k_lo / kBK) * kBK; kb0 < k_hi; kb0 += kBK) {
     __syncthreads();  // the previous k/v tiles are consumed; the q tile is written
+    if (kTensorMask) {
+      int any = 0;
+      for (int i = threadIdx.x; i < kBK; i += kThreads) {
+        const int m = kb0 + i < a.lk ? mrow[kb0 + i] : 0;
+        mask_tile[i] = m;
+        any |= m;
+      }
+      if (!__syncthreads_or(any)) continue;  // no valid key in this tile (uniform branch)
+    }
     load_tile<T, D, kBK>(ks, kp, a.k_sl, kb0, a.lk, cs, sn);
     load_tile<T, D, kBK>(vs, vp, a.v_sl, kb0, a.lk, nullptr, nullptr);
     __syncthreads();
@@ -277,7 +299,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kk = kb0 + j * 8 + tig * 2 + (c & 1);
-        const bool ok = kk >= k_lo && kk < k_hi && (!a.causal || kk <= qi[c >> 1] + offset);
+        const bool ok = kk >= k_lo && kk < k_hi && (!a.causal || kk <= qi[c >> 1] + offset) &&
+                        (!kTensorMask || mask_tile[kk - kb0] != 0);
         const float x = ok ? s[j][c] * a.scale_log2 : -INFINITY;
         s[j][c] = x;
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
@@ -330,16 +353,23 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
+template <typename T, int D, bool kTensorMask>
+cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (D + kPad) * sizeof(T) +
                       (std::is_same<T, float>::value ? 4 * 16 * kBK * sizeof(float) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D, kTensorMask>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.lq + kBQ - 1) / kBQ, a.heads, a.batch);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+  flash_kernel<T, D, kTensorMask><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
+  return a.mask != nullptr ? launch_masked<T, D, true>(a, stream)
+                           : launch_masked<T, D, false>(a, stream);
 }
 
 template <typename T>

@@ -1,17 +1,18 @@
 """Qwen2-VL model adapter of the port: engine requests -> batched GPU generation.
 
-Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` for ``generate_until``.
-The host side is the same: requests are grouped by generation kwargs, sorted
-by estimated prompt tokens (text + vision), packed into token-budget macro
-batches, LEFT-padded to length buckets and decoded together. Images are resized
-on the host, grouped by patch bucket and run through the vision tower in
-batches whose row count is padded to ``VISION_ROW_BUCKETS``. Weights are
+Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` for ``generate_until``,
+for the Qwen2-VL and Qwen2.5-VL presets. The host side is the same: requests
+are grouped by generation kwargs, sorted by estimated prompt tokens (text +
+vision), packed into token-budget macro batches, LEFT-padded to length buckets
+and decoded together. Images are resized on the host, grouped by patch bucket
+(Qwen2.5-VL: by grid, in its padded window layout) and run through the vision
+tower in batches whose row count is padded to ``VISION_ROW_BUCKETS``. Weights are
 bf16/f32, int8 (``load_in_8bit``, with W8A8 under ``int8_activations``) or
 int4 (``load_in_4bit``); ``LMMS_OWC_DECODE_POOL`` > 1 decodes several chunks
 as one pool, and ``LMMS_OWC_KV_INT8`` keeps the decode cache in int8.
 
-Not ported yet (see ROADMAP.md): checkpoint loading, ``loglikelihood``,
-``generate_until_multi_round`` and the Qwen2.5-VL tower.
+Not ported yet (see ROADMAP.md): checkpoint loading, ``loglikelihood`` and
+``generate_until_multi_round``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from lmms_owc_tpu.utils import Collator, get_logger, pad_to_bucket
 from lmms_owc_tpu_torch.models._api import register_model
 from lmms_owc_tpu_torch.models._base import Model
+from lmms_owc_tpu_torch.nn import qwen2_5_vl as qvl25
 from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
 from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear, set_int8_activations
 from lmms_owc_tpu_torch.ops import quant
@@ -56,12 +58,41 @@ PRESET_CONFIGS = {
         vocab_size=152064, hidden_size=3584, num_hidden_layers=28, num_attention_heads=28,
         num_key_value_heads=4, intermediate_size=18944, tie_word_embeddings=False,
     ),
+    "qwen2.5-vl-3b": dict(
+        model_type="qwen2_5_vl",
+        vocab_size=151936, hidden_size=2048, num_hidden_layers=36, num_attention_heads=16,
+        num_key_value_heads=2, intermediate_size=11008, tie_word_embeddings=True,
+        vision_config=dict(
+            depth=32, hidden_size=1280, num_heads=16, intermediate_size=3420,
+            out_hidden_size=2048, window_size=112, fullatt_block_indexes=[7, 15, 23, 31],
+        ),
+    ),
+    "qwen2.5-vl-7b": dict(
+        model_type="qwen2_5_vl",
+        vocab_size=152064, hidden_size=3584, num_hidden_layers=28, num_attention_heads=28,
+        num_key_value_heads=4, intermediate_size=18944, tie_word_embeddings=False,
+        vision_config=dict(
+            depth=32, hidden_size=1280, num_heads=16, intermediate_size=3420,
+            out_hidden_size=3584, window_size=112, fullatt_block_indexes=[7, 15, 23, 31],
+        ),
+    ),
     # CPU-testable miniature (same special-token space, tiny everything else).
     "qwen2-vl-tiny": dict(
         vocab_size=152064, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
         num_key_value_heads=2, intermediate_size=128, tie_word_embeddings=True,
         rope_scaling={"type": "mrope", "mrope_section": [2, 3, 3]},
         vision_config=dict(depth=2, embed_dim=32, num_heads=4, mlp_ratio=2.0, hidden_size=64),
+    ),
+    # CPU-testable miniature for the 2.5 tower (window + global attention layers).
+    "qwen2.5-vl-tiny": dict(
+        model_type="qwen2_5_vl",
+        vocab_size=152064, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, intermediate_size=128, tie_word_embeddings=True,
+        rope_scaling={"type": "mrope", "mrope_section": [2, 3, 3]},
+        vision_config=dict(
+            depth=2, hidden_size=32, num_heads=4, intermediate_size=64,
+            out_hidden_size=64, window_size=56, fullatt_block_indexes=[1],
+        ),
     ),
 }
 
@@ -262,11 +293,20 @@ class Qwen2VL(Model):
     # ------------------------------------------------------------------- load
 
     def load_model(self) -> None:
-        self.config = qvl.Qwen2VLConfig.from_hf_dict(PRESET_CONFIGS[self.preset])
+        hf = PRESET_CONFIGS[self.preset]
+        self.config = qvl.Qwen2VLConfig.from_hf_dict(hf)
+        self.is_v25 = hf.get("model_type") == "qwen2_5_vl"
+        self.vision25_config = (
+            qvl25.Qwen25VisionConfig.from_hf_dict(hf.get("vision_config", {})) if self.is_v25 else None
+        )
         bits = 4 if self.load_in_4bit else (8 if self.load_in_8bit else None)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
+
+        def build(device):
+            return qvl.Qwen2VLModel(self.config, self.torch_dtype, device, vision25=self.vision25_config)
+
         if self._jax_params is not None:
-            self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device=self.device)
+            self.model = build(self.device)
             qvl.params_from_jax(self.model, self._jax_params)
             self._jax_params = None
             quantized = any(isinstance(m, (Int8Linear, Int4Linear)) for m in self.model.modules())
@@ -276,11 +316,11 @@ class Qwen2VL(Model):
         elif bits is not None:
             # The full-precision tree never exists: modules are built on the
             # meta device, then each weight is drawn and quantized in turn.
-            self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device="meta")
+            self.model = build("meta")
             quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=self.torch_dtype)
             log.warning("random-init int%d %s on %s (no checkpoint)", bits, self.preset, self.device)
         else:
-            self.model = qvl.Qwen2VLModel(self.config, dtype=self.torch_dtype, device=self.device)
+            self.model = build(self.device)
             qvl.init_params(self.model, gen)
             log.warning("random-init %s on %s (no checkpoint)", self.preset, self.device)
         self.tokenizer = _FallbackTokenizer(self.config)
@@ -363,6 +403,8 @@ class Qwen2VL(Model):
         """
         if not all_visuals:
             return None, [], []
+        if self.is_v25:
+            return self._encode_images_flat_v25(all_visuals)
         v = self.config.vision
         merge_sq = v.spatial_merge_size**2
         factor = v.patch_size * v.spatial_merge_size
@@ -429,6 +471,68 @@ class Qwen2VL(Model):
                 for row, (idx, merged_count) in enumerate(row_info[s : s + cap]):
                     spans[idx] = (flat_offset + row * merged_bucket, merged_count)
                 flat_offset += m_rows * merged_bucket
+
+        vision_flat = torch.cat(group_outputs) if len(group_outputs) > 1 else group_outputs[0]
+        return vision_flat, [spans[i] for i in range(len(all_visuals))], grids
+
+    @torch.inference_mode()
+    def _encode_images_flat_v25(self, all_visuals: list):
+        """Qwen2.5-VL vision: images grouped by grid, each group in its uniform
+        padded window layout.
+
+        Per grid: patchify, rows padded to a ``VISION_ROW_BUCKETS`` count by
+        replicating the last image, tokens gathered into the [W, S] window
+        layout (padding slots zeroed), rope freqs and the validity mask in slot
+        order (no mask when every slot is real), one tower call, and a second
+        gather that restores the merge units' original order. Returns as
+        :meth:`_encode_images_flat`.
+        """
+        v25 = self.vision25_config
+        mu = v25.spatial_merge_size**2
+        factor = v25.patch_size * v25.spatial_merge_size
+        dtype = self.model.dtype
+        dev = self.device
+
+        resized = resize_host_batch(all_visuals, self.min_pixels, self.max_pixels, factor)
+        grids = [(1, hw[0] // v25.patch_size, hw[1] // v25.patch_size) for _, hw in resized]
+        by_size: dict[tuple[int, int, int], list[int]] = {}
+        for idx, grid in enumerate(grids):
+            by_size.setdefault(grid, []).append(idx)
+
+        group_outputs: list[torch.Tensor] = []
+        spans: dict[int, tuple[int, int]] = {}
+        flat_offset = 0
+        for grid, indices in by_size.items():
+            stacked = torch.from_numpy(np.stack([resized[i][0] for i in indices])).to(dev)
+            patches = patchify_images_batch(
+                stacked, v25.patch_size, v25.temporal_patch_size, v25.spatial_merge_size, dtype
+            )  # [n, P, patch_dim], merge units contiguous
+            n = pad_to_bucket(len(indices), VISION_ROW_BUCKETS)
+            if n > len(indices):
+                patches = torch.cat([patches, patches[-1:].expand(n - len(indices), *patches.shape[1:])])
+            n_units = patches.shape[1] // mu
+
+            slot_src, num_windows, s_tokens = qvl25.get_window_layout(grid, v25)
+            valid_units = slot_src >= 0
+            tok_idx = (np.where(valid_units, slot_src, 0)[:, None] * mu + np.arange(mu)).reshape(-1)
+            valid = np.repeat(valid_units, mu).astype(np.int32)  # [W*S]
+            valid_dev = torch.from_numpy(valid).to(dev)
+            gathered = patches[:, torch.from_numpy(tok_idx).to(dev)] * valid_dev[None, :, None].to(dtype)
+            freqs = (qvl25.vision25_rope_freqs(grid, v25)[tok_idx] * valid[:, None]).astype(np.float32)
+            freqs_dev = torch.from_numpy(freqs).to(dev).view(1, num_windows, s_tokens, -1)
+            mask = None if valid.all() else valid_dev.view(1, num_windows, s_tokens).expand(n, -1, -1)
+            out = self.model.vision(
+                gathered.view(n, num_windows, s_tokens, -1),
+                freqs_dev.expand(n, -1, -1, -1),
+                mask,
+            )  # [n, W*S/mu, out_hidden] in slot order
+            pos_of = np.zeros(n_units, np.int64)  # slot of each source merge unit
+            pos_of[slot_src[valid_units]] = np.nonzero(valid_units)[0]
+            restored = out[:, torch.from_numpy(pos_of).to(dev)]  # [n, n_units, hidden]
+            group_outputs.append(restored.reshape(n * n_units, -1))
+            for row, idx in enumerate(indices):
+                spans[idx] = (flat_offset + row * n_units, n_units)
+            flat_offset += n * n_units
 
         vision_flat = torch.cat(group_outputs) if len(group_outputs) > 1 else group_outputs[0]
         return vision_flat, [spans[i] for i in range(len(all_visuals))], grids
@@ -739,4 +843,25 @@ def qwen2_vl_2b(**kwargs) -> Qwen2VL:
 def qwen2_vl_tiny(**kwargs) -> Qwen2VL:
     """Miniature Qwen2-VL for CPU tests."""
     kwargs.setdefault("preset", "qwen2-vl-tiny")
+    return Qwen2VL(**kwargs)
+
+
+@register_model("qwen2.5-vl-7b")
+def qwen2_5_vl_7b(**kwargs) -> Qwen2VL:
+    """Qwen2.5-VL-7B-Instruct architecture."""
+    kwargs.setdefault("preset", "qwen2.5-vl-7b")
+    return Qwen2VL(**kwargs)
+
+
+@register_model("qwen2.5-vl-3b")
+def qwen2_5_vl_3b(**kwargs) -> Qwen2VL:
+    """Qwen2.5-VL-3B-Instruct architecture."""
+    kwargs.setdefault("preset", "qwen2.5-vl-3b")
+    return Qwen2VL(**kwargs)
+
+
+@register_model("qwen2.5-vl-tiny")
+def qwen2_5_vl_tiny(**kwargs) -> Qwen2VL:
+    """Miniature Qwen2.5-VL for CPU tests."""
+    kwargs.setdefault("preset", "qwen2.5-vl-tiny")
     return Qwen2VL(**kwargs)

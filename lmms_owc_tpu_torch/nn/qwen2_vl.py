@@ -1,13 +1,16 @@
 """Qwen2-VL in PyTorch: vision tower, M-RoPE decoder prefill and KV-cache decode.
 
-Counterpart of :mod:`lmms_owc_tpu.nn.qwen2_vl` (token-major vision tower;
-bf16/f32 weights or their int8/int4 forms from :mod:`lmms_owc_tpu_torch.ops.quant`;
-unpooled and pooled decode; bf16/f32 or int8 KV cache). The JAX package stacks
-decoder layers on a leading axis for ``lax.scan``; here each layer is its own
-module in a ``ModuleList`` and the loops are Python loops. Attention goes
-through :mod:`lmms_owc_tpu_torch.ops.attention`: the vision tower through
-``vision_qkv_attention`` (port of K1), the prefill through ``flash_attention``
-(K2), each decode step through ``gqa_decode_attention`` (K3).
+Counterpart of :mod:`lmms_owc_tpu.nn.qwen2_vl` (token-major vision tower, or
+the packed one under ``LMMS_OWC_VISION_PACKED``; bf16/f32 weights or their
+int8/int4 forms from :mod:`lmms_owc_tpu_torch.ops.quant`; unpooled and pooled
+decode; bf16/f32 or int8 KV cache). A Qwen2.5-VL model shares the decoder and
+carries the tower of :mod:`lmms_owc_tpu_torch.nn.qwen2_5_vl`. The JAX package
+stacks decoder layers on a leading axis for ``lax.scan``; here each layer is
+its own module in a ``ModuleList`` and the loops are Python loops. Attention
+goes through :mod:`lmms_owc_tpu_torch.ops.attention`: the vision tower through
+``vision_qkv_attention`` (port of K1) or ``packed_vision_attention`` (K5), the
+prefill through ``flash_attention`` (K2), each decode step through
+``gqa_decode_attention`` (K3).
 
 Prompts are left-padded to shape buckets so decode writes the KV cache at one
 position for the whole batch. The KV cache is one stacked ``[L, B, KVH, S, D]``
@@ -20,6 +23,7 @@ from __future__ import annotations
 import os
 from contextlib import nullcontext
 from dataclasses import dataclass, field
+from itertools import chain
 
 import numpy as np
 import torch
@@ -36,9 +40,15 @@ from lmms_owc_tpu_torch.nn.layers import (
     gelu,
     quick_gelu,
 )
+from lmms_owc_tpu_torch.nn.qwen2_5_vl import (
+    Qwen25VisionConfig,
+    Vision25Tower,
+    vision25_params_from_jax,
+)
 from lmms_owc_tpu_torch.ops.attention import (
     flash_attention,
     gqa_decode_attention,
+    packed_vision_attention,
     vision_qkv_attention,
 )
 
@@ -153,6 +163,58 @@ class Qwen2VLConfig:
 
 
 _VISION_ACTS = {"quick_gelu": quick_gelu, "gelu": gelu, "silu": torch.nn.functional.silu}
+_PACKED_HEAD_WIDTH = 128  # K5's padded head width (the TPU lane width)
+
+
+def _vision_packed_enabled(qkv: nn.Module, device: torch.device) -> bool:
+    """Packed-qkv vision attention gate (``LMMS_OWC_VISION_PACKED``), read on every call.
+
+    ``force`` enables it anywhere (CPU parity tests), ``1`` on CUDA; an int4
+    qkv projection never packs (its nibble layout does not re-pad). Off by
+    default, as in the JAX package: padding head_dim 80 to 128 widens the qkv
+    product by 60% and the output projection's contraction likewise.
+    """
+    mode = os.environ.get("LMMS_OWC_VISION_PACKED", "")
+    if isinstance(qkv, Int4Linear):
+        return False
+    if mode == "force":
+        return True
+    return mode == "1" and torch.device(device).type == "cuda"
+
+
+def _pad_heads(t: torch.Tensor, dim: int, hd: int, hp: int, fill: float = 0) -> torch.Tensor:
+    """Pad every run of ``hd`` entries along ``dim`` to ``hp`` entries with ``fill``."""
+    a = t.unflatten(dim, (t.shape[dim] // hd, hd))
+    pad_shape = list(a.shape)
+    pad_shape[dim + 1] = hp - hd
+    return torch.cat([a, a.new_full(pad_shape, fill)], dim=dim + 1).flatten(dim, dim + 1)
+
+
+def _pad_linear(lin: nn.Module, dim: int, hd: int, hp: int) -> nn.Module:
+    """Copy of a ``Linear``/``Int8Linear`` whose runs of ``hd`` output (``dim``
+    0) or input (``dim`` 1) channels are zero-padded to ``hp``; an int8 scale
+    of a padded output is one, as the JAX package pads it."""
+    int8 = isinstance(lin, Int8Linear)
+    w = _pad_heads(lin.q if int8 else lin.weight, dim, hd, hp)
+    has_bias = lin.bias is not None
+    dtype = (lin.bias.dtype if has_bias else torch.float32) if int8 else w.dtype
+    new = type(lin)(w.shape[1], w.shape[0], has_bias, dtype, w.device)
+    if int8:
+        new.q.copy_(w)
+        new.scale.copy_(_pad_heads(lin.scale, 0, hd, hp, 1.0) if dim == 0 else lin.scale)
+    else:
+        new.weight.copy_(w)
+    if has_bias:
+        new.bias.copy_(_pad_heads(lin.bias, 0, hd, hp) if dim == 0 else lin.bias)
+    return new
+
+
+def _pad_vision_attn_params(blocks, hd: int, hp: int) -> list[tuple[nn.Module, nn.Module]]:
+    """Per block, the packed kernel's (qkv, proj): each head's qkv output
+    columns padded hd -> hp with zeros, and the output projection's input
+    columns to match. Padding columns come out of the attention as exact zeros
+    and meet zero weights in proj, so the math is unchanged."""
+    return [(_pad_linear(blk.qkv, 0, hd, hp), _pad_linear(blk.proj, 1, hd, hp)) for blk in blocks]
 
 
 # ======================================================================== modules
@@ -188,6 +250,22 @@ class VisionTower(nn.Module):
         self.patch_embed = Linear(v.patch_dim, v.embed_dim, False, dtype, device)
         self.blocks = nn.ModuleList(VisionBlock(v, dtype, device) for _ in range(v.depth))
         self.merger = PatchMerger(v, hidden_size, dtype, device)
+        self._packed: tuple[tuple, list] | None = None  # (source key, padded (qkv, proj) per block)
+
+    def _packed_attn_layers(self) -> list[tuple[nn.Module, nn.Module]]:
+        """The padded attention weights of the packed path, built once per set
+        of weights (about 0.7 GB at the 7B tower) and rebuilt when a qkv or
+        proj tensor is replaced or written in place."""
+        key = tuple(
+            (t.data_ptr(), t.dtype, t._version)
+            for blk in self.blocks for lin in (blk.qkv, blk.proj)
+            for t in chain(lin.parameters(), lin.buffers())
+        )
+        if self._packed is None or self._packed[0] != key:
+            self._packed = None  # drop the old copies before building new ones
+            v = self.config
+            self._packed = (key, _pad_vision_attn_params(self.blocks, v.head_dim, _PACKED_HEAD_WIDTH))
+        return self._packed[1]
 
     @torch.inference_mode()
     def forward(
@@ -213,14 +291,23 @@ class VisionTower(nn.Module):
         n = x.shape[0]
         freqs = rope_freqs.float()
         cos, sin = torch.cos(freqs), torch.sin(freqs)
-        for blk in self.blocks:
+        packed = _vision_packed_enabled(self.blocks[0].qkv, x.device)
+        if packed:
+            # Packed path (K5): the qkv product writes each head padded to 128
+            # columns, the kernel reads them in place and writes the padded
+            # layout that the row-padded proj consumes.
+            attn_layers = self._packed_attn_layers()
+        else:
+            attn_layers = [(blk.qkv, blk.proj) for blk in self.blocks]
+        attend = packed_vision_attention if packed else vision_qkv_attention
+        for blk, (qkv, proj) in zip(self.blocks, attn_layers):
             # The kernel reads q/k/v in place from the qkv output and writes the
-            # [N, P, H*D] layout proj consumes; rope rides its q/k tile loads.
-            attn = vision_qkv_attention(
-                blk.qkv(blk.norm1(x)), v.num_heads, v.head_dim,
+            # layout proj consumes; rope rides its q/k tile loads.
+            attn = attend(
+                qkv(blk.norm1(x)), v.num_heads, v.head_dim,
                 kv_mask=patch_mask, rope_cos=cos, rope_sin=sin,
             )
-            x = x + blk.proj(attn)
+            x = x + proj(attn)
             x = x + blk.fc2(act(blk.fc1(blk.norm2(x))))
         merged_dim = v.embed_dim * v.spatial_merge_size**2
         x = self.merger.ln_q(x).reshape(n, -1, merged_dim)
@@ -250,9 +337,16 @@ class DecoderLayer(nn.Module):
 
 class Qwen2VLModel(nn.Module):
     """Qwen2-VL decoder plus vision tower. Parameters are uninitialised until
-    :func:`init_params` or :func:`params_from_jax` fills them."""
+    :func:`init_params` or :func:`params_from_jax` fills them. With ``vision25``
+    (a Qwen2.5-VL preset) the tower is a :class:`Vision25Tower`."""
 
-    def __init__(self, config: Qwen2VLConfig, dtype=torch.bfloat16, device="cpu") -> None:
+    def __init__(
+        self,
+        config: Qwen2VLConfig,
+        dtype=torch.bfloat16,
+        device="cpu",
+        vision25: Qwen25VisionConfig | None = None,
+    ) -> None:
         super().__init__()
         self.config = config
         c = config
@@ -264,7 +358,10 @@ class Qwen2VLModel(nn.Module):
         self.lm_head = (
             None if c.tie_word_embeddings else Linear(c.hidden_size, c.vocab_size, False, dtype, device)
         )
-        self.vision = VisionTower(c.vision, c.hidden_size, dtype, device)
+        self.vision = (
+            Vision25Tower(vision25, dtype, device) if vision25 is not None
+            else VisionTower(c.vision, c.hidden_size, dtype, device)
+        )
 
     @property
     def dtype(self) -> torch.dtype:
@@ -362,7 +459,9 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
     ``scale.T``), replacing the float module; biases, norm scales (``scale`` ->
     ``weight``) and the ``[vocab, hidden]`` embedding copy as they are. Stacked
     ``[L, ...]`` leaves are split into the per-layer modules. Float values are
-    cast to the model's dtype; quantized leaves are copied exactly.
+    cast to the model's dtype; quantized leaves are copied exactly. A model with
+    a Qwen2.5-VL tower takes the ``init_vision25_params`` vision subtree
+    (:func:`~lmms_owc_tpu_torch.nn.qwen2_5_vl.vision25_params_from_jax`).
     """
     c = model.config
     _copy(model.embed_tokens, np.asarray(tree["embed_tokens"], np.float32))
@@ -380,6 +479,11 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
 
     vt = tree["vision"]
     tower = model.vision
+    if isinstance(tower, Vision25Tower):
+        vision25_params_from_jax(tower, vt)
+        return model
+    if "mlp_gate" in vt["layers"]:
+        raise ValueError("a Qwen2.5-VL vision tree does not fit this Qwen2-VL model")
     _load_linear(tower, "patch_embed", vt["patch_embed"])
     vl = vt["layers"]
     for i, blk in enumerate(tower.blocks):

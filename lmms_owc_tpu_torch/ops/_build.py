@@ -61,7 +61,8 @@ class FlashArgs(ctypes.Structure):
         ("k_sb", ctypes.c_longlong), ("k_sh", ctypes.c_longlong), ("k_sl", ctypes.c_longlong),
         ("v_sb", ctypes.c_longlong), ("v_sh", ctypes.c_longlong), ("v_sl", ctypes.c_longlong),
         ("o_sb", ctypes.c_longlong), ("o_sh", ctypes.c_longlong), ("o_sl", ctypes.c_longlong),
-        ("mask_se", ctypes.c_void_p), ("cos", ctypes.c_void_p), ("sin", ctypes.c_void_p),
+        ("mask_se", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+        ("cos", ctypes.c_void_p), ("sin", ctypes.c_void_p),
         ("rope_sb", ctypes.c_longlong),
         ("batch", ctypes.c_int), ("heads", ctypes.c_int), ("kv_heads", ctypes.c_int),
         ("lq", ctypes.c_int), ("lk", ctypes.c_int), ("head_dim", ctypes.c_int),

@@ -1,23 +1,31 @@
 """Attention: hand-written CUDA kernels for Hopper, and their plain PyTorch versions.
 
-Counterpart of :mod:`lmms_owc_tpu.ops.attention`. Three entries carry the
-Qwen2-VL main path:
+Counterpart of :mod:`lmms_owc_tpu.ops.attention`. Five entries carry the
+Qwen2-VL and Qwen2.5-VL paths:
 
   - :func:`flash_attention` — decoder prefill (port of the Pallas ``_flash_kernel``,
-    K2): causal GQA with contiguous key masks, ``csrc/flash_attn.cu``.
-  - :func:`vision_qkv_attention` — the ViT (port of ``_flash_kernel_fm``, K1,
-    token-major): reads q/k/v in place from the qkv projection output, rope
+    K2): causal GQA with contiguous or gappy key masks, ``csrc/flash_attn.cu``.
+  - :func:`fused_qkv_attention` — K2's combined-heads entry: q, k and v are
+    head-offset views of one qkv array (head- or token-major); the Qwen2.5-VL
+    tower's window and global layers, rope in the kernel; same CUDA kernel.
+  - :func:`vision_qkv_attention` — the Qwen2-VL ViT (port of ``_flash_kernel_fm``,
+    K1, token-major): reads q/k/v in place from the qkv projection output, rope
     in the kernel; same CUDA kernel.
+  - :func:`packed_vision_attention` — the ViT over a qkv projection whose heads
+    are zero-padded to 128 columns (port of ``_packed_kernel``, K5); same CUDA
+    kernel, reading the padded heads in place.
   - :func:`gqa_decode_attention` — decode (port of ``_decode_kernel``, K3) against
     one layer of the stacked KV cache, bf16/f32 or int8 with per-position
     scales, ``csrc/decode_attn.cu``.
 
-Each wrapper takes its plain version (``*_plain``, built on
-:func:`attention_reference` and :func:`gqa_attention_reference`) only when the
-tensors lie on the CPU. For a
+Each wrapper takes its plain version (``*_plain`` or
+:func:`packed_attention_reference`, built on :func:`attention_reference` and
+:func:`gqa_attention_reference`) only when the tensors lie on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back. Every launch
 adds one to :data:`launch_counts` under the wrapper's name (the int8-cache
-decode under ``gqa_decode_attention_int8``).
+decode under ``gqa_decode_attention_int8``); a flash launch that carried a
+gappy ``[B, Lk]`` mask tensor also adds one under
+``flash_attention_tensor_mask``, whichever entry made it.
 """
 
 from __future__ import annotations
@@ -34,10 +42,14 @@ __all__ = [
     "attention_reference",
     "flash_attention",
     "flash_attention_plain",
+    "fused_qkv_attention",
+    "fused_qkv_attention_plain",
     "gqa_attention_reference",
     "gqa_decode_attention",
     "gqa_decode_attention_plain",
     "launch_counts",
+    "packed_attention_reference",
+    "packed_vision_attention",
     "reset_launch_counts",
     "vision_qkv_attention",
     "vision_qkv_attention_plain",
@@ -50,7 +62,10 @@ _FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 launch_counts: dict[str, int] = {
     "flash_attention": 0,
+    "flash_attention_tensor_mask": 0,
+    "fused_qkv_attention": 0,
     "vision_qkv_attention": 0,
+    "packed_vision_attention": 0,
     "gqa_decode_attention": 0,
     "gqa_decode_attention_int8": 0,
 }
@@ -139,10 +154,64 @@ def flash_attention_plain(
     return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask, scale=scale)
 
 
-def _qkv_views(qkv: torch.Tensor, h: int, d: int):
-    """q, k, v as [N, H, P, D] strided views of a role-major [N, P, 3*H*D] projection."""
-    n, p, _ = qkv.shape
-    return (qkv.view(n, p, 3, h, d)[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+def _fused_views(qkvh: torch.Tensor, h: int, kvh: int, token_major: bool):
+    """q [B, H, L, D], k and v [B, KVH, L, D] as head-offset views of a combined
+    [B, H + 2*KVH, L, D] array, or of its token-major [B, L, H + 2*KVH, D] form."""
+    total = qkvh.shape[2] if token_major else qkvh.shape[1]
+    if total != h + 2 * kvh or h % kvh != 0:
+        raise ValueError(f"qkvh head axis {total} != {h} + 2*{kvh}")
+    heads = qkvh.permute(0, 2, 1, 3) if token_major else qkvh
+    return heads[:, :h], heads[:, h : h + kvh], heads[:, h + kvh :]
+
+
+def fused_qkv_attention_plain(
+    qkvh: torch.Tensor,
+    num_q_heads: int,
+    num_kv_heads: int,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+    token_major: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`fused_qkv_attention`: slice the roles apart, then
+    :func:`flash_attention_plain` (the JAX fallback)."""
+    q, k, v = _fused_views(qkvh, num_q_heads, num_kv_heads, token_major)
+    out = flash_attention_plain(
+        q, k, v, causal=causal, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin
+    )
+    if token_major:
+        b, h, l, d = out.shape
+        return out.permute(0, 2, 1, 3).reshape(b, l, h * d)
+    return out
+
+
+def packed_attention_reference(
+    qkv: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    *,
+    kv_mask: torch.Tensor | None = None,
+    freqs: torch.Tensor | None = None,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`packed_vision_attention` (the JAX ground truth):
+    unpack [B, L, 3*NH*HP] into [B, NH, L, head_dim] q/k/v, rotate, attend, and
+    re-pack [B, L, NH*HP] with zero padding columns. Rope comes from ``freqs``
+    (cos/sin in f32) or from ready ``rope_cos``/``rope_sin`` tables."""
+    b, l, width = qkv.shape
+    hp = width // (3 * num_heads)
+    x = qkv.view(b, l, 3, num_heads, hp)
+    q, k, v = (x[:, :, i].permute(0, 2, 1, 3)[..., :head_dim] for i in range(3))
+    if freqs is not None:
+        rope_cos, rope_sin = torch.cos(freqs.float()), torch.sin(freqs.float())
+    out = flash_attention_plain(q, k, v, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin)
+    out = torch.nn.functional.pad(out, (0, hp - head_dim))
+    return out.permute(0, 2, 1, 3).reshape(b, l, num_heads * hp)
 
 
 def vision_qkv_attention_plain(
@@ -157,11 +226,10 @@ def vision_qkv_attention_plain(
 ) -> torch.Tensor:
     """Plain version of :func:`vision_qkv_attention`: [N, P, 3*H*D] -> [N, P, H*D]."""
     n, p, _ = qkv.shape
-    q, k, v = _qkv_views(qkv, num_heads, head_dim)
-    out = flash_attention_plain(
-        q, k, v, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin
+    return fused_qkv_attention_plain(
+        qkv.view(n, p, 3 * num_heads, head_dim), num_heads, num_heads, kv_mask=kv_mask,
+        scale=scale, rope_cos=rope_cos, rope_sin=rope_sin, token_major=True,
     )
-    return out.permute(0, 2, 1, 3).reshape(n, p, num_heads * head_dim)
 
 
 def gqa_decode_attention_plain(
@@ -228,6 +296,7 @@ def _rope_table(table: torch.Tensor, batch: int, length: int, half: int) -> torc
 
 
 def _launch_flash(
+    name: str,
     q: torch.Tensor,  # [B, H, Lq, D] any strides, unit last stride
     k: torch.Tensor,  # [B, KVH, Lk, D]
     v: torch.Tensor,
@@ -235,10 +304,13 @@ def _launch_flash(
     *,
     causal: bool,
     kv_mask: torch.Tensor | None,
+    kv_mask_contiguous: bool,
     scale: float,
     rope_cos: torch.Tensor | None,
     rope_sin: torch.Tensor | None,
 ) -> None:
+    """Launch the flash kernel and count it under ``name``. A contiguous mask
+    goes to the kernel as (start, end) per row, any other as an int32 tensor."""
     lib = _build.load_library()
     dtype = _check_operands({"q": q, "k": k, "v": v, "out": out})
     b, h, lq, d = q.shape
@@ -249,19 +321,22 @@ def _launch_flash(
         raise ValueError(f"{h} query heads are not a multiple of {kvh} KV heads")
     if d not in _FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not built; supported: {_FLASH_HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    for role, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(-1) != 1:
-            raise ValueError(f"{name}: head_dim must be the unit-stride axis, strides {t.stride()}")
+            raise ValueError(f"{role}: head_dim must be the unit-stride axis, strides {t.stride()}")
     if dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
+        for role, t in (("q", q), ("k", k), ("v", v)):
             # Tiles are read from shared memory as bf16 pairs: keep rows 4-byte aligned.
             if t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:-1]):
-                raise ValueError(f"{name}: bf16 rows must be 4-byte aligned, strides {t.stride()}")
-    mask_se = cos = sin = None
+                raise ValueError(f"{role}: bf16 rows must be 4-byte aligned, strides {t.stride()}")
+    mask_se = mask = cos = sin = None
     if kv_mask is not None:
         if kv_mask.shape != (b, lk):
             raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {lk}]")
-        mask_se = _mask_start_end(kv_mask.to(q.device))
+        if kv_mask_contiguous:
+            mask_se = _mask_start_end(kv_mask.to(q.device))
+        else:
+            mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     if rope_cos is not None:
         if lq != lk:
             raise ValueError("fused rope expects self-attention (Lq == Lk)")
@@ -271,6 +346,7 @@ def _launch_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         mask_se.data_ptr() if mask_se is not None else None,
+        mask.data_ptr() if mask is not None else None,
         cos.data_ptr() if cos is not None else None,
         sin.data_ptr() if sin is not None else None,
         0 if cos is None or cos.shape[0] == 1 else cos.stride(0),
@@ -278,7 +354,26 @@ def _launch_flash(
         scale * _LOG2E,
     )
     code = lib.owc_flash_attention(ctypes.byref(args), _stream_handle(q.device))
-    _raise_on_error(code, "flash_attention")
+    _raise_on_error(code, name)
+    launch_counts[name] += 1
+    if mask is not None:
+        launch_counts["flash_attention_tensor_mask"] += 1
+
+
+def _launch_combined(
+    name: str, qkvh: torch.Tensor, h: int, kvh: int, *, token_major: bool, **kw
+) -> torch.Tensor:
+    """Launch the flash kernel on the head-offset views of a combined qkv array;
+    the result is [B, H, L, D], or [B, L, H*D] for a token-major input."""
+    q, k, v = _fused_views(qkvh, h, kvh, token_major)
+    b, _, l, d = q.shape
+    if token_major:
+        out = torch.empty((b, l, h * d), dtype=qkvh.dtype, device=qkvh.device)
+        out_view = out.view(b, l, h, d).permute(0, 2, 1, 3)
+    else:
+        out = out_view = torch.empty(q.shape, dtype=qkvh.dtype, device=qkvh.device)
+    _launch_flash(name, q, k, v, out_view, **kw)
+    return out
 
 
 # ----------------------------------------------------------------- public entries
@@ -299,8 +394,9 @@ def flash_attention(
     """Multi-head attention, q [B, H, Lq, D], k/v [B, KVH, Lk, D] (GQA when KVH < H).
 
     ``causal`` aligns the diagonal to the sequence end. ``kv_mask`` [B, Lk] marks
-    valid keys (1 = attend); ``kv_mask_contiguous`` promises one contiguous run
-    per row, which the CUDA kernel needs (it reads each row as (start, end)).
+    valid keys (nonzero = attend); ``kv_mask_contiguous`` promises one
+    contiguous run per row, which the CUDA kernel then reads as (start, end)
+    scalars; any other mask goes to the kernel as an int32 tensor.
     ``rope_cos``/``rope_sin`` [B or 1, L, D/2] rotate q and k (self-attention).
     Inputs may be strided views with a unit stride along D; the result is a new
     contiguous [B, H, Lq, D]. Query rows with no valid key are zeros on the
@@ -315,17 +411,93 @@ def flash_attention(
             q, k, v, causal=causal, kv_mask=kv_mask, scale=scale,
             rope_cos=rope_cos, rope_sin=rope_sin,
         )
-    if kv_mask is not None and not kv_mask_contiguous:
-        raise NotImplementedError(
-            "the CUDA flash kernel takes contiguous key masks only; the gappy-mask "
-            "form of K2 is still to be ported (ROADMAP.md)"
-        )
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_flash(
-        q, k, v, out, causal=causal, kv_mask=kv_mask, scale=scale,
+        "flash_attention", q, k, v, out, causal=causal, kv_mask=kv_mask,
+        kv_mask_contiguous=kv_mask_contiguous, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin,
+    )
+    return out
+
+
+def fused_qkv_attention(
+    qkvh: torch.Tensor,
+    num_q_heads: int,
+    num_kv_heads: int,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    kv_mask_contiguous: bool = False,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+    token_major: bool = False,
+) -> torch.Tensor:
+    """Self-attention over a combined-heads qkv array, with no q/k/v slice copies.
+
+    ``qkvh`` is [B, H + 2*KVH, L, D]: q heads at [0, H), k heads at [H, H+KVH),
+    v heads after. The kernel reads q, k and v as head-offset views of it; the
+    result is [B, H, L, D]. With ``token_major`` the input is the [B, L,
+    H + 2*KVH, D] view of a qkv dense output and the result is [B, L, H*D],
+    the layout the output projection takes, so neither side is transposed.
+    The other arguments are :func:`flash_attention`'s.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(qkvh.shape[-1])
+    kw = dict(causal=causal, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin)
+    if qkvh.device.type == "cpu":
+        return fused_qkv_attention_plain(qkvh, num_q_heads, num_kv_heads, token_major=token_major, **kw)
+    return _launch_combined(
+        "fused_qkv_attention", qkvh, num_q_heads, num_kv_heads, token_major=token_major,
+        kv_mask_contiguous=kv_mask_contiguous, **kw,
+    )
+
+
+def packed_vision_attention(
+    qkv: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    *,
+    kv_mask: torch.Tensor | None = None,
+    freqs: torch.Tensor | None = None,
+    scale: float | None = None,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Non-causal MHA over a packed qkv projection output (K5's entry).
+
+    ``qkv`` [B, L, 3*NH*HP] holds each head's ``head_dim`` columns zero-padded
+    to HP (a multiple of 128): column (role, head, c) at role*NH*HP + head*HP + c.
+    The kernel reads q, k and v as [..., :head_dim] views of it in place and
+    writes [B, L, NH*HP] with exact zeros in the padding columns, the layout a
+    row-padded output projection takes. ``kv_mask`` [B, L] must hold one
+    contiguous run per row (vision prefix padding). Rope comes from ``freqs``
+    [B, L, head_dim/2] (cos/sin in f32 per call, as the TPU kernel computes
+    them) or from ``rope_cos``/``rope_sin`` tables a caller computed once.
+    """
+    b, l, width = qkv.shape
+    hp = width // (3 * num_heads)
+    if width != 3 * num_heads * hp or hp % 128 != 0 or head_dim > hp:
+        raise ValueError(f"packed qkv width {width} not 3*{num_heads}*128k")
+    if freqs is not None and rope_cos is not None:
+        raise ValueError("pass freqs or rope_cos/rope_sin, not both")
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    if qkv.device.type == "cpu":
+        return packed_attention_reference(
+            qkv, num_heads, head_dim, kv_mask=kv_mask, freqs=freqs, scale=scale,
+            rope_cos=rope_cos, rope_sin=rope_sin,
+        )
+    if freqs is not None:
+        rope_cos, rope_sin = torch.cos(freqs.float()), torch.sin(freqs.float())
+    x = qkv.view(b, l, 3, num_heads, hp)
+    q, k, v = (x[:, :, i, :, :head_dim].permute(0, 2, 1, 3) for i in range(3))
+    out = torch.zeros((b, l, num_heads * hp), dtype=qkv.dtype, device=qkv.device)
+    _launch_flash(
+        "packed_vision_attention", q, k, v,
+        out.view(b, l, num_heads, hp)[..., :head_dim].permute(0, 2, 1, 3),
+        causal=False, kv_mask=kv_mask, kv_mask_contiguous=True, scale=scale,
         rope_cos=rope_cos, rope_sin=rope_sin,
     )
-    launch_counts["flash_attention"] += 1
     return out
 
 
@@ -358,14 +530,11 @@ def vision_qkv_attention(
         return vision_qkv_attention_plain(
             qkv, h, d, kv_mask=kv_mask, scale=scale, rope_cos=rope_cos, rope_sin=rope_sin
         )
-    q, k, v = _qkv_views(qkv, h, d)
-    out = torch.empty((n, p, h * d), dtype=qkv.dtype, device=qkv.device)
-    _launch_flash(
-        q, k, v, out.view(n, p, h, d).permute(0, 2, 1, 3), causal=False, kv_mask=kv_mask,
-        scale=scale, rope_cos=rope_cos, rope_sin=rope_sin,
+    return _launch_combined(
+        "vision_qkv_attention", qkv.view(n, p, 3 * h, d), h, h, token_major=True,
+        causal=False, kv_mask=kv_mask, kv_mask_contiguous=True, scale=scale,
+        rope_cos=rope_cos, rope_sin=rope_sin,
     )
-    launch_counts["vision_qkv_attention"] += 1
-    return out
 
 
 def gqa_decode_attention(

@@ -144,7 +144,11 @@ def test_references_match_jax_references():
 def test_cpu_calls_take_plain_path_and_count_no_launch():
     tatt.reset_launch_counts()
     x = torch.randn(1, 2, 8, 16)
+    gappy = torch.tensor([[1, 0, 1, 1, 0, 1, 1, 1]])
     tatt.flash_attention(x, x, x, causal=True)
+    tatt.flash_attention(x, x, x, kv_mask=gappy)
+    tatt.fused_qkv_attention(torch.randn(1, 6, 8, 16), 2, 2, kv_mask=gappy)
+    tatt.packed_vision_attention(torch.randn(1, 8, 3 * 2 * 128), 2, 16)
     tatt.vision_qkv_attention(torch.randn(1, 8, 3 * 2 * 16), 2, 16)
     tatt.gqa_decode_attention(torch.randn(1, 2, 16), torch.randn(2, 1, 2, 8, 16),
                               torch.randn(2, 1, 2, 8, 16), 1, torch.ones(1, 8))
@@ -168,6 +172,10 @@ def test_device_tensor_without_kernels_raises(monkeypatch):
     with pytest.raises(_build.KernelBuildError):
         tatt.vision_qkv_attention(torch.empty(1, 8, 3 * 4 * 16, **meta), 4, 16)
     with pytest.raises(_build.KernelBuildError):
+        tatt.fused_qkv_attention(torch.empty(1, 8, 8, 16, **meta), 4, 2)
+    with pytest.raises(_build.KernelBuildError):
+        tatt.packed_vision_attention(torch.empty(1, 8, 3 * 4 * 128, **meta), 4, 80)
+    with pytest.raises(_build.KernelBuildError):
         tatt.gqa_decode_attention(
             torch.empty(1, 4, 16, **meta), torch.empty(2, 1, 2, 8, 16, **meta),
             torch.empty(2, 1, 2, 8, 16, **meta), 0, torch.ones(1, 8, device="meta"),
@@ -175,12 +183,17 @@ def test_device_tensor_without_kernels_raises(monkeypatch):
     assert all(count == 0 for count in tatt.launch_counts.values())
 
 
-def test_gappy_mask_on_device_raises():
-    """The CUDA flash kernel takes contiguous masks only (the gappy form of K2
-    is still to be ported); a device call without the promise raises."""
+def test_gappy_mask_on_device_raises(monkeypatch):
+    """A gappy mask on a device tensor goes to the kernel (K2's tensor-mask
+    form): without the kernel library the call raises the build error, and
+    nothing raises ``NotImplementedError`` or falls back to the plain path."""
+    monkeypatch.setattr(_build, "load_library", _raise_unavailable)
     q = torch.empty(1, 2, 8, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="gappy"):
-        tatt.flash_attention(q, q, q, kv_mask=torch.ones(1, 8, device="meta"))
+    gappy = torch.tensor([[1, 0, 1, 1, 0, 0, 1, 1]], device="meta")
+    with pytest.raises(_build.KernelBuildError):
+        tatt.flash_attention(q, q, q, kv_mask=gappy)
+    with pytest.raises(_build.KernelBuildError):
+        tatt.fused_qkv_attention(torch.empty(1, 6, 8, 16, device="meta"), 2, 2, kv_mask=gappy)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -197,3 +210,179 @@ def test_build_flags_target_hopper():
     sources = {p.name for p in _build._sources()}
     assert {"flash_attn.cu", "decode_attn.cu"} <= sources
     assert _build.library_path().parent == _build.BUILD_DIR
+
+
+def _gappy_mask(rng, b, l):
+    """[B, L] int32 with gaps: random holes, a masked head run and a masked tail."""
+    m = (rng.rand(b, l) > 0.35).astype(np.int32)
+    m[0, :40] = 0
+    m[-1, l - 50 :] = 0
+    m[:, 64] = 1  # every row keeps a valid key
+    return m
+
+
+def _rows_with_a_key(mask, causal, lq):
+    """[B, Lq] bool: query rows that see at least one valid key."""
+    if not causal:
+        return np.broadcast_to(mask.any(axis=1)[:, None], (mask.shape[0], lq))
+    offset = mask.shape[1] - lq
+    seen = np.cumsum(mask, axis=1) > 0
+    return seen[:, offset:]
+
+
+def _assert_rows_close(out, ref, rows):
+    """out/ref [B, H, L, D]; compare the query rows marked in rows [B, L]."""
+    out = np.asarray(out).transpose(0, 2, 1, 3)[rows]
+    ref = np.asarray(ref).transpose(0, 2, 1, 3)[rows]
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_rope", [False, True])
+def test_flash_attention_gappy_mask_matches_pallas_k2(causal, with_rope):
+    """K2's tensor-mask form at L = 256 with 128-key blocks (the multi-block
+    online softmax), GQA 8/2."""
+    rng = np.random.RandomState(4)
+    b, h, kvh, l, d = 2, 8, 2, 256, 32
+    q = rng.randn(b, h, l, d).astype(np.float32)
+    k = rng.randn(b, kvh, l, d).astype(np.float32)
+    v = rng.randn(b, kvh, l, d).astype(np.float32)
+    mask = _gappy_mask(rng, b, l)
+    cos, sin = _rope_tables(rng, b, l, d) if with_rope else (None, None)
+    ref = jatt.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, kv_mask=jnp.asarray(mask),
+        block_q=128, block_k=128, use_pallas=True, interpret=True,
+        rope_cos=None if cos is None else jnp.asarray(cos),
+        rope_sin=None if sin is None else jnp.asarray(sin),
+    )
+    out = tatt.flash_attention(
+        _t(q), _t(k), _t(v), causal=causal, kv_mask=_t(mask),
+        rope_cos=None if cos is None else _t(cos), rope_sin=None if sin is None else _t(sin),
+    )
+    assert out.shape == (b, h, l, d)
+    _assert_rows_close(out.numpy(), ref, _rows_with_a_key(mask, causal, l))
+
+
+@pytest.mark.parametrize("token_major", [False, True])
+@pytest.mark.parametrize("mask_kind,causal,with_rope,kvh", [
+    ("gappy", False, True, 8),   # the Qwen2.5-VL tower's global layers
+    ("gappy", True, False, 2),
+    ("contiguous", True, True, 2),
+    (None, False, True, 8),
+])
+def test_fused_qkv_attention_matches_pallas_k2(token_major, mask_kind, causal, with_rope, kvh):
+    """The combined-qkv entry against JAX ``fused_qkv_attention`` (Pallas
+    interpret) at L = 256, 128-key blocks; the token-major form takes the
+    [B, L, H + 2*KVH, D] view and returns [B, L, H*D]."""
+    rng = np.random.RandomState(5)
+    b, h, l, d = 2, 8, 256, 16
+    qkvh = rng.randn(b, h + 2 * kvh, l, d).astype(np.float32)
+    if mask_kind == "gappy":
+        mask = _gappy_mask(rng, b, l)
+    elif mask_kind == "contiguous":
+        mask = _run_mask(b, l, [(0, l), (70, 230)])
+    else:
+        mask = np.ones((b, l), np.int32)
+    cos, sin = _rope_tables(rng, b, l, d) if with_rope else (None, None)
+    jmask = None if mask_kind is None else jnp.asarray(mask)
+    ref = jatt.fused_qkv_attention(
+        jnp.asarray(qkvh), h, kvh, causal=causal, kv_mask=jmask,
+        kv_mask_contiguous=mask_kind == "contiguous", block_q=128, block_k=128,
+        use_pallas=True, interpret=True,
+        rope_cos=None if cos is None else jnp.asarray(cos),
+        rope_sin=None if sin is None else jnp.asarray(sin),
+    )
+    x = _t(qkvh.transpose(0, 2, 1, 3)) if token_major else _t(qkvh)
+    out = tatt.fused_qkv_attention(
+        x, h, kvh, causal=causal, kv_mask=None if mask_kind is None else _t(mask),
+        kv_mask_contiguous=mask_kind == "contiguous", token_major=token_major,
+        rope_cos=None if cos is None else _t(cos), rope_sin=None if sin is None else _t(sin),
+    )
+    if token_major:
+        assert out.shape == (b, l, h * d)
+        out = out.view(b, l, h, d).permute(0, 2, 1, 3)
+    assert out.shape == (b, h, l, d)
+    _assert_rows_close(out.numpy(), ref, _rows_with_a_key(mask, causal, l))
+
+
+def _packed(q, k, v, hp=128):
+    """[B, NH, L, HD] x3 -> packed [B, L, 3*NH*HP] with zero padding columns."""
+    b, nh, l, hd = q.shape
+    stack = np.pad(np.stack([q, k, v], axis=2), ((0, 0),) * 4 + ((0, hp - hd),))
+    return stack.transpose(0, 3, 2, 1, 4).reshape(b, l, 3 * nh * hp)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("with_freqs", [True, False])
+def test_packed_vision_attention_matches_pallas_k5(masked, with_freqs):
+    """K5's entry against JAX ``packed_vision_attention`` (Pallas interpret) at
+    L = 256 with 128-key blocks, head_dim 80 padded to 128; the padding columns
+    are exact zeros in both."""
+    rng = np.random.RandomState(6)
+    b, nh, l, hd = 2, 2, 256, 80
+    qkv = _packed(*(rng.randn(b, nh, l, hd).astype(np.float32) for _ in range(3)))
+    mask = _run_mask(b, l, [(0, l), (0, 180)])
+    freqs = rng.uniform(0, 6.28, (b, l, hd // 2)).astype(np.float32)
+    kw_j = dict(kv_mask=jnp.asarray(mask) if masked else None, freqs=jnp.asarray(freqs) if with_freqs else None)
+    ref = jatt.packed_vision_attention(
+        jnp.asarray(qkv), nh, hd, block_q=128, block_k=128, use_pallas=True, interpret=True, **kw_j
+    )
+    out = tatt.packed_vision_attention(
+        _t(qkv), nh, hd, kv_mask=_t(mask) if masked else None, freqs=_t(freqs) if with_freqs else None
+    )
+    assert out.shape == (b, l, nh * 128)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+    assert not out.view(b, l, nh, 128)[..., hd:].any()
+    if with_freqs:  # ready cos/sin tables compute the same as the freqs table
+        again = tatt.packed_vision_attention(
+            _t(qkv), nh, hd, kv_mask=_t(mask) if masked else None,
+            rope_cos=torch.cos(_t(freqs)), rope_sin=torch.sin(_t(freqs)),
+        )
+        torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each FlashArgs it is given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def owc_flash_attention(self, args, stream):
+        a = args._obj
+        self.calls.append({name: getattr(a, name) for name, _ in a._fields_})
+        return 0
+
+
+def test_launch_marshals_masks_and_strides(monkeypatch):
+    """What the wrappers hand the kernel, checked on host tensors with the
+    library faked: a gappy mask goes as an int32 [B, Lk] pointer (no (start,
+    end) table) and counts as a tensor-mask launch; a contiguous one as (start,
+    end); the token-major combined view passes (batch, head, token) strides of
+    the [B, L, H + 2*KVH, D] array; the packed entry reads 80 of each 128 columns."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(tatt, "_check_operands", lambda tensors: next(iter(tensors.values())).dtype)
+    monkeypatch.setattr(tatt, "_stream_handle", lambda device: 0)
+    tatt.reset_launch_counts()
+    b, l, h, kvh, d = 2, 8, 4, 2, 16
+    qkvh = torch.randn(b, l, h + 2 * kvh, d)
+    q, k, v = tatt._fused_views(qkvh, h, kvh, token_major=True)
+    out = torch.empty(b, l, h * d)
+    gappy = torch.tensor([[1, 0, 1, 1, 0, 1, 1, 1], [0, 1, 1, 1, 1, 1, 0, 1]])
+    kw = dict(causal=False, scale=0.25, rope_cos=None, rope_sin=None)
+    tatt._launch_flash("fused_qkv_attention", q, k, v, out.view(b, l, h, d).permute(0, 2, 1, 3),
+                       kv_mask=gappy, kv_mask_contiguous=False, **kw)
+    a = lib.calls[-1]
+    assert a["mask"] and not a["mask_se"]
+    row = h + 2 * kvh
+    assert (a["q_sb"], a["q_sh"], a["q_sl"]) == (l * row * d, d, row * d)
+    assert a["k"] == qkvh.data_ptr() + h * d * 4 and a["v"] == qkvh.data_ptr() + (h + kvh) * d * 4
+    assert (a["o_sb"], a["o_sh"], a["o_sl"]) == (l * h * d, d, h * d)
+    assert (a["heads"], a["kv_heads"], a["lq"], a["lk"], a["head_dim"], a["dtype"]) == (h, kvh, l, l, d, 0)
+    contiguous = torch.tensor([[1] * 8, [0, 0, 1, 1, 1, 0, 0, 0]])
+    tatt._launch_flash("flash_attention", q, k, v, torch.empty(b, h, l, d),
+                       kv_mask=contiguous, kv_mask_contiguous=True, **kw)
+    assert lib.calls[-1]["mask_se"] and not lib.calls[-1]["mask"]
+    assert tatt.launch_counts["fused_qkv_attention"] == 1 and tatt.launch_counts["flash_attention"] == 1
+    assert tatt.launch_counts["flash_attention_tensor_mask"] == 1
+    tatt.reset_launch_counts()

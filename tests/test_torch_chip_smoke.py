@@ -52,13 +52,19 @@ def test_requests_match_the_main_path_workload():
     sizes = [model._fetch_visuals(r.args)[0].size for r in reqs]
     assert sizes.count((448, 448)) == 6 and sizes.count((448, 336)) == 2
     assert all(r.args[1]["max_new_tokens"] == 64 and not r.args[1]["do_sample"] for r in reqs)
-    assert set(chip_smoke.MIN_LAUNCHES) | set(chip_smoke.MIN_LAUNCHES_PER_DECODE_STEP) == set(chip_smoke.KERNELS)
+    # Every kernel entry's launches come from a phase that requires them:
+    # phases 3, 5 and 6, phase 7 (the combined-qkv entry) and phase 8 (packed).
+    per_phase = set(chip_smoke.MIN_LAUNCHES) | set(chip_smoke.MIN_LAUNCHES_PER_DECODE_STEP)
+    assert per_phase | {"fused_qkv_attention", "packed_vision_attention"} == set(chip_smoke.KERNELS)
     assert chip_smoke.MIN_LAUNCHES_PER_DECODE_STEP == {"gqa_decode_attention_int8": 28, "int4_matmul": 197}
 
 
 @pytest.mark.parametrize(
     "name",
-    ["vision_qkv_attention", "flash_attention", "gqa_decode_attention", "int4_matmul", "gqa_decode_attention_int8"],
+    [
+        "vision_qkv_attention", "flash_attention", "gqa_decode_attention", "int4_matmul",
+        "gqa_decode_attention_int8", "fused_qkv_attention", "packed_vision_attention",
+    ],
 )
 def test_kernel_sources_exist(name):
     import chip_smoke
@@ -82,3 +88,36 @@ def test_pool_phase_workload():
     assert {model._fetch_visuals(r.args)[0].size for r in reqs} == {(448, 448)}
     assert set(chip_smoke.INT4_ROWS) == {96, 8}
     assert chip_smoke.INT4_SHAPES["down"] == (18944, 3584) and chip_smoke.INT4_SHAPES["lm_head"] == (3584, 152064)
+
+
+def test_v25_phase_workload():
+    """Phase 7 serves qwen2.5-vl-7b on six 448x448 and two 392x448 requests:
+    the 448 grid's windows divide evenly, the 392x448 grid (28x32 patches)
+    pads its last window row, so its 32 tower layers carry a tensor mask."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.nn.qwen2_5_vl import Qwen25VisionConfig, get_window_layout
+
+    model = get_model("qwen2.5-vl-tiny", batch_size=8, dtype="float32", device="cpu")
+    reqs = chip_smoke._requests(model, chip_smoke.V25_SIZES)
+    sizes = [model._fetch_visuals(r.args)[0].size for r in reqs]
+    assert sizes.count((448, 448)) == 6 and sizes.count((448, 392)) == 2 and len(reqs) == 8
+    v25 = Qwen25VisionConfig()
+    even, _, _ = get_window_layout((1, 32, 32), v25)
+    padded, windows, tokens = get_window_layout((1, 28, 32), v25)
+    assert (even >= 0).all() and (windows, tokens) == (16, 64)
+    assert int((padded >= 0).sum()) * 4 == 896 and not (padded >= 0).all()
+    assert chip_smoke.MIN_LAUNCHES_V25 == {
+        "fused_qkv_attention": 64, "flash_attention_tensor_mask": 32,
+        "flash_attention": 28, "gqa_decode_attention": 28,
+    }
+    assert chip_smoke.PACKED_LAUNCHES == 32
+
+
+def test_window_layout_helper_matches_the_adapter():
+    """Phase 2 builds the 392x448 window mask as the adapter does."""
+    import chip_smoke
+
+    slot_src, valid, tok_idx, wn, s = chip_smoke._v25_window_layout((1, 28, 32))
+    assert valid.shape == (wn * s,) == tok_idx.shape and int(valid.sum()) == 896
+    assert (tok_idx[valid == 1] < 896).all() and sorted(tok_idx[valid == 1].tolist()) == list(range(896))

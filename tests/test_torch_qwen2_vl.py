@@ -245,3 +245,93 @@ def test_sample_token():
     tq._sample_token(logits, again, 1.0, 1e-6, True)
     redo = torch.stack([tq._sample_token(logits, again, 1.0, 0.9, True) for _ in range(50)])
     torch.testing.assert_close(redo, draws)  # an explicit generator makes draws repeatable
+
+
+def _tower_inputs(vc, masked: bool):
+    rng = np.random.RandomState(7)
+    n, p = 2, 64
+    patches = rng.randn(n, p, vc.patch_dim).astype(np.float32)
+    freqs = np.zeros((n, p, vc.head_dim // 2), np.float32)
+    freqs[:] = tq.vision_rope_cos_sin([(1, 8, 8)], vc)
+    mask = None
+    if masked:
+        mask = np.ones((n, p), np.int32)
+        mask[1, 40:] = 0
+    return patches, freqs, mask
+
+
+def _tower(model, patches, freqs, mask):
+    return model.vision(_t(patches), _t(freqs), None if mask is None else _t(mask))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_vision_tower_packed_matches_unpacked(pair, masked, monkeypatch):
+    """``LMMS_OWC_VISION_PACKED=force`` (K5's entry over 128-wide padded heads,
+    the padded qkv and proj weights) against the unpacked tower: the same math
+    in float32, so the tolerance is summation order only. Rows past a masked
+    row's prefix are garbage in both and are not compared."""
+    _, _, cfg_t, model = pair
+    patches, freqs, mask = _tower_inputs(cfg_t.vision, masked)
+    monkeypatch.delenv("LMMS_OWC_VISION_PACKED", raising=False)
+    base = _tower(model, patches, freqs, mask)
+    monkeypatch.setenv("LMMS_OWC_VISION_PACKED", "force")
+    packed = _tower(model, patches, freqs, mask)
+    valid = 40 // 4 if masked else None
+    np.testing.assert_allclose(packed[0].numpy(), base[0].numpy(), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(packed[1, :valid].numpy(), base[1, :valid].numpy(), atol=TOL, rtol=TOL)
+
+
+def test_vision_tower_packed_matches_jax_packed(pair, monkeypatch):
+    """The port's packed tower against the JAX package's (``force`` there too,
+    jit caches cleared so the gate is read again)."""
+    cfg_j, tree, cfg_t, model = pair
+    patches, freqs, mask = _tower_inputs(cfg_t.vision, masked=True)
+    monkeypatch.setenv("LMMS_OWC_VISION_PACKED", "force")
+    jax.clear_caches()
+    try:
+        ref = jq.vision_encode_batch(
+            _jtree(tree["vision"]), jnp.asarray(patches), jnp.asarray(freqs), jnp.asarray(mask), cfg_j.vision
+        )
+    finally:
+        jax.clear_caches()
+    out = _tower(model, patches, freqs, mask)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref)[0], atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(out[1, :10].numpy(), np.asarray(ref)[1, :10], atol=TOL, rtol=TOL)
+
+
+def test_vision_tower_packed_int8_and_gate(monkeypatch):
+    """int8 weights pack too (padded scales one, as in the JAX package); int4
+    never packs; ``1`` packs only on CUDA; the padded copies are built once per
+    set of weights and rebuilt after an in-place weight write."""
+    from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear
+    from lmms_owc_tpu_torch.ops.quant import quantize_params_int8
+
+    cfg_j, cfg_t = _configs()
+    tree = _redraw(jq.init_params(jax.random.PRNGKey(0), cfg_j, jnp.float32), np.random.default_rng(3))
+    model = quantize_params_int8(tq.params_from_jax(tq.Qwen2VLModel(cfg_t, torch.float32, "cpu"), tree))
+    tower = model.vision
+    assert isinstance(tower.blocks[0].qkv, Int8Linear)
+    patches, freqs, mask = _tower_inputs(cfg_t.vision, masked=True)
+    monkeypatch.delenv("LMMS_OWC_VISION_PACKED", raising=False)
+    base = _tower(model, patches, freqs, mask)
+    monkeypatch.setenv("LMMS_OWC_VISION_PACKED", "force")
+    packed = _tower(model, patches, freqs, mask)
+    np.testing.assert_allclose(packed[0].numpy(), base[0].numpy(), atol=TOL, rtol=TOL)
+    first = tower._packed_attn_layers()
+    qkv_p, proj_p = first[0]
+    hd = cfg_t.vision.head_dim
+    assert isinstance(qkv_p, Int8Linear) and qkv_p.q.shape[0] == 3 * cfg_t.vision.num_heads * 128
+    assert torch.all(qkv_p.scale.view(3, -1, 128)[..., hd:] == 1) and not qkv_p.q.view(3, -1, 128, qkv_p.q.shape[1])[:, :, hd:].any()
+    assert proj_p.q.shape[1] == cfg_t.vision.num_heads * 128
+    assert tower._packed_attn_layers() is first
+    with torch.no_grad():
+        tower.blocks[1].proj.bias.add_(1.0)
+    assert tower._packed_attn_layers() is not first
+
+    assert tq._vision_packed_enabled(tower.blocks[0].qkv, torch.device("cpu"))  # force
+    monkeypatch.setenv("LMMS_OWC_VISION_PACKED", "1")
+    assert not tq._vision_packed_enabled(tower.blocks[0].qkv, torch.device("cpu"))
+    assert tq._vision_packed_enabled(tower.blocks[0].qkv, torch.device("cuda"))
+    monkeypatch.setenv("LMMS_OWC_VISION_PACKED", "force")
+    int4 = Int4Linear(32, 96, True, torch.float32, "cpu", group=8)
+    assert not tq._vision_packed_enabled(int4, torch.device("cuda"))

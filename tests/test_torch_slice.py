@@ -168,6 +168,11 @@ def test_port_imports_no_jax():
         "        self.args = ('What?', {'max_new_tokens': 3}, lambda d: [d['image']], i, 't', 'test')\n"
         "os.environ.update(LMMS_OWC_DECODE_POOL='2', LMMS_OWC_KV_INT8='force')\n"
         "assert len(q.generate_until([R(i) for i in range(3)])) == 3\n"
+        "v25 = get_model('qwen2.5-vl-tiny', batch_size=2, dtype='float32', device='cpu')\n"
+        "v25.task_dict['t'] = T()\n"
+        "os.environ.update(LMMS_OWC_VISION_PACKED='force')\n"
+        "assert len(v25.generate_until([R(i) for i in range(3)])) == 3\n"
+        "assert len(m._encode_images_flat([T.dataset['test'][0]['image']])[1]) == 1\n"
         "loaded = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not loaded, loaded\n"
         "print('NO_JAX_OK')\n"
