@@ -18,8 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8-cache decode runs at the pooled shape; K2's combined-qkv entry runs
    at the Qwen2.5-VL tower's global and window shapes with the gappy mask of a
    392x448 image's window layout, K2's tensor-mask form also at the prefill
-   shape, and K5's packed entry at the Qwen2-VL tower's shape. The kernels'
-   f32 forms are checked at small ragged shapes.
+   shape, and K5's packed entry at the Qwen2-VL tower's shape. Each row
+   carries its bound (flops or bytes over the H100 SXM peaks) and the time of
+   one PyTorch call computing the same function; ptxas's registers and
+   spills are printed first. The kernels' f32 forms, and the bf16 Hopper
+   instances, are checked at small ragged shapes.
 3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
    on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
@@ -105,6 +108,13 @@ INT4_SHAPES = {
     "down": (18944, 3584), "lm_head": (3584, 152064),
 }
 INT4_ROWS = (96, 8)
+# Published H100 SXM peaks (NVIDIA data sheet; dense bf16 tensor cores, HBM3),
+# at the full 700 W power limit: the bounds of phase 2.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+# Keys of each kernel row on the kernels line (and of its "also"/"all" rows).
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "bound_share", "library_ms", "library_device_ms", "library", "shape")
 
 
 def log(msg: str) -> None:
@@ -161,11 +171,73 @@ def _device_ms(fn, iters: int = 20) -> float | None:
     return total_us / 1000 / iters if total_us > 0 else None
 
 
-def _timings(kernel, plain) -> dict[str, float | None]:
+def _timings(kernel, plain, library=None) -> dict[str, float | None]:
+    """Kernel, plain-version and (when given) library-call times on the same operands."""
     return dict(
         ms=_median_ms(kernel), plain_ms=_median_ms(plain),
         device_ms=_device_ms(kernel), plain_device_ms=_device_ms(plain),
+        library_ms=_median_ms(library) if library is not None else None,
+        library_device_ms=_device_ms(library) if library is not None else None,
     )
+
+
+def _row(shape: str, err: float, timings: dict, bound: dict, library: str) -> dict:
+    """One kernel row: parity, times, the bound and its share of the device time."""
+    device = timings["device_ms"]
+    return dict(shape=shape, max_abs_err=err, **timings, **bound, library=library,
+                bound_share=bound["bound_ms"] / device if device else None)
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over the
+    bf16 tensor-core peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                work_flops=flops, work_bytes=nbytes)
+
+
+def _attention_bound(keys, heads: int, kv_heads: int, lq: int, d: int, *, causal: bool,
+                     extra_bytes: float = 0, elt: int = 2) -> dict:
+    """Bound of attention whose rows attend to the valid keys ``keys`` [B, Lk]
+    (bool), causal or not: 4*d flops per (query head, valid key) pair that the
+    masks leave; q read and the output written once, and each valid key's k and
+    v rows read once (a masked key need not be read)."""
+    import torch
+
+    b, lk = keys.shape
+    keys = keys.bool()
+    if causal:  # query i (aligned to the end) sees the valid keys at or before i + lk - lq
+        pairs = int(torch.cumsum(keys.int(), 1)[:, torch.arange(lq, device=keys.device) + lk - lq].sum())
+    else:
+        pairs = int(keys.sum()) * lq
+    nbytes = elt * (2 * b * heads * lq * d + 2 * kv_heads * d * int(keys.sum())) + extra_bytes
+    return _bound(4.0 * d * heads * pairs, nbytes)
+
+
+SDPA = ("torch.nn.functional.scaled_dot_product_attention, boolean attn_mask with the same valid keys"
+        " (and the causal diagonal), q and k rotated and k/v expanded to every query head before the timer")
+
+
+def _sdpa(q, k, v, keep):
+    """One library call computing the same attention: q [B, H, Lq, D], k/v
+    [B, KVH, Lk, D] already rotated, ``keep`` a bool mask broadcast to
+    [B, H, Lq, Lk]; k/v are expanded to H heads here, outside the timed call."""
+    import torch
+
+    h = q.shape[1]
+    if k.shape[1] != h:
+        k, v = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+
+
+def _causal_keep(keys, lq: int):
+    """[B, 1, Lq, Lk] bool: valid key and at or before the query (aligned to the end)."""
+    import torch
+
+    lk = keys.shape[1]
+    diag = torch.arange(lk, device=keys.device)[None, :] <= torch.arange(lq, device=keys.device)[:, None] + lk - lq
+    return keys.bool()[:, None, None, :] & diag[None, None]
 
 
 def _compare(name: str, got, want, rows=None) -> float:
@@ -192,6 +264,7 @@ def check_kernels(dev) -> dict[str, dict]:
     """Phase 2: every kernel against its plain version at the main path's shapes."""
     import torch
 
+    from lmms_owc_tpu_torch.nn.layers import apply_rope
     from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLVisionConfig, quantize_kv_cache, vision_rope_cos_sin
     from lmms_owc_tpu_torch.ops import attention as att
 
@@ -216,12 +289,15 @@ def check_kernels(dev) -> dict[str, dict]:
     got = att.vision_qkv_attention(qkv, h, d, **kw)
     want = att.vision_qkv_attention_plain(qkv, h, d, **kw)
     err = _compare("vision_qkv_attention", got, want)
-    results["vision_qkv_attention"] = dict(
-        shape=f"qkv [{n}, {p}, {3 * h * d}] bf16, rope, mask (0, 768) on {n // 2} rows",
-        max_abs_err=err,
-        **_timings(lambda: att.vision_qkv_attention(qkv, h, d, **kw),
-                   lambda: att.vision_qkv_attention_plain(qkv, h, d, **kw)),
+    vq, vk, vv = qkv.view(n, p, 3, h, d).permute(2, 0, 3, 1, 4)
+    library = _sdpa(apply_rope(vq, cos, sin), apply_rope(vk, cos, sin), vv, vmask.bool()[:, None, None, :])
+    results["vision_qkv_attention"] = _row(
+        f"qkv [{n}, {p}, {3 * h * d}] bf16, rope, mask (0, 768) on {n // 2} rows", err,
+        _timings(lambda: att.vision_qkv_attention(qkv, h, d, **kw),
+                 lambda: att.vision_qkv_attention_plain(qkv, h, d, **kw), library),
+        _attention_bound(vmask, h, h, p, d, causal=False, extra_bytes=2 * 4 * n * p * d // 2 + 8 * n), SDPA,
     )
+    del library
 
     # Prefill (K2): q [8, 28, 320, 128], k/v [8, 4, 320, 128], causal, left padding.
     b, nh, kvh, l, hd = 8, 28, 4, 320, 128
@@ -234,11 +310,11 @@ def check_kernels(dev) -> dict[str, dict]:
     want = att.flash_attention_plain(q, k, v, **kw)
     valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)  # rows with a key
     err = _compare("flash_attention", got, want, valid_rows)
-    results["flash_attention"] = dict(
-        shape=f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded",
-        max_abs_err=err,
-        **_timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
-                   lambda: att.flash_attention_plain(q, k, v, **kw)),
+    results["flash_attention"] = _row(
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded", err,
+        _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                 lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
     )
 
     # Decode (K3): q [8, 28, 128] against cache [28, 8, 4, 384, 128] at two layers.
@@ -252,11 +328,13 @@ def check_kernels(dev) -> dict[str, dict]:
         got = att.gqa_decode_attention(qd, ck, cv, layer, dmask)
         want = att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask)
         errs.append(_compare(f"gqa_decode_attention[layer {layer}]", got, want))
-    results["gqa_decode_attention"] = dict(
-        shape=f"q [{b}, {nh}, {hd}], cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16, layers 0 and {layers - 1}",
-        max_abs_err=max(errs),
-        **_timings(lambda: att.gqa_decode_attention(qd, ck, cv, layers - 1, dmask),
-                   lambda: att.gqa_decode_attention_plain(qd, ck, cv, layers - 1, dmask)),
+    results["gqa_decode_attention"] = _row(
+        f"q [{b}, {nh}, {hd}], cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16, layers 0 and {layers - 1}",
+        max(errs),
+        _timings(lambda: att.gqa_decode_attention(qd, ck, cv, layers - 1, dmask),
+                 lambda: att.gqa_decode_attention_plain(qd, ck, cv, layers - 1, dmask),
+                 _sdpa(qd[:, :, None], ck[layers - 1], cv[layers - 1], dmask.bool()[:, None, None, :])),
+        _attention_bound(dmask, nh, kvh, 1, hd, causal=False, extra_bytes=4 * b * s), SDPA,
     )
     # Decode, int8 cache (K3 int8): the pooled shape, q [96, 28, 128] against
     # cache [28, 96, 4, 384, 128] int8 with [28, 96, 4, 384] scales.
@@ -270,12 +348,18 @@ def check_kernels(dev) -> dict[str, dict]:
         got = att.gqa_decode_attention(qp, kq, vq, layer, pmask, sk, sv)
         want = att.gqa_decode_attention_plain(qp, kq, vq, layer, pmask, sk, sv)
         errs.append(_compare(f"gqa_decode_attention_int8[layer {layer}]", got, want))
-    results["gqa_decode_attention_int8"] = dict(
-        shape=f"q [{pb}, {nh}, {hd}] bf16, cache [{layers}, {pb}, {kvh}, {s}, {hd}] int8 + f32 scales, "
-              f"layers 0 and {layers - 1}",
-        max_abs_err=max(errs),
-        **_timings(lambda: att.gqa_decode_attention(qp, kq, vq, layers - 1, pmask, sk, sv),
-                   lambda: att.gqa_decode_attention_plain(qp, kq, vq, layers - 1, pmask, sk, sv)),
+    # Bytes: q and the output in bf16, each valid key's int8 k and v rows and
+    # their two f32 scales, the int32 mask.
+    valid = int(pmask.sum())
+    results["gqa_decode_attention_int8"] = _row(
+        f"q [{pb}, {nh}, {hd}] bf16, cache [{layers}, {pb}, {kvh}, {s}, {hd}] int8 + f32 scales, "
+        f"layers 0 and {layers - 1}",
+        max(errs),
+        _timings(lambda: att.gqa_decode_attention(qp, kq, vq, layers - 1, pmask, sk, sv),
+                 lambda: att.gqa_decode_attention_plain(qp, kq, vq, layers - 1, pmask, sk, sv)),
+        _bound(4.0 * hd * nh * valid, 2 * 2 * pb * nh * hd + kvh * valid * (2 * hd + 2 * 4) + 4 * pb * s),
+        "none: no single PyTorch call attends over an int8 cache with per-position scales "
+        "(scaled_dot_product_attention needs the cache dequantized first)",
     )
     del kq, vq, sk, sv
     results.update(check_tower_entries(dev, gen))
@@ -283,13 +367,17 @@ def check_kernels(dev) -> dict[str, dict]:
     for name, r in results.items():
         for label, row in [(name, r)] + [(f"{name} ({k})", v) for k, v in r.get("also", {}).items()]:
             log(f"parity {label}: {row['shape']}: max abs err {row['max_abs_err']:.3e}; per call "
-                f"(median of 20, CUDA events) kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
-                f"device time (profiler) kernel {row['device_ms']} ms, plain {row['plain_device_ms']} ms")
+                f"(median of 20, CUDA events) kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library {row['library_ms']} ms; device time (profiler) kernel {row['device_ms']} ms, "
+                f"plain {row['plain_device_ms']} ms, library {row['library_device_ms']} ms; bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['bound_share']} of the device time; "
+                f"library call: {row['library']}")
     # The gappy-mask prefill is K2's tensor-mask form through flash_attention.
     gappy = results.pop("flash_attention_tensor_mask")
     results["flash_attention"]["also"] = {"tensor_mask": gappy}
     results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"], gappy["max_abs_err"])
     check_f32_kernels(dev, gen)
+    check_ragged_bf16(dev, gen)
     return results
 
 
@@ -312,6 +400,7 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
     prefill shape, and K5's packed entry at the Qwen2-VL tower's shape."""
     import torch
 
+    from lmms_owc_tpu_torch.nn.layers import apply_rope
     from lmms_owc_tpu_torch.nn.qwen2_5_vl import Qwen25VisionConfig, vision25_rope_freqs
     from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLVisionConfig, vision_rope_cos_sin
     from lmms_owc_tpu_torch.ops import attention as att
@@ -341,13 +430,19 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
         x = qkv.view(b, length, 3 * h, d)
         err = _compare(f"fused_qkv_attention[{label}]", att.fused_qkv_attention(x, h, h, **kw),
                        att.fused_qkv_attention_plain(x, h, h, **kw))
-        rows[label] = dict(
-            shape=f"qkvh [{b}, {3 * h}, {length}, {d}] bf16 (token-major view), rope, the window mask of "
-                  f"a 392x448 image ({int(valid.sum())} of {l} slots valid)",
-            max_abs_err=err,
-            **_timings(lambda: att.fused_qkv_attention(x, h, h, **kw),
-                       lambda: att.fused_qkv_attention_plain(x, h, h, **kw)),
+        keys = kw["kv_mask"]
+        xq, xk, xv = x.view(b, length, 3, h, d).permute(2, 0, 3, 1, 4)
+        c, sn = kw["rope_cos"], kw["rope_sin"]
+        library = _sdpa(apply_rope(xq, c, sn), apply_rope(xk, c, sn), xv, keys.bool()[:, None, None, :])
+        rows[label] = _row(
+            f"qkvh [{b}, {3 * h}, {length}, {d}] bf16 (token-major view), rope, the window mask of "
+            f"a 392x448 image ({int(valid.sum())} of {l} slots valid)", err,
+            _timings(lambda: att.fused_qkv_attention(x, h, h, **kw),
+                     lambda: att.fused_qkv_attention_plain(x, h, h, **kw), library),
+            _attention_bound(keys, h, h, length, d, causal=False,
+                             extra_bytes=4 * b * length * d + 4 * b * length), SDPA,
         )
+        del library
     # The head-major [B, H + 2*KVH, L, D] form of the same entry, parity only.
     kw = dict(kv_mask=mask.view(n, l), rope_cos=cos.view(n, l, -1), rope_sin=sin.view(n, l, -1))
     head_major = qkv.permute(0, 2, 1, 3).contiguous()
@@ -367,11 +462,12 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
     seen = (torch.cumsum(gmask, dim=1) > 0)[:, None, :].expand(b, nh, l)
     err = _compare("flash_attention[tensor mask]", att.flash_attention(q, k, v, **kw),
                    att.flash_attention_plain(q, k, v, **kw), seen)
-    results["flash_attention_tensor_mask"] = dict(
-        shape=f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, gappy mask "
-              f"({int(gmask.sum())} of {b * l} keys valid)",
-        max_abs_err=err,
-        **_timings(lambda: att.flash_attention(q, k, v, **kw), lambda: att.flash_attention_plain(q, k, v, **kw)),
+    results["flash_attention_tensor_mask"] = _row(
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, gappy mask "
+        f"({int(gmask.sum())} of {b * l} keys valid)", err,
+        _timings(lambda: att.flash_attention(q, k, v, **kw), lambda: att.flash_attention_plain(q, k, v, **kw),
+                 _sdpa(q, k, v, _causal_keep(gmask, l))),
+        _attention_bound(gmask, nh, kvh, l, hd, causal=True, extra_bytes=4 * b * l), SDPA,
     )
     del q, k, v
 
@@ -388,12 +484,18 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
     err = _compare("packed_vision_attention", got, att.packed_attention_reference(packed, h, d, **kw))
     if bool(got.view(n, p, h, hp)[..., d:].any()):
         raise AssertionError("packed_vision_attention: padding columns are not zero")
-    results["packed_vision_attention"] = dict(
-        shape=f"qkv [{n}, {p}, 3*{h}*{hp}] bf16 (head_dim {d} padded to {hp}), freqs, mask (0, 768) on every row",
-        max_abs_err=err,
-        **_timings(lambda: att.packed_vision_attention(packed, h, d, **kw),
-                   lambda: att.packed_attention_reference(packed, h, d, **kw)),
+    pq, pk, pv = packed.view(n, p, 3, h, hp)[..., :d].permute(2, 0, 3, 1, 4)
+    pc, ps = torch.cos(pfreqs.float()), torch.sin(pfreqs.float())
+    library = _sdpa(apply_rope(pq, pc, ps), apply_rope(pk, pc, ps), pv, pmask.bool()[:, None, None, :])
+    # Bytes: the real columns of q, k and v read, the padded output written, the freqs.
+    bound = _attention_bound(pmask, h, h, p, d, causal=False, extra_bytes=2 * n * p * h * (hp - d) + 4 * n * p * d // 2)
+    results["packed_vision_attention"] = _row(
+        f"qkv [{n}, {p}, 3*{h}*{hp}] bf16 (head_dim {d} padded to {hp}), freqs, mask (0, 768) on every row", err,
+        _timings(lambda: att.packed_vision_attention(packed, h, d, **kw),
+                 lambda: att.packed_attention_reference(packed, h, d, **kw), library),
+        bound, SDPA,
     )
+    del library
     return results
 
 
@@ -410,23 +512,107 @@ def check_int4(dev, gen) -> dict:
     for name, (k, n) in INT4_SHAPES.items():
         qp = quantize_int4(torch.randn((n, k), generator=gen, device=dev) * 0.02)
         q4, scale = qp["q4"], qp["scale"]
+        library, described = _int4_library(qp)
         del qp
         for m in INT4_ROWS:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            err = _compare(f"int4_matmul[{name}, M={m}]", i4.int4_matmul(x, q4, scale), i4.int4_matmul_plain(x, q4, scale))
-            t = _timings(lambda: i4.int4_matmul(x, q4, scale), lambda: i4.int4_matmul_plain(x, q4, scale))
-            rows[f"{name} M={m}"] = dict(shape=f"x [{m}, {k}] bf16, q4 [{n}, {k // 2}] int8, scale [{n}, {k // 128}]",
-                                         max_abs_err=err, **t)
+            want = i4.int4_matmul_plain(x, q4, scale)
+            err = _compare(f"int4_matmul[{name}, M={m}]", i4.int4_matmul(x, q4, scale), want)
+            call, lib_desc = None, described
+            if library is not None:
+                call = lambda: library(x)  # noqa: E731
+                lib_desc += f"; max abs err vs the plain version {float((call().float() - want.float()).abs().max()):.3e}"
+            t = _timings(lambda: i4.int4_matmul(x, q4, scale), lambda: i4.int4_matmul_plain(x, q4, scale), call)
+            # Bytes: x, the packed weight, its f32 scales, the bf16 output.
+            bound = _bound(2.0 * m * n * k, 2 * m * k + n * k // 2 + 4 * n * (k // 128) + 2 * m * n)
+            rows[f"{name} M={m}"] = _row(f"x [{m}, {k}] bf16, q4 [{n}, {k // 2}] int8, scale [{n}, {k // 128}]",
+                                         err, t, bound, lib_desc)
             log(f"parity int4_matmul {name} (K={k}, N={n}) M={m}: max abs err {err:.3e}; per call kernel "
-                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; device kernel {t['device_ms']} ms, "
-                f"plain {t['plain_device_ms']} ms")
-        del q4, scale
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']} ms; device kernel "
+                f"{t['device_ms']} ms, plain {t['plain_device_ms']} ms, library {t['library_device_ms']} ms; "
+                f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        del q4, scale, library
         torch.cuda.empty_cache()
     head = dict(rows["gate/up M=96"])
     head["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     head["shape"] = "gate/up " + head["shape"] + " (max abs err over all shapes)"
     head["all"] = rows
     return head
+
+
+def _int4_library(qp: dict):
+    """``(fn, description)``: ``fn(x)`` is one ``torch._weight_int4pack_mm`` call on
+    the weight repacked once by ``torch._convert_weight_to_int4pack`` (unsigned
+    nibbles q + 8 with zero point 0, bf16 scales, group 128); ``(None, reason)``
+    when the installed torch does not take that form."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops.quant import unpack_int4
+
+    try:
+        w = unpack_int4(qp).to(torch.int32) + 8  # [N, K] in [1, 15]
+        n, k = w.shape
+        packed = torch._convert_weight_to_int4pack((w[:, ::2] << 4 | w[:, 1::2]).to(torch.uint8), 8)
+        scales = qp["scale"].t().to(torch.bfloat16)  # [K/128, N]
+        scale_zeros = torch.stack([scales, torch.zeros_like(scales)], dim=-1).contiguous()
+        fn = lambda x: torch._weight_int4pack_mm(x, packed, 128, scale_zeros)  # noqa: E731
+        fn(torch.zeros((8, k), dtype=torch.bfloat16, device=w.device))
+    except (RuntimeError, AttributeError, TypeError) as err:
+        return None, f"none: torch._weight_int4pack_mm at group 128 with zero points 0 failed here ({err})"[:300]
+    return fn, "torch._weight_int4pack_mm on the weight repacked once (bf16 scales, zero points 0, group 128)"
+
+
+def check_ragged_bf16(dev, gen) -> None:
+    """The Hopper instances at ragged bf16 shapes the main paths also reach
+    (prompt buckets such as 288 are not multiples of the 64-key tile; the
+    decode cache splits unevenly), within TOL of the plain versions."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    errs = {}
+    # Prefill at a 288-key bucket, causal GQA with left padding (D = 128).
+    b, l = 3, 288
+    q, k, v = randn(b, 28, l, 128), randn(b, 4, l, 128), randn(b, 4, l, 128)
+    starts = torch.tensor([0, 37, 200], device=dev)
+    pos = torch.arange(l, device=dev)
+    keys = (pos[None, :] >= starts[:, None]).to(torch.int32)
+    got = att.flash_attention(q, k, v, causal=True, kv_mask=keys, kv_mask_contiguous=True)
+    rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, 28, l)
+    errs["prefill L=288"] = _compare("flash_attention[L=288]", got,
+                                     att.flash_attention_plain(q, k, v, causal=True, kv_mask=keys), rows)
+    # Vision at 200 patches (D = 80, one 192-row block and a 8-row tail), rope, a short row.
+    qkv = randn(2, 200, 3 * 16 * 80)
+    cos, sin = torch.cos(randn(2, 200, 40).float()), torch.sin(randn(2, 200, 40).float())
+    vmask = torch.ones((2, 200), dtype=torch.int32, device=dev)
+    vmask[1, 130:] = 0
+    kw = dict(kv_mask=vmask, rope_cos=cos, rope_sin=sin)
+    errs["vision L=200"] = _compare("vision_qkv_attention[L=200]", att.vision_qkv_attention(qkv, 16, 80, **kw),
+                                    att.vision_qkv_attention_plain(qkv, 16, 80, **kw))
+    # The tensor mask with holes: one 64-row q block (keys rotated in the kernel), and two blocks.
+    for length in (64, 200):
+        x = randn(2, length, 48, 80)
+        gappy = (torch.rand((2, length), generator=gen, device=dev) > 0.3).to(torch.int32)
+        gappy[:, 0] = 1
+        c, s_ = cos[:, :length], sin[:, :length]
+        kw = dict(kv_mask=gappy, rope_cos=c, rope_sin=s_, token_major=True)
+        errs[f"combined L={length}"] = _compare(
+            f"fused_qkv_attention[L={length}]", att.fused_qkv_attention(x, 16, 16, **kw),
+            att.fused_qkv_attention_plain(x, 16, 16, **kw))
+    # Decode with uneven splits: S = 100 (2 x 64) in bf16, S = 520 (7 x 80) with an int8 cache.
+    for s, int8 in ((100, False), (520, True)):
+        qd, ck, cv = randn(5, 28, 128), randn(2, 5, 4, s, 128), randn(2, 5, 4, s, 128)
+        dmask = (torch.rand((5, s), generator=gen, device=dev) > 0.2).to(torch.int32)
+        cache = quantize_kv_cache(ck, cv) if int8 else (ck, cv)
+        errs[f"decode S={s}{' int8' if int8 else ''}"] = _compare(
+            f"gqa_decode_attention[S={s}]", att.gqa_decode_attention(qd, *cache[:2], 1, dmask, *cache[2:]),
+            att.gqa_decode_attention_plain(qd, *cache[:2], 1, dmask, *cache[2:]))
+    log(f"ragged bf16 shapes (decode splits {att.decode_split_plan(100)} and {att.decode_split_plan(520)}): "
+        f"max abs errs {errs}")
 
 
 def check_f32_kernels(dev, gen) -> None:
@@ -941,6 +1127,30 @@ def run_int4(dev) -> dict:
     return run
 
 
+def _ptxas_summary(report: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: registers,
+    shared memory, spills (names demangled when ``c++filt`` is there)."""
+    import re
+
+    rows, name = [], None
+    for line in report.splitlines():
+        if "Performance" in line:  # e.g. wgmma serialized
+            rows.append((re.sub(r".*'(\w+)'.*", r"\1", line) if "'" in line else "-", line.strip()[:300]))
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spill = m.group(1), ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers(.*)", line)):
+            rows.append((name, f"{m.group(1)} registers{m.group(2)}; {spill}"))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [n for n, _ in rows]
+    return [f"{n[:160]}: {info}" for n, (_, info) in zip(names, rows)]
+
+
 def main() -> int:
     import torch
 
@@ -962,6 +1172,8 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
+    for line in _ptxas_summary(_build.ptxas_report(lib_path)):
+        log(f"ptxas: {line}")
 
     parity = check_kernels(dev)
     model, requests, counts = run_main_path(dev)
@@ -983,10 +1195,8 @@ def main() -> int:
     kernels = [
         dict(
             name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
-            launches=launches[name], max_abs_err=parity[name]["max_abs_err"],
-            ms=parity[name]["ms"], plain_ms=parity[name]["plain_ms"],
-            device_ms=parity[name]["device_ms"], plain_device_ms=parity[name]["plain_device_ms"],
-            shape=parity[name]["shape"], **{k: parity[name][k] for k in ("also",) if k in parity[name]},
+            launches=launches[name],
+            **{k: parity[name][k] for k in ROW_KEYS}, **{k: parity[name][k] for k in ("also", "all") if k in parity[name]},
         )
         for name in KERNELS
     ]

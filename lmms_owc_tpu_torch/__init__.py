@@ -10,8 +10,10 @@ each counterpart is easy to find, and never imports JAX:
                                    functions (Qwen2-VL vision tower, prefill, decode).
   - ``lmms_owc_tpu_torch.models``  the adapter registry and the ``Qwen2VL`` adapter.
 
-Host-side code that imports no JAX (``lmms_owc_tpu.utils``, ``.native``,
-``.tasks``) is imported from the JAX package, not copied.
+It imports nothing of the JAX package either: the host helpers it shares with
+it (request collation, logging, the chunk pipeline, the model record and the
+native resizer) are copies in ``lmms_owc_tpu_torch.utils``, ``.schema`` and
+``.native``.
 """
 
 from lmms_owc_tpu_torch._device import get_device, no_tf32

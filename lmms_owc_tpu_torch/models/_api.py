@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, Callable
 
-from lmms_owc_tpu.schema import ModelInfo
+from lmms_owc_tpu_torch.schema import ModelInfo
 
 if TYPE_CHECKING:
     from lmms_owc_tpu_torch.models._base import Model

@@ -14,6 +14,7 @@ import abc
 import torch
 
 from lmms_owc_tpu_torch._device import get_device
+from lmms_owc_tpu_torch.utils import foreach_chunk_pipelined
 
 __all__ = ["Model"]
 
@@ -82,10 +83,8 @@ class Model(abc.ABC):
 
         ``prepare(chunk)`` does host preprocessing and the vision encode in a
         worker thread; ``run(chunk, prepared)`` decodes. See
-        :func:`lmms_owc_tpu.utils.foreach_chunk_pipelined`.
+        :func:`lmms_owc_tpu_torch.utils.foreach_chunk_pipelined`.
         """
-        from lmms_owc_tpu.utils import foreach_chunk_pipelined
-
         return foreach_chunk_pipelined(chunks, prepare, run, depth=depth, finish=finish)
 
     def apply_chat_template(self, messages: list[dict]) -> str:

@@ -27,7 +27,6 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from lmms_owc_tpu.utils import Collator, get_logger, pad_to_bucket
 from lmms_owc_tpu_torch.models._api import register_model
 from lmms_owc_tpu_torch.models._base import Model
 from lmms_owc_tpu_torch.nn import qwen2_5_vl as qvl25
@@ -39,6 +38,7 @@ from lmms_owc_tpu_torch.ops.image import (
     resize_host_batch,
     smart_resize,
 )
+from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
 
 log = get_logger(__name__)
 

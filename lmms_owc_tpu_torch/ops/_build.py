@@ -32,6 +32,7 @@ __all__ = [
     "KernelBuildError",
     "build",
     "load_library",
+    "ptxas_report",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -68,6 +69,7 @@ class FlashArgs(ctypes.Structure):
         ("lq", ctypes.c_int), ("lk", ctypes.c_int), ("head_dim", ctypes.c_int),
         ("causal", ctypes.c_int), ("dtype", ctypes.c_int),
         ("scale_log2", ctypes.c_float),
+        ("k_rot", ctypes.c_void_p),
     ]
 
 
@@ -82,6 +84,7 @@ class DecodeArgs(ctypes.Structure):
         ("kv_heads", ctypes.c_int), ("seq", ctypes.c_int), ("head_dim", ctypes.c_int),
         ("layer", ctypes.c_int), ("dtype", ctypes.c_int), ("cache_int8", ctypes.c_int),
         ("scale", ctypes.c_float),
+        ("splits", ctypes.c_int), ("split_keys", ctypes.c_int),
     ]
 
 
@@ -129,13 +132,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libowc_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands side by side; raise with the first failure's output."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands side by side; raise with the first failure's output,
+    else return each command's standard error."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in cmds]
     errors = [proc.communicate()[1] for proc in procs]  # waits for every process
     for cmd, proc, err in zip(cmds, procs, errors):
         if proc.returncode != 0:
             raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err[-4000:]}")
+    return errors
+
+
+def ptxas_report(path: Path | None = None) -> str:
+    """What ``ptxas -v`` said about each kernel of the library at ``path`` (the
+    current one by default): registers, shared memory, spills. Written by
+    :func:`build`; empty when the library was built elsewhere."""
+    report = (path or library_path()).with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else ""
 
 
 def build() -> Path:
@@ -148,12 +161,13 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objects = [str(Path(tmpdir) / f"{p.stem}.o") for p in units]
-        _run_all([
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o", obj]
+        reports = _run_all([
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC_DIR), "-c", str(src), "-o", obj]
             for src, obj in zip(units, objects)
         ])
         tmp = str(Path(tmpdir) / "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]])
+        path.with_suffix(".ptxas.txt").write_text("".join(reports))
         os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
     return path
 

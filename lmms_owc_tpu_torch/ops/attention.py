@@ -16,7 +16,8 @@ Qwen2-VL and Qwen2.5-VL paths:
     kernel, reading the padded heads in place.
   - :func:`gqa_decode_attention` — decode (port of ``_decode_kernel``, K3) against
     one layer of the stacked KV cache, bf16/f32 or int8 with per-position
-    scales, ``csrc/decode_attn.cu``.
+    scales, ``csrc/decode_attn.cu``; the key axis is split across a cluster
+    of CTAs by :func:`decode_split_plan`, a function of the cache length only.
 
 Each wrapper takes its plain version (``*_plain`` or
 :func:`packed_attention_reference`, built on :func:`attention_reference` and
@@ -40,6 +41,7 @@ from lmms_owc_tpu_torch.ops import _build
 
 __all__ = [
     "attention_reference",
+    "decode_split_plan",
     "flash_attention",
     "flash_attention_plain",
     "fused_qkv_attention",
@@ -59,6 +61,7 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
+_DECODE_MAX_SPLITS = 8  # the portable thread-block cluster size
 
 launch_counts: dict[str, int] = {
     "flash_attention": 0,
@@ -337,11 +340,14 @@ def _launch_flash(
             mask_se = _mask_start_end(kv_mask.to(q.device))
         else:
             mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    k_rot = None
     if rope_cos is not None:
         if lq != lk:
             raise ValueError("fused rope expects self-attention (Lq == Lk)")
         cos = _rope_table(rope_cos, b, lq, d // 2).to(q.device)
         sin = _rope_table(rope_sin, b, lq, d // 2).to(q.device)
+        if dtype == torch.bfloat16:  # the Hopper instances rotate the keys once into this scratch
+            k_rot = torch.empty((b, kvh, lk, d), dtype=dtype, device=q.device)
     args = _build.FlashArgs(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
@@ -352,6 +358,7 @@ def _launch_flash(
         0 if cos is None or cos.shape[0] == 1 else cos.stride(0),
         b, h, kvh, lq, lk, d, int(causal), _DTYPE_CODES[dtype],
         scale * _LOG2E,
+        k_rot.data_ptr() if k_rot is not None else None,
     )
     code = lib.owc_flash_attention(ctypes.byref(args), _stream_handle(q.device))
     _raise_on_error(code, name)
@@ -373,6 +380,68 @@ def _launch_combined(
     else:
         out = out_view = torch.empty(q.shape, dtype=qkvh.dtype, device=qkvh.device)
     _launch_flash(name, q, k, v, out_view, **kw)
+    return out
+
+
+def _launch_decode(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    layer_idx: int,
+    kv_mask: torch.Tensor,
+    k_scale: torch.Tensor | None,
+    v_scale: torch.Tensor | None,
+    scale: float,
+) -> torch.Tensor:
+    """Check the operands, launch the decode kernel with the split plan of the
+    cache length, and count it (the int8 cache under ``gqa_decode_attention_int8``)."""
+    b, h, d = q.shape
+    int8 = cache_k.dtype == torch.int8
+    lib = _build.load_library()
+    if int8:
+        dtype = _check_operands({"q": q})
+        for name, t in (("cache_k", cache_k), ("cache_v", cache_v), ("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != q.device:
+                raise ValueError(f"{name}: expected a tensor on {q.device}, got {t.device}")
+        if cache_v.dtype != torch.int8 or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise ValueError("an int8 cache takes int8 k/v and f32 scales")
+    else:
+        dtype = _check_operands({"q": q, "cache_k": cache_k, "cache_v": cache_v})
+    layers, cb, kvh, s, cd = cache_k.shape
+    if cb != b or cd != d or cache_v.shape != cache_k.shape or h % kvh != 0:
+        raise ValueError(f"shape mismatch: q {q.shape}, cache {cache_k.shape} / {cache_v.shape}")
+    if int8 and (k_scale.shape != (layers, b, kvh, s) or v_scale.shape != k_scale.shape):
+        raise ValueError(f"scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)} != [{layers}, {b}, {kvh}, {s}]")
+    if not 0 <= layer_idx < layers:
+        raise ValueError(f"layer_idx {layer_idx} outside [0, {layers})")
+    vec = 16 // cache_k.element_size()  # the kernel reads cache rows as 16-byte vectors
+    if h // kvh > 8 or d > 128 or d % vec:
+        raise ValueError(
+            f"decode kernel takes groups <= 8 and head_dim <= 128 divisible by {vec}, "
+            f"got {h // kvh}, {d}"
+        )
+    operands = (("q", q), ("cache_k", cache_k), ("cache_v", cache_v))
+    if int8:
+        operands += (("k_scale", k_scale), ("v_scale", v_scale))
+    for name, t in operands:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
+        raise ValueError("the caches must start 16-byte aligned")
+    if kv_mask.shape != (b, s):
+        raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {s}]")
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    args = _build.DecodeArgs(
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
+        layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], int(int8), scale,
+        *decode_split_plan(s),
+    )
+    code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
+    name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
+    _raise_on_error(code, name)
+    launch_counts[name] += 1
     return out
 
 
@@ -537,6 +606,16 @@ def vision_qkv_attention(
     )
 
 
+def decode_split_plan(seq: int) -> tuple[int, int]:
+    """(splits, keys per split) of the decode kernel's key axis for a cache of
+    ``seq`` positions: one CTA per 64 positions, at most 8, keys a multiple of 16.
+    A function of the cache length alone, never of the batch, so a pooled and
+    an unpooled batch split alike and give the same bits."""
+    splits = max(1, min(_DECODE_MAX_SPLITS, -(-seq // 64)))
+    keys = -(-(-(-seq // splits)) // 16) * 16  # ceil(seq / splits), rounded up to 16
+    return -(-seq // keys), keys  # rounding can leave the last split empty: drop it
+
+
 def gqa_decode_attention(
     q: torch.Tensor,
     cache_k: torch.Tensor,
@@ -561,9 +640,8 @@ def gqa_decode_attention(
             sublane replication); required with an int8 cache.
     Returns: [B, H, D] in q.dtype.
     """
-    b, h, d = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     int8 = cache_k.dtype == torch.int8
     if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("an int8 cache takes k_scale and v_scale, a float cache neither")
@@ -571,48 +649,4 @@ def gqa_decode_attention(
         return gqa_decode_attention_plain(
             q, cache_k, cache_v, layer_idx, kv_mask, k_scale, v_scale, scale=scale
         )
-    lib = _build.load_library()
-    if int8:
-        dtype = _check_operands({"q": q})
-        for name, t in (("cache_k", cache_k), ("cache_v", cache_v), ("k_scale", k_scale), ("v_scale", v_scale)):
-            if t.device != q.device:
-                raise ValueError(f"{name}: expected a tensor on {q.device}, got {t.device}")
-        if cache_v.dtype != torch.int8 or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
-            raise ValueError("an int8 cache takes int8 k/v and f32 scales")
-    else:
-        dtype = _check_operands({"q": q, "cache_k": cache_k, "cache_v": cache_v})
-    layers, cb, kvh, s, cd = cache_k.shape
-    if cb != b or cd != d or cache_v.shape != cache_k.shape or h % kvh != 0:
-        raise ValueError(f"shape mismatch: q {q.shape}, cache {cache_k.shape} / {cache_v.shape}")
-    if int8 and (k_scale.shape != (layers, b, kvh, s) or v_scale.shape != k_scale.shape):
-        raise ValueError(f"scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)} != [{layers}, {b}, {kvh}, {s}]")
-    if not 0 <= layer_idx < layers:
-        raise ValueError(f"layer_idx {layer_idx} outside [0, {layers})")
-    vec = 16 // cache_k.element_size()  # the kernel reads cache rows as 16-byte vectors
-    if h // kvh > 8 or d > 128 or d % vec:
-        raise ValueError(
-            f"decode kernel takes groups <= 8 and head_dim <= 128 divisible by {vec}, "
-            f"got {h // kvh}, {d}"
-        )
-    operands = (("q", q), ("cache_k", cache_k), ("cache_v", cache_v))
-    if int8:
-        operands += (("k_scale", k_scale), ("v_scale", v_scale))
-    for name, t in operands:
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
-        raise ValueError("the caches must start 16-byte aligned")
-    if kv_mask.shape != (b, s):
-        raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {s}]")
-    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    args = _build.DecodeArgs(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
-        layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], int(int8), scale,
-    )
-    code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
-    name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
-    _raise_on_error(code, name)
-    launch_counts[name] += 1
-    return out
+    return _launch_decode(q, cache_k, cache_v, layer_idx, kv_mask, k_scale, v_scale, scale)

@@ -2,10 +2,11 @@
 
 Counterpart of :mod:`lmms_owc_tpu.ops.image`, which imports JAX, so its host
 helpers need a JAX-free home here. ``smart_resize`` reproduces the HF Qwen2-VL
-sizing rule; ``resize_host`` runs the same native C++ bicubic resizer
-(:mod:`lmms_owc_tpu.native`) or PIL, with the same identity fast path, so the
-pixels equal the JAX package's. ``patchify_images_batch`` runs the rescale,
-CLIP normalisation and the 9-D patch transpose on the tensor's device.
+sizing rule; ``resize_host`` runs the port's copy of the JAX package's native
+C++ bicubic resizer (:mod:`lmms_owc_tpu_torch.native`) or PIL, with the same
+identity fast path, so the pixels equal the JAX package's.
+``patchify_images_batch`` runs the rescale, CLIP normalisation and the 9-D
+patch transpose on the tensor's device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from lmms_owc_tpu_torch.native import native_resizer
 
 __all__ = [
     "OPENAI_CLIP_MEAN",
@@ -82,27 +85,12 @@ def patchify_images_batch(
     return x.reshape(n, grid_h * grid_w, c * temporal_patch_size * patch_size**2).to(out_dtype)
 
 
-class _NativeResizer:
-    """The C++ resizer of :mod:`lmms_owc_tpu.native`, built on first use (None if absent)."""
-
-    def __init__(self) -> None:
-        self._loader = None
-        self._disabled = os.environ.get("LMMS_OWC_NATIVE_LOADER", "1") == "0"
-
-    def get(self):
-        if self._disabled:
-            return None
-        if self._loader is None:
-            from lmms_owc_tpu.native import NativeImageLoader, native_loader_available
-
-            if native_loader_available():
-                self._loader = NativeImageLoader()
-            else:
-                self._disabled = True
-        return self._loader
-
-
-_NATIVE = _NativeResizer()
+def _native_resizer():
+    """The port's native resizer, or None when ``LMMS_OWC_NATIVE_LOADER=0`` or it
+    cannot be built (read per call)."""
+    if os.environ.get("LMMS_OWC_NATIVE_LOADER", "1") == "0":
+        return None
+    return native_resizer()
 
 
 def resize_host(
@@ -126,7 +114,7 @@ def resize_host(
     )
     if (resized_h, resized_w) == (height, width):
         return np.asarray(image).transpose(2, 0, 1), (resized_h, resized_w)
-    loader = _NATIVE.get()
+    loader = _native_resizer()
     if loader is not None:
         return loader.resize_u8(np.asarray(image), resized_h, resized_w), (resized_h, resized_w)
     resized = image.resize((resized_w, resized_h), Image.BICUBIC)

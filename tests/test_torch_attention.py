@@ -386,3 +386,194 @@ def test_launch_marshals_masks_and_strides(monkeypatch):
     assert tatt.launch_counts["fused_qkv_attention"] == 1 and tatt.launch_counts["flash_attention"] == 1
     assert tatt.launch_counts["flash_attention_tensor_mask"] == 1
     tatt.reset_launch_counts()
+
+
+# ------------------------------------------------- the Hopper redesign's host side
+
+
+class _FakeDecodeLibrary:
+    """Stands in for the kernel library: records each DecodeArgs it is given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def owc_gqa_decode_attention(self, args, stream):
+        a = args._obj
+        self.calls.append({name: getattr(a, name) for name, _ in a._fields_})
+        return 0
+
+
+@pytest.fixture
+def fake_decode(monkeypatch):
+    lib = _FakeDecodeLibrary()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(tatt, "_check_operands", lambda tensors: next(iter(tensors.values())).dtype)
+    monkeypatch.setattr(tatt, "_stream_handle", lambda device: 0)
+    tatt.reset_launch_counts()
+    yield lib
+    tatt.reset_launch_counts()
+
+
+@pytest.mark.parametrize("seq", [1, 17, 63, 64, 65, 100, 129, 320, 384, 448, 520, 1000, 2048, 2049, 8192])
+def test_decode_split_plan_covers_the_cache(seq):
+    """Up to 8 splits (one per 64 positions), keys a multiple of 16, that
+    cover the cache with none empty; 384 positions split as 6 x 64."""
+    splits, keys = tatt.decode_split_plan(seq)
+    assert 1 <= splits <= 8 and keys % 16 == 0
+    assert splits * keys >= seq and (splits - 1) * keys < seq
+    assert splits <= -(-seq // 64)
+    if seq == 384:
+        assert (splits, keys) == (6, 64)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_split_depends_on_cache_length_only(fake_decode, int8):
+    """A pooled batch of 96 rows and an unpooled one of 48 at S = 384 reach the
+    kernel with the same split plan, so they split the keys alike and give the
+    same bits; the plan changes with S only."""
+    layers, kvh, s, d = 2, 4, 384, 128
+    for b in (48, 96):
+        q = torch.randn(b, 28, d, dtype=torch.bfloat16)
+        dt = torch.int8 if int8 else torch.bfloat16
+        cache = torch.zeros(layers, b, kvh, s, d, dtype=dt)
+        scales = (torch.ones(layers, b, kvh, s), torch.ones(layers, b, kvh, s)) if int8 else (None, None)
+        out = tatt._launch_decode(q, cache, cache.clone(), 1, torch.ones(b, s, dtype=torch.int32), *scales, 0.1)
+        assert out.shape == (b, 28, d)
+    first, second = fake_decode.calls
+    assert (first["batch"], second["batch"]) == (48, 96)
+    assert (first["splits"], first["split_keys"]) == (second["splits"], second["split_keys"]) == (6, 64)
+    assert first["cache_int8"] == second["cache_int8"] == int(int8)
+    name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
+    assert tatt.launch_counts[name] == 2
+
+
+def _decode_operands(b=2, h=8, kvh=2, s=32, d=64, dtype=torch.bfloat16):
+    return torch.randn(b, h, d).to(dtype), torch.randn(3, b, kvh, s, d).to(dtype), torch.ones(b, s)
+
+
+@pytest.mark.parametrize("case", ["group", "head_dim", "layer", "mask", "noncontiguous", "scales"])
+def test_decode_wrapper_checks_raise(fake_decode, case):
+    """The decode wrapper's checks still raise before any launch."""
+    q, cache, mask = _decode_operands()
+    args = [q, cache, cache.clone(), 1, mask]
+    if case == "group":
+        args[0] = torch.randn(2, 18, 64).to(torch.bfloat16)  # 9 query heads per KV head
+    elif case == "head_dim":
+        args[0], args[1] = torch.randn(2, 8, 72).to(torch.bfloat16), torch.randn(3, 2, 2, 32, 72).to(torch.bfloat16)
+        args[2] = args[1].clone()
+        args[0] = args[0][..., :68]  # 68 is not a multiple of 8 values
+        args[1], args[2] = args[1][..., :68].contiguous(), args[2][..., :68].contiguous()
+    elif case == "layer":
+        args[3] = 3
+    elif case == "mask":
+        args[4] = torch.ones(2, 31)
+    elif case == "noncontiguous":
+        args[1] = cache.transpose(3, 4).contiguous().transpose(3, 4)
+    elif case == "scales":
+        args[1], args[2] = cache.to(torch.int8), cache.to(torch.int8)
+        args += [torch.ones(3, 2, 2, 32), torch.ones(3, 2, 2, 31)]
+    with pytest.raises(ValueError):
+        tatt._launch_decode(*args[:5], *(args[5:] or [None, None]), 0.125)
+    assert fake_decode.calls == []
+
+
+@pytest.fixture
+def fake_flash(monkeypatch):
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(tatt, "_check_operands", lambda tensors: next(iter(tensors.values())).dtype)
+    monkeypatch.setattr(tatt, "_stream_handle", lambda device: 0)
+    tatt.reset_launch_counts()
+    yield lib
+    tatt.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_launch_passes_key_rotation_scratch(fake_flash, dtype):
+    """With rope, a bf16 launch carries a [B, KVH, Lk, D] scratch for the keys
+    the Hopper instances rotate once; without rope, or in f32, it carries none."""
+    b, h, kvh, l, d = 2, 4, 2, 16, 80
+    q, k = torch.randn(b, h, l, d).to(dtype), torch.randn(b, kvh, l, d).to(dtype)
+    cos, sin = torch.ones(b, l, d // 2), torch.zeros(b, l, d // 2)
+    kw = dict(causal=False, kv_mask=None, kv_mask_contiguous=False, scale=0.1)
+    tatt._launch_flash("flash_attention", q, k, k, torch.empty(q.shape, dtype=dtype), rope_cos=cos, rope_sin=sin, **kw)
+    tatt._launch_flash("flash_attention", q, k, k, torch.empty(q.shape, dtype=dtype), rope_cos=None, rope_sin=None, **kw)
+    with_rope, without = fake_flash.calls
+    assert bool(with_rope["k_rot"]) == (dtype == torch.bfloat16) and not without["k_rot"]
+    assert with_rope["cos"] and with_rope["rope_sb"] == l * d // 2 and not without["cos"]
+
+
+@pytest.mark.parametrize("case", ["head_dim", "unit_stride", "bf16_alignment", "shape", "gqa", "mask", "rope"])
+def test_flash_wrapper_checks_raise(fake_flash, case):
+    """The flash launcher's checks still raise before any launch."""
+    b, h, kvh, l, d = 1, 4, 2, 8, 16
+    q, k = torch.randn(b, h, l, d).to(torch.bfloat16), torch.randn(b, kvh, l, d).to(torch.bfloat16)
+    v, out, kw = k, torch.empty(b, h, l, d, dtype=torch.bfloat16), {}
+    if case == "head_dim":
+        q, k = torch.randn(b, h, l, 96).to(torch.bfloat16), torch.randn(b, kvh, l, 96).to(torch.bfloat16)
+        v, out = k, torch.empty(b, h, l, 96, dtype=torch.bfloat16)
+    elif case == "unit_stride":
+        q = torch.randn(b, h, d, l).to(torch.bfloat16).transpose(2, 3)
+    elif case == "bf16_alignment":
+        q = torch.randn(b, h, l, d + 1).to(torch.bfloat16)[..., 1:]
+    elif case == "shape":
+        v = torch.randn(b, kvh, l + 1, d).to(torch.bfloat16)
+    elif case == "gqa":
+        k = v = torch.randn(b, 3, l, d).to(torch.bfloat16)
+    elif case == "mask":
+        kw["kv_mask"] = torch.ones(b, l + 1)
+    elif case == "rope":
+        kw.update(rope_cos=torch.ones(b, l + 1, d // 2), rope_sin=torch.ones(b, l + 1, d // 2))
+    kw = dict(dict(kv_mask=None, rope_cos=None, rope_sin=None), **kw)
+    with pytest.raises(ValueError):
+        tatt._launch_flash("flash_attention", q, k, v, out, causal=False, kv_mask_contiguous=False, scale=0.25, **kw)
+    assert fake_flash.calls == [] and tatt.launch_counts["flash_attention"] == 0
+
+
+def _split_decode_emulation(q, k, v, mask, scale, splits, keys):
+    """The cluster kernel's order in numpy (f32): per split, scores, max and sum
+    of exponentials; combined in rank order; weights normalised in f32 and
+    rounded to the value type (here f32), per-split PV partials added in rank order."""
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    out = np.zeros((b, h, d), np.float32)
+    for bi in range(b):
+        for kh in range(kvh):
+            qg = q[bi, kh * g : (kh + 1) * g]
+            parts, stats = [], []
+            for r in range(splits):
+                lo, hi_ = r * keys, min(s, (r + 1) * keys)
+                sc = (qg @ k[bi, kh, lo:hi_].T) * scale
+                sc = np.where(mask[bi, lo:hi_][None] != 0, sc, np.float32(-1e30))
+                m = sc.max(axis=1)
+                stats.append((m, np.exp(sc - m[:, None]).sum(axis=1), sc, lo, hi_))
+            gm = np.max([st[0] for st in stats], axis=0)
+            total = np.zeros_like(gm)
+            for m, l_, *_ in stats:
+                total += l_ * np.exp(m - gm)
+            for _, _, sc, lo, hi_ in stats:
+                w = np.exp(sc - gm[:, None]) / total[:, None]
+                parts.append(w @ v[bi, kh, lo:hi_])
+            out[bi, kh * g : (kh + 1) * g] = np.sum(parts, axis=0)
+    return out
+
+
+@pytest.mark.parametrize("seq", [40, 384, 520])
+def test_split_decode_order_matches_jax_reference(seq):
+    """The decode kernel's split order (per-split max and sum combined across
+    the cluster, normalised before PV, partials added in rank order), emulated
+    in f32, agrees with the JAX package's ``gqa_attention_reference``."""
+    rng = np.random.RandomState(seq)
+    b, h, kvh, d = 2, 14, 2, 64
+    q = rng.randn(b, h, d).astype(np.float32)
+    k = rng.randn(b, kvh, seq, d).astype(np.float32)
+    v = rng.randn(b, kvh, seq, d).astype(np.float32)
+    mask = (rng.rand(b, seq) > 0.2).astype(np.int32)
+    mask[1, : seq // 2] = 0
+    scale = 1.0 / np.sqrt(d)
+    got = _split_decode_emulation(q, k, v, mask, np.float32(scale), *tatt.decode_split_plan(seq))
+    ref = jatt.gqa_attention_reference(
+        jnp.asarray(q[:, :, None]), jnp.asarray(k), jnp.asarray(v), kv_mask=jnp.asarray(mask), scale=scale
+    )
+    np.testing.assert_allclose(got, np.asarray(ref)[:, :, 0], atol=TOL, rtol=TOL)

@@ -1,0 +1,218 @@
+"""The port imports nothing of the JAX package, and its copies of the JAX
+package's host helpers behave as the originals on the same inputs.
+
+The static test walks the AST of every module of ``lmms_owc_tpu_torch`` and of
+``chip_smoke.py``; the parity tests (which may import ``lmms_owc_tpu``; the port
+may not) hold ``lmms_owc_tpu_torch.utils``, ``.schema`` and ``.native`` to
+``lmms_owc_tpu.utils``, ``.schema`` and ``.native``.
+"""
+
+import ast
+import dataclasses
+import random
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from lmms_owc_tpu import schema as jax_schema
+from lmms_owc_tpu import utils as jax_utils
+from lmms_owc_tpu_torch import schema, utils
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO_ROOT / "lmms_owc_tpu_torch").rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+
+
+def _jax_package_imports(path: Path) -> list[str]:
+    """Every import in the file that names ``lmms_owc_tpu`` or one of its modules."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        found += [f"{path.name}:{node.lineno} {n}" for n in names
+                  if n == "lmms_owc_tpu" or n.startswith("lmms_owc_tpu.")]
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
+def test_port_module_imports_no_jax_package(path):
+    assert _jax_package_imports(path) == []
+
+
+def test_static_check_sees_jax_package_imports(tmp_path):
+    """The checker itself: it finds each import form, and not the port's own name."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import lmms_owc_tpu\nimport os, lmms_owc_tpu.native as n\n"
+        "from lmms_owc_tpu.utils import Collator\nfrom lmms_owc_tpu import schema\n"
+        "def f():\n    from lmms_owc_tpu.native import loader\n"
+        "import lmms_owc_tpu_torch\nfrom lmms_owc_tpu_torch.utils import Collator\nfrom . import x\n"
+    )
+    assert len(_jax_package_imports(src)) == 5
+    assert len(PORT_FILES) > 15
+
+
+# ------------------------------------------------------------------ collation
+
+
+def _requests(rng: random.Random, n: int) -> list:
+    kwargs = [{"max_new_tokens": 16}, {"max_new_tokens": 64, "until": ["\n"]}, {"max_new_tokens": 16}]
+    return [("x" * rng.randint(1, 60), kwargs[rng.randint(0, 2)], i) for i in range(n)]
+
+
+@pytest.mark.parametrize("group_by", [None, "gen_kwargs"])
+@pytest.mark.parametrize("n", [0, 1, 3, 8])
+def test_collator_order_and_chunks_match_jax(group_by, n):
+    rng = random.Random(n * 7 + (group_by is None))
+    reqs = _requests(rng, 23)
+    chunks = {}
+    for name, cls in (("port", utils.Collator), ("jax", jax_utils.Collator)):
+        col = cls(reqs, sort_fn=lambda x: -len(x[0]), group_fn=lambda x: x[1], group_by=group_by)
+        batches = list(col.get_batched(n=n))
+        flat = [r for b in batches for r in b]
+        chunks[name] = (len(col), batches, col.get_original([r[2] for r in flat]))
+    assert chunks["port"] == chunks["jax"]
+    assert chunks["port"][2] == list(range(23))
+
+
+def test_collator_batch_fn_matches_jax():
+    """A token-budget ``batch_fn`` (as the adapter's) gives the same chunks."""
+    reqs = _requests(random.Random(3), 30)
+
+    def budget(done, item):
+        return max(1, 120 // len(item[0]))
+
+    out = {}
+    for name, cls in (("port", utils.Collator), ("jax", jax_utils.Collator)):
+        col = cls(reqs, sort_fn=lambda x: -len(x[0]), group_fn=lambda x: x[1], group_by="gen_kwargs")
+        out[name] = list(col.get_batched(n=0, batch_fn=budget))
+    assert out["port"] == out["jax"] and len(out["port"]) > 3
+
+
+def test_pad_to_bucket_matches_jax():
+    assert utils.DEFAULT_LENGTH_BUCKETS == jax_utils.DEFAULT_LENGTH_BUCKETS
+    for length in range(0, 9000, 7):
+        assert utils.pad_to_bucket(length) == jax_utils.pad_to_bucket(length)
+    custom = (8, 16, 24, 64)
+    for length in range(0, 80):
+        assert utils.pad_to_bucket(length, custom) == jax_utils.pad_to_bucket(length, custom)
+
+
+# ------------------------------------------------------------ chunk pipeline
+
+
+@pytest.mark.parametrize("with_finish", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_foreach_chunk_pipelined_matches_jax(with_finish, depth):
+    chunks = [list(range(i, i + 3)) for i in range(0, 15, 3)]
+
+    def run_with(fn):
+        log = []
+
+        def prepare(chunk):
+            return [x * 10 for x in chunk]
+
+        def run(chunk, prepared):
+            log.append(("run", chunk[0]))
+            return [p + 1 for p in prepared]
+
+        def finish(chunk, handle):
+            log.append(("finish", chunk[0]))
+            return [h * 2 for h in handle]
+
+        out = fn(chunks, prepare, run, depth=depth, finish=finish if with_finish else None)
+        return out, log
+
+    got, want = run_with(utils.foreach_chunk_pipelined), run_with(jax_utils.foreach_chunk_pipelined)
+    assert got == want
+    assert utils.foreach_chunk_pipelined([], None, None) == jax_utils.foreach_chunk_pipelined([], None, None) == []
+
+
+def test_get_logger_matches_jax():
+    port, ref = utils.get_logger("owc.port.test"), jax_utils.get_logger("owc.jax.test")
+    assert port.level == ref.level and port.propagate == ref.propagate is False
+    assert [h.formatter._fmt for h in port.handlers] == [h.formatter._fmt for h in ref.handlers]
+    assert utils.get_logger("owc.port.test") is port
+
+
+# -------------------------------------------------------------------- schema
+
+
+def test_model_info_fields_match_jax():
+    jax_fields = jax_schema.ModelInfo.model_fields
+    port_fields = {f.name: f for f in dataclasses.fields(schema.ModelInfo)}
+    assert list(port_fields) == list(jax_fields)
+    for name, f in port_fields.items():
+        required = f.default is dataclasses.MISSING and f.default_factory is dataclasses.MISSING
+        assert required == jax_fields[name].is_required(), name
+        if not required:
+            assert f.default == jax_fields[name].default, name
+        assert f.repr == jax_fields[name].repr, name
+
+    def build():
+        """A builder."""
+
+    port = schema.ModelInfo(name="m", model_cls=build, description="d")
+    ref = jax_schema.ModelInfo(name="m", model_cls=build, description="d")
+    assert (port.name, port.model_cls, port.description) == (ref.name, ref.model_cls, ref.description)
+    assert schema.ModelInfo(name="m", model_cls=build).description == ""
+    with pytest.raises(TypeError):
+        schema.ModelInfo(name="m")
+
+
+# -------------------------------------------------------------------- native
+
+
+def _have_native_toolchain() -> str | None:
+    if shutil.which("g++") is None:
+        return "g++ is not installed"
+    if not any(Path(d, "jpeglib.h").exists() for d in ("/usr/include", "/usr/local/include")):
+        return "libjpeg headers are missing, so the JAX package's loader does not build"
+    return None
+
+
+@pytest.fixture(scope="module")
+def resizers():
+    reason = _have_native_toolchain()
+    if reason:
+        pytest.skip(reason)
+    from lmms_owc_tpu.native import NativeImageLoader, native_loader_available
+    from lmms_owc_tpu_torch.native import BUILD_DIR, native_resizer
+
+    port = native_resizer()
+    assert port is not None, "the port's resizer did not build"
+    assert Path(port._lib._name).parent == BUILD_DIR
+    if not native_loader_available():
+        pytest.skip("the JAX package's native loader did not build")
+    return port, NativeImageLoader(num_workers=1)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((100, 80), (56, 84)), ((300, 451), (224, 336)), ((57, 61), (112, 140))])
+def test_native_resize_matches_jax(resizers, in_hw, out_hw):
+    port, ref = resizers
+    arr = np.random.RandomState(sum(in_hw)).randint(0, 255, (*in_hw, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(port.resize_u8(arr, *out_hw), ref.resize_u8(arr, *out_hw))
+
+
+def test_resize_host_native_switch(monkeypatch):
+    """``resize_host`` takes the port's resizer when it builds, and PIL under
+    ``LMMS_OWC_NATIVE_LOADER=0`` or when it does not (the JAX package's rule)."""
+    from PIL import Image
+
+    from lmms_owc_tpu_torch.native import native_resizer
+    from lmms_owc_tpu_torch.ops.image import resize_host
+
+    arr = np.random.RandomState(9).randint(0, 255, (90, 130, 3), dtype=np.uint8)
+    img = Image.fromarray(arr)
+    got, hw = resize_host(img)
+    assert got.shape == (3, *hw) and hw != (90, 130)
+    pil = np.asarray(img.resize((hw[1], hw[0]), Image.BICUBIC)).transpose(2, 0, 1)
+    native = native_resizer()
+    np.testing.assert_array_equal(got, native.resize_u8(arr, *hw) if native is not None else pil)
+    monkeypatch.setenv("LMMS_OWC_NATIVE_LOADER", "0")
+    np.testing.assert_array_equal(resize_host(img)[0], pil)

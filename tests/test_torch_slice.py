@@ -173,8 +173,12 @@ def test_port_imports_no_jax():
         "os.environ.update(LMMS_OWC_VISION_PACKED='force')\n"
         "assert len(v25.generate_until([R(i) for i in range(3)])) == 3\n"
         "assert len(m._encode_images_flat([T.dataset['test'][0]['image']])[1]) == 1\n"
+        "odd = Image.fromarray(np.full((70, 90, 3), 7, np.uint8))\n"  # resized on the host
+        "assert len(m._encode_images_flat([odd])[1]) == 1\n"
         "loaded = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not loaded, loaded\n"
+        "ours = sorted(k for k in sys.modules if k == 'lmms_owc_tpu' or k.startswith('lmms_owc_tpu.'))\n"
+        "assert not ours, ours\n"
         "print('NO_JAX_OK')\n"
     )
     proc = subprocess.run(
