@@ -21,7 +21,11 @@
 // general kernel serves f32 and everything else: one CTA per (batch row, KV
 // head) computes all G query heads of the group, each thread owning whole key
 // rows for the scores and one column chunk of a strided set of value rows for
-// PV, whose row groups' partial sums are added in a fixed order. Both read
+// PV, whose row groups' partial sums are added in a fixed order. The general
+// kernel keeps the group's f32 score rows in shared memory up to the card's
+// 227 KB (S <= 8045 at G = 7, D = 128); past that the wrapper passes an f32
+// workspace [B, KVH, G, S] in device memory and the rows live there, with the
+// same arithmetic in the same order (S = 8704 at the longest bucket). Both read
 // every K and V element from device memory once, fold the scales into rows
 // they already hold (k_scale[s] into the f32 score of key s, v_scale[s] into
 // the normalised weight before PV), take the layer as a pointer offset into
@@ -57,6 +61,7 @@ struct DecodeArgs {
   int cache_int8;  // 1: int8 cache with k_scale/v_scale
   float scale;
   int splits, split_keys;  // the key-axis split plan (decode_split_plan): CTAs per (row, KV head), keys each
+  float* workspace;  // general kernel: f32 score rows [B, KVH, G, S] when they do not fit in shared memory, else null
 };
 
 namespace {
@@ -112,7 +117,9 @@ struct Vec {
   }
 };
 
-// Shared memory: q [G][D] f32 | weights [G][S] f32 | output accumulator [G][D] f32.
+// Shared memory: q [G][D] f32 | weights [G][S] f32 | output accumulator [G][D] f32,
+// or, with a workspace (a cache too long for the score rows to fit), q | output
+// accumulator, and the weights [G][S] of this (row, KV head) in the workspace.
 // T is the type of q and o, C that of the cache (T, or int8_t with scales).
 // Requires D % (16 / sizeof(C)) == 0 and 16-byte aligned cache rows (checked by
 // the Python wrapper).
@@ -126,8 +133,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* qf = smem;
-  float* w = qf + G * D;
-  float* acc_out = w + G * S;
+  float* w = a.workspace ? a.workspace + ((long long)b * a.kv_heads + kvh) * G * S : qf + G * D;
+  float* acc_out = a.workspace ? qf + G * D : w + G * S;
 
   const long long slice = (long long)S * D;
   const long long head_off = (((long long)a.layer * a.batch + b) * a.kv_heads + kvh) * slice;
@@ -245,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
 template <typename T, typename C>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   const size_t g = static_cast<size_t>(a.heads / a.kv_heads);
-  const size_t smem = sizeof(float) * (2 * g * a.head_dim + g * a.seq);
+  const size_t smem = sizeof(float) * (2 * g * a.head_dim + (a.workspace ? 0 : g * a.seq));
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance: the card's limit
       decode_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
   if (attr != cudaSuccess) return attr;

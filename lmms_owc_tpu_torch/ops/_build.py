@@ -85,6 +85,7 @@ class DecodeArgs(ctypes.Structure):
         ("layer", ctypes.c_int), ("dtype", ctypes.c_int), ("cache_int8", ctypes.c_int),
         ("scale", ctypes.c_float),
         ("splits", ctypes.c_int), ("split_keys", ctypes.c_int),
+        ("workspace", ctypes.c_void_p),
     ]
 
 
@@ -93,9 +94,10 @@ class Int4MatmulArgs(ctypes.Structure):
 
     _fields_ = [
         ("x", ctypes.c_void_p), ("q4", ctypes.c_void_p), ("scale", ctypes.c_void_p),
-        ("out", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("workspace", ctypes.c_void_p),
         ("m", ctypes.c_int), ("n", ctypes.c_int), ("k", ctypes.c_int),
         ("groups", ctypes.c_int), ("dtype", ctypes.c_int),
+        ("splits", ctypes.c_int), ("split_bytes", ctypes.c_int), ("block_n", ctypes.c_int),
     ]
 
 

@@ -17,7 +17,10 @@ Qwen2-VL and Qwen2.5-VL paths:
   - :func:`gqa_decode_attention` — decode (port of ``_decode_kernel``, K3) against
     one layer of the stacked KV cache, bf16/f32 or int8 with per-position
     scales, ``csrc/decode_attn.cu``; the key axis is split across a cluster
-    of CTAs by :func:`decode_split_plan`, a function of the cache length only.
+    of CTAs by :func:`decode_split_plan`, a function of the cache length only,
+    up to 2048 positions; longer caches run a general kernel whose f32 score
+    rows go to a device-memory workspace where shared memory cannot hold them
+    (:func:`decode_needs_workspace`).
 
 Each wrapper takes its plain version (``*_plain`` or
 :func:`packed_attention_reference`, built on :func:`attention_reference` and
@@ -41,6 +44,7 @@ from lmms_owc_tpu_torch.ops import _build
 
 __all__ = [
     "attention_reference",
+    "decode_needs_workspace",
     "decode_split_plan",
     "flash_attention",
     "flash_attention_plain",
@@ -61,7 +65,16 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
-_DECODE_MAX_SPLITS = 8  # the portable thread-block cluster size
+# The decode kernel's limits (csrc/decode_attn.cu): the Hopper instances take a
+# bf16 query at these head dims, groups up to 8 and a split plan of at most 8
+# splits (the portable thread-block cluster size) of at most 256 keys; the
+# general kernel keeps the group's f32 score rows in at most this much shared
+# memory and otherwise in a workspace.
+_DECODE_MAX_SPLITS = 8
+_DECODE_MAX_SPLIT_KEYS = 256
+_DECODE_HOPPER_HEAD_DIMS = (64, 128)
+_DECODE_MAX_GROUP = 8
+_DECODE_MAX_SMEM = 232448
 
 launch_counts: dict[str, int] = {
     "flash_attention": 0,
@@ -432,11 +445,15 @@ def _launch_decode(
         raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {s}]")
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    workspace = None
+    if decode_needs_workspace(dtype == torch.bfloat16, d, h // kvh, s):
+        workspace = torch.empty((b, kvh, h // kvh, s), dtype=torch.float32, device=q.device)
     args = _build.DecodeArgs(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], int(int8), scale,
         *decode_split_plan(s),
+        workspace.data_ptr() if workspace is not None else None,
     )
     code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
     name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
@@ -614,6 +631,20 @@ def decode_split_plan(seq: int) -> tuple[int, int]:
     splits = max(1, min(_DECODE_MAX_SPLITS, -(-seq // 64)))
     keys = -(-(-(-seq // splits)) // 16) * 16  # ceil(seq / splits), rounded up to 16
     return -(-seq // keys), keys  # rounding can leave the last split empty: drop it
+
+
+def decode_needs_workspace(bf16: bool, head_dim: int, group: int, seq: int) -> bool:
+    """Whether a decode launch needs the f32 score workspace [B, KVH, G, S]:
+    the Hopper instances do not take it (``sm90::takes`` in
+    csrc/decode_attn.cu: a bf16 query, a head dim they are built for, a group
+    that fits their 8 rows, and a split plan of ``seq`` they hold, i.e.
+    ``seq`` <= 2048), so the general kernel runs, and its shared memory, q and
+    the output accumulator [G, D] plus the score rows [G, S] in f32, would
+    exceed the card's limit."""
+    splits, keys = decode_split_plan(seq)
+    hopper = (bf16 and head_dim in _DECODE_HOPPER_HEAD_DIMS and group <= _DECODE_MAX_GROUP
+              and splits <= _DECODE_MAX_SPLITS and keys <= _DECODE_MAX_SPLIT_KEYS)
+    return not hopper and 4 * (2 * group * head_dim + group * seq) > _DECODE_MAX_SMEM
 
 
 def gqa_decode_attention(

@@ -16,6 +16,8 @@ import torch
 import jax.numpy as jnp
 
 from lmms_owc_tpu.ops import attention as jatt
+from lmms_owc_tpu_torch import utils as tutils
+from lmms_owc_tpu_torch.models import qwen2_vl as tqvl
 from lmms_owc_tpu_torch.ops import _build
 from lmms_owc_tpu_torch.ops import attention as tatt
 
@@ -445,6 +447,52 @@ def test_decode_split_depends_on_cache_length_only(fake_decode, int8):
     assert first["cache_int8"] == second["cache_int8"] == int(int8)
     name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
     assert tatt.launch_counts[name] == 2
+
+
+def _decode_kernel_takes(a: dict) -> tuple[bool, bool]:
+    """(whether a kernel of csrc/decode_attn.cu takes these DecodeArgs, whether
+    the general kernel would need the score workspace), restated from the
+    source: the Hopper instances (``sm90::takes``), else the general kernel,
+    whose q, output accumulator and, without a workspace, score rows must fit
+    in 232448 bytes of shared memory."""
+    g, d, s = a["heads"] // a["kv_heads"], a["head_dim"], a["seq"]
+    hopper = (a["dtype"] == 1 and d in (64, 128) and g <= 8 and 1 <= a["splits"] <= 8
+              and a["split_keys"] % 16 == 0 and a["split_keys"] <= 256
+              and a["splits"] * a["split_keys"] >= s and (a["splits"] - 1) * a["split_keys"] < s)
+    needs = not hopper and 4 * (2 * g * d + g * s) > 232448
+    smem = 4 * (2 * g * d + (0 if a["workspace"] else g * s))
+    return hopper or smem <= 232448, needs
+
+
+_ADAPTER_CACHE_LENGTHS = sorted({
+    p + g for p in tutils.DEFAULT_LENGTH_BUCKETS for g in tqvl.GEN_LEN_BUCKETS
+})
+
+
+@pytest.mark.parametrize("seq", _ADAPTER_CACHE_LENGTHS)
+def test_decode_launch_is_taken_at_every_adapter_cache_length(fake_decode, seq):
+    """Every cache length the adapter builds (prompt bucket + generation
+    bucket, up to 8192 + 512) reaches a kernel that takes it, for a bf16, an
+    f32 and an int8 cache at the 7B's group of 7 and head dim 128: the Hopper
+    instances up to S = 2048, else the general kernel, with the f32 score
+    workspace exactly where its score rows would not fit in shared memory
+    (S = 8256 and 8704 get one, S = 384 none)."""
+    b, kvh, h, d = 1, 1, 7, 128
+    for q_dtype, c_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                             (torch.bfloat16, torch.int8)):
+        cache = torch.zeros(1, b, kvh, seq, d, dtype=c_dtype)
+        scales = (torch.ones(1, b, kvh, seq), torch.ones(1, b, kvh, seq)) if c_dtype == torch.int8 else (None, None)
+        tatt._launch_decode(torch.zeros(b, h, d, dtype=q_dtype), cache, cache, 0,
+                            torch.ones(b, seq, dtype=torch.int32), *scales, 0.1)
+        a = fake_decode.calls[-1]
+        taken, needs = _decode_kernel_takes(a)
+        assert taken, (seq, q_dtype, c_dtype)
+        assert bool(a["workspace"]) == needs
+        if seq in (8256, 8704):
+            assert a["workspace"]
+        if seq == 384:
+            assert not a["workspace"]
+    assert len(fake_decode.calls) == 3
 
 
 def _decode_operands(b=2, h=8, kvh=2, s=32, d=64, dtype=torch.bfloat16):

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,3 +122,63 @@ def test_window_layout_helper_matches_the_adapter():
     slot_src, valid, tok_idx, wn, s = chip_smoke._v25_window_layout((1, 28, 32))
     assert valid.shape == (wn * s,) == tok_idx.shape and int(valid.sum()) == 896
     assert (tok_idx[valid == 1] < 896).all() and sorted(tok_idx[valid == 1].tolist()) == list(range(896))
+
+
+def test_compare_holds_max_abs_and_relative_l2(monkeypatch):
+    """``_compare`` raises past atol + rtol * |want| on any element, and past
+    the relative-L2 bound when one is given, even with every element inside."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    want = torch.full((4, 8), 0.01)
+    err = chip_smoke._compare("x", want + 1e-4, want, atol=2e-3, rtol=0.0, rel_l2=2e-2)
+    assert err == pytest.approx(1e-4, rel=1e-3)
+    with pytest.raises(AssertionError, match="0 of 32 elements outside"):  # relative L2 0.1
+        chip_smoke._compare("x", want + 1e-3, want, atol=2e-3, rtol=0.0, rel_l2=2e-2)
+    with pytest.raises(AssertionError, match="32 of 32 elements outside atol=0.002 rtol=0.0"):
+        chip_smoke._compare("x", want + 3e-3, want, atol=2e-3, rtol=0.0)
+    with pytest.raises(AssertionError, match="non-finite"):
+        chip_smoke._compare("x", want / 0, want)
+
+
+@pytest.mark.parametrize("label", ["bf16", "f32", "int8"])
+def test_long_cache_tolerance_rejects_dropped_keys(monkeypatch, label):
+    """At the longest cache the adapter builds, the decode output with the last
+    256 valid keys left out fails ``LONG_CACHE_TOL`` for each cache type."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    b, nh, kvh, hd, s = 2, 28, 4, 128, chip_smoke.LONG_CACHE
+    dtype = torch.float32 if label == "f32" else torch.bfloat16
+    rng = np.random.default_rng(0)
+    q, ck, cv = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
+                 for shape in ((b, nh, hd), (1, b, kvh, s, hd), (1, b, kvh, s, hd)))
+    cache = quantize_kv_cache(ck, cv) if label == "int8" else (ck, cv)
+    spos = torch.arange(s)
+    mask = ((spos[None, :] >= torch.tensor([0, 3])[:, None]) & (spos[None, :] < s - 300)).to(torch.int32)
+    dropped = mask.clone()
+    dropped[:, s - 556 : s - 300] = 0
+    want = att.gqa_decode_attention_plain(q, *cache[:2], 0, mask, *cache[2:])
+    got = att.gqa_decode_attention_plain(q, *cache[:2], 0, dropped, *cache[2:])
+    atol, rel_l2 = chip_smoke.LONG_CACHE_TOL[label]
+    assert atol <= (1e-4 if label == "f32" else 2e-3)
+    with pytest.raises(AssertionError, match="outside atol"):
+        chip_smoke._compare(label, got, want, atol=atol, rtol=0.0, rel_l2=rel_l2)
+    assert chip_smoke._rel_l2(got.float(), want.float()) > 5 * rel_l2
+
+
+def test_int4_step_sums_one_decode_step():
+    """The per-step K4 sum weighs each product by its calls in one decode step:
+    q, o, k, v, gate, up and down in each of 28 layers, then the head."""
+    import chip_smoke
+
+    rows = {f"{p} M=8": dict(device_ms=t, library_device_ms=2 * t, bound_ms=t / 10)
+            for p, t in (("q/o", 1.0), ("k/v", 2.0), ("gate/up", 3.0), ("down", 4.0), ("lm_head", 5.0))}
+    step = chip_smoke._int4_step(rows, 8)
+    assert step["launches"] == 197
+    assert step["device_ms"] == pytest.approx(28 * (2 * 1 + 2 * 2 + 2 * 3 + 4) + 5)
+    assert step["library_device_ms"] == pytest.approx(2 * step["device_ms"])
+    rows["down M=8"]["library_device_ms"] = None
+    assert chip_smoke._int4_step(rows, 8)["library_device_ms"] is None

@@ -200,6 +200,94 @@ def test_int4_supported_agrees_with_pick_blocks(k, n, groups):
     assert ti4.pick_blocks(k, n, groups) == ji4.pick_blocks(k, n, groups)
 
 
+INT4_7B_PRODUCTS = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064)]
+
+
+@pytest.mark.parametrize(
+    "k,n", INT4_7B_PRODUCTS + [(1536, 8960), (8960, 1536), (1280, 3840), (512, 256), (256, 128), (1024, 256)],
+)
+def test_int4_split_plan_covers_k_in_whole_groups(k, n):
+    """The splits cut the K/2 packed bytes in 128-byte units, i.e. whole
+    128-column scale groups of both halves of the input, and cover them with
+    no empty split; the column tile divides N."""
+    splits, split_bytes, block_n = ti4.int4_split_plan(k, n)
+    assert splits >= 1 and split_bytes % 128 == 0 and block_n in (32, 64) and n % block_n == 0
+    assert splits * split_bytes >= k // 2 and (splits - 1) * split_bytes < k // 2
+
+
+@pytest.mark.parametrize("k,n", INT4_7B_PRODUCTS)
+def test_int4_split_plan_fills_the_card(k, n):
+    """Every 7B decode product launches at least one wave of CTAs on the
+    H100's 132 SMs (one split per 64-column tile gave 8 for k/v and 56 for q/o and down)."""
+    splits, _, block_n = ti4.int4_split_plan(k, n)
+    assert n // block_n * splits >= 132
+
+
+class _FakeInt4Library:
+    """Stands in for the kernel library: records each Int4MatmulArgs it is given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def owc_int4_matmul(self, args, stream):
+        a = args._obj
+        self.calls.append({name: getattr(a, name) for name, _ in a._fields_})
+        return 0
+
+
+@pytest.mark.parametrize("k,n", [(3584, 3584), (18944, 3584), (3584, 512)])
+def test_int4_split_depends_on_k_and_n_only(monkeypatch, k, n):
+    """A pooled call of 96 rows and an unpooled one of 8 reach the kernel with
+    the same plan, so each row's sum runs in the same order and gives the same
+    bits; the partials get a [splits, M, N] workspace."""
+    lib = _FakeInt4Library()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(ti4, "_stream_handle", lambda device: 0)
+    ti4.reset_launch_counts()
+    q4, scale = torch.zeros(n, k // 2, dtype=torch.int8), torch.ones(n, k // 128)
+    for m in (96, 8):
+        assert ti4._launch_int4(torch.zeros(m, k, dtype=torch.bfloat16), q4, scale).shape == (m, n)
+    pooled, unpooled = lib.calls
+    assert (pooled["m"], unpooled["m"]) == (96, 8)
+    plan = ti4.int4_split_plan(k, n)
+    for call in lib.calls:
+        assert (call["splits"], call["split_bytes"], call["block_n"]) == tuple(plan)
+        assert bool(call["workspace"]) == (plan.splits > 1) and call["dtype"] == 1
+    assert ti4.launch_counts["int4_matmul"] == 2
+    ti4.reset_launch_counts()
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("m", [8, 96])
+def test_int4_split_k_order_matches_pallas_k4(m):
+    """A numpy f32 emulation of the kernel's split-K order (each split's
+    partial over its packed bytes' low and high input columns, the partials
+    added in split order, then cast) agrees with the Pallas K4 in interpret mode."""
+    rng = np.random.RandomState(7)
+    k_dim, n_dim = 1024, 256
+    splits, split_bytes, _ = ti4.int4_split_plan(k_dim, n_dim)
+    assert splits > 1
+    w = rng.randn(k_dim, n_dim).astype(np.float32)
+    qp = jquant.quantize_int4(jnp.asarray(w), group=128)
+    x = _bf16(rng.randn(m, k_dim))
+    ref = np.asarray(ji4.int4_matmul(jnp.asarray(x).astype(jnp.bfloat16), qp["q4"], qp["scale"], interpret=True),
+                     np.float32)
+    q4 = _swap(qp["q4"]).astype(np.int8)  # [N, K/2], halves layout
+    k2 = k_dim // 2
+    nib = np.concatenate([(q4 << 4).astype(np.int8) >> 4, q4 >> 4], axis=1).astype(np.float32)  # [N, K]
+    wq = _bf16(nib * np.repeat(_swap(qp["scale"]), 128, axis=1))  # scaled in f32, rounded to bf16
+    acc = np.zeros((m, n_dim), np.float32)
+    for j0 in range(0, k2, split_bytes):
+        cols = np.r_[j0:min(k2, j0 + split_bytes), k2 + j0:k2 + min(k2, j0 + split_bytes)]
+        acc = acc + x[:, cols] @ wq[:, cols].T
+    out = _bf16(acc)
+    rel = np.abs(out - ref).max() / (np.abs(ref).max() + 1e-6)
+    assert rel < 2e-2
+
+
 def _raise_unavailable():
     raise _build.KernelBuildError("kernels unavailable (test)")
 
