@@ -57,21 +57,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``packed_vision_attention`` once per layer, and the merged embeddings of
    real patches must agree with the unpacked ones as closely as the plain
    versions' do (+25%), or within ``PACKED_REL_L2``.
+9. Checkpoints (run after phase 8, before phase 4): phase 3's bf16 weights are
+   written as an HF checkpoint into a temporary directory (safetensors shards
+   of at most 4 GiB with an index, ``config.json`` from the preset, the
+   fixture tokenizer with the Qwen2 specials at their published ids; the free
+   disk space is printed first and a shortfall fails). Loaded with
+   ``pretrained=`` in bf16, every parameter must be bit-equal and phase 3's
+   8 requests must give the same tokens as phase 3's model with the loaded
+   tokenizer; loaded with ``load_in_8bit`` (W8A8, pool 2, int8 KV cache) every
+   int8 module must equal ``quantize_int8`` of phase 3's weight, the load's
+   peak memory stays within the int8 model plus twice the largest bf16
+   tensor, and 16 requests run K3-int8 28 times per decode step; loaded with
+   ``load_in_4bit`` the leaves equal ``quantize_int4`` and K4 runs 197 times
+   per decode step. After phase 7, its ``qwen2.5-vl-7b`` gets the same bf16
+   round trip (the first directory is deleted before the second is written).
+10. Loglikelihood: the bf16 checkpoint model scores phase 3's 8 images with
+    multi-token continuations; its losses are held by phase 4's rule (the
+    plain path's distance from f32 attention, +25%) and each call launches
+    the tower kernel 32 times and the prefill kernel 28 times.
+11. Multi-round: 8 requests run two rounds in chunks of 4 under a decode pool
+    of 2; round 0's tokens must equal ``generate_until``'s on the same prompts.
 
+Phases run in the order 1-3, 8, 9 (Qwen2-VL), 10, 11, 4-7, 9 (Qwen2.5-VL).
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack, contextmanager
+from pathlib import Path
 
 import numpy as np
 
@@ -96,6 +122,19 @@ MIN_LAUNCHES_V25 = {
     "flash_attention": 28, "gqa_decode_attention": 28,
 }
 PACKED_LAUNCHES = 32  # phase 8: one packed tower call, one launch per layer
+# Phase 9: the checkpoint's shards hold at most this many bytes each.
+SHARD_BYTES = 4 << 30
+FIXTURE_TOKENIZER = Path("tests/fixtures/tokenizer/tokenizer.json")
+# Phase 9's int8 load serves this many requests (two chunks of 8, one pool).
+INT8_CKPT_REQUESTS = 16
+# Phase 10: per loglikelihood call, one tower call and one prefill forward.
+LOGLIKELIHOOD_LAUNCHES = {"vision_qkv_attention": 32, "flash_attention": 28}
+CONTINUATIONS = [
+    " a dog", " a golden retriever in the wild", " a cat sitting on a mat", " an aircraft",
+    " a flower", " blue red green yellow", " cheese", " a photo of a cat",
+]
+# Phase 11: multi-round serving, two rounds under a decode pool of 2 (chunks of 4).
+MULTI_ROUND_BATCH = 4
 PACKED_REL_L2 = 5e-2  # the JAX packed-vs-unpacked tower test's bound
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
@@ -106,6 +145,13 @@ KERNELS = {
     "int4_matmul": ("lmms_owc_tpu_torch/csrc/int4_matmul.cu", "lmms_owc_tpu/ops/int4_matmul.py:72"),
     "gqa_decode_attention_int8": ("lmms_owc_tpu_torch/csrc/decode_attn.cu", "lmms_owc_tpu/ops/attention.py:838"),
 }
+# The Qwen2 special tokens at their published ids (the adapter's SPECIAL_IDS).
+QWEN2_SPECIAL_IDS = {
+    "<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645, "<|vision_start|>": 151652,
+    "<|vision_end|>": 151653, "<|image_pad|>": 151655, "<|video_pad|>": 151656,
+}
+_SAFETENSORS_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32", "int8": "I8", "int32": "I32",
+                       "int64": "I64", "uint8": "U8", "bool": "BOOL"}
 # K4 parity: the 7B decode products (K -> N) at the pooled and unpooled row counts.
 INT4_SHAPES = {
     "q/o": (3584, 3584), "k/v": (3584, 512), "gate/up": (3584, 18944),
@@ -823,16 +869,15 @@ def run_main_path(dev) -> tuple[object, list, dict[str, int]]:
     return model, requests, run["counts"]
 
 
-def run_v25(dev) -> dict:
+def run_v25(dev) -> tuple[dict, object, list]:
     """Phase 7: Qwen2.5-VL-7B random bf16 weights, six 448x448 and two 392x448
-    requests through generate_until, then phase 4's bf16 logits rule."""
+    requests through generate_until, then phase 4's bf16 logits rule. Returns
+    the run, the model and its requests (phase 9 writes the model out)."""
     model, requests, run = serve_bf16(
         dev, "qwen2.5-vl-7b", V25_SIZES, MIN_LAUNCHES_V25, "qwen2.5-vl-7b bf16, unpooled"
     )
     run["logits"] = check_bf16_logits(model, requests, "qwen2.5-vl-7b bf16")
-    del model, requests
-    _free()
-    return run
+    return run, model, requests
 
 
 def _exact_flash(q, k, v, **kw):
@@ -1051,8 +1096,11 @@ def _tokens(model, out: list):
         del model._detokenize
 
 
-def _serve(model, requests, tokens: list | None = None) -> dict:
-    """One measured generate_until with the counts set to 0 just before it."""
+def _serve(model, requests, tokens: list | None = None, require_text: bool = True) -> dict:
+    """One measured generate_until with the counts set to 0 just before it.
+    ``require_text``: every answer must be a non-empty string (off where a
+    checkpoint's tokenizer decodes the random model's tokens, which may all
+    lie past its vocabulary; the tokens are compared instead)."""
     import torch
 
     model.phase_seconds.clear()
@@ -1065,7 +1113,7 @@ def _serve(model, requests, tokens: list | None = None) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     counts = _counts()
-    if len(outputs) != len(requests) or not all(isinstance(o, str) and o for o in outputs):
+    if len(outputs) != len(requests) or not all(isinstance(o, str) and (o or not require_text) for o in outputs):
         raise AssertionError(f"expected {len(requests)} non-empty strings, got {outputs[:4]!r}...")
     return dict(
         images=len(requests), seconds=seconds, images_per_s=len(requests) / seconds,
@@ -1224,6 +1272,386 @@ def run_int4(dev) -> dict:
     return run
 
 
+# ------------------------------------------------------------- checkpoints
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """Write CPU tensors as one safetensors file: the 8-byte little-endian
+    header length, the JSON header padded with spaces to 8 bytes, then each
+    tensor's bytes in order. Returns the bytes written."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(t.dtype).removeprefix("torch.")],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            if t.numel():
+                f.write(memoryview(t.contiguous().reshape(-1).view(torch.uint8).numpy()))
+    return 8 + len(raw) + offset
+
+
+def pinned_tokenizer(blob: dict, pinned: dict[str, int]) -> dict:
+    """The fixture tokenizer with each token of ``pinned`` at its id. An added
+    token of the same content gives up its old id to a placeholder; the ids
+    below the pinned block become vocabulary fillers and the free ids inside it
+    added fillers, so that every id up to the block exists (the filler scheme
+    of ``tests/test_checkpoint_matrix.py``)."""
+    blob = copy.deepcopy(blob)
+    vocab = blob["model"]["vocab"]
+    for tok in blob["added_tokens"]:
+        if tok["content"] in pinned:
+            placeholder = f"<|fixture_{tok['id']}|>"
+            if vocab.get(tok["content"]) == tok["id"]:
+                vocab[placeholder] = vocab.pop(tok["content"])
+            tok["content"] = placeholder
+    taken = set(vocab.values()) | {t["id"] for t in blob["added_tokens"]} | set(pinned.values())
+    lo, hi = min(pinned.values()), max(pinned.values())
+    to_add = dict(pinned)
+    for idx in range(hi):
+        if idx not in taken:
+            if idx < lo:
+                vocab[f"�filler{idx}�"] = idx
+            else:
+                to_add[f"�addfill{idx}�"] = idx
+    for content, idx in sorted(to_add.items(), key=lambda kv: kv[1]):
+        blob["added_tokens"].append({"id": idx, "content": content, "single_word": False, "lstrip": False,
+                                     "rstrip": False, "normalized": False, "special": True})
+    return blob
+
+
+class _NameProbe(dict):
+    """Answers ``hf_tensor``'s lookups under the published checkpoints'
+    prefixes (``model.``, ``visual.``, ``lm_head.``) and keeps the name asked."""
+
+    def __contains__(self, key) -> bool:
+        return key.startswith(("model.", "visual.", "lm_head."))
+
+    def __getitem__(self, key):
+        import torch
+
+        self.asked = key
+        return torch.empty((1, 1), device="meta")
+
+
+def _hf_layout(model) -> list[tuple[str, object]]:
+    """(checkpoint name, tensor) of every parameter of a port model in the
+    published HF layout: the names its own ``hf_tensor`` looks up, the patch
+    kernel back in its Conv3d shape ``[embed, 3, t, p, p]``."""
+    probe = _NameProbe()
+    out = []
+    for name, param in model.named_parameters():
+        model.hf_tensor(probe, name)
+        t = param.detach()
+        if probe.asked.endswith("patch_embed.proj.weight"):
+            v = model.vision.config
+            t = t.reshape(t.shape[0], v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size)
+        out.append((probe.asked, t))
+    return out
+
+
+def write_checkpoint(model, preset: str, path: Path) -> dict:
+    """Write a port model as an HF checkpoint: safetensors shards of at most
+    ``SHARD_BYTES`` with ``model.safetensors.index.json`` (each shard copied
+    from the card and written in turn), ``config.json`` from the preset and the
+    fixture tokenizer with the Qwen2 specials pinned. Prints the free disk
+    space and the bytes to write first, and fails when the space is short."""
+    from lmms_owc_tpu_torch.models.qwen2_vl import PRESET_CONFIGS
+
+    layout = _hf_layout(model)
+    total = sum(t.numel() * t.element_size() for _, t in layout)
+    free = shutil.disk_usage(path).free
+    log(f"checkpoint {preset} -> {path}: {total / 1e9:.3f} GB of tensors to write, {free / 1e9:.3f} GB free")
+    if free < total + (1 << 30):
+        raise AssertionError(f"not enough disk space for the {preset} checkpoint: {free} bytes free, {total} needed")
+    shards, size = [[]], 0
+    for name, t in layout:
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, t))
+        size += n
+    t0 = time.perf_counter()
+    written, weight_map = 0, {}
+    for k, shard in enumerate(shards):
+        file = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        written += write_safetensors(path / file, {name: t.cpu() for name, t in shard})
+        weight_map.update({name: file for name, _ in shard})
+    (path / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    hf = dict(PRESET_CONFIGS[preset])
+    hf.setdefault("model_type", "qwen2_vl")
+    hf.update(eos_token_id=QWEN2_SPECIAL_IDS["<|im_end|>"], pad_token_id=QWEN2_SPECIAL_IDS["<|endoftext|>"],
+              image_token_id=QWEN2_SPECIAL_IDS["<|image_pad|>"], video_token_id=QWEN2_SPECIAL_IDS["<|video_pad|>"],
+              vision_start_token_id=QWEN2_SPECIAL_IDS["<|vision_start|>"])
+    (path / "config.json").write_text(json.dumps(hf))
+    blob = pinned_tokenizer(json.loads(FIXTURE_TOKENIZER.read_text()), QWEN2_SPECIAL_IDS)
+    (path / "tokenizer.json").write_text(json.dumps(blob))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>", "clean_up_tokenization_spaces": False}))
+    seconds = time.perf_counter() - t0
+    log(f"checkpoint {preset}: {written} bytes in {len(shards)} shards written in {seconds:.3f} s "
+        f"({written / seconds / 1e9:.3f} GB/s)")
+    return dict(bytes=written, shards=len(shards), write_seconds=seconds)
+
+
+def _load(dev, preset: str, path: Path, **kw):
+    """``get_model(preset, pretrained=path)`` on the card, timed, with its peak
+    memory above what was allocated before."""
+    import torch
+
+    from lmms_owc_tpu_torch.models import get_model
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(preset, pretrained=str(path), dtype="bfloat16", device=str(dev), time_phases=True, **kw)
+    torch.cuda.synchronize()
+    load = dict(load_seconds=time.perf_counter() - t0,
+                load_peak_above_gb=(torch.cuda.max_memory_allocated() - before) / 1e9,
+                model_gb=sum(t.numel() * t.element_size()
+                             for t in list(model.model.parameters()) + list(model.model.buffers())) / 1e9)
+    log(f"{preset} loaded from the checkpoint ({kw or 'bf16'}): {json.dumps(load)}")
+    return model, load
+
+
+def _same_parameters(got, want, label: str) -> int:
+    """Every parameter of ``got`` bit-equal to ``want``'s; returns the count."""
+    import torch
+
+    ref = dict(want.named_parameters())
+    names = [name for name, _ in got.named_parameters()]
+    if sorted(names) != sorted(ref):
+        raise AssertionError(f"{label}: parameter names differ from the served model's")
+    for name, p in got.named_parameters():
+        if p.dtype != ref[name].dtype or not torch.equal(p, ref[name]):
+            raise AssertionError(f"{label}: parameter {name} differs from the served model's")
+    return len(names)
+
+
+def _same_quantized(got, want, bits: int) -> int:
+    """Every int8/int4 module of ``got`` equals ``quantize_int8``/``quantize_int4``
+    of ``want``'s bf16 weight bit for bit (bias too); every other parameter is
+    bit-equal. Returns the number of quantized modules."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear
+    from lmms_owc_tpu_torch.ops.quant import quantize_int4, quantize_int8
+
+    n = 0
+    quantized = set()
+    for name, mod in got.named_modules():
+        if not isinstance(mod, (Int8Linear, Int4Linear)):
+            continue
+        ref = want.get_submodule(name)
+        qp = quantize_int8(ref.weight) if bits == 8 else quantize_int4(ref.weight)
+        leaf = mod.q if bits == 8 else mod.q4
+        if not (torch.equal(leaf, qp["q" if bits == 8 else "q4"]) and torch.equal(mod.scale, qp["scale"])):
+            raise AssertionError(f"int{bits} load: {name} differs from the quantization of the served weight")
+        if mod.bias is not None and not torch.equal(mod.bias, ref.bias):
+            raise AssertionError(f"int{bits} load: {name}.bias differs")
+        quantized.add(name)
+        n += 1
+    ref = dict(want.named_parameters())
+    for name, p in got.named_parameters():
+        if name.rsplit(".", 1)[0] not in quantized and not torch.equal(p, ref[name]):
+            raise AssertionError(f"int{bits} load: parameter {name} differs from the served model's")
+    if n == 0:
+        raise AssertionError(f"int{bits} load: no quantized module")
+    return n
+
+
+def _same_tokens(label: str, got: list, want: list) -> None:
+    if len(got) != len(want) or any(a.shape != b.shape or not (a == b).all() for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: generated tokens differ")
+
+
+def check_checkpoint(dev, served, requests, preset: str, path: Path, quantized: bool) -> dict:
+    """Phase 9 for one model: write ``served`` (random bf16 weights drawn on the
+    card) as a checkpoint, load it in bf16 (parameters bit-equal; the same
+    tokens as ``served`` with the loaded tokenizer on ``requests``) and, with
+    ``quantized``, with ``load_in_8bit`` (W8A8, pool 2, int8 KV cache) and
+    ``load_in_4bit``. Returns the loaded bf16 model and the phase's numbers."""
+    import torch
+
+    out = write_checkpoint(served.model, preset, path)
+    model, out["bf16"] = _load(dev, preset, path, batch_size=served.batch_size)
+    model.task_dict.update(served.task_dict)  # the requests' images
+    out["bf16"]["parameters_bit_equal"] = _same_parameters(model.model, served.model, f"{preset} bf16 load")
+    fallback = served.tokenizer
+    served.tokenizer = model.tokenizer
+    try:
+        want: list = []
+        _serve(served, requests, want, require_text=False)
+    finally:
+        served.tokenizer = fallback
+    got: list = []
+    run = _serve(model, requests, got, require_text=False)
+    _same_tokens(f"{preset} bf16 load", got, want)
+    _log_run(f"{preset} bf16 from the checkpoint", run)
+    out["bf16"].update(run, tokens_identical=True)
+    if not quantized:
+        return model, out
+    with _env(LMMS_OWC_DECODE_POOL="2", LMMS_OWC_KV_INT8="1"):
+        q8, load = _load(dev, preset, path, batch_size=NUM_REQUESTS, load_in_8bit=True, int8_activations=True)
+        largest = max(p.numel() * p.element_size() for p in served.model.parameters()) / 1e9
+        load["peak_bound_gb"] = load["model_gb"] + 2 * largest
+        if load["load_peak_above_gb"] > load["peak_bound_gb"]:
+            raise AssertionError(f"int8 load peak {load['load_peak_above_gb']:.3f} GB above the bound "
+                                 f"{load['peak_bound_gb']:.3f} GB (int8 model + twice the largest bf16 tensor)")
+        load["int8_modules_bit_equal"] = _same_quantized(q8.model, served.model, 8)
+        run = _serve(q8, _requests(q8, [(448, 448)] * INT8_CKPT_REQUESTS), require_text=False)
+        _log_run(f"{preset} int8 + W8A8 + pool 2 + int8 KV from the checkpoint", run)
+        _check_min_per_step(run, "gqa_decode_attention_int8")
+        out["int8"] = dict(load, **run)
+    from lmms_owc_tpu_torch.nn.layers import set_int8_activations
+
+    set_int8_activations(False)
+    del q8
+    _free()
+    with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
+        q4, load = _load(dev, preset, path, batch_size=NUM_REQUESTS, load_in_4bit=True)
+        load["int4_modules_bit_equal"] = _same_quantized(q4.model, served.model, 4)
+        run = _serve(q4, _requests(q4), require_text=False)
+        _log_run(f"{preset} int4 from the checkpoint", run)
+        _check_min_per_step(run, "int4_matmul")
+        out["int4"] = dict(load, **run)
+    del q4
+    _free()
+    torch.cuda.synchronize()
+    return model, out
+
+
+def _loglikelihood_requests(model):
+    """Phase 3's eight images, each with a multi-token continuation."""
+    base = _requests(model)
+
+    class _Req:
+        def __init__(self, args):
+            self.args = args
+
+    return [_Req((PROMPT, CONTINUATIONS[i], r.args[2], r.args[3], "smoke", "test")) for i, r in enumerate(base)]
+
+
+def check_loglikelihood(model) -> dict:
+    """Phase 10: the bf16 model scores 8 image requests through the kernels,
+    through the plain versions and with f32 attention; the kernel path's
+    losses may be no farther from f32 attention than the plain path's (+25%),
+    by phase 4's rule. Each call runs one tower and one prefill forward."""
+    import torch
+
+    requests = _loglikelihood_requests(model)
+    model.loglikelihood(requests)  # warm-up
+    model.phase_seconds.clear()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.loglikelihood(requests)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    phase_seconds = {k: round(v, 4) for k, v in model.phase_seconds.items()}
+    for name, want in LOGLIKELIHOOD_LAUNCHES.items():
+        if counts[name] != want:
+            raise AssertionError(f"loglikelihood: {name} launched {counts[name]} times, expected {want}")
+    with _plain_attention():
+        plain = model.loglikelihood(requests)
+    with _attention(flash_attention=_exact_flash, vision_qkv_attention=_exact_vision,
+                    fused_qkv_attention=_exact_fused):
+        exact = model.loglikelihood(requests)
+    losses = {k: torch.tensor([loss for loss, _ in v]) for k, v in (("kernel", got), ("plain", plain), ("exact", exact))}
+    if not bool(torch.isfinite(losses["kernel"]).all()) or not bool((losses["kernel"] > 0).all()):
+        raise AssertionError(f"loglikelihood losses not finite and positive: {got}")
+    rel = {
+        "kernel_vs_plain": _rel_l2(losses["kernel"], losses["plain"]),
+        "kernel_vs_exact": _rel_l2(losses["kernel"], losses["exact"]),
+        "plain_vs_exact": _rel_l2(losses["plain"], losses["exact"]),
+    }
+    out = dict(requests=len(requests), seconds=seconds, requests_per_s=len(requests) / seconds, peak_gb=peak,
+               phase_seconds=phase_seconds, counts=counts, losses=[round(x, 6) for x in losses["kernel"].tolist()], is_greedy=[g for _, g in got],
+               is_greedy_plain=[g for _, g in plain], rel_l2=rel)
+    log(f"loglikelihood: {json.dumps(out)}")
+    if rel["kernel_vs_exact"] > max(LOGITS_REL_L2, 1.25 * rel["plain_vs_exact"]):
+        raise AssertionError(f"loglikelihood: kernel losses farther from f32 attention than the plain path: {rel}")
+    return out
+
+
+def _multi_round_requests(model):
+    """Phase 3's eight images as two-round conversations: round 1 asks again
+    with round 0's answer in the prompt."""
+    base = _requests(model)
+
+    def doc_to_text(doc, round_idx, previous_round_results, last_round_info):
+        if round_idx >= 2:
+            return None, None, True, previous_round_results, last_round_info
+        return (None, f"{PROMPT} You said: {previous_round_results[-1][:48]} Name it again.", False,
+                previous_round_results, round_idx)
+
+    class _Req:
+        def __init__(self, args):
+            self.args = args
+
+    return [_Req((r.args[0], r.args[1], r.args[2], doc_to_text, *r.args[3:6])) for r in base]
+
+
+def check_multi_round(model) -> dict:
+    """Phase 11: 8 requests run two rounds in chunks of 4 under a decode pool
+    of 2; round 0's tokens must equal ``generate_until``'s on the same prompts."""
+    import torch
+
+    requests = _multi_round_requests(model)
+    single = _requests(model)
+    saved = model.batch_size
+    model.batch_size = MULTI_ROUND_BATCH
+    try:
+        with _env(LMMS_OWC_DECODE_POOL="2", LMMS_OWC_SORT_BY_VISION="0", LMMS_OWC_KV_INT8=""):
+            want: list = []
+            with _tokens(model, want):
+                model.generate_until(single)
+            model.phase_seconds.clear()
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            got: list = []
+            with _decode_steps() as steps, _tokens(model, got):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rounds = model.generate_until_multi_round(requests)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+    finally:
+        model.batch_size = saved
+    if len(got) != 2 or len(want) != 1:
+        raise AssertionError(f"multi-round: expected one pooled decode per round, got {len(got)} (generate_until {len(want)})")
+    _same_tokens("multi-round round 0 vs generate_until", got[:1], want)
+    if len(rounds) != len(requests) or not all(len(r) == 2 for r in rounds):
+        raise AssertionError(f"multi-round: expected two rounds per request, got {[len(r) for r in rounds]}")
+    out = dict(requests=len(requests), rounds=2, seconds=seconds, images_per_s=2 * len(requests) / seconds,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, decode_steps=len(steps), counts=_counts(),
+               phase_seconds={k: round(v, 4) for k, v in model.phase_seconds.items()},
+               round0_tokens_identical=True, sample=[r[1][:40] for r in rounds[:2]])
+    log(f"multi-round: {json.dumps(out)}")
+    return out
+
+
+def _phase_summary(phase: dict) -> dict:
+    """Phase 9's numbers without the per-run sample strings."""
+    keys = ("images", "seconds", "images_per_s", "phase_seconds", "peak_gb", "decode_steps", "counts", "load_seconds",
+            "load_peak_above_gb", "model_gb", "peak_bound_gb", "parameters_bit_equal", "tokens_identical",
+            "int8_modules_bit_equal", "int4_modules_bit_equal")
+    return {k: ({kk: vv for kk, vv in v.items() if kk in keys} if isinstance(v, dict) else v) for k, v in phase.items()}
+
+
 def _ptxas_summary(report: str) -> list[str]:
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: registers,
     shared memory, spills (names demangled when ``c++filt`` is there)."""
@@ -1275,12 +1703,29 @@ def main() -> int:
     parity = check_kernels(dev)
     model, requests, counts = run_main_path(dev)
     packed = check_packed_tower(model, requests)  # phase 8, on phase 3's bf16 weights
+    # Phases 9-11 on phase 3's bf16 weights, before phase 4 turns them to f32.
+    root = Path(tempfile.mkdtemp(prefix="owc_ckpt_"))
+    try:
+        ckpt, checkpoint = check_checkpoint(dev, model, requests, "qwen2-vl-7b", root, quantized=True)
+        loglik = check_loglikelihood(ckpt)
+        multi = check_multi_round(ckpt)
+        del ckpt
+        _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     check_whole_model(model, requests)
     del model, requests
     _free()
     pool = run_quantized_pool(dev)
     int4 = run_int4(dev)
-    v25 = run_v25(dev)
+    v25, v25_model, v25_requests = run_v25(dev)
+    root = Path(tempfile.mkdtemp(prefix="owc_ckpt_"))
+    try:
+        ckpt, checkpoint25 = check_checkpoint(dev, v25_model, v25_requests, "qwen2.5-vl-7b", root, quantized=False)
+        del ckpt, v25_model, v25_requests
+        _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
     # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed).
@@ -1304,6 +1749,10 @@ def main() -> int:
             summary["unpooled_same_rows"] = run["unpooled_same_rows"]
         log(f"summary {label}: {json.dumps(summary)}")
     log(f"summary packed tower: {json.dumps(packed)}")
+    for label, phase in (("checkpoint qwen2-vl-7b", checkpoint), ("checkpoint qwen2.5-vl-7b", checkpoint25)):
+        log(f"summary {label}: {json.dumps(_phase_summary(phase))}")
+    log(f"summary loglikelihood: {json.dumps(loglik)}")
+    log(f"summary multi-round: {json.dumps(multi)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -3,8 +3,9 @@
 The engine is not ported yet, so this base keeps what the adapters of the
 slice use: the constructor contract (batch size, dtype, device, the
 ``load_in_8bit``/``load_in_4bit`` flags), ``rank`` and ``world_size``, the
-request handlers, and the chunk pipeline. Each adapter's ``load_model``
-applies the quantization flags.
+request handlers (with the generic multi-round protocol and the
+loglikelihood request helpers), and the chunk pipeline. Each adapter's
+``load_model`` applies the quantization flags.
 """
 
 from __future__ import annotations
@@ -77,6 +78,89 @@ class Model(abc.ABC):
     @abc.abstractmethod
     def generate_until(self, requests) -> list[str]:
         """Generate free-text responses for each request."""
+
+    def generate_until_multi_round(self, requests) -> list[list[str]]:
+        """Multi-round conversation protocol, generic over any adapter (the JAX
+        base's): round 0 uses the prebuilt context; later rounds call
+        ``doc_to_text(doc, round_idx=r, previous_round_results=[...],
+        last_round_info=...)``, which returns ``(visual, text, terminal,
+        previous_round_results, last_round_info)``. Each round hands every
+        still-active request to :meth:`generate_until`. Request args: (ctx,
+        gen_kwargs, doc_to_visual, doc_to_text, doc_id, task, split).
+        """
+
+        class _PseudoReq:
+            __slots__ = ("args",)
+
+            def __init__(self, args):
+                self.args = args
+
+        docs = [self._doc(req.args[5], req.args[6], req.args[4]) for req in requests]
+        n = len(requests)
+        rounds: list[list[str]] = [[] for _ in range(n)]
+        infos: list = [None] * n
+        prompts: list = [req.args[0] for req in requests]
+        active = list(range(n))
+        round_idx = 0
+        while active and round_idx <= 16:
+            if round_idx != 0:
+                still_active = []
+                for i in active:
+                    _vis, text, terminal, _prev, infos[i] = requests[i].args[3](
+                        docs[i], round_idx=round_idx, previous_round_results=list(rounds[i]),
+                        last_round_info=infos[i],
+                    )
+                    if not terminal:
+                        prompts[i] = text
+                        still_active.append(i)
+                active = still_active
+                if not active:
+                    break
+            sub_reqs = [
+                _PseudoReq((prompts[i], *requests[i].args[1:3], *requests[i].args[4:7])) for i in active
+            ]
+            for i, text in zip(active, self.generate_until(sub_reqs)):
+                rounds[i].append(text)
+            round_idx += 1
+        return rounds
+
+    def _doc(self, task_name: str, split: str, doc_id):
+        task = self.task_dict.get(task_name)
+        if isinstance(task, tuple):
+            task = task[1]
+        return task.dataset[split][doc_id]
+
+    def _resolve_loglikelihood_request(self, req) -> tuple[str, str, list]:
+        """(context, continuation_text, visuals) for a loglikelihood request.
+
+        Task-built requests carry (ctx, doc_to_target, doc_to_visual, doc_id,
+        task, split); ``acc_mutual_info``'s unconditional P(choice) requests
+        carry just (ctx, choice).
+        """
+        args = req.args
+        ctx = args[0]
+        if len(args) < 6:
+            return ctx, str(args[1]), []
+        _, doc_to_target, doc_to_visual, doc_id, task_name, split = args[:6]
+        doc = self._doc(task_name, split, doc_id)
+        continuation = doc_to_target(doc) if callable(doc_to_target) else doc_to_target
+        if isinstance(continuation, list):
+            continuation = continuation[0]
+        visuals = (doc_to_visual(doc) if doc_to_visual else []) or []
+        return ctx, str(continuation), visuals
+
+    def _encode_continuation(self, continuation: str) -> list[int]:
+        """Token ids of a loglikelihood continuation, encoded on its own with no
+        special tokens. The task layer already put any word-boundary delimiter
+        in the continuation, so the scored text is ``prompt + continuation``;
+        encoding the continuation alone is the same for every prompt, where
+        slicing ``encode(prompt + continuation)`` would drift when BPE merges
+        across the boundary."""
+        tok = self.tokenizer
+        try:
+            return list(tok.encode(continuation, add_special_tokens=False))
+        except TypeError:
+            return list(tok.encode(continuation))
 
     def _foreach_chunk_pipelined(self, chunks: list, prepare, run, depth: int = 2, finish=None) -> list:
         """Process chunks with up to ``depth`` chunks' preparation in flight.

@@ -1,7 +1,8 @@
 """Qwen2-VL model adapter of the port: engine requests -> batched GPU generation.
 
-Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` for ``generate_until``,
-for the Qwen2-VL and Qwen2.5-VL presets. The host side is the same: requests
+Counterpart of :mod:`lmms_owc_tpu.models.qwen2_vl` (``generate_until``,
+``generate_until_multi_round`` and ``loglikelihood``) for the Qwen2-VL and
+Qwen2.5-VL presets and checkpoints. The host side is the same: requests
 are grouped by generation kwargs, sorted by estimated prompt tokens (text +
 vision), packed into token-budget macro batches, LEFT-padded to length buckets
 and decoded together. Images are resized on the host, grouped by patch bucket
@@ -9,10 +10,11 @@ and decoded together. Images are resized on the host, grouped by patch bucket
 tower in batches whose row count is padded to ``VISION_ROW_BUCKETS``. Weights are
 bf16/f32, int8 (``load_in_8bit``, with W8A8 under ``int8_activations``) or
 int4 (``load_in_4bit``); ``LMMS_OWC_DECODE_POOL`` > 1 decodes several chunks
-as one pool, and ``LMMS_OWC_KV_INT8`` keeps the decode cache in int8.
-
-Not ported yet (see ROADMAP.md): checkpoint loading, ``loglikelihood`` and
-``generate_until_multi_round``.
+as one pool, and ``LMMS_OWC_KV_INT8`` keeps the decode cache in int8. A
+``pretrained`` checkpoint directory (HF layout: ``config.json``, safetensors
+shards, ``tokenizer.json``) is read by the port's own safetensors reader and
+byte-level BPE tokenizer (:mod:`lmms_owc_tpu_torch.nn.loader`,
+:mod:`lmms_owc_tpu_torch.tokenizer`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import re
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,12 +35,14 @@ from lmms_owc_tpu_torch.models._base import Model
 from lmms_owc_tpu_torch.nn import qwen2_5_vl as qvl25
 from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
 from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear, set_int8_activations
+from lmms_owc_tpu_torch.nn.loader import load_config_json, load_safetensors_state
 from lmms_owc_tpu_torch.ops import quant
 from lmms_owc_tpu_torch.ops.image import (
     patchify_images_batch,
     resize_host_batch,
     smart_resize,
 )
+from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
 
 log = get_logger(__name__)
@@ -260,25 +265,26 @@ class Qwen2VL(Model):
         int8_activations: bool = False,
         **kwargs,
     ) -> None:
-        """Weights come from ``jax_params`` (the JAX package's parameter tree
-        as numpy arrays, float or quantized, see
-        :func:`lmms_owc_tpu_torch.nn.qwen2_vl.params_from_jax`) or are drawn on
-        the device from ``seed`` (with ``load_in_8bit``/``load_in_4bit``, drawn
-        and quantized one layer at a time). Checkpoint loading is not ported, so
-        ``random_init`` is accepted only for the JAX adapter's signature.
-        ``int8_activations`` turns on W8A8 for the process, as the JAX adapter
+        """Weights come from the ``pretrained`` checkpoint directory (its
+        ``config.json`` gives the architecture; with ``load_in_8bit`` /
+        ``load_in_4bit`` each layer is quantized on the device as it loads),
+        from ``jax_params`` (the JAX package's parameter tree as numpy arrays,
+        float or quantized, see
+        :func:`lmms_owc_tpu_torch.nn.qwen2_vl.params_from_jax`), or are drawn
+        on the device from ``seed`` (``random_init``, implied when there is no
+        ``pretrained``; quantized runs draw and quantize one layer at a time).
+        A ``pretrained`` directory that does not exist raises
+        ``FileNotFoundError`` unless ``random_init`` is set, as in the JAX
+        adapter. ``int8_activations`` turns on W8A8 for the process, as the JAX adapter
         does. ``time_phases`` synchronizes the device around the vision,
         prefill and decode phases and sums their wall seconds into
         :attr:`phase_seconds` (with several chunks the next chunk's vision runs
         beside the current decode, so the phases then overlap)."""
-        if pretrained is not None:
-            raise NotImplementedError(
-                "loading a Qwen2-VL checkpoint is not ported yet; use random_init=True "
-                "or jax_params (ROADMAP.md, Queue 1)"
-            )
         if preset not in PRESET_CONFIGS:
             raise ValueError(f"unknown preset {preset!r}; available: {sorted(PRESET_CONFIGS)}")
         self.preset = preset
+        self.pretrained = pretrained
+        self.random_init = random_init or pretrained is None
         self.max_pixels = int(max_pixels)
         self.min_pixels = int(min_pixels)
         self.system_prompt = system_prompt
@@ -293,7 +299,10 @@ class Qwen2VL(Model):
     # ------------------------------------------------------------------- load
 
     def load_model(self) -> None:
-        hf = PRESET_CONFIGS[self.preset]
+        checkpoint = self.pretrained is not None and Path(self.pretrained).exists()
+        if self.pretrained is not None and not checkpoint and not self.random_init:
+            raise FileNotFoundError(f"checkpoint not found: {self.pretrained}")
+        hf = load_config_json(self.pretrained) if checkpoint else PRESET_CONFIGS[self.preset]
         self.config = qvl.Qwen2VLConfig.from_hf_dict(hf)
         self.is_v25 = hf.get("model_type") == "qwen2_5_vl"
         self.vision25_config = (
@@ -305,7 +314,21 @@ class Qwen2VL(Model):
         def build(device):
             return qvl.Qwen2VLModel(self.config, self.torch_dtype, device, vision25=self.vision25_config)
 
-        if self._jax_params is not None:
+        if checkpoint:
+            self.tokenizer = Tokenizer.from_pretrained(self.pretrained)
+            self._check_vocabulary()
+            state = load_safetensors_state(self.pretrained)
+            if bits is not None:
+                # The full-precision tree never exists on the device: modules
+                # are built on meta, then each weight is read, quantized and dropped.
+                self.model = build("meta")
+                quant.load_quantized_on_device(self.model, state, bits=bits, dtype=self.torch_dtype, device=self.device)
+            else:
+                self.model = build(self.device)
+                qvl.load_hf_weights(self.model, state)
+            del state
+            log.info("loaded %s from %s (%s)", self.preset, self.pretrained, f"int{bits}" if bits else self.dtype)
+        elif self._jax_params is not None:
             self.model = build(self.device)
             qvl.params_from_jax(self.model, self._jax_params)
             self._jax_params = None
@@ -323,8 +346,28 @@ class Qwen2VL(Model):
             self.model = build(self.device)
             qvl.init_params(self.model, gen)
             log.warning("random-init %s on %s (no checkpoint)", self.preset, self.device)
-        self.tokenizer = _FallbackTokenizer(self.config)
+        if not checkpoint:
+            self.tokenizer = _FallbackTokenizer(self.config)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def _check_vocabulary(self) -> None:
+        """Every token id the adapter feeds to the embedding or stops on must be
+        inside the checkpoint's vocabulary. (The JAX adapter's ``jnp.take``
+        fills an out-of-range row with NaN and then decodes empty strings; the
+        port's embedding would raise at the first prompt instead.)"""
+        c = self.config
+        ids = {
+            "pad_token_id": c.pad_token_id, "eos_token_id": c.eos_token_id,
+            "image_token_id": c.image_token_id, "vision_start_token_id": c.vision_start_token_id,
+            "the tokenizer's eos_token_id": self.tokenizer.eos_token_id,
+            "the tokenizer's pad_token_id": self.tokenizer.pad_token_id,
+        }
+        for name, value in ids.items():
+            if value is not None and not 0 <= int(value) < c.vocab_size:
+                raise ValueError(
+                    f"{self.pretrained}: {name} {value} lies outside the checkpoint's vocabulary "
+                    f"of {c.vocab_size} tokens"
+                )
 
     @property
     def eos_token_ids(self) -> list[int]:
@@ -679,7 +722,12 @@ class Qwen2VL(Model):
                 continue
         return est
 
-    def generate_until(self, requests) -> list[str]:
+    def _collate(self, args_list: list) -> tuple[Collator, list, object]:
+        """(collator, chunks, pool_bucket_fn) for generation requests, as the
+        JAX adapter batches them: grouped by gen_kwargs and, at batch sizes
+        above 1 (unless ``LMMS_OWC_SORT_BY_VISION=0``), sorted by estimated
+        prompt tokens (text + vision) into token-budget chunks; otherwise
+        sorted by context length into chunks of ``batch_size``."""
         batch_fn = None
         pool_bucket_fn = None
         if self.batch_size > 1 and bool(int(os.environ.get("LMMS_OWC_SORT_BY_VISION", "1"))):
@@ -709,13 +757,11 @@ class Qwen2VL(Model):
                 return pad_to_bucket(_est(chunk[0]) + 48)
         else:
             sort_fn = lambda args: -len(args[0])  # noqa: E731
-        collator = Collator(
-            [req.args for req in requests],
-            sort_fn=sort_fn,
-            group_fn=lambda args: repr(args[1]),
-            group_by="gen_kwargs",
-        )
-        chunks = list(collator.get_batched(n=self.batch_size, batch_fn=batch_fn))
+        collator = Collator(args_list, sort_fn=sort_fn, group_fn=lambda args: repr(args[1]), group_by="gen_kwargs")
+        return collator, list(collator.get_batched(n=self.batch_size, batch_fn=batch_fn)), pool_bucket_fn
+
+    def generate_until(self, requests) -> list[str]:
+        collator, chunks, pool_bucket_fn = self._collate([req.args for req in requests])
 
         pool_n = int(os.environ.get("LMMS_OWC_DECODE_POOL", "1"))
         if pool_n > 1:
@@ -818,11 +864,120 @@ class Qwen2VL(Model):
             )
         return self._detokenize(tokens.cpu().numpy())
 
+    def generate_until_multi_round(self, requests) -> list[list[str]]:
+        """Staged conversation until the task's ``doc_to_text`` signals the end.
+
+        Round 0 uses the prebuilt context; later rounds call
+        ``doc_to_text(doc, round_idx=r, previous_round_results=...,
+        last_round_info=...)``, which returns ``(visual, text, terminal,
+        previous_round_results, last_round_info)``. Requests are chunked as
+        :meth:`generate_until` chunks them, and each round runs every
+        still-active request of a chunk as one batched decode; round r of every
+        chunk runs before round r + 1 of any, so under ``LMMS_OWC_DECODE_POOL``
+        > 1 a round's sub-chunks pool (:meth:`_generate_pooled`). At most 17
+        rounds. Request args: (ctx, gen_kwargs, doc_to_visual, doc_to_text,
+        doc_id, task, split).
+        """
+        collator, chunks, _ = self._collate([req.args for req in requests])
+        states = []
+        for chunk in chunks:
+            until = dict(chunk[0][1] or {}).get("until") or []
+            states.append({
+                "chunk": chunk,
+                "docs": [self._doc(args[5], args[6], args[4]) for args in chunk],
+                "gen_kwargs": dict(chunk[0][1] or {}),
+                "until": [until] if isinstance(until, str) else until,
+                "rounds": [[] for _ in chunk],
+                "infos": [None] * len(chunk),
+                "prompts": [args[0] for args in chunk],
+                "active": list(range(len(chunk))),
+            })
+
+        pool_n = int(os.environ.get("LMMS_OWC_DECODE_POOL", "1"))
+        for round_idx in range(17):
+            live: list[tuple[dict, list]] = []  # (state, this round's sub-chunk)
+            for st in states:
+                if round_idx and st["active"]:
+                    still_active = []
+                    for i in st["active"]:
+                        _vis, text, terminal, _prev, st["infos"][i] = st["chunk"][i][3](
+                            st["docs"][i], round_idx=round_idx, previous_round_results=list(st["rounds"][i]),
+                            last_round_info=st["infos"][i],
+                        )
+                        if not terminal:
+                            st["prompts"][i] = text
+                            still_active.append(i)
+                    st["active"] = still_active
+                if st["active"]:
+                    # (ctx, gen_kwargs, doc_to_visual, doc_id, task, split) rows.
+                    live.append((st, [(st["prompts"][i], *st["chunk"][i][1:3], *st["chunk"][i][4:7])
+                                      for i in st["active"]]))
+            if not live:
+                break
+            if pool_n > 1 and len(live) > 1:
+                texts = self._generate_pooled([sc for _, sc in live], pool_n)
+            else:
+                texts = self._foreach_chunk_pipelined(
+                    live,
+                    lambda item: self._prepare_requests_batch(item[1]),
+                    lambda item, prepared: self._run_batch(prepared[0], dict(item[0]["gen_kwargs"]), prepared[1]),
+                )
+            offset = 0
+            for st, sc in live:
+                for i, text in zip(st["active"], texts[offset : offset + len(sc)]):
+                    st["rounds"][i].append(self._trim_until(text, st["until"]).strip())
+                offset += len(sc)
+        return collator.get_original([rounds for st in states for rounds in st["rounds"]])
+
     def loglikelihood(self, requests) -> list[tuple[float, bool]]:
-        raise NotImplementedError(
-            "Qwen2VL.loglikelihood is not ported yet "
-            "(ROADMAP.md, Queue 1: loglikelihood and generate_until_multi_round)"
-        )
+        """(ctx, doc_to_target, doc_to_visual, doc_id, task, split), or (ctx,
+        continuation), -> (loss, is_greedy): the mean cross-entropy over the
+        continuation's tokens with the context masked, and whether greedy
+        decoding would produce the continuation. Requests run in order in
+        batches of ``batch_size``; each row is the chat prompt followed by the
+        continuation encoded on its own, left-padded to a length bucket."""
+        merge_sq = self.config.vision.spatial_merge_size**2
+        dev = self.device
+        results: list[tuple[float, bool]] = []
+        for start in range(0, len(requests), self.batch_size):
+            batch = requests[start : start + self.batch_size]
+            metas, counts, all_visuals = [], [], []
+            for req in batch:
+                ctx, continuation, visuals = self._resolve_loglikelihood_request(req)
+                metas.append((ctx, continuation))
+                counts.append(len(visuals))
+                all_visuals.extend(visuals)
+            with self._phase("vision"):
+                vision_flat, spans_flat, flat_grids = self._encode_images_flat(all_visuals)
+
+            rows, n_conts = [], []
+            img_off = 0
+            for (ctx, continuation), n_images in zip(metas, counts):
+                spans = spans_flat[img_off : img_off + n_images]
+                grids = flat_grids[img_off : img_off + n_images]
+                img_off += n_images
+                token_counts = [(g[0] * g[1] * g[2]) // merge_sq for g in grids]
+                ids = self._tokenize_with_images(self._build_prompt(ctx, n_images), token_counts)
+                cont_ids = self._encode_continuation(continuation)
+                rows.append((list(ids) + cont_ids, spans, grids))
+                n_conts.append(len(cont_ids))
+
+            with self._phase("score"):
+                embeds, position_ids, mask, _, bucket = self._build_batch_inputs(rows, vision_flat)
+                target_ids = np.zeros((len(rows), bucket), np.int64)
+                target_mask = np.zeros((len(rows), bucket), np.int64)
+                for row, ((ids, _, _), n_cont) in enumerate(zip(rows, n_conts)):
+                    # Position t predicts token t + 1: the continuation's
+                    # targets take the last n_cont prediction slots.
+                    target_ids[row, bucket - len(ids) : bucket - 1] = ids[1:]
+                    target_mask[row, bucket - 1 - n_cont : bucket - 1] = 1
+                loss, is_greedy = qvl.score_continuation(
+                    self.model, embeds, torch.from_numpy(position_ids).to(dev),
+                    torch.from_numpy(mask.astype(np.int32)).to(dev),
+                    torch.from_numpy(target_ids).to(dev), torch.from_numpy(target_mask).to(dev),
+                )
+            results.extend(zip(loss.tolist(), is_greedy.tolist()))
+        return results
 
 
 @register_model("qwen2-vl-7b")

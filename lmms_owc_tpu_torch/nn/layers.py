@@ -181,6 +181,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+# Quantizers run over blocks of output rows of at most this many weights, so
+# their f32 temporaries stay near 0.5 GB even for a 7B model's vocab head; each
+# row's values depend on that row alone, so the result is the same.
+_QUANT_BLOCK = 1 << 25
+
+
+def _row_blocks(d_out: int, d_in: int) -> list[slice]:
+    step = max(1, _QUANT_BLOCK // max(d_in, 1))
+    return [slice(r, min(r + step, d_out)) for r in range(0, d_out, step)]
+
+
 def _param(shape, dtype, device, fill: float | None = None) -> nn.Parameter:
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
@@ -220,9 +231,10 @@ class Int8Linear(nn.Module):
     def from_weight(cls, weight: torch.Tensor, bias: bool, dtype) -> "Int8Linear":
         d_out, d_in = weight.shape
         new = cls(d_in, d_out, bias, dtype, weight.device)
-        qp = quantize_int8(weight)
-        new.q.copy_(qp["q"])
-        new.scale.copy_(qp["scale"])
+        for rows in _row_blocks(d_out, d_in):
+            qp = quantize_int8(weight[rows])
+            new.q[rows] = qp["q"]
+            new.scale[rows] = qp["scale"]
         return new
 
     @classmethod
@@ -255,9 +267,10 @@ class Int4Linear(nn.Module):
     def from_weight(cls, weight: torch.Tensor, bias: bool, dtype, group: int = 128) -> "Int4Linear":
         d_out, d_in = weight.shape
         new = cls(d_in, d_out, bias, dtype, weight.device, group)
-        qp = quantize_int4(weight, group)
-        new.q4.copy_(qp["q4"])
-        new.scale.copy_(qp["scale"])
+        for rows in _row_blocks(d_out, d_in):
+            qp = quantize_int4(weight[rows], group)
+            new.q4[rows] = qp["q4"]
+            new.scale[rows] = qp["scale"]
         return new
 
     @classmethod

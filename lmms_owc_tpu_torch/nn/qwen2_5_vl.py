@@ -34,6 +34,7 @@ __all__ = [
     "Vision25Tower",
     "get_window_layout",
     "get_window_order",
+    "load_hf_vision25_weights",
     "vision25_params_from_jax",
     "vision25_rope_freqs",
 ]
@@ -161,6 +162,12 @@ class Vision25Merger(nn.Module):
         self.fc2 = Linear(merged, v.out_hidden_size, True, dtype, device)
 
 
+_HF_BLOCK_ROLES = {
+    "norm1": "norm1", "norm2": "norm2", "qkv": "attn.qkv", "proj": "attn.proj",
+    "mlp_gate": "mlp.gate_proj", "mlp_up": "mlp.up_proj", "mlp_down": "mlp.down_proj",
+}
+
+
 class Vision25Tower(nn.Module):
     """Qwen2.5-VL ViT with window attention, plus the RMSNorm patch merger."""
 
@@ -170,6 +177,12 @@ class Vision25Tower(nn.Module):
         self.patch_embed = Linear(v.patch_dim, v.hidden_size, False, dtype, device)
         self.blocks = nn.ModuleList(Vision25Block(v, dtype, device) for _ in range(v.depth))
         self.merger = Vision25Merger(v, dtype, device)
+
+    def hf_tensor(self, state, name: str) -> torch.Tensor:
+        """The checkpoint tensor of parameter ``name`` (``convert_hf_vision25_weights``'s names)."""
+        from lmms_owc_tpu_torch.nn.qwen2_vl import hf_vision_tensor
+
+        return hf_vision_tensor(state, name, _HF_BLOCK_ROLES)
 
     @torch.inference_mode()
     def forward(
@@ -239,3 +252,12 @@ def vision25_params_from_jax(tower: Vision25Tower, tree: dict) -> Vision25Tower:
     _load_linear(tower.merger, "fc1", tree["merger"]["fc1"])
     _load_linear(tower.merger, "fc2", tree["merger"]["fc2"])
     return tower
+
+
+def load_hf_vision25_weights(tower: Vision25Tower, state) -> Vision25Tower:
+    """Fill the tower from an HF Qwen2.5-VL checkpoint's tensors (counterpart of
+    ``convert_hf_vision25_weights``), cast to the tower's dtype, in place. The
+    port's ``[out, in]`` layout is the checkpoint's, so nothing is transposed."""
+    from lmms_owc_tpu_torch.nn.loader import load_hf_tensors
+
+    return load_hf_tensors(tower, state)

@@ -40,6 +40,7 @@ from lmms_owc_tpu_torch.nn.layers import (
     gelu,
     quick_gelu,
 )
+from lmms_owc_tpu_torch.nn.loader import find_tensor, load_hf_tensors
 from lmms_owc_tpu_torch.nn.qwen2_5_vl import (
     Qwen25VisionConfig,
     Vision25Tower,
@@ -63,11 +64,13 @@ __all__ = [
     "greedy_generate",
     "init_params",
     "kv_cache_int8_enabled",
+    "load_hf_weights",
     "mrope_cos_sin",
     "params_from_jax",
     "prefill",
     "prefill_logits",
     "quantize_kv_cache",
+    "score_continuation",
     "vision_rope_cos_sin",
     "write_pool_chunk",
     "write_pool_scales",
@@ -241,6 +244,37 @@ class PatchMerger(nn.Module):
         self.fc2 = Linear(merge_dim, hidden_size, True, dtype, device)
 
 
+HF_DECODER_PREFIXES = (
+    "", "model.", "model.language_model.", "language_model.", "language_model.model.", "model.text_model.",
+)
+HF_VISION_PREFIXES = ("visual.", "model.visual.")
+_HF_DECODER_ROLES = {
+    "input_ln": "input_layernorm", "post_ln": "post_attention_layernorm",
+    "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+    "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj",
+}
+_HF_BLOCK_ROLES = {
+    "norm1": "norm1", "norm2": "norm2", "qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+}
+_HF_MERGER_ROLES = {"ln_q": "ln_q", "fc1": "mlp.0", "fc2": "mlp.2"}
+
+
+def hf_vision_tensor(state, name: str, block_roles: dict[str, str]) -> torch.Tensor:
+    """The checkpoint tensor (``visual.`` or ``model.visual.`` names) of a
+    tower's parameter ``name``, either tower: ``block_roles`` maps a block's
+    module names to the checkpoint's. The Conv3d patch kernel ``[embed, 3, t,
+    p, p]`` comes flattened to ``[embed, 3*t*p*p]``, the port's layout."""
+    parts = name.split(".")
+    if parts[0] == "patch_embed":
+        w = find_tensor(state, "patch_embed.proj.weight", HF_VISION_PREFIXES)
+        return w.reshape(w.shape[0], -1)
+    if parts[0] == "blocks":
+        hf = f"blocks.{parts[1]}.{block_roles[parts[2]]}.{parts[3]}"
+    else:
+        hf = f"merger.{_HF_MERGER_ROLES[parts[1]]}.{parts[2]}"
+    return find_tensor(state, hf, HF_VISION_PREFIXES)
+
+
 class VisionTower(nn.Module):
     """Token-major Qwen2-VL ViT plus the patch merger."""
 
@@ -251,6 +285,10 @@ class VisionTower(nn.Module):
         self.blocks = nn.ModuleList(VisionBlock(v, dtype, device) for _ in range(v.depth))
         self.merger = PatchMerger(v, hidden_size, dtype, device)
         self._packed: tuple[tuple, list] | None = None  # (source key, padded (qkv, proj) per block)
+
+    def hf_tensor(self, state, name: str) -> torch.Tensor:
+        """The checkpoint tensor of parameter ``name`` (``convert_hf_weights``'s names)."""
+        return hf_vision_tensor(state, name, _HF_BLOCK_ROLES)
 
     def _packed_attn_layers(self) -> list[tuple[nn.Module, nn.Module]]:
         """The padded attention weights of the packed path, built once per set
@@ -370,6 +408,19 @@ class Qwen2VLModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed_tokens.device
+
+    def hf_tensor(self, state, name: str) -> torch.Tensor:
+        """The HF checkpoint tensor of this model's parameter ``name``, found
+        under the prefixes of ``convert_hf_decoder_weights`` (decoder) or
+        ``visual.``/``model.visual.`` (the tower, which names its own)."""
+        parts = name.split(".")
+        if parts[0] == "vision":
+            return self.vision.hf_tensor(state, ".".join(parts[1:]))
+        if parts[0] == "layers":
+            hf = f"layers.{parts[1]}.{_HF_DECODER_ROLES[parts[2]]}.{parts[3]}"
+        else:
+            hf = {"embed_tokens": "embed_tokens.weight", "final_norm": "norm.weight", "lm_head": "lm_head.weight"}[parts[0]]
+        return find_tensor(state, hf, HF_DECODER_PREFIXES)
 
 
 # ======================================================================== weights
@@ -495,6 +546,17 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
     _load_linear(tower.merger, "fc1", vt["merger"]["fc1"])
     _load_linear(tower.merger, "fc2", vt["merger"]["fc2"])
     return model
+
+
+def load_hf_weights(model: Qwen2VLModel, state) -> Qwen2VLModel:
+    """Fill a float model from an HF Qwen2-VL or Qwen2.5-VL checkpoint's tensors
+    (``state`` from :func:`~lmms_owc_tpu_torch.nn.loader.load_safetensors_state`),
+    cast to the model's dtype, in place: the counterpart of
+    ``convert_hf_weights`` / ``convert_hf_decoder_weights`` plus
+    ``convert_hf_vision25_weights``, by :meth:`Qwen2VLModel.hf_tensor`'s names.
+    The port's ``[out, in]`` layout is the checkpoint's, so nothing is
+    transposed; a model with tied embeddings has no ``lm_head`` to fill."""
+    return load_hf_tensors(model, state)
 
 
 # ====================================================================== positions
@@ -631,6 +693,35 @@ def _head_logits(model: Qwen2VLModel, x: torch.Tensor) -> torch.Tensor:
     return _mm_f32(x.to(w.dtype), w)
 
 
+def _decoder_forward(
+    model: Qwen2VLModel,
+    input_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    keep_kv=None,
+) -> torch.Tensor:
+    """Causal decoder over the full left-padded sequence -> hidden states
+    [B, L, hidden] before the final norm (a per-position op the callers apply
+    where they need it). ``keep_kv(layer, k, v)`` receives each layer's
+    rotated K and V, [B, KVH, L, D]."""
+    c = model.config
+    b, l, _ = input_embeds.shape
+    cos, sin = mrope_cos_sin(position_ids, c)
+    x = input_embeds
+    for i, layer in enumerate(model.layers):
+        q, k, v = _qkv(layer, layer.input_ln(x), c)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if keep_kv is not None:
+            keep_kv(i, k, v)
+        # The padding mask is one contiguous run per row, so the kernel reads
+        # it as (start, end) scalars.
+        attn = flash_attention(q, k, v, causal=True, kv_mask=attention_mask, kv_mask_contiguous=True)
+        x = x + layer.o(attn.transpose(1, 2).reshape(b, l, -1))
+        x = x + layer.mlp(x)
+    return x
+
+
 @torch.inference_mode()
 def prefill(
     model: Qwen2VLModel,
@@ -651,24 +742,50 @@ def prefill(
     """
     c = model.config
     b, l, _ = input_embeds.shape
-    cos, sin = mrope_cos_sin(position_ids, c)
     shape = (c.num_layers, b, c.num_kv_heads, cache_len, c.head_dim)
     cache_k = torch.zeros(shape, dtype=input_embeds.dtype, device=input_embeds.device)
     cache_v = torch.zeros_like(cache_k)
-    x = input_embeds
-    for i, layer in enumerate(model.layers):
-        q, k, v = _qkv(layer, layer.input_ln(x), c)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+
+    def keep(i, k, v):
         cache_k[i, :, :, :l] = k
         cache_v[i, :, :, :l] = v
-        # The prefill padding mask is one contiguous run per row, so the kernel
-        # reads it as (start, end) scalars.
-        attn = flash_attention(q, k, v, causal=True, kv_mask=attention_mask, kv_mask_contiguous=True)
-        x = x + layer.o(attn.transpose(1, 2).reshape(b, l, -1))
-        x = x + layer.mlp(x)
+
+    x = _decoder_forward(model, input_embeds, position_ids, attention_mask, keep)
     x = model.final_norm(x[:, -1])  # left-padded: the last position is the newest token
     return _head_logits(model, x), (cache_k, cache_v)
+
+
+@torch.inference_mode()
+def score_continuation(
+    model: Qwen2VLModel,
+    input_embeds: torch.Tensor,
+    position_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    target_ids: torch.Tensor,
+    target_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Loglikelihood scoring: mean cross-entropy over the continuation and greedy match.
+
+    ``target_ids[b, t]`` is the token the model should predict at position t
+    (the input shifted left by one); ``target_mask`` [B, L] selects the
+    continuation's positions. The decoder runs over the whole padded sequence
+    (prefill attention, causal); the final norm and the head run only at the
+    selected positions, which gives the same values as the JAX package's head
+    over every position without its [B, L, vocab] f32 logits. Returns (loss
+    [B] f32, is_greedy [B] bool); a row with no selected position has loss 0
+    and is greedy.
+    """
+    x = _decoder_forward(model, input_embeds, position_ids, attention_mask)
+    rows, cols = torch.nonzero(target_mask, as_tuple=True)
+    logits = _head_logits(model, model.final_norm(x[rows, cols]))  # [T, vocab] f32
+    targets = target_ids[rows, cols]
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, targets[:, None])[:, 0]
+    b = x.shape[0]
+    zeros = torch.zeros(b, dtype=torch.float32, device=x.device)
+    total = zeros.index_add(0, rows, nll)
+    count = zeros.index_add(0, rows, torch.ones_like(nll))
+    misses = zeros.index_add(0, rows, (logits.argmax(dim=-1) != targets).float())
+    return total / count.clamp(min=1.0), misses == 0
 
 
 def prefill_logits(

@@ -15,8 +15,9 @@ Counterpart of :mod:`lmms_owc_tpu.ops.quant`, same rules in the port's
 :class:`~lmms_owc_tpu_torch.nn.layers.Linear` children by their int8/int4
 siblings; parents named in ``exclude`` (``DEFAULT_EXCLUDE``, as in the JAX
 package) keep full precision, and ``lm_head`` is quantized. The JAX package's
-``stream_quantize_to_device`` feeds a TPU over its host link and has no
-counterpart here.
+``stream_quantize_to_device`` feeds a TPU over its host link; its counterpart
+for checkpoints here is :func:`load_quantized_on_device`, which quantizes on
+the device one layer at a time.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "dequantize_int4",
     "dequantize_int8",
     "init_quantized_on_device",
+    "load_quantized_on_device",
     "quantize_int4",
     "quantize_int8",
     "quantize_params_int4",
@@ -90,25 +92,25 @@ def dequantize_int4(qp: dict, dtype=torch.float32) -> torch.Tensor:
 # ------------------------------------------------------------------ module trees
 
 
-def _replace_linears(module: nn.Module, make, exclude: tuple[str, ...]) -> None:
-    """Replace each float ``Linear`` child named outside ``exclude`` by ``make(child)``
-    (None keeps it), depth first."""
+def _replace_linears(module: nn.Module, make, exclude: tuple[str, ...], prefix: str = "") -> None:
+    """Replace each float ``Linear`` child named outside ``exclude`` by
+    ``make(qualified_name, child)`` (None keeps it), depth first."""
     from lmms_owc_tpu_torch.nn.layers import Linear
 
     for name, child in list(module.named_children()):
         if isinstance(child, Linear):
-            new = None if name in exclude else make(child)
+            new = None if name in exclude else make(prefix + name, child)
             if new is not None:
                 setattr(module, name, new)
         else:
-            _replace_linears(child, make, exclude)
+            _replace_linears(child, make, exclude, f"{prefix}{name}.")
 
 
 def quantize_params_int8(model: nn.Module, exclude: tuple[str, ...] = DEFAULT_EXCLUDE) -> nn.Module:
     """Replace every eligible ``Linear`` of ``model`` by an ``Int8Linear``, in place."""
     from lmms_owc_tpu_torch.nn.layers import Int8Linear
 
-    _replace_linears(model, Int8Linear.from_linear, exclude)
+    _replace_linears(model, lambda _, lin: Int8Linear.from_linear(lin), exclude)
     return model
 
 
@@ -118,7 +120,7 @@ def quantize_params_int4(
     """Replace every eligible ``Linear`` (even input width) by an ``Int4Linear``, in place."""
     from lmms_owc_tpu_torch.nn.layers import Int4Linear
 
-    def make(lin):
+    def make(_, lin):
         return Int4Linear.from_linear(lin, group) if lin.weight.shape[1] % 2 == 0 else None
 
     _replace_linears(model, make, exclude)
@@ -126,6 +128,39 @@ def quantize_params_int4(
 
 
 @torch.no_grad()
+def _materialize_quantized(model: nn.Module, device, bits: int, exclude: tuple[str, ...], dtype, weight, fill):
+    """The walk shared by :func:`init_quantized_on_device` and
+    :func:`load_quantized_on_device`: ``model`` (built on ``meta``) comes to
+    ``device`` one module at a time. Each eligible ``Linear`` (int4: even
+    input width) becomes an ``Int8Linear``/``Int4Linear`` made from
+    ``weight(name, (out, in))``, a ``dtype`` tensor on ``device`` that is
+    dropped once quantized; every other tensor is allocated on ``device`` and
+    written by ``fill(name, tensor, module)``. Names are the model's
+    qualified parameter names."""
+    from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear
+
+    cls = Int8Linear if bits == 8 else Int4Linear
+
+    def make(name, lin):
+        d_out, d_in = lin.weight.shape
+        if bits == 4 and d_in % 2:
+            return None
+        new = cls.from_weight(weight(f"{name}.weight", (d_out, d_in)), lin.bias is not None, dtype)
+        if new.bias is not None:
+            fill(f"{name}.bias", new.bias, new)
+        return new
+
+    _replace_linears(model, make, exclude)
+    for mod_name, mod in model.named_modules():
+        own = list(chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)))
+        if not any(t.is_meta for _, t in own):
+            continue
+        mod.to_empty(device=device, recurse=False)
+        for name, t in chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)):
+            fill(f"{mod_name}.{name}" if mod_name else name, t, mod)
+    return model
+
+
 def init_quantized_on_device(
     model: nn.Module,
     generator: torch.Generator,
@@ -143,31 +178,55 @@ def init_quantized_on_device(
     zero, norm scales one, everything else ``N(0, 1) * 0.02``. Values differ
     from the JAX stream; the distribution is the same.
     """
-    from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear, LayerNorm, RMSNorm
+    from lmms_owc_tpu_torch.nn.layers import LayerNorm, RMSNorm
 
     device = generator.device
 
-    def draw(shape):
+    def draw(_, shape):
         return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
 
-    def make(lin):
-        d_out, d_in = lin.weight.shape
-        if bits == 4 and d_in % 2:
-            return None
-        cls = Int8Linear if bits == 8 else Int4Linear
-        return cls.from_weight(draw((d_out, d_in)), lin.bias is not None, dtype)  # bias starts at zero
+    def fill(name, t, mod):
+        if name.endswith("bias"):
+            t.zero_()
+        elif isinstance(mod, (LayerNorm, RMSNorm)):
+            t.fill_(1.0)
+        else:
+            t.copy_(draw(name, t.shape))
 
-    _replace_linears(model, make, exclude)
-    for mod in model.modules():
-        own = list(chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)))
-        if not any(t.is_meta for _, t in own):
-            continue
-        mod.to_empty(device=device, recurse=False)
-        for name, t in chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)):
-            if name == "bias":
-                t.zero_()
-            elif isinstance(mod, (LayerNorm, RMSNorm)):
-                t.fill_(1.0)
-            else:
-                t.copy_(draw(t.shape))
-    return model
+    return _materialize_quantized(model, device, bits, exclude, dtype, draw, fill)
+
+
+def load_quantized_on_device(
+    model: nn.Module,
+    state,
+    bits: int = 8,
+    exclude: tuple[str, ...] = DEFAULT_EXCLUDE,
+    dtype=torch.bfloat16,
+    device="cuda",
+) -> nn.Module:
+    """Load ``model``, built on the ``meta`` device, from a checkpoint's lazy
+    ``state`` onto ``device`` with its eligible linear layers int8 or int4.
+
+    One module at a time: each eligible weight is read from the checkpoint
+    (``model.hf_tensor(state, name)``), cast to ``dtype`` (on the host, the
+    copy then carries ``dtype`` bytes), quantized on the device and dropped,
+    so the full-precision tree never exists there; the device holds the
+    quantized model plus one weight in ``dtype`` and the quantizer's blocks.
+    The int leaves are those of the JAX package's ``quantize_int8`` /
+    ``quantize_int4`` applied to the weight cast to ``dtype``. Every other
+    tensor is copied in, cast to its module's dtype.
+    """
+    from lmms_owc_tpu_torch.nn.loader import copy_checkpoint_tensor
+
+    device = torch.device(device)
+
+    def weight(name, shape):
+        w = model.hf_tensor(state, name)
+        if tuple(w.shape) != tuple(shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(w.shape)} does not fit {tuple(shape)}")
+        return w.to(device=device, dtype=dtype)
+
+    def fill(name, t, _mod):
+        copy_checkpoint_tensor(t, model.hf_tensor(state, name), name)
+
+    return _materialize_quantized(model, device, bits, exclude, dtype, weight, fill)

@@ -182,3 +182,55 @@ def test_int4_step_sums_one_decode_step():
     assert step["library_device_ms"] == pytest.approx(2 * step["device_ms"])
     rows["down M=8"]["library_device_ms"] = None
     assert chip_smoke._int4_step(rows, 8)["library_device_ms"] is None
+
+
+def test_safetensors_writer_matches_safe_open(tmp_path):
+    """Phase 9's writer: every dtype the port's reader takes, odd shapes, a
+    scalar and an empty tensor, read back by ``safetensors.safe_open``."""
+    import chip_smoke
+    from safetensors import safe_open
+
+    g = torch.Generator().manual_seed(0)
+    tensors = {
+        "bf16": torch.randn(3, 5, generator=g).bfloat16(), "f16": torch.randn(7, generator=g).half(),
+        "f32": torch.randn(2, 3, 4, generator=g), "i8": torch.randint(-128, 127, (1, 9), generator=g).to(torch.int8),
+        "i32": torch.randint(-(2**31), 2**31 - 1, (), generator=g, dtype=torch.int64).to(torch.int32),
+        "i64": torch.randint(-(2**40), 2**40, (0, 4), generator=g, dtype=torch.int64),
+        "u8": torch.randint(0, 255, (33,), generator=g).to(torch.uint8),
+        "bool": torch.randint(0, 2, (4, 4), generator=g).bool(),
+        "view": torch.randn(6, 4, generator=g)[:, 1:3],  # not contiguous
+    }
+    path = tmp_path / "w.safetensors"
+    assert chip_smoke.write_safetensors(path, tensors) == path.stat().st_size
+    with safe_open(str(path), framework="pt") as f:
+        assert list(f.keys()) == sorted(tensors)
+        for name, want in tensors.items():
+            got = f.get_tensor(name)
+            assert got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want), name
+
+
+def test_checkpoint_writer_round_trip(tmp_path, monkeypatch):
+    """Phase 9's checkpoint, cut into several shards, is what the JAX package's
+    reader (``safe_open``) and the port's loader read back: the published
+    names, the Conv3d patch kernel in its 5-d shape, and every parameter of
+    the port model loaded with ``pretrained=`` bit-equal to the written one."""
+    import json
+
+    import chip_smoke
+    from lmms_owc_tpu.nn.loader import load_safetensors_state as jax_reader
+    from lmms_owc_tpu_torch.models import get_model
+
+    src = get_model("qwen2-vl-tiny", random_init=True, batch_size=2, dtype="bfloat16", device="cpu")
+    monkeypatch.setattr(chip_smoke, "SHARD_BYTES", 4 << 20)
+    out = chip_smoke.write_checkpoint(src.model, "qwen2-vl-tiny", tmp_path)
+    index = json.loads((tmp_path / "model.safetensors.index.json").read_text())
+    assert out["shards"] == len(set(index["weight_map"].values())) > 1
+    state = jax_reader(tmp_path)
+    assert len(state) == len(index["weight_map"]) == len(list(src.model.parameters()))
+    assert state["visual.patch_embed.proj.weight"].shape == (32, 3, 2, 14, 14)
+    assert "lm_head.weight" not in state  # the tiny preset ties its head to the embedding
+    assert {"model.embed_tokens.weight", "model.norm.weight", "visual.merger.mlp.0.bias",
+            "model.layers.1.self_attn.q_proj.bias", "visual.blocks.0.attn.qkv.weight"} <= set(state)
+    loaded = get_model("qwen2-vl-tiny", pretrained=str(tmp_path), batch_size=2, dtype="bfloat16", device="cpu")
+    assert loaded.tokenizer.eos_token_id == chip_smoke.QWEN2_SPECIAL_IDS["<|im_end|>"]
+    assert chip_smoke._same_parameters(loaded.model, src.model, "round trip") == len(state)

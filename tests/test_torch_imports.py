@@ -24,8 +24,13 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO_ROOT / "lmms_owc_tpu_torch").rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
 
 
-def _jax_package_imports(path: Path) -> list[str]:
-    """Every import in the file that names ``lmms_owc_tpu`` or one of its modules."""
+# Packages the card's machine does not have: the port reads checkpoints and
+# tokenizes with its own code (``nn/loader.py``, ``tokenizer.py``).
+ABSENT_ON_THE_CARD = ("jax", "transformers", "safetensors", "tokenizers", "regex")
+
+
+def _imports_of(path: Path, roots: tuple[str, ...]) -> list[str]:
+    """Every import in the file that names one of ``roots`` or one of their modules."""
     found = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -35,13 +40,28 @@ def _jax_package_imports(path: Path) -> list[str]:
         else:
             continue
         found += [f"{path.name}:{node.lineno} {n}" for n in names
-                  if n == "lmms_owc_tpu" or n.startswith("lmms_owc_tpu.")]
+                  if any(n == root or n.startswith(root + ".") for root in roots)]
     return found
+
+
+def _jax_package_imports(path: Path) -> list[str]:
+    """Every import in the file that names ``lmms_owc_tpu`` or one of its modules."""
+    return _imports_of(path, ("lmms_owc_tpu",))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
 def test_port_module_imports_no_jax_package(path):
     assert _jax_package_imports(path) == []
+    assert _imports_of(path, ABSENT_ON_THE_CARD) == []
+
+
+def test_static_check_sees_absent_packages(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import regex\nfrom safetensors import safe_open\nfrom transformers.models import x\n"
+        "def f():\n    import tokenizers\nimport jax.numpy as jnp\nimport regexp, safetensors_x\n"
+    )
+    assert len(_imports_of(src, ABSENT_ON_THE_CARD)) == 5
 
 
 def test_static_check_sees_jax_package_imports(tmp_path):

@@ -135,7 +135,7 @@ def test_unported_surfaces_raise():
 
     with pytest.raises(ValueError, match="mutually exclusive"):
         get_model("qwen2-vl-tiny", device="cpu", load_in_8bit=True, load_in_4bit=True)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(FileNotFoundError, match="checkpoint not found"):
         get_model("qwen2-vl-tiny", device="cpu", pretrained="/nonexistent")
 
 
