@@ -77,8 +77,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     the tower kernel 32 times and the prefill kernel 28 times.
 11. Multi-round: 8 requests run two rounds in chunks of 4 under a decode pool
     of 2; round 0's tokens must equal ``generate_until``'s on the same prompts.
+12. The CLI (``python -m lmms_owc_tpu_torch.eval_model``) from phase 9's bf16
+    checkpoint on the toy tasks of ``tests/fixtures/tasks`` (their dataset is
+    written by the fixture's recipe when missing). First phase 9's loaded
+    model answers the toy task's 12 generate_until requests in-process at
+    batch 8; then ``main(argv)`` runs ``toy``, ``toy_mc`` and
+    ``toy_multiround`` (36 documents, all three request types): one results
+    file, three samples files of 12 lines, finite metrics, the toy responses
+    equal to the in-process ones, and K1, K2 and K3 launched in the CLI's
+    window; then the JAX bench's serving configuration (int8 + W8A8, pool 2,
+    int8 KV cache) on ``toy`` must launch K3-int8; then the command in a
+    subprocess on 4 documents must exit 0 and write its results file. Each
+    CLI run's launches are in the ``summary cli`` line; the kernels line
+    keeps each kernel's launches from its own main path.
 
-Phases run in the order 1-3, 8, 9 (Qwen2-VL), 10, 11, 4-7, 9 (Qwen2.5-VL).
+The host packages that the CLI imports (and those it must do without) are
+logged as present or missing at the start.
+
+Phases run in the order 1-3, 8, 9 (Qwen2-VL), 10, 11, 12, 4-7, 9 (Qwen2.5-VL).
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -136,6 +152,17 @@ CONTINUATIONS = [
 # Phase 11: multi-round serving, two rounds under a decode pool of 2 (chunks of 4).
 MULTI_ROUND_BATCH = 4
 PACKED_REL_L2 = 5e-2  # the JAX packed-vs-unpacked tower test's bound
+# Phase 12: the port's CLI on the toy tasks (12 documents each, 32x32 images).
+TOY_TASKS = Path("tests/fixtures/tasks")
+CLI_TASKS = ("toy", "toy_mc", "toy_multiround")
+CLI_DOCS = 12
+CLI_BATCH = 8
+CLI_METRICS = {"toy": ("exact_match", "textual_inclusion"), "toy_mc": ("acc", "acc_norm", "acc_mutual_info"),
+               "toy_multiround": ("exact_match",)}
+CLI_LAUNCHES = ("vision_qkv_attention", "flash_attention", "gqa_decode_attention")
+CLI_SUBPROCESS_LIMIT = 4
+# The CLI imports the first six; the port computes without the last three.
+HOST_PACKAGES = ("yaml", "jinja2", "tqdm", "dill", "datasets", "pyarrow", "sklearn", "sacrebleu", "Levenshtein")
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
@@ -736,6 +763,12 @@ def check_ragged_bf16(dev, gen) -> None:
     kw = dict(kv_mask=vmask, rope_cos=cos, rope_sin=sin)
     errs["vision L=200"] = _compare("vision_qkv_attention[L=200]", att.vision_qkv_attention(qkv, 16, 80, **kw),
                                     att.vision_qkv_attention_plain(qkv, 16, 80, **kw))
+    # Vision at 16 patches (phase 12's 56x56 toy images: one short q block), 12 images.
+    qkv = randn(12, 16, 3 * 16 * 80)
+    kw = dict(kv_mask=torch.ones((12, 16), dtype=torch.int32, device=dev), rope_cos=cos[:1, :16].expand(12, 16, 40),
+              rope_sin=sin[:1, :16].expand(12, 16, 40))
+    errs["vision L=16"] = _compare("vision_qkv_attention[L=16]", att.vision_qkv_attention(qkv, 16, 80, **kw),
+                                   att.vision_qkv_attention_plain(qkv, 16, 80, **kw))
     # The tensor mask with holes: one 64-row q block (keys rotated in the kernel), and two blocks.
     for length in (64, 200):
         x = randn(2, length, 48, 80)
@@ -1644,6 +1677,155 @@ def check_multi_round(model) -> dict:
     return out
 
 
+def ensure_toy_dataset() -> Path:
+    """The toy tasks' dataset (not committed), written by the fixture's own
+    recipe (``_toy_utils.download``, with ``datasets``) when the checkout lacks it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("owc_toy_recipe", TOY_TASKS / "toy" / "assets" / "_toy_utils.py")
+    toy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(toy)
+    toy.download()
+    return Path(toy.data_dir())
+
+
+def cli_reference(model, preset: str) -> list[str]:
+    """Phase 12's reference: the toy task's generate_until requests, built by the
+    port's TaskManager, answered in-process by ``model`` at the CLI's batch."""
+    from lmms_owc_tpu_torch.tasks import TaskManager, get_tasks_as_dict
+
+    ensure_toy_dataset()
+    task = get_tasks_as_dict(["toy"], TaskManager(include_path=str(TOY_TASKS.resolve()), model_name=preset))["toy"]
+    task.build_all_requests(rank=0, world_size=1)
+    model.task_dict["toy"] = task
+    saved, model.batch_size = model.batch_size, CLI_BATCH
+    try:
+        return list(model.generate_until(task.instances))
+    finally:
+        model.batch_size = saved
+
+
+def cli_argv(preset: str, ckpt: Path, model_args: str, tasks, out: Path, limit: int | None = None) -> list[str]:
+    """The port CLI's arguments for ``preset`` from the checkpoint ``ckpt`` on ``tasks``."""
+    argv = ["--model", preset, "--model_args", f"pretrained={ckpt},{model_args}", "--tasks", ",".join(tasks),
+            "--include_path", str(TOY_TASKS.resolve()), "--batch_size", str(CLI_BATCH), "--log_samples",
+            "--output_path", str(out), "--seed", "0,1234,1234,1234"]
+    return argv + (["--limit", str(limit)] if limit else [])
+
+
+def _cli_in_process(dev, argv: list[str]) -> dict:
+    """``main(argv)`` of the port's CLI with the launch counts set to 0 just
+    before it: its results, the launches, seconds and peak device GB."""
+    import torch
+
+    from lmms_owc_tpu_torch.eval_model import main as cli_main
+
+    cuda = dev.type == "cuda"
+    _reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (results,) = cli_main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    _free()  # the CLI's model is garbage once main returns
+    return dict(results=results, counts=counts, seconds=seconds, peak_gb=peak)
+
+
+def check_cli_outputs(out: Path, tasks, results: dict, docs: int, reference: list[str] | None) -> dict:
+    """One results file and a samples file of ``docs`` lines per task; every
+    metric of ``CLI_METRICS`` finite; with ``reference``, the toy samples' raw
+    responses equal to it string for string. Returns the metric values."""
+    import math
+
+    if len(list(out.rglob("*_results.json"))) != 1:
+        raise AssertionError(f"CLI: expected one results file under {out}, found {list(out.rglob('*_results.json'))}")
+    metrics = {}
+    for task in tasks:
+        files = list(out.rglob(f"*_samples_{task}.jsonl"))
+        lines = [json.loads(line) for f in files for line in f.read_text().splitlines()]
+        if len(files) != 1 or len(lines) != docs:
+            raise AssertionError(f"CLI: {task}: {len(files)} samples files with {len(lines)} lines, expected 1 with {docs}")
+        for metric in CLI_METRICS[task]:
+            value = results["results"][task][f"{metric},none"]
+            if not math.isfinite(value):
+                raise AssertionError(f"CLI: {task} {metric} is {value}")
+            metrics[f"{task}/{metric}"] = value
+        if task == "toy" and reference is not None:
+            got = [line["resps"][0][0] for line in sorted(lines, key=lambda x: x["doc_id"])]
+            if got != reference[:docs]:
+                bad = [i for i, (g, w) in enumerate(zip(got, reference)) if g != w]
+                raise AssertionError(f"CLI: toy responses differ from the in-process adapter's at docs {bad}: "
+                                     f"{got[bad[0]]!r} vs {reference[bad[0]]!r}")
+    return metrics
+
+
+def _cli_summary(run: dict, metrics: dict) -> dict:
+    timings = run["results"]["timings"]
+    timed = timings["build_requests"] + sum(timings["inference"].values()) + timings["scoring"]
+    return dict(seconds=run["seconds"], timings=timings, load_seconds=run["seconds"] - timed, metrics=metrics,
+                counts=run["counts"], peak_gb=run["peak_gb"])
+
+
+def run_cli(dev, preset: str, ckpt: Path, reference: list[str], model_args: str = "dtype=bfloat16",
+            pooled_int8: bool = True, min_launches=CLI_LAUNCHES) -> dict:
+    """Phase 12: the port's CLI from the checkpoint ``ckpt``. (a) ``main(argv)``
+    in-process on the three toy tasks (all three request types, 36 documents):
+    the files, finite metrics, the toy responses equal to ``reference``, and
+    each of ``min_launches`` launched in the CLI's window; (b) with
+    ``pooled_int8``, the JAX bench's serving configuration (int8 + W8A8, pool
+    2, int8 KV cache) on ``toy``, which must launch the int8 decode kernel;
+    (c) ``python -m lmms_owc_tpu_torch.eval_model`` in a subprocess on four
+    toy documents, which must exit 0 and write its results file."""
+    from lmms_owc_tpu_torch.nn.layers import set_int8_activations
+
+    t0 = time.perf_counter()
+    summary = {}
+    root = Path(tempfile.mkdtemp(prefix="owc_cli_"))
+    try:
+        out = root / "a"
+        run = _cli_in_process(dev, cli_argv(preset, ckpt, model_args, CLI_TASKS, out))
+        metrics = check_cli_outputs(out, CLI_TASKS, run["results"], CLI_DOCS, reference)
+        for name in min_launches:
+            if run["counts"][name] <= 0:
+                raise AssertionError(f"CLI: {name} was not launched in the CLI's run: {run['counts']}")
+        summary["bf16"] = _cli_summary(run, metrics)
+        if pooled_int8:
+            out = root / "b"
+            with _env(LMMS_OWC_DECODE_POOL="2", LMMS_OWC_KV_INT8="1"):
+                try:
+                    run = _cli_in_process(dev, cli_argv(
+                        preset, ckpt, f"{model_args},load_in_8bit=True,int8_activations=True", ("toy",), out))
+                finally:
+                    set_int8_activations(False)
+            metrics = check_cli_outputs(out, ("toy",), run["results"], CLI_DOCS, None)
+            if run["counts"]["gqa_decode_attention_int8"] <= 0:
+                raise AssertionError(f"CLI int8 pooled: the int8 decode kernel was not launched: {run['counts']}")
+            summary["int8_w8a8_pool2_kv_int8"] = _cli_summary(run, metrics)
+        out = root / "c"
+        cmd = [sys.executable, "-m", "lmms_owc_tpu_torch.eval_model",
+               *cli_argv(preset, ckpt, model_args, ("toy",), out, limit=CLI_SUBPROCESS_LIMIT)]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                              env={**os.environ, "LMMS_OWC_TPU_LOG_LEVEL": "WARNING"})
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI subprocess exited {proc.returncode}: {proc.stderr[-3000:]}")
+        results = list(out.rglob("*_results.json"))
+        if len(results) != 1:
+            raise AssertionError(f"CLI subprocess wrote {len(results)} results files")
+        metrics = check_cli_outputs(out, ("toy",), json.loads(results[0].read_text()), CLI_SUBPROCESS_LIMIT, None)
+        summary["subprocess"] = dict(seconds=time.perf_counter() - t1, returncode=proc.returncode, metrics=metrics)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_seconds"] = time.perf_counter() - t0
+    log(f"CLI: {json.dumps(summary)}")
+    return summary
+
+
 def _phase_summary(phase: dict) -> dict:
     """Phase 9's numbers without the per-run sample strings."""
     keys = ("images", "seconds", "images_per_s", "phase_seconds", "peak_gb", "decode_steps", "counts", "load_seconds",
@@ -1676,6 +1858,13 @@ def _ptxas_summary(report: str) -> list[str]:
     return [f"{n[:160]}: {info}" for n, (_, info) in zip(names, rows)]
 
 
+def _host_packages() -> dict:
+    """Whether each host package of ``HOST_PACKAGES`` is importable here."""
+    import importlib.util
+
+    return {name: importlib.util.find_spec(name) is not None for name in HOST_PACKAGES}
+
+
 def main() -> int:
     import torch
 
@@ -1692,6 +1881,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"host packages: {json.dumps(_host_packages())}")
     no_tf32()
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -1709,8 +1899,10 @@ def main() -> int:
         ckpt, checkpoint = check_checkpoint(dev, model, requests, "qwen2-vl-7b", root, quantized=True)
         loglik = check_loglikelihood(ckpt)
         multi = check_multi_round(ckpt)
+        reference = cli_reference(ckpt, "qwen2-vl-7b")
         del ckpt
         _free()
+        cli = run_cli(dev, "qwen2-vl-7b", root, reference)  # phase 12
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check_whole_model(model, requests)
@@ -1728,7 +1920,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
-    # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed).
+    # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed);
+    # phase 12's CLI runs report theirs in ``summary cli``.
     launches = {name: counts[name] for name in MIN_LAUNCHES}
     launches["gqa_decode_attention_int8"] = pool["counts"]["gqa_decode_attention_int8"]
     launches["int4_matmul"] = int4["counts"]["int4_matmul"]
@@ -1753,6 +1946,7 @@ def main() -> int:
         log(f"summary {label}: {json.dumps(_phase_summary(phase))}")
     log(f"summary loglikelihood: {json.dumps(loglik)}")
     log(f"summary multi-round: {json.dumps(multi)}")
+    log(f"summary cli: {json.dumps(cli)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -8,12 +8,14 @@ each counterpart is easy to find, and never imports JAX:
                                    their plain PyTorch versions for CPU tensors.
   - ``lmms_owc_tpu_torch.nn``      the model stack as ``nn.Module``s and tensor
                                    functions (Qwen2-VL vision tower, prefill, decode).
-  - ``lmms_owc_tpu_torch.models``  the adapter registry and the ``Qwen2VL`` adapter.
+  - ``lmms_owc_tpu_torch.models``  the adapter registry, the ``Qwen2VL`` adapter
+                                   and the fake model.
+  - ``lmms_owc_tpu_torch.tasks``, ``.filters``, ``.metrics``, ``.samplers``,
+    ``.engine``, ``.loggers``      the evaluation engine, driven by the CLI
+                                   ``python -m lmms_owc_tpu_torch.eval_model``.
 
-It imports nothing of the JAX package either: the host helpers it shares with
-it (request collation, logging, the chunk pipeline, the model record and the
-native resizer) are copies in ``lmms_owc_tpu_torch.utils``, ``.schema`` and
-``.native``.
+It imports nothing of the JAX package either: the host layers it shares with
+it are copies (``utils``, ``schema``, ``native`` and the engine's packages).
 """
 
 from lmms_owc_tpu_torch._device import get_device, no_tf32

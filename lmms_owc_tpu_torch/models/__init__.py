@@ -7,7 +7,7 @@ from lmms_owc_tpu_torch.models._api import (
     register_model,
 )
 from lmms_owc_tpu_torch.models._base import Model
-from lmms_owc_tpu_torch.models import qwen2_vl  # noqa: F401  (registers the Qwen2-VL adapters)
+from lmms_owc_tpu_torch.models import fake, qwen2_vl  # noqa: F401  (register the adapters)
 
 __all__ = [
     "MODELS",

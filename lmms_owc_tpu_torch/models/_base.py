@@ -1,23 +1,61 @@
 """Model adapter base class of the port (counterpart of :mod:`lmms_owc_tpu.models._base`).
 
-The engine is not ported yet, so this base keeps what the adapters of the
-slice use: the constructor contract (batch size, dtype, device, the
-``load_in_8bit``/``load_in_4bit`` flags), ``rank`` and ``world_size``, the
-request handlers (with the generic multi-round protocol and the
-loglikelihood request helpers), and the chunk pipeline. Each adapter's
+It keeps the JAX base's contract: the constructor (batch size, dtype,
+device, the ``load_in_8bit``/``load_in_4bit`` flags, the ``--use_cache``
+response cache and the seed), ``rank`` and ``world_size``, the request
+handlers (with the generic multi-round protocol and the loglikelihood request
+helpers), the chat template and the chunk pipeline. Each adapter's
 ``load_model`` applies the quantization flags.
 """
 
 from __future__ import annotations
 
 import abc
+import hashlib
+import json
+import os
 
 import torch
 
 from lmms_owc_tpu_torch._device import get_device
 from lmms_owc_tpu_torch.utils import foreach_chunk_pipelined
 
-__all__ = ["Model"]
+__all__ = ["CacheHook", "Model"]
+
+
+class CacheHook:
+    """sha256(request) -> response cache, persisted as JSON lines
+    (``--use_cache DIR``); the JAX package's ``CacheHook``."""
+
+    def __init__(self, cache_dir: str | None = None) -> None:
+        self.cache_dir = cache_dir
+        self._store: dict[str, object] = {}
+        if cache_dir is not None:
+            os.makedirs(cache_dir, exist_ok=True)
+            self._path = os.path.join(cache_dir, "responses.jsonl")
+            if os.path.exists(self._path):
+                with open(self._path, encoding="utf-8") as f:
+                    for line in f:
+                        try:
+                            record = json.loads(line)
+                            self._store[record["key"]] = record["value"]
+                        except (json.JSONDecodeError, KeyError):
+                            continue
+
+    @staticmethod
+    def hash_args(attr: str, args: tuple) -> str:
+        payload = json.dumps([attr, *[str(a) for a in args]], ensure_ascii=False)
+        return hashlib.sha256(payload.encode("utf-8")).hexdigest()
+
+    def get(self, attr: str, args: tuple):
+        return self._store.get(self.hash_args(attr, args))
+
+    def add_partial(self, attr: str, args: tuple, value) -> None:
+        key = self.hash_args(attr, args)
+        self._store[key] = value
+        if self.cache_dir is not None:
+            with open(self._path, "a", encoding="utf-8") as f:
+                f.write(json.dumps({"key": key, "value": value}, ensure_ascii=False) + "\n")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -25,9 +63,14 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class Model(abc.ABC):
     """Base class for the port's model adapters.
 
-    ``device`` defaults to ``"cuda"`` and raises when CUDA is absent; pass
-    ``device="cpu"`` to run the plain PyTorch versions of the kernels.
+    ``device`` defaults to :attr:`default_device` (``"cuda"``, which raises
+    when CUDA is absent); pass ``device="cpu"`` to run the plain PyTorch
+    versions of the kernels.
+    ``torch_random_seed`` seeds the adapter's ``torch.Generator`` (random
+    weights and sampling; the CLI's third ``--seed`` value).
     """
+
+    default_device = "cuda"
 
     def __init__(
         self,
@@ -35,8 +78,10 @@ class Model(abc.ABC):
         batch_size: int = 8,
         dtype: str = "bfloat16",
         device: str | None = None,
+        use_cache: str | None = None,
         load_in_8bit: bool = False,
         load_in_4bit: bool = False,
+        torch_random_seed: int = 1234,
         **kwargs,
     ) -> None:
         # Weight-only int8/int4 (the bitsandbytes load_in_8bit/load_in_4bit
@@ -51,8 +96,10 @@ class Model(abc.ABC):
         self.batch_size = int(batch_size)
         self.dtype = dtype
         self.torch_dtype = _DTYPES[dtype]
-        self.device = get_device(device)
+        self.device = get_device(device or self.default_device)
+        self.torch_random_seed = int(torch_random_seed)
         self._extra_kwargs = kwargs
+        self.cache_hook = CacheHook(use_cache)
         self.task_dict: dict = {}
         self.load_model()
 
@@ -178,3 +225,8 @@ class Model(abc.ABC):
     @property
     def chat_template(self) -> str:
         return type(self).__name__
+
+    @property
+    def tokenizer_name(self) -> str:
+        """Part of the request-cache key under ``--apply_chat_template``."""
+        return ""

@@ -259,7 +259,6 @@ class Qwen2VL(Model):
         min_pixels: int = DEFAULT_MIN_PIXELS,
         random_init: bool = False,
         system_prompt: str = "You are a helpful assistant.",
-        seed: int = 1234,
         jax_params: dict | None = None,
         time_phases: bool = False,
         int8_activations: bool = False,
@@ -271,7 +270,8 @@ class Qwen2VL(Model):
         from ``jax_params`` (the JAX package's parameter tree as numpy arrays,
         float or quantized, see
         :func:`lmms_owc_tpu_torch.nn.qwen2_vl.params_from_jax`), or are drawn
-        on the device from ``seed`` (``random_init``, implied when there is no
+        on the device from ``torch_random_seed`` (the CLI's third ``--seed``
+        value; ``random_init``, implied when there is no
         ``pretrained``; quantized runs draw and quantize one layer at a time).
         A ``pretrained`` directory that does not exist raises
         ``FileNotFoundError`` unless ``random_init`` is set, as in the JAX
@@ -288,7 +288,6 @@ class Qwen2VL(Model):
         self.max_pixels = int(max_pixels)
         self.min_pixels = int(min_pixels)
         self.system_prompt = system_prompt
-        self.seed = int(seed)
         self._jax_params = jax_params
         self.time_phases = bool(time_phases)
         self.phase_seconds: dict[str, float] = defaultdict(float)
@@ -309,7 +308,7 @@ class Qwen2VL(Model):
             qvl25.Qwen25VisionConfig.from_hf_dict(hf.get("vision_config", {})) if self.is_v25 else None
         )
         bits = 4 if self.load_in_4bit else (8 if self.load_in_8bit else None)
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        gen = torch.Generator(device=self.device).manual_seed(self.torch_random_seed)
 
         def build(device):
             return qvl.Qwen2VLModel(self.config, self.torch_dtype, device, vision25=self.vision25_config)
@@ -348,7 +347,7 @@ class Qwen2VL(Model):
             log.warning("random-init %s on %s (no checkpoint)", self.preset, self.device)
         if not checkpoint:
             self.tokenizer = _FallbackTokenizer(self.config)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.torch_random_seed)
 
     def _check_vocabulary(self) -> None:
         """Every token id the adapter feeds to the embedding or stops on must be

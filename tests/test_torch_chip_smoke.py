@@ -234,3 +234,81 @@ def test_checkpoint_writer_round_trip(tmp_path, monkeypatch):
     loaded = get_model("qwen2-vl-tiny", pretrained=str(tmp_path), batch_size=2, dtype="bfloat16", device="cpu")
     assert loaded.tokenizer.eos_token_id == chip_smoke.QWEN2_SPECIAL_IDS["<|im_end|>"]
     assert chip_smoke._same_parameters(loaded.model, src.model, "round trip") == len(state)
+
+
+# ------------------------------------------------------------------ phase 12
+
+
+@pytest.fixture(scope="module")
+def tiny_checkpoint(tmp_path_factory):
+    from tests.test_torch_checkpoint import _build
+
+    path = tmp_path_factory.mktemp("phase12_ckpt")
+    _build(path, "qwen2-vl-tiny")
+    return path
+
+
+def test_cli_phase_argument_lists():
+    """Phase 12 runs the three toy tasks (all three request types, 12
+    documents each) from the checkpoint at batch 8; the subprocess runs
+    ``toy`` on 4 documents."""
+    import chip_smoke
+
+    argv = chip_smoke.cli_argv("qwen2-vl-7b", Path("/ckpt"), "dtype=bfloat16", chip_smoke.CLI_TASKS, Path("/out"))
+    flags = {flag: argv[i + 1] for i, flag in enumerate(argv) if flag.startswith("--") and flag != "--log_samples"}
+    assert flags["--model"] == "qwen2-vl-7b" and flags["--model_args"] == "pretrained=/ckpt,dtype=bfloat16"
+    assert flags["--tasks"] == "toy,toy_mc,toy_multiround" and flags["--batch_size"] == "8"
+    assert Path(flags["--include_path"]) == (REPO_ROOT / "tests" / "fixtures" / "tasks")
+    assert "--log_samples" in argv and flags["--seed"] == "0,1234,1234,1234" and "--limit" not in argv
+    sub = chip_smoke.cli_argv("qwen2-vl-7b", Path("/ckpt"), "dtype=bfloat16", ("toy",), Path("/o"), limit=4)
+    assert sub[-2:] == ["--limit", "4"] and chip_smoke.CLI_SUBPROCESS_LIMIT == 4
+    assert chip_smoke.CLI_DOCS == 12 and set(chip_smoke.CLI_METRICS) == set(chip_smoke.CLI_TASKS)
+    assert set(chip_smoke.CLI_LAUNCHES) == set(chip_smoke.MIN_LAUNCHES)
+
+
+def test_cli_phase_runs_on_the_cpu(tiny_checkpoint, toy_dataset):
+    """Phase 12's code on the tiny checkpoint with ``device=cpu``: the
+    reference, the in-process CLI run, its checks and the subprocess; the
+    summary carries its seconds, timings, metrics, launches, peak and load."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    model = get_model("qwen2-vl-tiny", pretrained=str(tiny_checkpoint), dtype="float32", device="cpu")
+    reference = chip_smoke.cli_reference(model, "qwen2-vl-tiny")
+    assert len(reference) == chip_smoke.CLI_DOCS and model.batch_size == 8
+    summary = chip_smoke.run_cli(torch.device("cpu"), "qwen2-vl-tiny", tiny_checkpoint, reference,
+                                 model_args="dtype=float32,device=cpu", pooled_int8=False, min_launches=())
+    assert set(summary) == {"bf16", "subprocess", "phase_seconds"}
+    assert set(summary["bf16"]) == {"seconds", "timings", "load_seconds", "metrics", "counts", "peak_gb"}
+    assert set(summary["bf16"]["timings"]["inference"]) == {"generate_until", "loglikelihood",
+                                                            "generate_until_multi_round"}
+    assert set(summary["bf16"]["metrics"]) == {f"{t}/{m}" for t, ms in chip_smoke.CLI_METRICS.items() for m in ms}
+    assert summary["subprocess"]["returncode"] == 0 and set(summary["subprocess"]["metrics"]) == {
+        "toy/exact_match", "toy/textual_inclusion"}
+
+
+@pytest.mark.parametrize("fault", ["reference", "launches", "subprocess"])
+def test_cli_phase_fails_loudly(tiny_checkpoint, toy_dataset, fault, monkeypatch):
+    """A toy response that differs from the reference, a kernel of the path
+    that did not launch, or a subprocess that fails raises; ``main`` catches
+    nothing, so the smoke exits non-zero."""
+    import ast
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    model = get_model("qwen2-vl-tiny", pretrained=str(tiny_checkpoint), dtype="float32", device="cpu")
+    reference = chip_smoke.cli_reference(model, "qwen2-vl-tiny")
+    kwargs = dict(model_args="dtype=float32,device=cpu", pooled_int8=False, min_launches=())
+    if fault == "reference":
+        reference[5] += " changed"
+    elif fault == "launches":
+        kwargs["min_launches"] = chip_smoke.CLI_LAUNCHES  # nothing launches a kernel on the CPU
+    else:
+        monkeypatch.setattr(chip_smoke, "CLI_SUBPROCESS_LIMIT", "not-a-number")
+    with pytest.raises(AssertionError, match="CLI"):
+        chip_smoke.run_cli(torch.device("cpu"), "qwen2-vl-tiny", tiny_checkpoint, reference, **kwargs)
+    tree = ast.parse((REPO_ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    assert not [n for n in ast.walk(main) if isinstance(n, ast.ExceptHandler)]
+    assert "run_cli" in {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}

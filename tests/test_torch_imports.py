@@ -4,13 +4,16 @@ package's host helpers behave as the originals on the same inputs.
 The static test walks the AST of every module of ``lmms_owc_tpu_torch`` and of
 ``chip_smoke.py``; the parity tests (which may import ``lmms_owc_tpu``; the port
 may not) hold ``lmms_owc_tpu_torch.utils``, ``.schema`` and ``.native`` to
-``lmms_owc_tpu.utils``, ``.schema`` and ``.native``.
+``lmms_owc_tpu.utils``, ``.schema`` and ``.native``. A CLI run in a subprocess
+loads neither ``jax`` nor ``lmms_owc_tpu``.
 """
 
 import ast
 import dataclasses
 import random
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,15 +27,45 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO_ROOT / "lmms_owc_tpu_torch").rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
 
 
-# Packages the card's machine does not have: the port reads checkpoints and
-# tokenizes with its own code (``nn/loader.py``, ``tokenizer.py``).
-ABSENT_ON_THE_CARD = ("jax", "transformers", "safetensors", "tokenizers", "regex")
+# Packages the port may not depend on. The card's machine promises torch,
+# triton, numpy, scipy, einops, pytest and hypothesis; its other packages vary:
+# one check found no transformers, safetensors, tokenizers or regex, a later
+# one found them (and PyYAML, jinja2, tqdm, dill, datasets, pyarrow) but no
+# sklearn, sacrebleu or Levenshtein. So the port reads checkpoints and
+# tokenizes with its own code (``nn/loader.py``, ``tokenizer.py``) and computes
+# f1/mcc and edit distances with numpy and Python. The engine imports PyYAML,
+# jinja2, tqdm, dill and datasets as the JAX package does.
+ABSENT_ON_THE_CARD = ("jax", "transformers", "safetensors", "tokenizers", "regex", "sklearn", "Levenshtein")
+# Packages the port imports only inside a ``try`` that handles ImportError
+# (``huggingface_hub`` is not one of them: ``datasets`` depends on it).
+OPTIONAL = ("sacrebleu", "wandb")
 
 
-def _imports_of(path: Path, roots: tuple[str, ...]) -> list[str]:
-    """Every import in the file that names one of ``roots`` or one of their modules."""
+def _optional(tree: ast.AST) -> set[int]:
+    """ids of the import nodes inside a ``try`` with an ``ImportError`` or
+    ``ModuleNotFoundError`` handler: optional imports, whose absence the code handles."""
+    out = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        names = []
+        for h in node.handlers:
+            types = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+            names += [getattr(t, "id", None) for t in types if t is not None]
+        if any(n in ("ImportError", "ModuleNotFoundError") for n in names):
+            out |= {id(n) for stmt in node.body for n in ast.walk(stmt) if isinstance(n, (ast.Import, ast.ImportFrom))}
+    return out
+
+
+def _imports_of(path: Path, roots: tuple[str, ...], optional_ok: bool = False) -> list[str]:
+    """Every import in the file that names one of ``roots`` or one of their
+    modules (with ``optional_ok``, not those inside a ``try`` that handles ImportError)."""
     found = []
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    skip = _optional(tree) if optional_ok else set()
+    for node in ast.walk(tree):
+        if id(node) in skip:
+            continue
         if isinstance(node, ast.Import):
             names = [alias.name for alias in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -53,6 +86,7 @@ def _jax_package_imports(path: Path) -> list[str]:
 def test_port_module_imports_no_jax_package(path):
     assert _jax_package_imports(path) == []
     assert _imports_of(path, ABSENT_ON_THE_CARD) == []
+    assert _imports_of(path, OPTIONAL, optional_ok=True) == []
 
 
 def test_static_check_sees_absent_packages(tmp_path):
@@ -60,8 +94,18 @@ def test_static_check_sees_absent_packages(tmp_path):
     src.write_text(
         "import regex\nfrom safetensors import safe_open\nfrom transformers.models import x\n"
         "def f():\n    import tokenizers\nimport jax.numpy as jnp\nimport regexp, safetensors_x\n"
+        "try:\n    import jax\nexcept ImportError:\n    jax = None\n"
+        "try:\n    import wandb\nexcept ImportError:\n    wandb = None\n"
+        "try:\n    import sacrebleu\nexcept Exception:\n    pass\n"
+        "try:\n    from wandb import sdk\nexcept ValueError:\n    pass\n"
+        "import sklearn.metrics\n"
     )
-    assert len(_imports_of(src, ABSENT_ON_THE_CARD)) == 5
+    # A guarded import of a package the port may not depend on is still found.
+    assert sorted(x.split()[-1] for x in _imports_of(src, ABSENT_ON_THE_CARD)) == [
+        "jax", "jax.numpy", "regex", "safetensors", "sklearn.metrics", "tokenizers", "transformers.models"]
+    # An optional package is allowed only under an ImportError handler.
+    assert sorted(x.split()[-1] for x in _imports_of(src, OPTIONAL, optional_ok=True)) == [
+        "sacrebleu", "wandb"]
 
 
 def test_static_check_sees_jax_package_imports(tmp_path):
@@ -236,3 +280,98 @@ def test_resize_host_native_switch(monkeypatch):
     np.testing.assert_array_equal(got, native.resize_u8(arr, *hw) if native is not None else pil)
     monkeypatch.setenv("LMMS_OWC_NATIVE_LOADER", "0")
     np.testing.assert_array_equal(resize_host(img)[0], pil)
+
+
+# ------------------------------------------------------------ host helpers
+
+
+def test_core_helpers_match_jax():
+    rng = random.Random(11)
+    for args in ["", "a=1,b=true,c=None,d=0.5,e=x y", "pretrained=/p/q,dtype=bfloat16,load_in_8bit=True", "k="]:
+        assert utils.parse_string_args(args) == jax_utils.parse_string_args(args)
+    names = ["toy", "toy_mc", "toy_multiround", "caltech101", "cub_200"]
+    for pattern in (["toy*"], ["toy", "cub_*"], ["nothing"], "toy_m?"):
+        assert utils.pattern_match(pattern, names) == jax_utils.pattern_match(pattern, names)
+    for text in ["", "a", "pretrained=/x/y:z|w", "é" * 60, "name with spaces?*"]:
+        for fn in ("hash_string", "sanitize_model_name", "sanitize_task_name", "sanitize_long_string"):
+            assert getattr(utils, fn)(text) == getattr(jax_utils, fn)(text), fn
+    docs = [{"i": i, "x": rng.random()} for i in range(20)]
+    for rank, world, limit in [(0, 1, None), (1, 3, 10), (2, 4, 7)]:
+        assert list(utils.create_iterator(iter(docs), rank, world, limit)) == list(
+            jax_utils.create_iterator(iter(docs), rank, world, limit))
+    value = {"a": np.float32(1.5), "b": np.arange(3), "c": {1, 2}, "d": object}
+    assert utils.json_dumps_deterministic(value) == jax_utils.json_dumps_deterministic(value)
+    progress = list(utils.get_progress_bar(iterable=iter(range(5)), total=5))
+    assert progress == list(range(5))
+
+
+def test_make_table_matches_jax():
+    results = {
+        "results": {"toy": {"alias": "toy", "exact_match,none": 0.25, "exact_match_stderr,none": 0.125,
+                            "textual_inclusion,none": 1, "textual_inclusion_stderr,none": "N/A"},
+                    "toy_mc": {"alias": "toy_mc", "acc,none": 0.5}},
+        "versions": {"toy": "Yaml", "toy_mc": "Yaml"}, "n-shot": {"toy": 0, "toy_mc": 2},
+        "higher_is_better": {"toy": {"exact_match": True}, "toy_mc": {"acc": False}},
+    }
+    for sort in (False, True):
+        assert utils.make_table(results, sort_results=sort) == jax_utils.make_table(results, sort_results=sort)
+
+
+def _named(value):
+    """``value`` with each function replaced by its name (imported twice, they differ as objects)."""
+    if callable(value):
+        return ("fn", value.__module__.rsplit("_", 1)[-1], value.__name__)
+    if isinstance(value, dict):
+        return {k: _named(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_named(v) for v in value]
+    return value
+
+
+def test_load_yaml_config_matches_jax(toy_task_path):
+    """``include:`` merges and ``!function`` tags, in both modes."""
+    for path in sorted(Path(toy_task_path).rglob("*.yaml")):
+        for mode in ("simple", "full"):
+            got = utils.load_yaml_config(path, mode=mode)
+            want = jax_utils.load_yaml_config(path, mode=mode)
+            assert _named(got) == _named(want), path
+
+
+YAML_FILES = sorted((REPO_ROOT / "tests" / "fixtures" / "tasks").rglob("*.yaml")) + sorted(
+    (REPO_ROOT / "lmms_owc_tpu" / "tasks" / "configs").rglob("*.yaml"))
+
+
+def test_load_yaml_config_matches_jax_on_every_task_config():
+    """Every task config of both trees, ``!function`` tags left as their specs."""
+    assert len(YAML_FILES) > 100
+    for path in YAML_FILES:
+        assert utils.load_yaml_config(path, mode="simple") == jax_utils.load_yaml_config(path, mode="simple"), path
+
+
+def test_cli_run_loads_no_jax(tmp_path, toy_dataset):
+    """A port CLI run of the fake model on ``toy``, and one with
+    ``--check_integrity`` (which the port refuses), leave no ``jax`` or
+    ``lmms_owc_tpu*`` module (other than the port) in ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "from lmms_owc_tpu_torch.eval_model import main\n"
+        "try:\n"
+        "    main(['--model', 'fake', '--tasks', 'toy', '--check_integrity',"
+        f" '--include_path', {str(REPO_ROOT / 'tests' / 'fixtures' / 'tasks')!r}, '--limit', '2'])\n"
+        "    raise SystemExit('--check_integrity did not raise')\n"
+        "except NotImplementedError:\n"
+        "    pass\n"
+        f"main(['--model', 'fake', '--model_args', 'response_mode=target', '--tasks', 'toy,toy_mc,toy_multiround',"
+        f" '--include_path', {str(REPO_ROOT / 'tests' / 'fixtures' / 'tasks')!r}, '--limit', '2', '--log_samples',"
+        f" '--output_path', {str(tmp_path)!r}])\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib') or k.startswith(('jax.', 'jaxlib.'))\n"
+        "             or (k.startswith('lmms_owc_tpu') and not k.startswith('lmms_owc_tpu_torch')))\n"
+        "assert not bad, bad\n"
+        f"absent = sorted(k for k in sys.modules if k.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+        "assert not absent, absent\n"
+        "print('CLI_NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_NO_JAX_OK" in proc.stdout
+    assert len(list(tmp_path.rglob("*_results.json"))) == 1
