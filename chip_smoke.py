@@ -81,20 +81,44 @@ Phases, in order; any failure raises and the script exits non-zero:
     checkpoint on the toy tasks of ``tests/fixtures/tasks`` (their dataset is
     written by the fixture's recipe when missing). First phase 9's loaded
     model answers the toy task's 12 generate_until requests in-process at
-    batch 8; then ``main(argv)`` runs ``toy``, ``toy_mc`` and
-    ``toy_multiround`` (36 documents, all three request types): one results
-    file, three samples files of 12 lines, finite metrics, the toy responses
-    equal to the in-process ones, and K1, K2 and K3 launched in the CLI's
-    window; then the JAX bench's serving configuration (int8 + W8A8, pool 2,
-    int8 KV cache) on ``toy`` must launch K3-int8; then the command in a
-    subprocess on 4 documents must exit 0 and write its results file. Each
-    CLI run's launches are in the ``summary cli`` line; the kernels line
-    keeps each kernel's launches from its own main path.
+    batch 8; then ``main(argv)`` runs ``toy``, ``toy_mc``,
+    ``toy_multiround`` and ``toy_semantic`` (48 documents, all three request
+    types, the scoring metrics): one results file, four samples files of 12
+    lines, finite metrics, the toy responses equal to the in-process ones,
+    and K1, K2 and K3 launched in the CLI's window; then the JAX bench's
+    serving configuration (int8 + W8A8, pool 2, int8 KV cache) on ``toy``
+    must launch K3-int8; then the command in a subprocess on the
+    ``toy_suite`` tag (4 documents of each task, toy_semantic scored) must
+    exit 0 and write its results file. Each CLI run's launches are in the
+    ``summary cli`` line; the kernels line keeps each kernel's launches from
+    its own main path.
+13. Scoring (after phase 12, whose toy_semantic task scores with this
+    phase's MiniLM checkpoint): (a) an HF BERT checkpoint at MiniLM-L6's
+    published config with random f32 weights from a seed (a 30522-entry
+    ``vocab.txt`` holding the toy answers' words) is loaded on the card and
+    encodes 4096 sentences at batch 1024 through K2's f32 head_dim-32
+    instance (6 launches per batch), every row held to the plain attention
+    within ``SBERT_TOL``; (b) the judge at Llama-3.2-3B's width with random
+    weights (``JudgeModel.random_init``) scores 256 textual-inclusion prompts
+    at batch 64 in bf16 and in int8 with the int8 KV cache, each unpooled and
+    under ``LMMS_OWC_JUDGE_DECODE_POOL=2``: pooled answers equal unpooled ones
+    on every row, 28 K2 launches per prefill chunk and 28 K3 (or K3-int8) per
+    decode step, one chunk's prefill logits held by phase 4's rule; (c) a
+    judge checkpoint at full width cut to ``JUDGE_CKPT_LAYERS`` layers (a
+    byte-level BPE with the Llama-3 pattern, specials and chat template) and
+    the MiniLM one back the offline CLIs through ``LMMS_OWC_SBERT_PATH`` and
+    ``LMMS_OWC_JUDGE_PATH``: ``eval_metrics`` scores phase 12's samples with
+    the four scoring metrics and ``eval_ranking`` ranks phase 12's bf16 and
+    int8 runs by ``llama_score`` and ``semantic_similarity``; a fallback
+    scorer taken, or K2 or K3 not launched, fails the phase. The
+    ``summary scoring`` line holds its numbers. Phase 2 also holds K2 and K3
+    at this phase's shapes (MiniLM's f32 attention, the judge's prefill and
+    pooled decode).
 
-The host packages that the CLI imports (and those it must do without) are
+The host packages that the CLIs import (and those it must do without) are
 logged as present or missing at the start.
 
-Phases run in the order 1-3, 8, 9 (Qwen2-VL), 10, 11, 12, 4-7, 9 (Qwen2.5-VL).
+Phases run in the order 1-3, 8, 9 (Qwen2-VL), 10, 11, 12, 13, 4-7, 9 (Qwen2.5-VL).
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -154,15 +178,59 @@ MULTI_ROUND_BATCH = 4
 PACKED_REL_L2 = 5e-2  # the JAX packed-vs-unpacked tower test's bound
 # Phase 12: the port's CLI on the toy tasks (12 documents each, 32x32 images).
 TOY_TASKS = Path("tests/fixtures/tasks")
-CLI_TASKS = ("toy", "toy_mc", "toy_multiround")
+CLI_TASKS = ("toy", "toy_mc", "toy_multiround", "toy_semantic")
 CLI_DOCS = 12
 CLI_BATCH = 8
 CLI_METRICS = {"toy": ("exact_match", "textual_inclusion"), "toy_mc": ("acc", "acc_norm", "acc_mutual_info"),
-               "toy_multiround": ("exact_match",)}
+               "toy_multiround": ("exact_match",),
+               "toy_semantic": ("semantic_similarity", "concept_semantic_similarity", "exact_match")}
 CLI_LAUNCHES = ("vision_qkv_attention", "flash_attention", "gqa_decode_attention")
 CLI_SUBPROCESS_LIMIT = 4
-# The CLI imports the first six; the port computes without the last three.
-HOST_PACKAGES = ("yaml", "jinja2", "tqdm", "dill", "datasets", "pyarrow", "sklearn", "sacrebleu", "Levenshtein")
+# The subprocess runs the toy_suite tag: toy, toy_mc and toy_semantic (scored).
+CLI_SUITE = ("toy_suite", ("toy", "toy_mc", "toy_semantic"))
+# The CLIs import the first seven; the port computes without the last three
+# and runs concept extraction without spaCy when it is missing.
+HOST_PACKAGES = ("yaml", "jinja2", "tqdm", "dill", "datasets", "pyarrow", "pandas", "spacy", "sklearn", "sacrebleu",
+                 "Levenshtein")
+# Phase 13: scoring on the card. (a) MiniLM-L6 at full width from a written
+# checkpoint, f32, 4096 sentences at batch 1024: six flash launches (K2's
+# general f32 instance, head_dim 32) per batch, held to the plain attention
+# within SBERT_TOL (f32 both ways, TF32 off: the two differ by summation order).
+SBERT_SENTENCES = 4096
+SBERT_BATCH = 1024
+SBERT_TOL = 1e-4
+# The published MiniLM-L6 config (all-MiniLM-L6-v2's config.json).
+MINILM_CONFIG = dict(model_type="bert", architectures=["BertModel"], vocab_size=30522, hidden_size=384,
+                     num_hidden_layers=6, num_attention_heads=12, intermediate_size=1536, hidden_act="gelu",
+                     max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12, pad_token_id=0)
+# (b) The judge at full Llama-3.2-3B width, random weights: 256 textual
+# inclusion prompts at batch 64, bf16 and int8 (+ int8 KV cache), each
+# unpooled and under a decode pool of 2; 28 prefill launches per chunk, 28
+# decode launches per step.
+JUDGE_PROMPTS = 256
+JUDGE_BATCH = 64
+JUDGE_POOL = 2
+# (c) The offline CLIs from checkpoints: the judge's checkpoint is written at
+# full width with its depth cut to this many layers (the smoke's time limit).
+JUDGE_CKPT_LAYERS = 2
+SCORING_METRICS = ("semantic_similarity", "mean_average_semantic_similarity", "concept_semantic_similarity",
+                   "textual_inclusion_llama32")
+RANKING_GAMES = 512
+RANKING_ROUNDS = 16
+# The Llama-3 special tokens at their published ids (128000-128255).
+LLAMA3_SPECIAL_IDS = {
+    "<|begin_of_text|>": 128000, "<|end_of_text|>": 128001, "<|reserved_special_token_0|>": 128002,
+    "<|reserved_special_token_1|>": 128003, "<|finetune_right_pad_id|>": 128004,
+    "<|reserved_special_token_2|>": 128005, "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+    "<|eom_id|>": 128008, "<|eot_id|>": 128009, "<|python_tag|>": 128010,
+    **{f"<|reserved_special_token_{k}|>": 128008 + k for k in range(3, 248)},
+}
+# A Llama-3 Instruct chat template (the published one without its tool and date blocks).
+LLAMA3_CHAT_TEMPLATE = (
+    "{{- bos_token }}{% for message in messages %}{{ '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\\n\\n' + message['content'] | trim + '<|eot_id|>' }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}{% endif %}"
+)
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
@@ -197,6 +265,7 @@ LONG_CACHE_TOL = {"bf16": (2e-3, 1e-2), "f32": (1e-4, 1e-5), "int8": (2e-3, 2e-2
 # Published H100 SXM peaks (NVIDIA data sheet; dense bf16 tensor cores, HBM3),
 # at the full 700 W power limit: the bounds of phase 2.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores (the f32 flash kernel's CUDA-core products)
 PEAK_BYTES_PER_S = 3.35e12
 # Keys of each kernel row on the kernels line (and of its "also"/"all" rows).
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
@@ -274,16 +343,17 @@ def _row(shape: str, err: float, timings: dict, bound: dict, library: str) -> di
                 bound_share=bound["bound_ms"] / device if device else None)
 
 
-def _bound(flops: float, nbytes: float) -> dict:
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations over the
-    bf16 tensor-core peak and the bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    peak of their type (bf16 tensor cores unless given) and the bytes over the
+    memory rate."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 work_flops=flops, work_bytes=nbytes)
 
 
 def _attention_bound(keys, heads: int, kv_heads: int, lq: int, d: int, *, causal: bool,
-                     extra_bytes: float = 0, elt: int = 2) -> dict:
+                     extra_bytes: float = 0, elt: int = 2, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """Bound of attention whose rows attend to the valid keys ``keys`` [B, Lk]
     (bool), causal or not: 4*d flops per (query head, valid key) pair that the
     masks leave; q read and the output written once, and each valid key's k and
@@ -297,7 +367,7 @@ def _attention_bound(keys, heads: int, kv_heads: int, lq: int, d: int, *, causal
     else:
         pairs = int(keys.sum()) * lq
     nbytes = elt * (2 * b * heads * lq * d + 2 * kv_heads * d * int(keys.sum())) + extra_bytes
-    return _bound(4.0 * d * heads * pairs, nbytes)
+    return _bound(4.0 * d * heads * pairs, nbytes, peak_flops)
 
 
 SDPA = ("torch.nn.functional.scaled_dot_product_attention, boolean attn_mask with the same valid keys"
@@ -455,6 +525,9 @@ def check_kernels(dev) -> dict[str, dict]:
         results[name]["also"] = rows
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results.update(check_tower_entries(dev, gen))
+    for name, rows in check_scoring_shapes(dev, gen).items():
+        results[name].setdefault("also", {}).update(rows)
+        results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results["int4_matmul"] = check_int4(dev, gen)
     for name, r in results.items():
         for label, row in [(name, r)] + [(f"{name} ({k})", v) for k, v in r.get("also", {}).items()]:
@@ -466,11 +539,99 @@ def check_kernels(dev) -> dict[str, dict]:
                 f"library call: {row['library']}")
     # The gappy-mask prefill is K2's tensor-mask form through flash_attention.
     gappy = results.pop("flash_attention_tensor_mask")
-    results["flash_attention"]["also"] = {"tensor_mask": gappy}
+    results["flash_attention"].setdefault("also", {})["tensor_mask"] = gappy
     results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"], gappy["max_abs_err"])
     check_f32_kernels(dev, gen)
     check_ragged_bf16(dev, gen)
     return results
+
+
+def check_scoring_shapes(dev, gen) -> dict[str, dict]:
+    """Phase 2 at phase 13's shapes: K2's general f32 instance at MiniLM's
+    (q [1024, 12, 32, 32], right-padded rows of 3 to 32 tokens), K2's Hopper
+    instance at the judge's prefill (q [64, 24, 128, 128] over k/v
+    [64, 8, 128, 128], causal, left-padded), and K3 in bf16 and with the int8
+    cache at the judge's pooled decode (q [128, 24, 128] against
+    [28, 128, 8, 160, 128]: pool 2 x batch 64, cache 128 + 16 rounded up to
+    32), each held to its plain version with its bound and SDPA's time.
+    Returns ``{kernel: {label: row}}``."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    rows: dict[str, dict] = {"flash_attention": {}, "gqa_decode_attention": {}, "gqa_decode_attention_int8": {}}
+
+    # SBERT: f32, D = 32, 12 heads, non-causal, one valid run per row from 0.
+    b, h, l, d = SBERT_BATCH, 12, 32, 32
+    q, k, v = (torch.randn((b, h, l, d), generator=gen, device=dev) for _ in range(3))
+    lengths = torch.randint(3, l + 1, (b,), generator=gen, device=dev)
+    smask = (torch.arange(l, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+    kw = dict(kv_mask=smask)
+    err = _compare("flash_attention sbert", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                   att.flash_attention_plain(q, k, v, **kw), atol=SBERT_TOL, rtol=SBERT_TOL)
+    rows["flash_attention"]["sbert"] = _row(
+        f"q/k/v [{b}, {h}, {l}, {d}] f32, rows of 3 to {l} valid keys from 0 (MiniLM-L6)", err,
+        _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                 lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, smask.bool()[:, None, None, :])),
+        _attention_bound(smask, h, h, l, d, causal=False, extra_bytes=8 * b, elt=4, peak_flops=PEAK_F32_FLOPS),
+        SDPA,
+    )
+    del q, k, v
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    # Judge prefill: bf16, 24 query heads over 8 KV heads (G = 3), causal, left-padded.
+    b, nh, kvh, l, hd = JUDGE_BATCH, 24, 8, 128, 128
+    q, k, v = randn(b, nh, l, hd), randn(b, kvh, l, hd), randn(b, kvh, l, hd)
+    starts = torch.randint(0, 40, (b,), generator=gen, device=dev)
+    pos = torch.arange(l, device=dev)
+    pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
+    kw = dict(causal=True, kv_mask=pmask)
+    valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
+    err = _compare("flash_attention judge prefill", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                   att.flash_attention_plain(q, k, v, **kw), valid_rows)
+    rows["flash_attention"]["judge_prefill"] = _row(
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded (Llama-3.2-3B)", err,
+        _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                 lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+    )
+    del q, k, v
+
+    # Judge decode, pooled: the prompt bucket's keys from each row's start, then 5 generated.
+    layers, b, s = 28, JUDGE_POOL * JUDGE_BATCH, 160
+    qd = randn(b, nh, hd)
+    ck, cv = randn(layers, b, kvh, s, hd), randn(layers, b, kvh, s, hd)
+    spos = torch.arange(s, device=dev)
+    dstarts = torch.randint(0, 40, (b,), generator=gen, device=dev)
+    dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < l + 5)).to(torch.int32)
+    valid = int(dmask.sum())
+    for name, cache in (("gqa_decode_attention", (ck, cv)), ("gqa_decode_attention_int8", quantize_kv_cache(ck, cv))):
+        int8 = len(cache) == 4
+        errs = [_compare(f"{name} judge decode[layer {layer}]",
+                         att.gqa_decode_attention(qd, cache[0], cache[1], layer, dmask, *cache[2:]),
+                         att.gqa_decode_attention_plain(qd, cache[0], cache[1], layer, dmask, *cache[2:]))
+                for layer in (0, layers - 1)]
+        last = layers - 1
+        if int8:
+            nbytes = 2 * 2 * b * nh * hd + kvh * valid * (2 * hd + 2 * 4) + 4 * b * s
+            library, label = None, "none: no single PyTorch call attends over an int8 cache with per-position scales"
+        else:
+            nbytes = 2 * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s
+            library, label = _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :]), SDPA
+        rows[name]["judge_decode"] = _row(
+            f"q [{b}, {nh}, {hd}] bf16, cache [{layers}, {b}, {kvh}, {s}, {hd}] "
+            f"{'int8 + f32 scales' if int8 else 'bf16'}, G = 3, layers 0 and {last} (Llama-3.2-3B, pool 2)",
+            max(errs),
+            _timings(lambda: att.gqa_decode_attention(qd, cache[0], cache[1], last, dmask, *cache[2:]),
+                     lambda: att.gqa_decode_attention_plain(qd, cache[0], cache[1], last, dmask, *cache[2:]),
+                     library),
+            _bound(4.0 * hd * nh * valid, nbytes), label,
+        )
+        del library
+    return rows
 
 
 def _v25_window_layout(grid):
@@ -982,17 +1143,22 @@ def _chunk_logits(model, requests):
 
 
 def check_bf16_logits(model, requests, label: str) -> dict[str, float]:
-    """Phase 4's bf16 rule on one chunk's prefill logits. The kernel and plain
-    paths differ by bf16 rounding amplified through the random layers, and so
-    does the plain path from the same model with its attention computed in
-    f32 ("exact"); the kernel path must be no farther from exact than the
-    plain path is (with 25% headroom)."""
-    got = _chunk_logits(model, requests)
+    """Phase 4's bf16 rule on one chunk's prefill logits (:func:`_bf16_logits_rule`)."""
+    return _bf16_logits_rule(lambda: _chunk_logits(model, requests), label)
+
+
+def _bf16_logits_rule(logits, label: str) -> dict[str, float]:
+    """Phase 4's bf16 rule on the logits that ``logits()`` computes. The kernel
+    and plain paths differ by bf16 rounding amplified through the random
+    layers, and so does the plain path from the same model with its attention
+    computed in f32 ("exact"); the kernel path must be no farther from exact
+    than the plain path is (with 25% headroom)."""
+    got = logits()
     with _plain_attention():
-        plain = _chunk_logits(model, requests)
+        plain = logits()
     with _attention(flash_attention=_exact_flash, vision_qkv_attention=_exact_vision,
                     fused_qkv_attention=_exact_fused):
-        exact = _chunk_logits(model, requests)
+        exact = logits()
     rel = {
         "kernel_vs_plain": _rel_l2(got, plain),
         "kernel_vs_exact": _rel_l2(got, exact),
@@ -1105,14 +1271,14 @@ def _decode_steps(capture: dict | None = None):
     real = nnq.decode_step
     calls = []
 
-    def spy(model, token_ids, position_ids, cache, cache_pos, kv_mask):
+    def spy(model, token_ids, position_ids, cache, cache_pos, kv_mask, *rest):
         if capture is not None and not capture:
             capture.update(
                 token_ids=token_ids.clone(), position_ids=position_ids.clone(),
                 cache=tuple(c.clone() for c in cache), cache_pos=cache_pos, kv_mask=kv_mask.clone(),
             )
         calls.append(1)
-        return real(model, token_ids, position_ids, cache, cache_pos, kv_mask)
+        return real(model, token_ids, position_ids, cache, cache_pos, kv_mask, *rest)
 
     with _route(nnq, "decode_step", spy):
         yield calls
@@ -1362,10 +1528,11 @@ def pinned_tokenizer(blob: dict, pinned: dict[str, int]) -> dict:
 
 class _NameProbe(dict):
     """Answers ``hf_tensor``'s lookups under the published checkpoints'
-    prefixes (``model.``, ``visual.``, ``lm_head.``) and keeps the name asked."""
+    prefixes (``model.``, ``visual.``, ``lm_head.``; a BERT's ``embeddings.``
+    and ``encoder.``) and keeps the name asked."""
 
     def __contains__(self, key) -> bool:
-        return key.startswith(("model.", "visual.", "lm_head."))
+        return key.startswith(("model.", "visual.", "lm_head.", "embeddings.", "encoder."))
 
     def __getitem__(self, key):
         import torch
@@ -1390,20 +1557,16 @@ def _hf_layout(model) -> list[tuple[str, object]]:
     return out
 
 
-def write_checkpoint(model, preset: str, path: Path) -> dict:
-    """Write a port model as an HF checkpoint: safetensors shards of at most
+def write_tensors(layout: list, path: Path, label: str) -> dict:
+    """Write (name, tensor) pairs as safetensors shards of at most
     ``SHARD_BYTES`` with ``model.safetensors.index.json`` (each shard copied
-    from the card and written in turn), ``config.json`` from the preset and the
-    fixture tokenizer with the Qwen2 specials pinned. Prints the free disk
-    space and the bytes to write first, and fails when the space is short."""
-    from lmms_owc_tpu_torch.models.qwen2_vl import PRESET_CONFIGS
-
-    layout = _hf_layout(model)
+    from the card and written in turn). Prints the free disk space and the
+    bytes to write first, and fails when the space is short."""
     total = sum(t.numel() * t.element_size() for _, t in layout)
     free = shutil.disk_usage(path).free
-    log(f"checkpoint {preset} -> {path}: {total / 1e9:.3f} GB of tensors to write, {free / 1e9:.3f} GB free")
+    log(f"checkpoint {label} -> {path}: {total / 1e9:.3f} GB of tensors to write, {free / 1e9:.3f} GB free")
     if free < total + (1 << 30):
-        raise AssertionError(f"not enough disk space for the {preset} checkpoint: {free} bytes free, {total} needed")
+        raise AssertionError(f"not enough disk space for the {label} checkpoint: {free} bytes free, {total} needed")
     shards, size = [[]], 0
     for name, t in layout:
         n = t.numel() * t.element_size()
@@ -1420,6 +1583,19 @@ def write_checkpoint(model, preset: str, path: Path) -> dict:
         weight_map.update({name: file for name, _ in shard})
     (path / "model.safetensors.index.json").write_text(
         json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    seconds = time.perf_counter() - t0
+    log(f"checkpoint {label}: {written} bytes in {len(shards)} shards written in {seconds:.3f} s "
+        f"({written / seconds / 1e9:.3f} GB/s)")
+    return dict(bytes=written, shards=len(shards), write_seconds=seconds)
+
+
+def write_checkpoint(model, preset: str, path: Path) -> dict:
+    """Write a port model as an HF checkpoint (:func:`write_tensors`),
+    ``config.json`` from the preset and the fixture tokenizer with the Qwen2
+    specials pinned."""
+    from lmms_owc_tpu_torch.models.qwen2_vl import PRESET_CONFIGS
+
+    out = write_tensors(_hf_layout(model), path, preset)
     hf = dict(PRESET_CONFIGS[preset])
     hf.setdefault("model_type", "qwen2_vl")
     hf.update(eos_token_id=QWEN2_SPECIAL_IDS["<|im_end|>"], pad_token_id=QWEN2_SPECIAL_IDS["<|endoftext|>"],
@@ -1430,10 +1606,7 @@ def write_checkpoint(model, preset: str, path: Path) -> dict:
     (path / "tokenizer.json").write_text(json.dumps(blob))
     (path / "tokenizer_config.json").write_text(json.dumps(
         {"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>", "clean_up_tokenization_spaces": False}))
-    seconds = time.perf_counter() - t0
-    log(f"checkpoint {preset}: {written} bytes in {len(shards)} shards written in {seconds:.3f} s "
-        f"({written / seconds / 1e9:.3f} GB/s)")
-    return dict(bytes=written, shards=len(shards), write_seconds=seconds)
+    return out
 
 
 def _load(dev, preset: str, path: Path, **kw):
@@ -1772,20 +1945,23 @@ def _cli_summary(run: dict, metrics: dict) -> dict:
 
 
 def run_cli(dev, preset: str, ckpt: Path, reference: list[str], model_args: str = "dtype=bfloat16",
-            pooled_int8: bool = True, min_launches=CLI_LAUNCHES) -> dict:
+            pooled_int8: bool = True, min_launches=CLI_LAUNCHES, out_root: Path | None = None) -> dict:
     """Phase 12: the port's CLI from the checkpoint ``ckpt``. (a) ``main(argv)``
     in-process on the three toy tasks (all three request types, 36 documents):
     the files, finite metrics, the toy responses equal to ``reference``, and
     each of ``min_launches`` launched in the CLI's window; (b) with
     ``pooled_int8``, the JAX bench's serving configuration (int8 + W8A8, pool
     2, int8 KV cache) on ``toy``, which must launch the int8 decode kernel;
-    (c) ``python -m lmms_owc_tpu_torch.eval_model`` in a subprocess on four
-    toy documents, which must exit 0 and write its results file."""
+    (c) ``python -m lmms_owc_tpu_torch.eval_model --tasks toy_suite`` in a
+    subprocess on four documents of each of its tasks (toy_semantic scored),
+    which must exit 0 and write its results file. The runs
+    write under ``out_root`` (a, b and c), which the caller keeps for phase
+    13; without one, under a temporary directory removed at the end."""
     from lmms_owc_tpu_torch.nn.layers import set_int8_activations
 
     t0 = time.perf_counter()
     summary = {}
-    root = Path(tempfile.mkdtemp(prefix="owc_cli_"))
+    root = out_root or Path(tempfile.mkdtemp(prefix="owc_cli_"))
     try:
         out = root / "a"
         run = _cli_in_process(dev, cli_argv(preset, ckpt, model_args, CLI_TASKS, out))
@@ -1808,7 +1984,7 @@ def run_cli(dev, preset: str, ckpt: Path, reference: list[str], model_args: str 
             summary["int8_w8a8_pool2_kv_int8"] = _cli_summary(run, metrics)
         out = root / "c"
         cmd = [sys.executable, "-m", "lmms_owc_tpu_torch.eval_model",
-               *cli_argv(preset, ckpt, model_args, ("toy",), out, limit=CLI_SUBPROCESS_LIMIT)]
+               *cli_argv(preset, ckpt, model_args, CLI_SUITE[:1], out, limit=CLI_SUBPROCESS_LIMIT)]
         t1 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                               env={**os.environ, "LMMS_OWC_TPU_LOG_LEVEL": "WARNING"})
@@ -1817,12 +1993,340 @@ def run_cli(dev, preset: str, ckpt: Path, reference: list[str], model_args: str 
         results = list(out.rglob("*_results.json"))
         if len(results) != 1:
             raise AssertionError(f"CLI subprocess wrote {len(results)} results files")
-        metrics = check_cli_outputs(out, ("toy",), json.loads(results[0].read_text()), CLI_SUBPROCESS_LIMIT, None)
+        metrics = check_cli_outputs(out, CLI_SUITE[1], json.loads(results[0].read_text()), CLI_SUBPROCESS_LIMIT, None)
         summary["subprocess"] = dict(seconds=time.perf_counter() - t1, returncode=proc.returncode, metrics=metrics)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if out_root is None:
+            shutil.rmtree(root, ignore_errors=True)
     summary["phase_seconds"] = time.perf_counter() - t0
     log(f"CLI: {json.dumps(summary)}")
+    return summary
+
+
+# ------------------------------------------------------------------ scoring
+
+# Words of phase 13's sentences and predictions: the toy answers, the toy prompts' words and a few more.
+SCORING_WORDS = (
+    "red panda blue jay green sea turtle golden retriever what type of object is in this photo describe the main "
+    "a an animal bird dog cat tree sitting on with and near water grass sky small large brown white black"
+).split()
+
+
+def scoring_sentences(n: int, seed: int = 0, min_words: int = 3, max_words: int = 28) -> list[str]:
+    """``n`` sentences of ``min_words`` to ``max_words`` words of ``SCORING_WORDS``, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(SCORING_WORDS, size=int(rng.integers(min_words, max_words + 1))))
+            for _ in range(n)]
+
+
+def judge_prompts(n: int, seed: int = 1) -> list[str]:
+    """``n`` textual-inclusion prompts: a random prediction against a toy answer."""
+    from lmms_owc_tpu_torch.pipelines.text import TEXTUAL_INCLUSION_TEMPLATE
+
+    answers = ["red panda", "blue jay", "green sea turtle", "golden retriever"]
+    preds = scoring_sentences(n, seed, 1, 12)
+    return [TEXTUAL_INCLUSION_TEMPLATE % (pred, answers[i % len(answers)]) for i, pred in enumerate(preds)]
+
+
+def minilm_vocab() -> list[str]:
+    """A 30522-entry BERT-uncased-style vocabulary: the specials at their
+    published ids, ``SCORING_WORDS``, letters, digits and punctuation (with
+    their ``##`` forms), then fillers."""
+    vocab = ["[PAD]"] + [f"[unused{k}]" for k in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    singles = list("abcdefghijklmnopqrstuvwxyz0123456789") + list(".,!?;:'\"()-_/*#$%&+=<>@[]^`{|}~")
+    for tok in sorted(set(SCORING_WORDS)) + singles + [f"##{c}" for c in singles]:
+        if tok not in vocab:
+            vocab.append(tok)
+    return vocab + [f"[unused{k}]" for k in range(99, 99 + MINILM_CONFIG["vocab_size"] - len(vocab))]
+
+
+def write_sbert_checkpoint(dev, path: Path, seed: int = 0) -> dict:
+    """An HF BERT checkpoint at MiniLM-L6's published config with random f32
+    weights drawn on the card from ``seed``: safetensors, ``config.json``,
+    ``vocab.txt`` and ``tokenizer_config.json``."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.sbert import SbertModel, init_sbert_params, sbert_config_from_hf
+
+    model = SbertModel(sbert_config_from_hf(MINILM_CONFIG), torch.float32, dev)
+    init_sbert_params(model, torch.Generator(device=dev).manual_seed(seed))
+    out = write_tensors(_hf_layout(model), path, "minilm-l6")
+    (path / "config.json").write_text(json.dumps(MINILM_CONFIG))
+    vocab = minilm_vocab()
+    if len(vocab) != MINILM_CONFIG["vocab_size"]:
+        raise AssertionError(f"MiniLM vocabulary has {len(vocab)} entries")
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    (path / "tokenizer_config.json").write_text(json.dumps({"do_lower_case": True, "tokenize_chinese_chars": True}))
+    return out
+
+
+def llama3_tokenizer() -> dict:
+    """A Llama-3-form ``tokenizer.json`` over the fixture's byte-level BPE: the
+    Llama-3 specials at their published ids, ``Split`` on the Llama-3 pattern
+    then ``ByteLevel``, and the ``<|begin_of_text|>`` template."""
+    from lmms_owc_tpu_torch.tokenizer import LLAMA3_PATTERN
+
+    blob = pinned_tokenizer(json.loads(FIXTURE_TOKENIZER.read_text()), LLAMA3_SPECIAL_IDS)
+    blob["model"]["ignore_merges"] = True
+    blob["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
+        {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated", "invert": False},
+        {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": False},
+    ]}
+    bos = "<|begin_of_text|>"
+    blob["post_processor"] = {"type": "Sequence", "processors": [
+        {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False, "use_regex": True},
+        {"type": "TemplateProcessing",
+         "single": [{"SpecialToken": {"id": bos, "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}],
+         "pair": [{"SpecialToken": {"id": bos, "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                  {"SpecialToken": {"id": bos, "type_id": 1}}, {"Sequence": {"id": "B", "type_id": 1}}],
+         "special_tokens": {bos: {"id": bos, "ids": [LLAMA3_SPECIAL_IDS[bos]], "tokens": [bos]}}},
+    ]}
+    return blob
+
+
+def judge_checkpoint_config() -> dict:
+    """``LLAMA32_3B_CONFIG`` (full width) with its depth cut to ``JUDGE_CKPT_LAYERS``."""
+    from lmms_owc_tpu_torch.nn.judge import LLAMA32_3B_CONFIG
+
+    return {**LLAMA32_3B_CONFIG, "num_hidden_layers": JUDGE_CKPT_LAYERS, "model_type": "llama",
+            "architectures": ["LlamaForCausalLM"]}
+
+
+def write_judge_checkpoint(dev, path: Path, seed: int = 0) -> dict:
+    """An HF Llama checkpoint at Llama-3.2-3B's width and ``JUDGE_CKPT_LAYERS``
+    layers with random bf16 weights drawn on the card from ``seed``, the
+    Llama-3-form tokenizer and a Llama-3 chat template."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.llama import init_llama_params, llama_config_from_hf
+
+    cfg = judge_checkpoint_config()
+    model = init_llama_params(llama_config_from_hf(cfg), torch.Generator(device=dev).manual_seed(seed))
+    out = write_tensors(_hf_layout(model), path, f"llama-3.2-3b width, {JUDGE_CKPT_LAYERS} layers")
+    del model
+    _free()
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "tokenizer.json").write_text(json.dumps(llama3_tokenizer()))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>", "clean_up_tokenization_spaces": True,
+        "chat_template": LLAMA3_CHAT_TEMPLATE}))
+    return out
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_sbert(dev, path: Path) -> dict:
+    """Phase 13(a): the checkpoint's encoder on ``dev`` in f32 encodes
+    ``SBERT_SENTENCES`` sentences at batch ``SBERT_BATCH`` (timed, counted:
+    six flash launches per batch), then again with the plain attention;
+    every row's embedding (each sentence is a valid row) within ``SBERT_TOL``."""
+    from lmms_owc_tpu_torch.nn.sbert import SentenceEncoder
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    enc = SentenceEncoder.from_pretrained(str(path), device=dev)
+    sentences = scoring_sentences(SBERT_SENTENCES)
+    enc.encode(sentences[:SBERT_BATCH], batch_size=SBERT_BATCH)  # warm-up
+    _reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = enc.encode(sentences, batch_size=SBERT_BATCH)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = _counts()["flash_attention"]
+    with _route(att, "flash_attention", _plain_flash):
+        want = enc.encode(sentences, batch_size=SBERT_BATCH)
+    batches = -(-len(sentences) // SBERT_BATCH)
+    lengths = [enc._bucket_len(enc.tokenizer(sentences[i : i + SBERT_BATCH])["input_ids"].shape[1])
+               for i in range(0, len(sentences), SBERT_BATCH)]
+    err = float(np.abs(got - want).max())
+    norms = np.linalg.norm(got, axis=1)
+    if not np.isfinite(got).all() or np.abs(norms - 1).max() > 1e-3:
+        raise AssertionError(f"sbert: embeddings not finite unit vectors (norms {norms.min()}..{norms.max()})")
+    if dev.type == "cuda" and launches != enc.config.num_layers * batches:
+        raise AssertionError(f"sbert: {launches} flash launches, expected {enc.config.num_layers} per batch")
+    if err > SBERT_TOL:
+        raise AssertionError(f"sbert: kernel embeddings differ from the plain attention's by {err} > {SBERT_TOL}")
+    out = dict(sentences=len(sentences), batch=SBERT_BATCH, length_buckets=lengths, seconds=seconds,
+               sentences_per_s=len(sentences) / seconds, flash_launches=launches, max_abs_err=err)
+    log(f"scoring sbert: {json.dumps(out)}")
+    del enc
+    _free()
+    return out
+
+
+def _judge_run(dev, judge, prompts: list[str], int8: bool) -> dict:
+    """One scoring pass over ``prompts``, timed, with its launches and peak
+    memory; 28 prefill launches per chunk and whole decode steps required."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    _reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    outputs = judge.score_pairs(prompts, None, None)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    decode_name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
+    layers, chunks = judge.config.num_layers, -(-len(prompts) // judge.batch_size)
+    launches = {"flash_attention": counts["flash_attention"], decode_name: counts[decode_name]}
+    if cuda and (launches["flash_attention"] != layers * chunks or not launches[decode_name]
+                 or launches[decode_name] % layers):
+        raise AssertionError(f"judge: launches {launches}, expected {layers} per prefill chunk and per decode step")
+    return dict(prompts=len(prompts), seconds=seconds, prompts_per_s=len(prompts) / seconds,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                decode_steps=launches[decode_name] // layers, counts=launches, outputs=outputs)
+
+
+def check_judge(dev, prompts: list[str] | None = None, make=None) -> dict:
+    """Phase 13(b): the judge at Llama-3.2-3B's width with random weights
+    (``make(int8)``, by default ``JudgeModel.random_init`` on ``dev``) scores
+    the prompts at batch ``JUDGE_BATCH`` in bf16 and in int8 with the int8 KV
+    cache, each unpooled and under ``LMMS_OWC_JUDGE_DECODE_POOL`` =
+    ``JUDGE_POOL``; pooled answers must equal unpooled ones on every row. One
+    bf16 chunk's prefill logits are held by phase 4's rule."""
+    from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
+    from lmms_owc_tpu_torch.nn.judge import JudgeModel
+
+    prompts = prompts or judge_prompts(JUDGE_PROMPTS)
+    make = make or (lambda int8: JudgeModel.random_init(seed=0, load_in_8bit=int8, device=dev))
+    forms, logits = {}, None
+    for int8 in (False, True):
+        t0 = time.perf_counter()
+        judge = make(int8)
+        judge.batch_size = JUDGE_BATCH
+        _sync(dev)
+        init_seconds = time.perf_counter() - t0
+        label = "int8_kv_int8" if int8 else "bf16"
+        with _env(LMMS_OWC_KV_INT8="1" if int8 else "0"):
+            with _env(LMMS_OWC_JUDGE_DECODE_POOL="0"):
+                forms[label] = _judge_run(dev, judge, prompts, int8)
+            with _env(LMMS_OWC_JUDGE_DECODE_POOL=str(JUDGE_POOL)):
+                forms[f"{label}_pool{JUDGE_POOL}"] = _judge_run(dev, judge, prompts, int8)
+        forms[label]["init_seconds"] = init_seconds
+        base, pooled = forms[label].pop("outputs"), forms[f"{label}_pool{JUDGE_POOL}"].pop("outputs")
+        bad = [i for i, (a, b) in enumerate(zip(base, pooled, strict=True)) if a != b]
+        if bad:
+            raise AssertionError(f"judge {label}: pooled answers differ from unpooled ones on rows {bad}: "
+                                 f"{pooled[bad[0]]!r} vs {base[bad[0]]!r}")
+        forms[label]["pooled_same_rows"] = len(base)
+        forms[label]["sample"] = base[0]
+        if not int8 and dev.type == "cuda":
+            prepared = judge._prepare_chunk(prompts[:JUDGE_BATCH])
+            embeds, pos, mask, _ = judge._inputs(prepared)
+
+            def chunk_logits():
+                out, _ = qvl.prefill(judge.model, embeds, pos, mask, prepared[0])
+                if not bool(out.isfinite().all()):
+                    raise AssertionError("judge prefill logits have non-finite values")
+                return out
+
+            logits = _bf16_logits_rule(chunk_logits, "judge bf16")
+            del embeds, pos, mask
+        del judge
+        _free()
+    out = dict(forms=forms, logits=logits, batch=JUDGE_BATCH, pool=JUDGE_POOL)
+    log(f"scoring judge: {json.dumps(out)}")
+    return out
+
+
+def _copy_runs(cli_out: Path, runs: Path) -> dict[str, list[str]]:
+    """Phase 12's generate_until samples as ``runs/{task}/{player}/``: the bf16
+    run (a) as one player on toy, toy_multiround and toy_semantic, the int8
+    pooled run (b) as another on toy."""
+    players = {"qwen2-vl-7b-bf16": ("a", ("toy", "toy_multiround", "toy_semantic")),
+               "qwen2-vl-7b-int8-pool2": ("b", ("toy",))}
+    copied: dict[str, list[str]] = {}
+    for player, (run, tasks) in players.items():
+        for task in tasks:
+            files = list((cli_out / run).rglob(f"*_samples_{task}.jsonl"))
+            if not files:
+                continue
+            dst = runs / task / player
+            dst.mkdir(parents=True, exist_ok=True)
+            shutil.copy(files[0], dst / files[0].name)
+            copied.setdefault(player, []).append(task)
+    return copied
+
+
+def run_offline(dev, cli_out: Path, root: Path, sbert_dir: Path, judge_dir: Path) -> dict:
+    """Phase 13(c): with ``LMMS_OWC_SBERT_PATH`` and ``LMMS_OWC_JUDGE_PATH`` set
+    to the two checkpoints, ``eval_metrics.main`` scores phase 12's samples
+    with the four scoring metrics (written back into the files) and
+    ``eval_ranking.main`` ranks the two players by each criterion. Fails when
+    a fallback scorer was taken, a value is not finite, a column was not
+    written back or (on the card) K2 or K3 was not launched."""
+    import math
+
+    from lmms_owc_tpu_torch import eval_metrics, eval_ranking
+    from lmms_owc_tpu_torch.nn.judge import JudgeModel
+    from lmms_owc_tpu_torch.nn.sbert import SentenceEncoder
+    from lmms_owc_tpu_torch.pipelines import text
+
+    runs = root / "runs"
+    players = _copy_runs(cli_out, runs)
+    out: dict = dict(players=players, judge_checkpoint_layers=JUDGE_CKPT_LAYERS)
+    text._sentence_encoder = text._judge = None
+    try:
+        with _env(LMMS_OWC_SBERT_PATH=str(sbert_dir), LMMS_OWC_JUDGE_PATH=str(judge_dir)):
+            _reset_counts()
+            t0 = time.perf_counter()
+            metrics = eval_metrics.main(["-i", str(runs), "-m", ",".join(SCORING_METRICS)])
+            _sync(dev)
+            out["eval_metrics"] = dict(seconds=time.perf_counter() - t0, counts=_counts(), results=metrics)
+            scorers = {"sentence_encoder": type(text._sentence_encoder).__name__, "judge": type(text._judge).__name__}
+            if not (isinstance(text._sentence_encoder, SentenceEncoder) and isinstance(text._judge, JudgeModel)):
+                raise AssertionError(f"offline scoring took a fallback scorer: {scorers}")
+            out["scorers"] = scorers
+            for task, by_player in metrics.items():
+                for player, values in by_player.items():
+                    bad = {k: v for k, v in values.items() if not k.startswith("_") and not math.isfinite(v)}
+                    if bad or not set(SCORING_METRICS) <= set(values):
+                        raise AssertionError(f"eval_metrics {task}/{player}: {values}")
+            for file in runs.rglob("*.jsonl"):
+                columns = set(json.loads(file.read_text().splitlines()[0]))
+                if not set(SCORING_METRICS) <= columns:
+                    raise AssertionError(f"eval_metrics did not write its columns back into {file}: {columns}")
+            out["ranking"] = {}
+            for criterion in ("llama_score", "semantic_similarity"):
+                _reset_counts()
+                t0 = time.perf_counter()
+                boards = eval_ranking.main(["-i", str(runs), "-c", criterion, "-n", str(RANKING_GAMES),
+                                            "-b", str(RANKING_ROUNDS)])
+                _sync(dev)
+                if set(boards.get("toy", {}).get("final", {})) != set(players):
+                    raise AssertionError(f"eval_ranking {criterion}: leaderboards {boards}")
+                out["ranking"][criterion] = dict(seconds=time.perf_counter() - t0, counts=_counts(), leaderboards=boards)
+    finally:
+        text._sentence_encoder = text._judge = None
+        _free()
+    if dev.type == "cuda":
+        counts = out["eval_metrics"]["counts"]
+        if not (counts["flash_attention"] and counts["gqa_decode_attention"]):
+            raise AssertionError(f"offline scoring did not launch K2 and K3: {counts}")
+        if not out["ranking"]["llama_score"]["counts"]["gqa_decode_attention"]:
+            raise AssertionError("eval_ranking llama_score did not launch K3")
+    log(f"scoring offline: {json.dumps(out)}")
+    return out
+
+
+def run_scoring(dev, cli_out: Path, root: Path, sbert_dir: Path) -> dict:
+    """Phase 13: (a) :func:`check_sbert`, (b) :func:`check_judge`, then the judge
+    checkpoint is written and (c) :func:`run_offline` runs the offline CLIs."""
+    t0 = time.perf_counter()
+    summary = dict(sbert=check_sbert(dev, sbert_dir), judge=check_judge(dev))
+    judge_dir = root / "judge"
+    judge_dir.mkdir()
+    summary["judge_checkpoint"] = write_judge_checkpoint(dev, judge_dir)
+    summary["offline"] = run_offline(dev, cli_out, root, sbert_dir, judge_dir)
+    summary["phase_seconds"] = time.perf_counter() - t0
     return summary
 
 
@@ -1893,18 +2397,28 @@ def main() -> int:
     parity = check_kernels(dev)
     model, requests, counts = run_main_path(dev)
     packed = check_packed_tower(model, requests)  # phase 8, on phase 3's bf16 weights
-    # Phases 9-11 on phase 3's bf16 weights, before phase 4 turns them to f32.
-    root = Path(tempfile.mkdtemp(prefix="owc_ckpt_"))
+    # Phases 9-11 on phase 3's bf16 weights, before phase 4 turns them to f32;
+    # phase 12 scores toy_semantic with the MiniLM checkpoint of phase 13.
+    scoring_root = Path(tempfile.mkdtemp(prefix="owc_scoring_"))
     try:
-        ckpt, checkpoint = check_checkpoint(dev, model, requests, "qwen2-vl-7b", root, quantized=True)
-        loglik = check_loglikelihood(ckpt)
-        multi = check_multi_round(ckpt)
-        reference = cli_reference(ckpt, "qwen2-vl-7b")
-        del ckpt
-        _free()
-        cli = run_cli(dev, "qwen2-vl-7b", root, reference)  # phase 12
+        sbert_dir = scoring_root / "minilm"
+        sbert_dir.mkdir()
+        write_sbert_checkpoint(dev, sbert_dir)
+        root = Path(tempfile.mkdtemp(prefix="owc_ckpt_"))
+        try:
+            ckpt, checkpoint = check_checkpoint(dev, model, requests, "qwen2-vl-7b", root, quantized=True)
+            loglik = check_loglikelihood(ckpt)
+            multi = check_multi_round(ckpt)
+            reference = cli_reference(ckpt, "qwen2-vl-7b")
+            del ckpt
+            _free()
+            with _env(LMMS_OWC_SBERT_PATH=str(sbert_dir)):
+                cli = run_cli(dev, "qwen2-vl-7b", root, reference, out_root=scoring_root / "cli")  # phase 12
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        scoring = run_scoring(dev, scoring_root / "cli", scoring_root, sbert_dir)  # phase 13
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(scoring_root, ignore_errors=True)
     check_whole_model(model, requests)
     del model, requests
     _free()
@@ -1947,6 +2461,7 @@ def main() -> int:
     log(f"summary loglikelihood: {json.dumps(loglik)}")
     log(f"summary multi-round: {json.dumps(multi)}")
     log(f"summary cli: {json.dumps(cli)}")
+    log(f"summary scoring: {json.dumps(scoring)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

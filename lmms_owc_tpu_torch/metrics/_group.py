@@ -2,10 +2,10 @@
 
 16 registered aggregations, under the JAX package's names. The open-world
 core (``semantic_similarity``, ``concept_semantic_similarity``,
-``mean_average_semantic_similarity``, ``textual_inclusion_llama32``) needs
-the scoring models (the SBERT encoder, concept extraction and the Llama
-judge), which the port does not carry yet: those four raise
-``NotImplementedError`` naming the missing pipeline. ``f1`` and
+``mean_average_semantic_similarity``, ``textual_inclusion_llama32``)
+delegates embedding and judging to :mod:`lmms_owc_tpu_torch.pipelines` (the
+SBERT encoder and the Llama judge on the card); the similarity dot products of
+unit-normalized embeddings are computed here in numpy. ``f1`` and
 ``matthews_corrcoef`` are computed in numpy, as scikit-learn computes them.
 """
 
@@ -160,20 +160,66 @@ def chrf(items: list) -> float:
     return sacrebleu.corpus_chrf(preds, refs).score
 
 
-def _needs_pipeline(aggregation: str, pipeline: str):
-    raise NotImplementedError(
-        f"aggregation {aggregation!r} needs the scoring pipeline {pipeline}, which the PyTorch port"
-        " does not carry yet"
-    )
-
-
 @register_aggregation("concept_semantic_similarity")
 def concept_semantic_similarity(
     items: list, reduce: Literal["none", "max", "mean", "median", "min"] = "max"
 ) -> float | list[tuple[list, list]]:
-    """Similarity between the reference class name and concepts extracted from the
-    prediction (needs concept extraction and the SBERT encoder)."""
-    _needs_pipeline("concept_semantic_similarity", "concept_extraction + encode_sentence_bert")
+    """Similarity between the reference class name and concepts extracted from the prediction.
+
+    Pipeline (reference _group.py:176-334): extract noun-chunk/entity concepts from each
+    prediction (plus the full prediction itself as a concept), dedup the (reference,
+    concept) pairs, batch-encode both sides with the sentence encoder, take the
+    per-pair cosine similarity, then reduce per sample (max/mean/median/min) and average
+    over samples. ``reduce="none"`` returns ``[(concepts, similarities), ...]`` per sample
+    for jsonl writeback by eval_metrics.
+    """
+    from lmms_owc_tpu_torch.pipelines.text import concept_extraction, encode_sentence_bert
+
+    if reduce not in ["none", "max", "mean", "median", "min"]:
+        raise ValueError(f"unknown reduce {reduce!r} for concept_semantic_similarity")
+
+    refs, preds = _unzip_refs_preds(items)
+
+    concepts_per_pred = concept_extraction(
+        preds, skip_words=SKIP_WORDS, remove_prefix_words=True
+    )
+    # The full prediction is always included as a concept.
+    concepts_per_pred = [c + [p] for c, p in zip(concepts_per_pred, preds)]
+
+    # Dedup (ref, concept) pairs before the expensive encode.
+    pair_to_idx: dict[str, int] = {}
+    unique_refs: list[str] = []
+    unique_concepts: list[str] = []
+    for ref, concepts in zip(refs, concepts_per_pred):
+        for concept in concepts:
+            key = f"{ref} | {concept}"
+            if key not in pair_to_idx:
+                pair_to_idx[key] = len(unique_refs)
+                unique_refs.append(ref)
+                unique_concepts.append(concept)
+
+    refs_z = np.asarray(encode_sentence_bert(unique_refs))
+    concepts_z = np.asarray(encode_sentence_bert(unique_concepts))
+    pair_sims = np.sum(refs_z * concepts_z, axis=-1)
+
+    sims_per_sample = [
+        np.array([pair_sims[pair_to_idx[f"{ref} | {concept}"]] for concept in concepts])
+        for ref, concepts in zip(refs, concepts_per_pred)
+    ]
+
+    if reduce == "max":
+        return float(np.mean([s.max() for s in sims_per_sample]))
+    if reduce == "mean":
+        return float(np.mean([s.mean() for s in sims_per_sample]))
+    if reduce == "median":
+        # torch.median semantics: lower median for even-length vectors.
+        return float(np.mean([np.sort(s)[(len(s) - 1) // 2] for s in sims_per_sample]))
+    if reduce == "min":
+        return float(np.mean([s.min() for s in sims_per_sample]))
+    return [
+        (concepts, sims.tolist())
+        for concepts, sims in zip(concepts_per_pred, sims_per_sample)
+    ]
 
 
 @register_aggregation("f1")
@@ -222,9 +268,27 @@ def mean(arr: list) -> float:
 def mean_average_semantic_similarity(
     items: list, reduce: Literal["none", "mean"] = "mean"
 ) -> dict:
-    """Hit-rate of ref<->pred embedding similarity at thresholds 0.5..0.9 plus
-    their average (needs the SBERT encoder)."""
-    _needs_pipeline("mean_average_semantic_similarity", "encode_sentence_bert")
+    """Hit-rate of ref<->pred embedding similarity at thresholds 0.5..0.9 plus their average."""
+    from lmms_owc_tpu_torch.pipelines.text import encode_sentence_bert
+
+    if reduce not in ["none", "mean"]:
+        raise ValueError(f"unknown reduce {reduce!r} for mean_average_semantic_similarity")
+
+    refs, preds = _unzip_refs_preds(items)
+    refs_z = np.asarray(encode_sentence_bert(refs))
+    preds_z = np.asarray(encode_sentence_bert(preds))
+    sims = np.sum(refs_z * preds_z, axis=-1)
+
+    thresholds = [0.5, 0.6, 0.7, 0.8, 0.9]
+    if reduce == "mean":
+        outputs = {f"semantic_similarity@{t}": float((sims >= t).mean()) for t in thresholds}
+        outputs["semantic_similarity@avg"] = float(np.mean(list(outputs.values())))
+        return outputs
+    outputs = {f"semantic_similarity@{t}": (sims >= t).astype(int).tolist() for t in thresholds}
+    outputs["semantic_similarity@avg"] = np.mean(
+        [outputs[f"semantic_similarity@{t}"] for t in thresholds], axis=0
+    ).tolist()
+    return outputs
 
 
 @register_aggregation("median", can_bootstrap=True)
@@ -241,9 +305,20 @@ def perplexity(items: list) -> float:
 def semantic_similarity(
     items: list, reduce: Literal["none", "mean"] = "mean"
 ) -> float | list[float]:
-    """Cosine similarity of unit-normalized sentence embeddings of refs vs preds
-    (needs the SBERT encoder)."""
-    _needs_pipeline("semantic_similarity", "encode_sentence_bert")
+    """Cosine similarity of unit-normalized sentence embeddings of refs vs preds."""
+    from lmms_owc_tpu_torch.pipelines.text import encode_sentence_bert
+
+    if reduce not in ["none", "mean"]:
+        raise ValueError(f"unknown reduce {reduce!r} for semantic_similarity")
+
+    refs, preds = _unzip_refs_preds(items)
+    refs_z = np.asarray(encode_sentence_bert(refs))
+    preds_z = np.asarray(encode_sentence_bert(preds))
+    sims = np.sum(refs_z * preds_z, axis=-1)
+
+    if reduce == "mean":
+        return float(sims.mean())
+    return sims.tolist()
 
 
 @register_aggregation("ter")
@@ -261,8 +336,19 @@ def ter(items: list) -> float:
 def textual_inclusion_llama32(
     items: list, reduce: Literal["none", "mean"] = "mean"
 ) -> float | list[int]:
-    """LLM-judge 0/1 inclusion scores (needs the Llama-3.2 judge)."""
-    _needs_pipeline("textual_inclusion_llama32", "textual_inclusion_llama32")
+    """LLM-judge 0/1 inclusion scores (Llama-3.2-3B-Instruct, greedy, 16 new tokens)."""
+    from lmms_owc_tpu_torch.pipelines.text import textual_inclusion_llama32 as _judge
+
+    if reduce not in ["none", "mean"]:
+        raise ValueError(f"unknown reduce {reduce!r} for textual_inclusion_llama32")
+
+    refs, preds = _unzip_refs_preds(items)
+    raw_scores = _judge(predictions=preds, references=refs)
+    scores = [int(s) if s in ["0", "1"] else 0 for s in raw_scores]
+
+    if reduce == "mean":
+        return float(np.mean(scores))
+    return scores
 
 
 @register_aggregation("weighted_perplexity")

@@ -31,7 +31,9 @@ __all__ = [
     "embedding",
     "gelu",
     "layer_norm",
+    "mlp_gelu",
     "mlp_swiglu",
+    "multi_head_attention",
     "quick_gelu",
     "rms_norm",
     "set_int8_activations",
@@ -165,6 +167,45 @@ def mlp_swiglu(
 ) -> torch.Tensor:
     """Gated MLP ``(silu(x @ gate.T) * x @ up.T) @ down.T`` (weights [out, in])."""
     return dense(F.silu(dense(x, gate)) * dense(x, up), down)
+
+
+def mlp_gelu(x: torch.Tensor, up: nn.Module, down: nn.Module) -> torch.Tensor:
+    """BERT/ViT-style MLP: ``down(gelu(up(x)))`` through the projection modules."""
+    return down(gelu(up(x)))
+
+
+def multi_head_attention(
+    x: torch.Tensor,
+    q: nn.Module,
+    k: nn.Module,
+    v: nn.Module,
+    o: nn.Module,
+    *,
+    num_heads: int,
+    num_kv_heads: int | None = None,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    kv_mask_contiguous: bool = False,
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Self-attention block (no residual or norm) over [B, L, hidden] ``x`` with
+    the projection modules ``q``/``k``/``v``/``o``. The heads go to
+    :func:`~lmms_owc_tpu_torch.ops.attention.flash_attention` (K2) as
+    [B, H, L, D] views, the KV heads unrepeated; ``kv_mask`` [B, L] marks valid
+    keys, and ``kv_mask_contiguous`` promises one run of ones per row (BERT's
+    right padding), which the kernel reads as (start, end) scalars."""
+    from lmms_owc_tpu_torch.ops.attention import flash_attention
+
+    b, l, _ = x.shape
+    kvh = num_kv_heads or num_heads
+    qh = q(x).view(b, l, num_heads, -1).transpose(1, 2)
+    kh = k(x).view(b, l, kvh, -1).transpose(1, 2)
+    vh = v(x).view(b, l, kvh, -1).transpose(1, 2)
+    if rope_cos is not None:
+        qh, kh = apply_rope(qh, rope_cos, rope_sin), apply_rope(kh, rope_cos, rope_sin)
+    out = flash_attention(qh, kh, vh, causal=causal, kv_mask=kv_mask, kv_mask_contiguous=kv_mask_contiguous)
+    return o(out.transpose(1, 2).reshape(b, l, -1))
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -120,6 +120,9 @@ class Qwen2VLConfig:
     vision_start_token_id: int = 151652
     eos_token_id: int = 151645
     pad_token_id: int = 151643
+    # Llama3-style RoPE frequency scaling: (factor, low_freq_factor, high_freq_factor,
+    # original_max_position_embeddings), or None for plain RoPE.
+    rope_llama3: tuple | None = None
     vision: Qwen2VLVisionConfig = field(default_factory=Qwen2VLVisionConfig)
 
     @property
@@ -353,13 +356,13 @@ class VisionTower(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, c: "Qwen2VLConfig", dtype, device) -> None:
+    def __init__(self, c: "Qwen2VLConfig", dtype, device, attn_bias: bool = True) -> None:
         super().__init__()
         h, hd = c.hidden_size, c.head_dim
         self.input_ln = RMSNorm(h, c.rms_norm_eps, dtype, device)
-        self.q = Linear(h, c.num_heads * hd, True, dtype, device)
-        self.k = Linear(h, c.num_kv_heads * hd, True, dtype, device)
-        self.v = Linear(h, c.num_kv_heads * hd, True, dtype, device)
+        self.q = Linear(h, c.num_heads * hd, attn_bias, dtype, device)
+        self.k = Linear(h, c.num_kv_heads * hd, attn_bias, dtype, device)
+        self.v = Linear(h, c.num_kv_heads * hd, attn_bias, dtype, device)
         self.o = Linear(c.num_heads * hd, h, False, dtype, device)
         self.post_ln = RMSNorm(h, c.rms_norm_eps, dtype, device)
         self.gate = Linear(h, c.intermediate_size, False, dtype, device)
@@ -376,7 +379,11 @@ class DecoderLayer(nn.Module):
 class Qwen2VLModel(nn.Module):
     """Qwen2-VL decoder plus vision tower. Parameters are uninitialised until
     :func:`init_params` or :func:`params_from_jax` fills them. With ``vision25``
-    (a Qwen2.5-VL preset) the tower is a :class:`Vision25Tower`."""
+    (a Qwen2.5-VL preset) the tower is a :class:`Vision25Tower`; with
+    ``text_only`` (a Llama decoder, :mod:`lmms_owc_tpu_torch.nn.llama`) there
+    is none and :attr:`vision` is None. ``attn_bias`` gives the q/k/v
+    projections biases (Qwen2's; a Llama decoder has none), as the JAX
+    package's ``init_decoder_params`` argument of that name."""
 
     def __init__(
         self,
@@ -384,6 +391,8 @@ class Qwen2VLModel(nn.Module):
         dtype=torch.bfloat16,
         device="cpu",
         vision25: Qwen25VisionConfig | None = None,
+        text_only: bool = False,
+        attn_bias: bool = True,
     ) -> None:
         super().__init__()
         self.config = config
@@ -391,15 +400,17 @@ class Qwen2VLModel(nn.Module):
         self.embed_tokens = nn.Parameter(
             torch.empty(c.vocab_size, c.hidden_size, dtype=dtype, device=device), requires_grad=False
         )
-        self.layers = nn.ModuleList(DecoderLayer(c, dtype, device) for _ in range(c.num_layers))
+        self.layers = nn.ModuleList(DecoderLayer(c, dtype, device, attn_bias) for _ in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, dtype, device)
         self.lm_head = (
             None if c.tie_word_embeddings else Linear(c.hidden_size, c.vocab_size, False, dtype, device)
         )
-        self.vision = (
-            Vision25Tower(vision25, dtype, device) if vision25 is not None
-            else VisionTower(c.vision, c.hidden_size, dtype, device)
-        )
+        if text_only:
+            self.vision = None
+        elif vision25 is not None:
+            self.vision = Vision25Tower(vision25, dtype, device)
+        else:
+            self.vision = VisionTower(c.vision, c.hidden_size, dtype, device)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -512,7 +523,9 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
     ``[L, ...]`` leaves are split into the per-layer modules. Float values are
     cast to the model's dtype; quantized leaves are copied exactly. A model with
     a Qwen2.5-VL tower takes the ``init_vision25_params`` vision subtree
-    (:func:`~lmms_owc_tpu_torch.nn.qwen2_5_vl.vision25_params_from_jax`).
+    (:func:`~lmms_owc_tpu_torch.nn.qwen2_5_vl.vision25_params_from_jax`); a
+    text-only model takes a decoder tree (``init_decoder_params``), with no
+    ``vision`` subtree.
     """
     c = model.config
     _copy(model.embed_tokens, np.asarray(tree["embed_tokens"], np.float32))
@@ -527,6 +540,10 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
     _load_norm(model.final_norm, tree["final_norm"])
     if not c.tie_word_embeddings:
         _load_linear(model, "lm_head", tree["lm_head"])
+    if model.vision is None:
+        if "vision" in tree:
+            raise ValueError("a tree with a vision subtree does not fit this text-only model")
+        return model
 
     vt = tree["vision"]
     tower = model.vision
@@ -638,14 +655,32 @@ def get_rope_index(
     return position_ids, next_pos
 
 
+def _llama3_scale_inv_freq(inv_freq: torch.Tensor, scaling: tuple) -> torch.Tensor:
+    """HF llama3 rope scaling, in f32 as the JAX package computes it: damp the
+    low-frequency components by ``factor`` with a smooth transition band
+    (transformers ``_compute_llama3_parameters``)."""
+    factor, low_freq_factor, high_freq_factor, old_context_len = scaling
+    low_freq_wavelen = old_context_len / low_freq_factor
+    high_freq_wavelen = old_context_len / high_freq_factor
+    wavelen = 2 * np.pi / inv_freq
+    scaled = torch.where(wavelen > low_freq_wavelen, inv_freq / factor, inv_freq)
+    smooth = (old_context_len / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)
+    smoothed = (1 - smooth) / factor * inv_freq + smooth * inv_freq
+    is_medium = (wavelen >= high_freq_wavelen) & (wavelen <= low_freq_wavelen)
+    return torch.where(is_medium, smoothed, scaled)
+
+
 def mrope_cos_sin(position_ids: torch.Tensor, config: Qwen2VLConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Combine t/h/w rotary tables into [B, L, head_dim/2] cos/sin (f32).
 
-    ``position_ids`` [3, B, L]; the result lives on its device.
+    ``position_ids`` [3, B, L]; the result lives on its device. A config with
+    ``rope_llama3`` scales the frequencies first.
     """
     hd2 = config.head_dim // 2
     exponent = torch.arange(0, hd2, dtype=torch.float32, device=position_ids.device) / hd2
     inv_freq = 1.0 / (config.rope_theta ** exponent)
+    if config.rope_llama3 is not None:
+        inv_freq = _llama3_scale_inv_freq(inv_freq, config.rope_llama3)
     freqs = position_ids[..., None].float() * inv_freq  # [3, B, L, hd/2]
     chunks = torch.split(freqs, list(config.mrope_section), dim=-1)
     combined = torch.cat([chunk[i % 3] for i, chunk in enumerate(chunks)], dim=-1)
@@ -860,6 +895,24 @@ def write_pool_scales(
     return write_pool_chunk(scale_k, scale_v, sk, sv, row_offset, front)
 
 
+def _row_blocks(fn, rows: int | None, *xs: torch.Tensor):
+    """``fn`` (a row-wise function of tensors with the same leading rows) over
+    blocks of exactly ``rows`` rows, the last block zero-padded, its outputs
+    (a tensor or a tuple) concatenated back to the input's rows; with
+    ``rows`` None, ``fn(*xs)``. Every product then has the same shape
+    whatever the batch, so a row's result does not depend on the rows beside
+    it: cuBLAS picks its split of K by the row count (on an H100 the k/v and
+    down products of Llama-3.2-3B give other bits at 64 rows than at 128)."""
+    if rows is None:
+        return fn(*xs)
+    b = xs[0].shape[0]
+    padded = [torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, -b % rows)) for x in xs]
+    outs = [fn(*block) for block in zip(*(p.split(rows) for p in padded))]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts)[:b] for parts in zip(*outs))
+    return torch.cat(outs)[:b]
+
+
 @torch.inference_mode()
 def decode_step(
     model: Qwen2VLModel,
@@ -868,6 +921,7 @@ def decode_step(
     cache: tuple[torch.Tensor, torch.Tensor],
     cache_pos: int,
     kv_mask: torch.Tensor,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """One decode step: token_ids [B], position_ids [3, B, 1] -> logits [B, vocab] f32.
 
@@ -876,7 +930,9 @@ def decode_step(
     token's K and V (quantized per vector for an int8 cache, with their scales)
     are point-written IN PLACE at ``cache_pos``; the caller's cache tensors
     hold the update afterwards. ``kv_mask`` [B, S] must already mark
-    ``cache_pos`` valid.
+    ``cache_pos`` valid. With ``rows``, everything but the attention (which
+    is per row already) runs on blocks of exactly ``rows`` rows
+    (:func:`_row_blocks`), so a row's logits do not depend on the batch.
     """
     c = model.config
     cache_k, cache_v, *scales = cache
@@ -884,7 +940,7 @@ def decode_step(
     x = embedding(model.embed_tokens, token_ids)[:, None, :]
     cos, sin = mrope_cos_sin(position_ids, c)
     for i, layer in enumerate(model.layers):
-        q, k, v = _qkv(layer, layer.input_ln(x), c)
+        q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), rows, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if scales:
@@ -897,9 +953,13 @@ def decode_step(
             cache_k[i, :, :, cache_pos] = k[:, :, 0]
             cache_v[i, :, :, cache_pos] = v[:, :, 0]
         attn = gqa_decode_attention(q[:, :, 0], cache_k, cache_v, i, kv_mask, *scales)
-        x = x + layer.o(attn.reshape(b, 1, -1))
-        x = x + layer.mlp(x)
-    return _head_logits(model, model.final_norm(x[:, 0]))
+
+        def post(t, a):
+            t = t + layer.o(a)
+            return t + layer.mlp(t)
+
+        x = _row_blocks(post, rows, x, attn.reshape(b, 1, -1))
+    return _row_blocks(lambda t: _head_logits(model, model.final_norm(t)), rows, x[:, 0])
 
 
 def _sample_token(
@@ -936,6 +996,7 @@ def _decode_loop(
     do_sample: bool,
     temperature: float,
     top_p: float,
+    decode_rows: int | None = None,
 ) -> torch.Tensor:
     """Decode until every row has emitted EOS or ``max_new_tokens`` are out.
 
@@ -957,7 +1018,7 @@ def _decode_loop(
             break
         pos = (next_positions + step)[None, :, None].expand(3, b, 1)
         kv_mask[:, prompt_len + step] = 1
-        logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask)
+        logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask, decode_rows)
         token = _sample_token(logits, generator, temperature, top_p, do_sample)
     return tokens
 
@@ -977,6 +1038,7 @@ def greedy_generate(
     temperature: float = 1.0,
     top_p: float = 1.0,
     phase=None,
+    decode_rows: int | None = None,
 ) -> torch.Tensor:
     """Prefill + decode-until-EOS. Returns generated tokens [B, max_new_tokens]
     (positions after a sequence's EOS hold pad_token_id).
@@ -989,6 +1051,8 @@ def greedy_generate(
         eos_ids: [num_eos] token ids that end a sequence.
         phase: optional ``phase(name)`` context-manager factory wrapped around
             the "prefill" and "decode" halves (the adapter's phase timer).
+        decode_rows: run each decode step's products on blocks of this many
+            rows (:func:`decode_step`'s ``rows``), so tokens do not depend on the batch.
     """
     phase = phase or (lambda name: nullcontext())
     l = input_embeds.shape[1]
@@ -1003,7 +1067,7 @@ def greedy_generate(
         kv_mask[:, :l] = attention_mask
         return _decode_loop(
             model, logits, cache, kv_mask, next_positions, max_new_tokens, l, eos_ids,
-            generator, do_sample, temperature, top_p,
+            generator, do_sample, temperature, top_p, decode_rows,
         )
 
 
@@ -1021,6 +1085,7 @@ def decode_pool(
     do_sample: bool = False,
     temperature: float = 1.0,
     top_p: float = 1.0,
+    decode_rows: int | None = None,
 ) -> torch.Tensor:
     """Decode-until-EOS over a pooled cache (``LMMS_OWC_DECODE_POOL`` serving).
 
@@ -1029,11 +1094,11 @@ def decode_pool(
     when the int8 cache is on. ``prompt_len`` is the pool's common prompt
     bucket, the cache position of the first generated token; ``kv_mask``
     [B, S] marks the pool's valid prompt positions and is updated in place.
-    Returns [B, max_new_tokens] tokens.
+    ``decode_rows`` is :func:`greedy_generate`'s. Returns [B, max_new_tokens] tokens.
     """
     if kv_cache_int8_enabled(logits0.device) and len(cache) == 2:
         cache = quantize_kv_cache(*cache)
     return _decode_loop(
         model, logits0, cache, kv_mask, next_positions, max_new_tokens, prompt_len, eos_ids,
-        generator, do_sample, temperature, top_p,
+        generator, do_sample, temperature, top_p, decode_rows,
     )

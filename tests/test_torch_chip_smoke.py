@@ -249,19 +249,20 @@ def tiny_checkpoint(tmp_path_factory):
 
 
 def test_cli_phase_argument_lists():
-    """Phase 12 runs the three toy tasks (all three request types, 12
-    documents each) from the checkpoint at batch 8; the subprocess runs
-    ``toy`` on 4 documents."""
+    """Phase 12 runs the four toy tasks (all three request types, and
+    toy_semantic's scoring metrics; 12 documents each) from the checkpoint at
+    batch 8; the subprocess runs ``toy`` on 4 documents."""
     import chip_smoke
 
     argv = chip_smoke.cli_argv("qwen2-vl-7b", Path("/ckpt"), "dtype=bfloat16", chip_smoke.CLI_TASKS, Path("/out"))
     flags = {flag: argv[i + 1] for i, flag in enumerate(argv) if flag.startswith("--") and flag != "--log_samples"}
     assert flags["--model"] == "qwen2-vl-7b" and flags["--model_args"] == "pretrained=/ckpt,dtype=bfloat16"
-    assert flags["--tasks"] == "toy,toy_mc,toy_multiround" and flags["--batch_size"] == "8"
+    assert flags["--tasks"] == "toy,toy_mc,toy_multiround,toy_semantic" and flags["--batch_size"] == "8"
     assert Path(flags["--include_path"]) == (REPO_ROOT / "tests" / "fixtures" / "tasks")
     assert "--log_samples" in argv and flags["--seed"] == "0,1234,1234,1234" and "--limit" not in argv
     sub = chip_smoke.cli_argv("qwen2-vl-7b", Path("/ckpt"), "dtype=bfloat16", ("toy",), Path("/o"), limit=4)
     assert sub[-2:] == ["--limit", "4"] and chip_smoke.CLI_SUBPROCESS_LIMIT == 4
+    assert chip_smoke.CLI_SUITE == ("toy_suite", ("toy", "toy_mc", "toy_semantic"))
     assert chip_smoke.CLI_DOCS == 12 and set(chip_smoke.CLI_METRICS) == set(chip_smoke.CLI_TASKS)
     assert set(chip_smoke.CLI_LAUNCHES) == set(chip_smoke.MIN_LAUNCHES)
 
@@ -284,7 +285,7 @@ def test_cli_phase_runs_on_the_cpu(tiny_checkpoint, toy_dataset):
                                                             "generate_until_multi_round"}
     assert set(summary["bf16"]["metrics"]) == {f"{t}/{m}" for t, ms in chip_smoke.CLI_METRICS.items() for m in ms}
     assert summary["subprocess"]["returncode"] == 0 and set(summary["subprocess"]["metrics"]) == {
-        "toy/exact_match", "toy/textual_inclusion"}
+        f"{t}/{m}" for t in chip_smoke.CLI_SUITE[1] for m in chip_smoke.CLI_METRICS[t]}
 
 
 @pytest.mark.parametrize("fault", ["reference", "launches", "subprocess"])
@@ -312,3 +313,131 @@ def test_cli_phase_fails_loudly(tiny_checkpoint, toy_dataset, fault, monkeypatch
     main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
     assert not [n for n in ast.walk(main) if isinstance(n, ast.ExceptHandler)]
     assert "run_cli" in {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+
+
+# ------------------------------------------------------------------ phase 13
+
+
+def test_scoring_phase_workload():
+    """Phase 13's shapes: MiniLM-L6's published config and a 30522-entry
+    vocabulary holding the toy answers' words; 4096 sentences at batch 1024;
+    the judge at Llama-3.2-3B's width (its checkpoint cut in depth only), 256
+    prompts at batch 64, pool 2; the four scoring metrics; the Llama-3
+    specials at their published ids."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.nn.judge import LLAMA32_3B_CONFIG
+
+    assert (chip_smoke.SBERT_SENTENCES, chip_smoke.SBERT_BATCH) == (4096, 1024)
+    assert (chip_smoke.JUDGE_PROMPTS, chip_smoke.JUDGE_BATCH, chip_smoke.JUDGE_POOL) == (256, 64, 2)
+    cfg = chip_smoke.MINILM_CONFIG
+    assert (cfg["hidden_size"], cfg["num_hidden_layers"], cfg["num_attention_heads"], cfg["vocab_size"]) == (
+        384, 6, 12, 30522)
+    vocab = chip_smoke.minilm_vocab()
+    assert len(vocab) == len(set(vocab)) == 30522 and vocab[100:104] == ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    assert {"red", "panda", "golden", "retriever", "turtle", "jay"} <= set(vocab)
+    judge_cfg = chip_smoke.judge_checkpoint_config()
+    assert {k: v for k, v in judge_cfg.items() if k not in ("num_hidden_layers", "model_type", "architectures")} == (
+        {k: v for k, v in LLAMA32_3B_CONFIG.items() if k != "num_hidden_layers"})
+    assert judge_cfg["num_hidden_layers"] == chip_smoke.JUDGE_CKPT_LAYERS < LLAMA32_3B_CONFIG["num_hidden_layers"]
+    ids = chip_smoke.LLAMA3_SPECIAL_IDS
+    assert sorted(ids.values()) == list(range(128000, 128256)) and ids["<|eot_id|>"] == 128009
+    assert chip_smoke.SCORING_METRICS == ("semantic_similarity", "mean_average_semantic_similarity",
+                                          "concept_semantic_similarity", "textual_inclusion_llama32")
+    sentences = chip_smoke.scoring_sentences(64)
+    assert len(sentences) == 64 and all(3 <= len(x.split()) <= 28 for x in sentences)
+    assert chip_smoke.scoring_sentences(64) == sentences  # from the seed
+
+
+@pytest.fixture
+def tiny_scoring(monkeypatch, tmp_path):
+    """Phase 13 at a tiny size on the CPU: a 2-layer MiniLM, a 1-layer judge
+    (full vocabulary), few sentences and prompts; the scoring models on the
+    CPU; phase 12's samples as two players."""
+    import json
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.nn import judge
+
+    tiny = dict(judge.LLAMA32_3B_CONFIG, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, intermediate_size=64)
+    monkeypatch.setattr(judge, "LLAMA32_3B_CONFIG", tiny)
+    monkeypatch.setattr(chip_smoke, "MINILM_CONFIG", dict(chip_smoke.MINILM_CONFIG, hidden_size=48,
+                                                          num_hidden_layers=2, num_attention_heads=4,
+                                                          intermediate_size=64))
+    for name, value in (("SBERT_SENTENCES", 40), ("SBERT_BATCH", 16), ("JUDGE_PROMPTS", 12), ("JUDGE_BATCH", 4),
+                        ("RANKING_GAMES", 24), ("RANKING_ROUNDS", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setenv("LMMS_OWC_SCORING_DEVICE", "cpu")
+    for var in ("LMMS_OWC_SBERT_PATH", "LMMS_OWC_JUDGE_PATH", "LMMS_OWC_JUDGE_DECODE_POOL", "LMMS_OWC_KV_INT8"):
+        monkeypatch.delenv(var, raising=False)
+    cli = tmp_path / "cli"
+    for run, tasks in (("a", ("toy", "toy_mc", "toy_multiround", "toy_semantic")), ("b", ("toy",))):
+        out = cli / run / "model"
+        out.mkdir(parents=True)
+        for task in tasks:
+            rows = [{"doc_id": i, "target": ["red panda", "blue jay"][i % 2],
+                     "filtered_resps": [["a red panda"]] if task == "toy_multiround" else [f"a {run} bird {i}"]}
+                    for i in range(6)]
+            (out / f"x_samples_{task}.jsonl").write_text("\n".join(json.dumps(r) for r in rows) + "\n")
+    sbert_dir = tmp_path / "minilm"
+    sbert_dir.mkdir()
+    chip_smoke.write_sbert_checkpoint(torch.device("cpu"), sbert_dir)
+    return tmp_path, cli, sbert_dir
+
+
+def test_scoring_phase_runs_on_the_cpu(tiny_scoring):
+    """Phase 13's code on the CPU at a tiny size: (a) the written MiniLM
+    checkpoint encodes and agrees with the plain path, (b) the judge forms
+    give pooled answers equal to unpooled ones, (c) the judge checkpoint and
+    the offline CLIs score with no fallback; the summary keys."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.nn.judge import JudgeModel
+
+    root, cli, sbert_dir = tiny_scoring
+    summary = chip_smoke.run_scoring(torch.device("cpu"), cli, root, sbert_dir)
+    assert set(summary) == {"sbert", "judge", "judge_checkpoint", "offline", "phase_seconds"}
+    assert set(summary["sbert"]) == {"sentences", "batch", "length_buckets", "seconds", "sentences_per_s",
+                                     "flash_launches", "max_abs_err"}
+    assert summary["sbert"]["sentences"] == 40 and summary["sbert"]["max_abs_err"] == 0.0
+    forms = summary["judge"]["forms"]
+    assert set(forms) == {"bf16", "bf16_pool2", "int8_kv_int8", "int8_kv_int8_pool2"}
+    assert forms["bf16"]["pooled_same_rows"] == forms["int8_kv_int8"]["pooled_same_rows"] == 12
+    assert {"prompts", "seconds", "prompts_per_s", "peak_gb", "decode_steps", "counts"} <= set(forms["bf16_pool2"])
+    offline = summary["offline"]
+    assert offline["scorers"] == {"sentence_encoder": "SentenceEncoder", "judge": "JudgeModel"}
+    assert offline["judge_checkpoint_layers"] == chip_smoke.JUDGE_CKPT_LAYERS
+    assert set(offline["players"]) == {"qwen2-vl-7b-bf16", "qwen2-vl-7b-int8-pool2"}
+    assert set(offline["eval_metrics"]["results"]) == {"toy", "toy_multiround", "toy_semantic"}
+    assert set(offline["ranking"]) == {"llama_score", "semantic_similarity"}
+    from lmms_owc_tpu_torch.pipelines import text
+
+    assert text._sentence_encoder is None and text._judge is None  # the phase frees its scorers
+    assert JudgeModel  # the type the phase requires of the judge singleton
+
+
+@pytest.mark.parametrize("fault", ["fallback", "pooled"])
+def test_scoring_phase_fails_loudly(tiny_scoring, fault, monkeypatch):
+    """A fallback scorer taken by the offline CLIs (the judge path missing), or
+    pooled answers that differ from unpooled ones, raises; ``main`` catches
+    nothing and calls the phase."""
+    import ast
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.nn.judge import JudgeModel
+
+    root, cli, sbert_dir = tiny_scoring
+    dev = torch.device("cpu")
+    if fault == "fallback":
+        with pytest.raises(AssertionError, match="fallback"):
+            chip_smoke.run_offline(dev, cli, root, sbert_dir, root / "no_judge_here")
+    else:
+        pooled = JudgeModel._generate_pooled
+        monkeypatch.setattr(JudgeModel, "_generate_pooled",
+                            lambda self, prompts, n: [s + " x" for s in pooled(self, prompts, n)])
+        with pytest.raises(AssertionError, match="pooled answers differ"):
+            chip_smoke.check_judge(dev, make=lambda int8: JudgeModel.random_init(0, dtype=torch.float32,
+                                                                                 load_in_8bit=int8, device="cpu"))
+    tree = ast.parse((REPO_ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    assert not [n for n in ast.walk(main) if isinstance(n, ast.ExceptHandler)]
+    assert "run_scoring" in {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}

@@ -2,7 +2,8 @@
 
 With the fake model: the pinned values of ``tests/test_cli_regression.py``,
 results and samples equal to the JAX CLI's (the run-specific keys left out),
-the ``toy_suite`` tag, multi-run YAML configs, and a two-process ``gloo`` run
+the ``toy_suite`` tag (its ``toy_semantic`` task scored through the scoring
+pipelines, equal to the JAX CLI's), multi-run YAML configs, and a two-process ``gloo`` run
 equal to the one-process run. With the tiny Qwen2-VL checkpoint of
 ``tests/test_torch_checkpoint.py`` (152064 tokens) on the CPU: the samples of
 ``toy`` and ``toy_multiround`` byte-equal to the JAX CLI's, ``toy_mc``'s
@@ -91,8 +92,9 @@ def test_fake_model_run_matches_jax_cli(tmp_path, toy_dataset):
 def test_tag_expands_like_jax(tmp_path, toy_dataset, toy_task_path):
     """``toy_suite`` names the same tasks in both packages. Under --predict_only
     (no metric computed) the tag runs through the CLI as the JAX CLI runs it;
-    with its metrics, toy_semantic needs the SBERT pipeline, which the port
-    does not carry, and the run raises naming it."""
+    with its metrics, toy_semantic scores (semantic and concept similarity
+    through the scoring pipelines' fallback encoder) with results equal to
+    the JAX CLI's."""
     from lmms_owc_tpu.tasks import TaskManager as JaxTaskManager
     from lmms_owc_tpu_torch.tasks import TaskManager
 
@@ -106,11 +108,13 @@ def test_tag_expands_like_jax(tmp_path, toy_dataset, toy_task_path):
     saved = _comparable(_results(tmp_path / "port"))
     assert {"toy", "toy_semantic"} <= set(saved["results"])
     assert saved == _comparable(_results(tmp_path / "jax"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "lmms_owc_tpu_torch.eval_model", *argv[:-1], "--output_path", str(tmp_path / "m")],
-        capture_output=True, text=True, timeout=600, cwd=REPO, env=ENV)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "encode_sentence_bert" in proc.stderr
+    _cli([*argv[:-1], "--output_path", str(tmp_path / "m_port")])
+    _cli([*argv[:-1], "--output_path", str(tmp_path / "m_jax")], jax=True)
+    scored = _comparable(_results(tmp_path / "m_port"))
+    semantic = scored["results"]["toy_semantic"]
+    assert {"semantic_similarity,none", "concept_semantic_similarity,none"} <= set(semantic)
+    assert 0.0 < semantic["semantic_similarity,none"] <= 1.0 + 1e-6
+    assert scored == _comparable(_results(tmp_path / "m_jax"))
 
 
 def test_multi_config_yaml_runs(tmp_path, toy_dataset):

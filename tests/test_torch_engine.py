@@ -3,7 +3,8 @@
 Same inputs, made from a seed, go through both packages' filters, instance
 metrics, aggregations (with their stderr), samplers, task index, request
 building and tracker; the outputs must be equal. The registries hold the same
-names. The four aggregations that need a scoring model raise in the port.
+names. The four aggregations that need a scoring model equal the JAX
+package's through the fallback scorers.
 """
 
 import json
@@ -164,10 +165,34 @@ def test_f1_and_mcc_edge_cases_match_jax(labels):
             assert got == pytest.approx(jax_metrics.get_aggregation_builder(name)(items), abs=1e-12), (name, items)
 
 
+@pytest.fixture
+def fallback_scoring(monkeypatch):
+    """Both packages' scoring singletons reset, no checkpoint paths: the hashed
+    encoder and the heuristic judge score (unless a model is in the local
+    Hugging Face cache, which both then load, the port on the CPU)."""
+    from lmms_owc_tpu.pipelines import text as jax_text
+    from lmms_owc_tpu_torch.pipelines import text as port_text
+
+    for var in ("LMMS_OWC_SBERT_PATH", "LMMS_OWC_JUDGE_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("LMMS_OWC_SCORING_DEVICE", "cpu")
+    for mod in (jax_text, port_text):
+        monkeypatch.setattr(mod, "_sentence_encoder", None)
+        monkeypatch.setattr(mod, "_judge", None)
+
+
 @pytest.mark.parametrize("name", SCORING_MODEL_AGGREGATIONS)
-def test_scoring_model_aggregations_raise(name):
-    with pytest.raises(NotImplementedError, match="scoring pipeline"):
-        metrics.get_aggregation_builder(name)([("cat", "a cat")])
+def test_scoring_model_aggregations_raise(name, fallback_scoring):
+    """The four scoring-model aggregations (which raised before the scoring
+    pipelines were ported) equal the JAX package's on seeded items, reduced and
+    per sample, through the fallback scorers."""
+    rng = random.Random(len(name))
+    items = [(_text(rng), [_text(rng)]) for _ in range(24)] + [("cat", ["a cat"]), ("Dog", ["red panda and a dog"])]
+    reduces = {"concept_semantic_similarity": ("max", "mean", "median", "min", "none")}.get(name, ("mean", "none"))
+    for reduce in reduces:
+        got = metrics.get_aggregation_builder(name)(items, reduce=reduce)
+        want = jax_metrics.get_aggregation_builder(name)(items, reduce=reduce)
+        assert json.dumps(got) == json.dumps(want), (name, reduce)
 
 
 # --------------------------------------------------------------- tasks

@@ -34,11 +34,13 @@ PORT_FILES = sorted((REPO_ROOT / "lmms_owc_tpu_torch").rglob("*.py")) + [REPO_RO
 # sklearn, sacrebleu or Levenshtein. So the port reads checkpoints and
 # tokenizes with its own code (``nn/loader.py``, ``tokenizer.py``) and computes
 # f1/mcc and edit distances with numpy and Python. The engine imports PyYAML,
-# jinja2, tqdm, dill and datasets as the JAX package does.
+# jinja2, tqdm, dill and datasets as the JAX package does, and the offline
+# scoring CLIs pandas (a dependency of datasets).
 ABSENT_ON_THE_CARD = ("jax", "transformers", "safetensors", "tokenizers", "regex", "sklearn", "Levenshtein")
 # Packages the port imports only inside a ``try`` that handles ImportError
-# (``huggingface_hub`` is not one of them: ``datasets`` depends on it).
-OPTIONAL = ("sacrebleu", "wandb")
+# (``huggingface_hub`` is not one of them: ``datasets`` depends on it). spaCy
+# serves concept extraction when it and its model are installed.
+OPTIONAL = ("sacrebleu", "wandb", "spacy")
 
 
 def _optional(tree: ast.AST) -> set[int]:
@@ -99,13 +101,15 @@ def test_static_check_sees_absent_packages(tmp_path):
         "try:\n    import sacrebleu\nexcept Exception:\n    pass\n"
         "try:\n    from wandb import sdk\nexcept ValueError:\n    pass\n"
         "import sklearn.metrics\n"
+        "import spacy\n"
+        "def g():\n    try:\n        import spacy\n    except ImportError:\n        return None\n"
     )
     # A guarded import of a package the port may not depend on is still found.
     assert sorted(x.split()[-1] for x in _imports_of(src, ABSENT_ON_THE_CARD)) == [
         "jax", "jax.numpy", "regex", "safetensors", "sklearn.metrics", "tokenizers", "transformers.models"]
     # An optional package is allowed only under an ImportError handler.
     assert sorted(x.split()[-1] for x in _imports_of(src, OPTIONAL, optional_ok=True)) == [
-        "sacrebleu", "wandb"]
+        "sacrebleu", "spacy", "wandb"]
 
 
 def test_static_check_sees_jax_package_imports(tmp_path):
@@ -375,3 +379,34 @@ def test_cli_run_loads_no_jax(tmp_path, toy_dataset):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "CLI_NO_JAX_OK" in proc.stdout
     assert len(list(tmp_path.rglob("*_results.json"))) == 1
+
+
+def test_scoring_modules_load_no_jax(tmp_path):
+    """Importing the scoring modules and scoring through their fallbacks (the
+    aggregations and ``eval_metrics``) leave no ``jax``, ``lmms_owc_tpu`` or
+    ``ABSENT_ON_THE_CARD`` module in ``sys.modules``."""
+    (tmp_path / "toy" / "m").mkdir(parents=True)
+    (tmp_path / "toy" / "m" / "x_samples_toy.jsonl").write_text(
+        '{"doc_id": 0, "target": "cat", "filtered_resps": ["a cat"]}\n'
+        '{"doc_id": 1, "target": "dog", "filtered_resps": ["a red dog"]}\n')
+    code = (
+        "import sys, os\n"
+        "os.environ.pop('LMMS_OWC_SBERT_PATH', None); os.environ.pop('LMMS_OWC_JUDGE_PATH', None)\n"
+        "import lmms_owc_tpu_torch.nn.sbert, lmms_owc_tpu_torch.nn.llama, lmms_owc_tpu_torch.nn.judge\n"
+        "from lmms_owc_tpu_torch import eval_metrics, eval_ranking\n"
+        "from lmms_owc_tpu_torch.metrics import get_aggregation_builder\n"
+        "items = [('cat', ['a cat']), ('dog', ['red dog'])]\n"
+        "for name in ('semantic_similarity', 'concept_semantic_similarity', 'mean_average_semantic_similarity',"
+        " 'textual_inclusion_llama32'):\n"
+        "    get_aggregation_builder(name)(items)\n"
+        f"eval_metrics.main(['-i', {str(tmp_path)!r}, '-m', 'semantic_similarity,textual_inclusion_llama32'])\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib') or k.startswith(('jax.', 'jaxlib.'))\n"
+        "             or (k.startswith('lmms_owc_tpu') and not k.startswith('lmms_owc_tpu_torch')))\n"
+        "assert not bad, bad\n"
+        f"absent = sorted(k for k in sys.modules if k.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+        "assert not absent, absent\n"
+        "print('SCORING_NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SCORING_NO_JAX_OK" in proc.stdout
