@@ -5,6 +5,10 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --decode-rows-probe`` builds the kernels and then
+only times phase 3 with the adapter's decode row blocks and without them
+(:func:`probe_decode_rows`).
+
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: needs CUDA; prints the card's name and power limit; turns TF32
@@ -26,7 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    carries its bound (flops or bytes over the H100 SXM peaks) and the time of
    one PyTorch call computing the same function; ptxas's registers and
    spills are printed first. The kernels' f32 forms, and the bf16 Hopper
-   instances, are checked at small ragged shapes.
+   instances, are checked at small ragged shapes. Phases 14-17's shapes
+   are held too: K2's general instance at head_dim 64 (the LLaVA tower in
+   bf16 over 577 keys; the CLIP scorer's towers in f32), its Hopper instance
+   at G = 1 (the Vicuna prefill at buckets 640 and 3072), and K3 at G = 1
+   (bf16 and int8 over 704 positions, bf16 over llava-next's 3136).
 3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
    on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
@@ -34,18 +42,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels against the same chunk through the plain versions (relative L2),
    in bf16 (held to the plain path's own distance from f32 attention) and
    with the weights in f32 (held to ``LOGITS_REL_L2``).
+3b. Pooled = unpooled (run after phase 8): phase 3's model answers phase 3's
+   8 requests in prompt order at batch 4 (two chunks) unpooled and under
+   ``LMMS_OWC_DECODE_POOL=2`` (one pool of 8 rows); every row must give the
+   same tokens. On the card the adapter passes ``DECODE_ROWS`` (128) to the
+   decode, pooled and unpooled alike, which pads to those row blocks the
+   products whose bits depend on the row count (float and weight-only int8;
+   not W8A8 or K4). Phase 5 repeats the check on its model in weight-only
+   int8 (W8A8 off) first, and phase 6 in int4.
 5. Quantized pooled serving (the JAX bench's configuration): ``qwen2-vl-7b``
    with int8 weights drawn and quantized on the card, W8A8, a decode pool of
    2 and the int8 KV cache answers 96 448x448 requests at batch 48; images/s,
    phase seconds, peak device memory and launches are printed, and the int8
    decode kernel must run at least 28 times per decode step. The same
-   requests unpooled must give the same tokens on at least 95% of the rows;
-   one pooled decode step's logits through the kernel are held to the plain
-   versions as in phase 4.
+   requests unpooled must give the same tokens on every row; one pooled
+   decode step's logits through the kernel are held to the plain versions
+   as in phase 4.
 6. int4: ``qwen2-vl-7b`` with int4 weights answers 8 requests unpooled; K4
    must run on every decode-step product (7 x 28 + 1 per step), and one
    decode step's logits through K4 are held to the plain version within
-   ``LOGITS_REL_L2``.
+   ``LOGITS_REL_L2``; then phase 3b's check.
 7. Qwen2.5-VL: ``qwen2.5-vl-7b`` with random bf16 weights answers 8 requests
    (six 448x448, two 392x448; the second size pads windows, so the tower's
    attention takes K2's tensor mask) through ``generate_until``; images/s,
@@ -115,10 +131,37 @@ Phases, in order; any failure raises and the script exits non-zero:
     at this phase's shapes (MiniLM's f32 attention, the judge's prefill and
     pooled decode).
 
+14. CLIP scorer: an HF ``CLIPModel`` checkpoint at
+    openai/clip-vit-large-patch14's config (random f32 weights, a
+    49408-entry ``vocab.json`` + ``merges.txt``, ``preprocessor_config.json``)
+    backs ``pipelines.image.encode_clip`` through ``LMMS_OWC_CLIP_PATH``: 64
+    images of mixed sizes against 16 prompts; K2 24 launches in the vision
+    tower's call and 12 in the text tower's (read around each call); logits
+    within ``CLIP_TOL`` of the plain
+    attention's; ``summary clip``.
+15. LLaVA-1.5-7B with random bf16 weights: phase 3's 8 requests (the centre
+    crop runs on the 336x448 images) in one chunk, 64 greedy tokens: one
+    tower call (23 K2 launches), 32 prefill launches, 32 K3 launches per
+    step (MHA, G = 1), each read around its call; the chunk's prefill
+    logits by phase 4's rule;
+    ``loglikelihood`` by phase 10's; then ``load_in_8bit`` with the int8 KV
+    cache, 32 K3-int8 launches per step.
+16. A LLaVA checkpoint at llava-1.5-7b's width with 2 decoder layers (the
+    released checkpoints' tensor names, a Llama-2-form ``byte_fallback``
+    tokenizer): loaded bit-equal, the same tokens as the model written, and
+    the port's CLI (``main(argv)``, ``--model llava-1.5-7b``) on ``toy``
+    with responses equal to the in-process ones.
+17. LLaVA-NeXT-vicuna-7B: one 672x672 and one 1008x336 image (anyres, about
+    2,950 and 2,330 prompt tokens, bucket 3072): K3 on a 3136-position
+    cache (the general kernel past 2048); launches printed and checked; the
+    chunk's prefill logits by phase 4's rule. ``summary llava`` holds
+    phases 15-17.
+
 The host packages that the CLIs import (and those it must do without) are
 logged as present or missing at the start.
 
-Phases run in the order 1-3, 8, 9 (Qwen2-VL), 10, 11, 12, 13, 4-7, 9 (Qwen2.5-VL).
+Phases run in the order 1-3, 8, 3b, 9 (Qwen2-VL), 10, 11, 12, 13, 4, 5
+(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 14-17.
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -136,6 +179,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
@@ -148,7 +192,10 @@ MAX_NEW_TOKENS = 64
 PROMPT = "What type of object is in this photo?"
 POOL_BATCH = 48
 POOL_REQUESTS = 96
-MIN_POOL_AGREEMENT = 0.95  # rows with the unpooled run's tokens (expected 1.0)
+MIN_POOL_AGREEMENT = 1.0  # rows with the unpooled run's tokens: every row
+# The pooled-vs-unpooled check (phase 3b, and phase 5 in weight-only int8): phase
+# 3's 8 requests in prompt order at this batch (two chunks of 4, one pool of 8).
+POOL_CHECK_BATCH = 4
 # Phase 3 (bf16): launches per generate_until call.
 MIN_LAUNCHES = {"vision_qkv_attention": 32, "flash_attention": 28, "gqa_decode_attention": 28}
 # Phases 5 and 6: launches per decode step (28 layers; int4: 7 products each plus the head).
@@ -231,6 +278,49 @@ LLAMA3_CHAT_TEMPLATE = (
     "'<|end_header_id|>\\n\\n' + message['content'] | trim + '<|eot_id|>' }}{% endfor %}"
     "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}{% endif %}"
 )
+# Words that the LLaVA checkpoints' tokenizer merges whole (the prompts' words).
+LLAVA_WORDS = ("USER:", "ASSISTANT:", "What", "type", "of", "object", "is", "in", "this", "photo?", "a", "the",
+               "cat", "dog", "photo", "[INST]", "[/INST]")
+# Phase 14: the CLIP scorer at openai/clip-vit-large-patch14's published config
+# (its config.json), random f32 weights drawn on the card, 64 images of mixed
+# sizes against 16 prompts; logits held to the plain attention within
+# CLIP_TOL (f32 both ways, TF32 off: they differ by summation order only).
+CLIP_CONFIG = dict(
+    model_type="clip", architectures=["CLIPModel"], projection_dim=768, logit_scale_init_value=2.6592,
+    vision_config=dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
+                       image_size=224, patch_size=14, projection_dim=768, hidden_act="quick_gelu"),
+    text_config=dict(vocab_size=49408, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                     intermediate_size=3072, max_position_embeddings=77, projection_dim=768, bos_token_id=49406,
+                     eos_token_id=49407, pad_token_id=1, hidden_act="quick_gelu"),
+)
+CLIP_IMAGES = 64
+CLIP_SIZES = [(224, 224), (300, 400), (480, 320), (97, 211), (640, 480), (256, 256), (333, 501), (501, 333)]
+CLIP_CLASSES = ("cat", "dog", "red panda", "blue jay", "golden retriever", "sea turtle", "airliner", "tabby cat",
+                "goldfish", "tree frog", "school bus", "pizza", "volcano", "daisy", "strawberry", "teapot")
+CLIP_TOL = 1e-4
+CLIP_TEXT_LEN = 16  # the 16 prompts' padded length (start and end tokens included)
+# K2 launches per scorer call: one vision call (24 layers), one text call (12).
+CLIP_VISION_LAUNCHES = 24
+CLIP_TEXT_LAUNCHES = 12
+# Phases 15-17: LLaVA at llava-1.5-7b / llava-next-vicuna-7b (Vicuna-7B, 32
+# layers, 32/32 heads of 128, vocab 32064; CLIP ViT-L/14-336 to layer 23 of
+# 24). Per chunk: 23 tower launches per tower call and 32 prefill launches;
+# 32 decode launches per step.
+LLAVA_TOWER_LAUNCHES = 23
+LLAVA_LAYERS = 32
+# Prompt lengths in tokens (the fallback tokenizer, images expanded): phase
+# 15's requests, and phase 17's two anyres images (packed tiles and newlines).
+LLAVA_PROMPT_TOKENS = 587
+LLAVA_NEXT_PROMPT_TOKENS = (2939, 2339)
+# Phase 16's checkpoint: full width, the decoder cut to this many layers.
+LLAVA_CKPT_LAYERS = 2
+# Phase 17: one 672x672 and one 1008-wide 336-tall image (H, W): 5 and 4 tiles,
+# prompts of about 2,950 and 2,330 tokens, prompt bucket 3072.
+LLAVA_NEXT_SIZES = [(672, 672), (336, 1008)]
+# The released llava-hf checkpoints' tensor prefixes (transformers writes them).
+LLAVA_HF_PREFIXES = ("language_model.model.", "language_model.lm_head.", "vision_tower.", "multi_modal_projector.",
+                     "image_newline")
+CLIP_HF_PREFIXES = ("vision_model.", "text_model.", "visual_projection.", "text_projection.", "logit_scale")
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
@@ -525,7 +615,7 @@ def check_kernels(dev) -> dict[str, dict]:
         results[name]["also"] = rows
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results.update(check_tower_entries(dev, gen))
-    for name, rows in check_scoring_shapes(dev, gen).items():
+    for name, rows in [*check_scoring_shapes(dev, gen).items(), *check_llava_shapes(dev, gen).items()]:
         results[name].setdefault("also", {}).update(rows)
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results["int4_matmul"] = check_int4(dev, gen)
@@ -631,6 +721,114 @@ def check_scoring_shapes(dev, gen) -> dict[str, dict]:
             _bound(4.0 * hd * nh * valid, nbytes), label,
         )
         del library
+    return rows
+
+
+def check_llava_shapes(dev, gen) -> dict[str, dict]:
+    """Phase 2 at phases 14-17's shapes, each held to its plain version with
+    its bound and SDPA's time: K2's general instance at head_dim 64 in bf16
+    over 577 keys (the LLaVA tower, non-causal, no mask), in f32 at the CLIP
+    scorer's tower ([64, 16, 257, 64]) and text tower (causal, [16, 12, 16,
+    64]); K2's Hopper instance at G = 1 for the Vicuna prefill (32/32 heads
+    of 128, causal, left-padded to phases 15 and 17's prompt lengths) at
+    llava-1.5's bucket 640 and llava-next's 3072; K3 at G = 1 in bf16 and
+    int8 against the llava-1.5 cache [32, 8, 32, 704, 128], and in bf16
+    against llava-next's [32, 2, 32, 3136, 128] (past 2048 positions: the
+    general kernel with its workspace). Returns ``{kernel: {label: row}}``."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    rows: dict[str, dict] = {"flash_attention": {}, "gqa_decode_attention": {}, "gqa_decode_attention_int8": {}}
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    for label, dtype, (b, h, l, d), causal in (
+        ("llava_tower", torch.bfloat16, (8, 16, 577, 64), False),
+        ("clip_vision", torch.float32, (CLIP_IMAGES, 16, 257, 64), False),
+        ("clip_text", torch.float32, (len(CLIP_CLASSES), 12, CLIP_TEXT_LEN, 64), True),
+    ):
+        q, k, v = (randn(dtype, b, h, l, d) for _ in range(3))
+        f32 = dtype == torch.float32
+        tol = dict(atol=CLIP_TOL, rtol=CLIP_TOL) if f32 else {}
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, causal=causal),
+                       att.flash_attention_plain(q, k, v, causal=causal), **tol)
+        keys = torch.ones((b, l), dtype=torch.int32, device=dev)
+        rows["flash_attention"][label] = _row(
+            f"q/k/v [{b}, {h}, {l}, {d}] {'f32' if f32 else 'bf16'}, {'causal' if causal else 'non-causal'}, no mask",
+            err,
+            _timings(lambda: att.flash_attention(q, k, v, causal=causal),
+                     lambda: att.flash_attention_plain(q, k, v, causal=causal),
+                     _sdpa(q, k, v, _causal_keep(keys, l) if causal else None)),
+            _attention_bound(keys, h, h, l, d, causal=causal, elt=4 if f32 else 2,
+                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+            SDPA,
+        )
+        del q, k, v
+
+    # The Vicuna prefill: G = 1, causal, left-padded.
+    nh, hd = 32, 128
+    for label, b, l, lengths in (("llava_prefill", 8, 640, [LLAVA_PROMPT_TOKENS] * 8),
+                                 ("llava_next_prefill", 2, 3072, list(LLAVA_NEXT_PROMPT_TOKENS))):
+        q, k, v = (randn(torch.bfloat16, b, nh, l, hd) for _ in range(3))
+        starts = l - torch.tensor(lengths, device=dev)
+        pos = torch.arange(l, device=dev)
+        pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
+        kw = dict(causal=True, kv_mask=pmask)
+        valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        rows["flash_attention"][label] = _row(
+            f"q/k/v [{b}, {nh}, {l}, {hd}] bf16, G = 1, causal, left-padded (Vicuna-7B)", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+            _attention_bound(pmask, nh, nh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        )
+        del q, k, v
+
+    # The Vicuna decode: G = 1, prompt bucket + 64, layers 0 and 31.
+    last = LLAVA_LAYERS - 1
+    for label, b, prompt, s, forms, lengths in (
+        ("llava_decode", 8, 640, 704, ("bf16", "int8"), [LLAVA_PROMPT_TOKENS] * 8),
+        ("llava_next_decode", 2, 3072, 3136, ("bf16",), list(LLAVA_NEXT_PROMPT_TOKENS)),
+    ):
+        qd = randn(torch.bfloat16, b, nh, hd)
+        ck, cv = (randn(torch.bfloat16, LLAVA_LAYERS, b, nh, s, hd) for _ in range(2))
+        spos = torch.arange(s, device=dev)
+        dstarts = prompt - torch.tensor(lengths, device=dev)  # left-padded prompts, then 5 generated
+        dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
+        valid = int(dmask.sum())
+        for form in forms:
+            int8 = form == "int8"
+            cache = quantize_kv_cache(ck, cv) if int8 else (ck, cv)
+            name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
+            # Past 2048 positions: phase 2's long-cache bounds (max abs and relative L2).
+            tol = dict(atol=LONG_CACHE_TOL[form][0], rtol=0.0, rel_l2=LONG_CACHE_TOL[form][1]) if s > 2048 else {}
+            errs = [_compare(f"{name} {label}[layer {layer}]",
+                             att.gqa_decode_attention(qd, cache[0], cache[1], layer, dmask, *cache[2:]),
+                             att.gqa_decode_attention_plain(qd, cache[0], cache[1], layer, dmask, *cache[2:]), **tol)
+                    for layer in (0, last)]
+            if int8:
+                nbytes = 2 * 2 * b * nh * hd + nh * valid * (2 * hd + 2 * 4) + 4 * b * s
+                library, lib_label = None, "none: no single PyTorch call attends over an int8 cache with per-position scales"
+            else:
+                nbytes = 2 * (2 * b * nh * hd + 2 * nh * hd * valid) + 4 * b * s
+                library, lib_label = _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :]), SDPA
+            kernel_kind = "general kernel with the score workspace" if s > 2048 else "Hopper instance"
+            rows[name][label] = _row(
+                f"q [{b}, {nh}, {hd}] bf16, cache [{LLAVA_LAYERS}, {b}, {nh}, {s}, {hd}] "
+                f"{'int8 + f32 scales' if int8 else 'bf16'}, G = 1, layers 0 and {last} (Vicuna-7B, {kernel_kind})",
+                max(errs),
+                _timings(lambda: att.gqa_decode_attention(qd, cache[0], cache[1], last, dmask, *cache[2:]),
+                         lambda: att.gqa_decode_attention_plain(qd, cache[0], cache[1], last, dmask, *cache[2:]),
+                         library),
+                _bound(4.0 * hd * nh * valid, nbytes), lib_label,
+            )
+            del cache, library
+        del qd, ck, cv
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1030,10 +1228,12 @@ def _requests(model, sizes=None):
     return [_Req(i) for i in range(len(docs))]
 
 
-def serve_bf16(dev, preset: str, sizes, min_launches: dict[str, int], label: str) -> tuple[object, list, dict]:
+def serve_bf16(dev, preset: str, sizes, min_launches: dict[str, int], label: str,
+               per_call=()) -> tuple[object, list, dict]:
     """``preset`` with random bf16 weights drawn on the card answers 8 image
-    requests through generate_until (a warm-up call, then the measured one);
-    each kernel in ``min_launches`` must have run at least that often."""
+    requests through generate_until (a warm-up call, then the measured one,
+    with :func:`_serve`'s ``per_call``); each kernel in ``min_launches`` must
+    have run at least that often."""
     import torch
 
     from lmms_owc_tpu_torch.models import get_model
@@ -1049,7 +1249,7 @@ def serve_bf16(dev, preset: str, sizes, min_launches: dict[str, int], label: str
         f"{time.perf_counter() - t0:.1f} s")
     requests = _requests(model, sizes)
     model.generate_until(requests)  # warm-up: cuBLAS handles, allocator, kernel library
-    run = _serve(model, requests)
+    run = _serve(model, requests, per_call=per_call)
     _log_run(label, run)
     for name, least in min_launches.items():
         if run["counts"][name] < least:
@@ -1099,13 +1299,17 @@ def _plain_flash(*args, kv_mask_contiguous=False, **kw):
 
 @contextmanager
 def _attention(**fns):
-    """Route the model's attention entries, by name, through other functions."""
+    """Route the model's attention entries, by name, through other functions
+    (``flash_attention`` in the decoder and in the CLIP towers)."""
+    from lmms_owc_tpu_torch.nn import clip as nnclip
     from lmms_owc_tpu_torch.nn import qwen2_5_vl as nnq25
     from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
 
     with ExitStack() as stack:
         for name, fn in fns.items():
             stack.enter_context(_route(nnq25 if name == "fused_qkv_attention" else nnq, name, fn))
+            if name == "flash_attention":
+                stack.enter_context(_route(nnclip, name, fn))
         yield
 
 
@@ -1263,6 +1467,27 @@ def _route(module, name, fn):
 
 
 @contextmanager
+def _per_call(*entries):
+    """Wrap each ``(module, name)`` of ``entries``: every call appends the
+    launches it made (the counters' difference across it, non-zero kernels
+    only) to a list; yields {name: [per-call launches]}."""
+    calls: dict[str, list] = {}
+    with ExitStack() as stack:
+        for module, name in entries:
+            real, seen = getattr(module, name), calls.setdefault(name, [])
+
+            def spy(*args, _real=real, _seen=seen, **kw):
+                before = _counts()
+                out = _real(*args, **kw)
+                after = _counts()
+                _seen.append({k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)})
+                return out
+
+            stack.enter_context(_route(module, name, spy))
+        yield calls
+
+
+@contextmanager
 def _decode_steps(capture: dict | None = None):
     """Counts decode steps (yields the list of calls); with ``capture``, keeps a
     copy of the first step's inputs."""
@@ -1295,17 +1520,20 @@ def _tokens(model, out: list):
         del model._detokenize
 
 
-def _serve(model, requests, tokens: list | None = None, require_text: bool = True) -> dict:
+def _serve(model, requests, tokens: list | None = None, require_text: bool = True, per_call=()) -> dict:
     """One measured generate_until with the counts set to 0 just before it.
     ``require_text``: every answer must be a non-empty string (off where a
     checkpoint's tokenizer decodes the random model's tokens, which may all
-    lie past its vocabulary; the tokens are compared instead)."""
+    lie past its vocabulary; the tokens are compared instead). ``per_call``:
+    ``(module, name)`` entries whose launches are read around each call
+    (:func:`_per_call`), returned as ``per_call``."""
     import torch
 
     model.phase_seconds.clear()
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    with _decode_steps() as steps, _tokens(model, tokens if tokens is not None else []):
+    with _per_call(*per_call) as calls, _decode_steps() as steps, \
+            _tokens(model, tokens if tokens is not None else []):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outputs = model.generate_until(requests)
@@ -1318,7 +1546,7 @@ def _serve(model, requests, tokens: list | None = None, require_text: bool = Tru
         images=len(requests), seconds=seconds, images_per_s=len(requests) / seconds,
         phase_seconds={k: round(v, 4) for k, v in model.phase_seconds.items()},
         peak_gb=torch.cuda.max_memory_allocated() / 1e9, decode_steps=len(steps), counts=counts,
-        sample=outputs[0][:60],
+        sample=outputs[0][:60], **({"per_call": calls} if per_call else {}),
     )
 
 
@@ -1397,6 +1625,11 @@ def run_quantized_pool(dev) -> dict:
         torch.cuda.synchronize()
         log(f"qwen2-vl-7b int8: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+        set_int8_activations(False)  # phase 3b's check in weight-only int8 first
+        try:
+            weight_only = check_pool_rows(model, "int8 weight-only")
+        finally:
+            set_int8_activations(True)
         requests = _requests(model, [(448, 448)] * POOL_REQUESTS)
         capture: dict = {}
         with _decode_steps(capture):
@@ -1427,13 +1660,59 @@ def run_quantized_pool(dev) -> dict:
             "int8 pool decode step (int8 decode kernel vs plain)",
         )
     set_int8_activations(False)
+    run["pool_rows_int8_weight_only"] = weight_only
     del model, capture
     _free()
     return run
 
 
+def _pool_pair(model, requests, label: str):
+    """``requests`` decoded unpooled and under ``LMMS_OWC_DECODE_POOL=2`` (bf16
+    cache, prompt order): (rows with the same tokens [bool], unpooled run, pooled run)."""
+    tokens: dict[str, list] = {}
+    runs = {}
+    with _env(LMMS_OWC_SORT_BY_VISION="0", LMMS_OWC_KV_INT8=""):
+        for pool in ("1", "2"):
+            with _env(LMMS_OWC_DECODE_POOL=pool):
+                tokens[pool] = []
+                runs[pool] = _serve(model, requests, tokens[pool])
+    if len(tokens["1"]) != 2 or len(tokens["2"]) != 1:
+        raise AssertionError(f"{label}: expected two chunks unpooled and one pool, got {len(tokens['1'])} and "
+                             f"{len(tokens['2'])} decodes")
+    return (np.concatenate(tokens["1"]) == tokens["2"][0]).all(axis=1), runs["1"], runs["2"]
+
+
+def check_pool_rows(model, label: str) -> dict:
+    """Phase 3b (ROADMAP Queue 3): phase 3's 8 requests in prompt order at
+    batch ``POOL_CHECK_BATCH`` (two chunks of 4), decoded unpooled and under
+    ``LMMS_OWC_DECODE_POOL=2`` (one pool of 8 rows); every row must give the
+    same tokens. The adapter passes ``DECODE_ROWS`` to the decode, which
+    pads to those row blocks the products whose bits depend on the row count."""
+    from lmms_owc_tpu_torch.models.qwen2_vl import DECODE_ROWS
+
+    if model.decode_rows != DECODE_ROWS:
+        raise AssertionError(f"{label}: the adapter decodes on {model.decode_rows}-row blocks, not {DECODE_ROWS}")
+    requests = _requests(model)
+    saved = model.batch_size
+    model.batch_size = POOL_CHECK_BATCH
+    try:
+        same, unpooled, pooled = _pool_pair(model, requests, label)
+    finally:
+        model.batch_size = saved
+    out = dict(rows=int(same.size), same_rows=int(same.sum()), decode_rows=DECODE_ROWS,
+               seconds={"unpooled": unpooled["seconds"], "pool2": pooled["seconds"]},
+               decode_seconds={"unpooled": unpooled["phase_seconds"].get("decode"),
+                               "pool2": pooled["phase_seconds"].get("decode")},
+               decode_steps={"unpooled": unpooled["decode_steps"], "pool2": pooled["decode_steps"]})
+    log(f"pooled vs unpooled ({label}): {json.dumps(out)}")
+    if not same.all():
+        raise AssertionError(f"{label}: pooled tokens differ from unpooled ones on rows {np.nonzero(~same)[0].tolist()}")
+    return out
+
+
 def run_int4(dev) -> dict:
-    """Phase 6: int4 weights, 8 requests unpooled; K4 on every decode product."""
+    """Phase 6: int4 weights, 8 requests unpooled; K4 on every decode product;
+    then phase 3b's check that pooled tokens equal unpooled ones."""
     import torch
 
     from lmms_owc_tpu_torch.models import get_model
@@ -1466,6 +1745,7 @@ def run_int4(dev) -> dict:
             model, capture, layers, "int4_matmul", i4.int4_matmul_plain, exact,
             "int4 decode step (K4 vs plain)",
         )
+        run["pool_rows"] = check_pool_rows(model, "int4")  # K4 keeps the batch's rows
     del model, capture
     _free()
     return run
@@ -1529,10 +1809,14 @@ def pinned_tokenizer(blob: dict, pinned: dict[str, int]) -> dict:
 class _NameProbe(dict):
     """Answers ``hf_tensor``'s lookups under the published checkpoints'
     prefixes (``model.``, ``visual.``, ``lm_head.``; a BERT's ``embeddings.``
-    and ``encoder.``) and keeps the name asked."""
+    and ``encoder.``; or the ``prefixes`` given) and keeps the name asked."""
+
+    def __init__(self, prefixes=("model.", "visual.", "lm_head.", "embeddings.", "encoder.")) -> None:
+        super().__init__()
+        self.prefixes = tuple(prefixes)
 
     def __contains__(self, key) -> bool:
-        return key.startswith(("model.", "visual.", "lm_head.", "embeddings.", "encoder."))
+        return key.startswith(self.prefixes)
 
     def __getitem__(self, key):
         import torch
@@ -1541,11 +1825,12 @@ class _NameProbe(dict):
         return torch.empty((1, 1), device="meta")
 
 
-def _hf_layout(model) -> list[tuple[str, object]]:
+def _hf_layout(model, probe=None) -> list[tuple[str, object]]:
     """(checkpoint name, tensor) of every parameter of a port model in the
-    published HF layout: the names its own ``hf_tensor`` looks up, the patch
-    kernel back in its Conv3d shape ``[embed, 3, t, p, p]``."""
-    probe = _NameProbe()
+    published HF layout: the names its own ``hf_tensor`` looks up (under the
+    prefixes ``probe`` accepts), the patch kernel back in its Conv3d shape
+    ``[embed, 3, t, p, p]`` (CLIP's in its Conv2d shape ``[embed, 3, p, p]``)."""
+    probe = probe if probe is not None else _NameProbe()
     out = []
     for name, param in model.named_parameters():
         model.hf_tensor(probe, name)
@@ -1553,6 +1838,9 @@ def _hf_layout(model) -> list[tuple[str, object]]:
         if probe.asked.endswith("patch_embed.proj.weight"):
             v = model.vision.config
             t = t.reshape(t.shape[0], v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size)
+        elif probe.asked.endswith("embeddings.patch_embedding.weight"):
+            p = round((t.shape[1] // 3) ** 0.5)
+            t = t.reshape(t.shape[0], 3, p, p)
         out.append((probe.asked, t))
     return out
 
@@ -1748,11 +2036,12 @@ def _loglikelihood_requests(model):
     return [_Req((PROMPT, CONTINUATIONS[i], r.args[2], r.args[3], "smoke", "test")) for i, r in enumerate(base)]
 
 
-def check_loglikelihood(model) -> dict:
+def check_loglikelihood(model, launches: dict[str, int] = LOGLIKELIHOOD_LAUNCHES) -> dict:
     """Phase 10: the bf16 model scores 8 image requests through the kernels,
     through the plain versions and with f32 attention; the kernel path's
     losses may be no farther from f32 attention than the plain path's (+25%),
-    by phase 4's rule. Each call runs one tower and one prefill forward."""
+    by phase 4's rule. Each call runs one tower and one prefill forward, with
+    the ``launches`` they take."""
     import torch
 
     requests = _loglikelihood_requests(model)
@@ -1768,7 +2057,7 @@ def check_loglikelihood(model) -> dict:
     counts = _counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     phase_seconds = {k: round(v, 4) for k, v in model.phase_seconds.items()}
-    for name, want in LOGLIKELIHOOD_LAUNCHES.items():
+    for name, want in launches.items():
         if counts[name] != want:
             raise AssertionError(f"loglikelihood: {name} launched {counts[name]} times, expected {want}")
     with _plain_attention():
@@ -2003,6 +2292,336 @@ def run_cli(dev, preset: str, ckpt: Path, reference: list[str], model_args: str 
     return summary
 
 
+# ------------------------------------------------------- CLIP and LLaVA
+
+
+def _random_module(module, gen, scale: float = 0.02):
+    """Fill a port module in place: linear weights and other tensors ~ N(0, 1)
+    * ``scale`` (drawn from ``gen`` on its device), biases zero, norm scales one."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.layers import LayerNorm, RMSNorm
+
+    norms = {id(m.weight) for m in module.modules() if isinstance(m, (LayerNorm, RMSNorm))}
+    with torch.no_grad():
+        for name, t in module.named_parameters():
+            if name.endswith("bias"):
+                t.zero_()
+            elif id(t) in norms:
+                t.fill_(1.0)
+            else:
+                t.copy_((torch.randn(t.shape, generator=gen, device=t.device) * scale).to(t.dtype))
+    return module
+
+
+def clip_vocab() -> tuple[dict, list[str]]:
+    """CLIP's ``vocab.json`` layout at 49408 entries: the 256 byte characters,
+    the same with ``</w>``, the tokens of merges that build each word of
+    ``CLIP_CLASSES`` and "a photo of a", fillers, then ``<|startoftext|>`` and
+    ``<|endoftext|>`` at 49406 and 49407."""
+    from lmms_owc_tpu_torch.tokenizer import _BYTE_TO_CHAR
+
+    chars = [_BYTE_TO_CHAR[b] for b in range(256)]
+    vocab = {t: i for i, t in enumerate(chars + [c + "</w>" for c in chars])}
+    merges = []
+    for word in dict.fromkeys(" ".join(CLIP_CLASSES + ("a photo of a",)).split()):
+        piece = word[0]
+        for k, c in enumerate(word[1:], 1):
+            c = c + "</w>" if k == len(word) - 1 else c
+            if piece + c not in vocab:
+                merges.append(f"{piece} {c}")
+                vocab[piece + c] = len(vocab)
+            piece += c
+    while len(vocab) < 49406:
+        vocab[f"fill{len(vocab)}</w>"] = len(vocab)
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    return vocab, merges
+
+
+def write_clip_checkpoint(dev, path: Path, seed: int = 0) -> dict:
+    """An HF ``CLIPModel`` checkpoint at ``CLIP_CONFIG`` with random f32 weights
+    drawn on the card, CLIP's ``vocab.json`` + ``merges.txt`` (:func:`clip_vocab`)
+    and a ``preprocessor_config.json`` at 224 px."""
+    import math
+
+    import torch
+
+    from lmms_owc_tpu_torch.nn import clip
+    from lmms_owc_tpu_torch.ops.image import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vcfg, tcfg = clip.clip_configs_from_hf(CLIP_CONFIG)
+    model = clip.ClipModel(clip.init_clip_vision_params(vcfg, gen),
+                           _random_module(clip.ClipTextModel(tcfg, torch.float32, dev), gen),
+                           torch.tensor(CLIP_CONFIG["logit_scale_init_value"], device=dev))
+    out = write_tensors(_hf_layout(model, _NameProbe(CLIP_HF_PREFIXES)), path, "clip-vit-large-patch14")
+    del model
+    _free()
+    vocab, merges = clip_vocab()
+    (path / "config.json").write_text(json.dumps(CLIP_CONFIG))
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>", "model_max_length": 77}))
+    (path / "preprocessor_config.json").write_text(json.dumps({
+        "image_processor_type": "CLIPImageProcessor", "size": {"shortest_edge": 224},
+        "crop_size": {"height": 224, "width": 224}, "do_resize": True, "do_center_crop": True, "do_rescale": True,
+        "rescale_factor": 1 / 255, "do_normalize": True, "image_mean": list(OPENAI_CLIP_MEAN),
+        "image_std": list(OPENAI_CLIP_STD), "resample": 3, "do_convert_rgb": True}))
+    out["vocab"] = len(vocab)
+    out["logit_scale"] = math.exp(CLIP_CONFIG["logit_scale_init_value"])
+    return out
+
+
+def run_clip(dev) -> dict:
+    """Phase 14: ``pipelines.image.encode_clip`` through ``LMMS_OWC_CLIP_PATH``
+    on a written checkpoint at openai/clip-vit-large-patch14's config: 64
+    images of mixed sizes against 16 prompts, f32. The measured call must
+    make one vision tower call that launches K2 24 times and one text tower
+    call that launches it 12 times (read around each call); its
+    logits are held to the same scorer on the plain attention within
+    ``CLIP_TOL``."""
+    import torch
+    from PIL import Image
+
+    from lmms_owc_tpu_torch.nn import clip as nnclip
+    from lmms_owc_tpu_torch.pipelines import image
+
+    rng = np.random.RandomState(14)
+    images = [Image.fromarray(rng.randint(0, 255, (*CLIP_SIZES[i % len(CLIP_SIZES)], 3), dtype=np.uint8))
+              for i in range(CLIP_IMAGES)]
+    prompts = [f"a photo of a {c}." for c in CLIP_CLASSES]
+    root = Path(tempfile.mkdtemp(prefix="owc_clip_"))
+    try:
+        out = write_clip_checkpoint(dev, root)
+        image._clip = None
+        with _env(LMMS_OWC_CLIP_PATH=str(root)):
+            t0 = time.perf_counter()
+            image.encode_clip(images, prompts)  # loads the scorer, then a warm-up call
+            torch.cuda.synchronize()
+            out["load_and_first_call_seconds"] = time.perf_counter() - t0
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _per_call((nnclip, "clip_vision_forward"), (nnclip, "clip_text_encode")) as calls:
+                got = image.encode_clip(images, prompts)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            with _attention(flash_attention=_plain_flash):
+                plain = image.encode_clip(images, prompts)
+        scorer = image._clip
+        text_len = int(scorer.tokenizer(prompts)["input_ids"].shape[1])
+    finally:
+        image._clip = None
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    if got.shape != (CLIP_IMAGES, len(prompts)) or not np.isfinite(got).all():
+        raise AssertionError(f"CLIP logits: shape {got.shape}, finite {bool(np.isfinite(got).all())}")
+    err = np.abs(got - plain)
+    out.update(images=CLIP_IMAGES, prompts=len(prompts), text_len=text_len, seconds=seconds,
+               images_per_s=CLIP_IMAGES / seconds, peak_gb=peak, counts=counts, per_call=calls,
+               max_abs_err=float(err.max()),
+               tol=CLIP_TOL, logits_mean=float(got.mean()), logits_std=float(got.std()))
+    log(f"CLIP scorer: {json.dumps(out)}")
+    if text_len != CLIP_TEXT_LEN:
+        raise AssertionError(f"CLIP scorer: prompts padded to {text_len} tokens, phase 2 holds {CLIP_TEXT_LEN}")
+    want = {"clip_vision_forward": [{"flash_attention": CLIP_VISION_LAUNCHES}],
+            "clip_text_encode": [{"flash_attention": CLIP_TEXT_LAUNCHES}]}
+    if calls != want or counts["flash_attention"] != CLIP_VISION_LAUNCHES + CLIP_TEXT_LAUNCHES:
+        raise AssertionError(f"CLIP scorer: launches per tower call {calls} (total {counts}), expected {want}")
+    if (err > CLIP_TOL + CLIP_TOL * np.abs(plain)).any():
+        raise AssertionError(f"CLIP logits differ from the plain attention's beyond {CLIP_TOL}: {err.max():.3e}")
+    return out
+
+
+def _llava_chunk_logits(model, requests):
+    """Last-position prefill logits of one chunk of LLaVA requests (tower, projector, prefill)."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.llama import llama_positions
+    from lmms_owc_tpu_torch.nn.qwen2_vl import prefill
+
+    prepared = [model._prepare_request(r.args[0], *r.args[2:6]) for r in requests]
+    input_ids, mask = model._left_pad([ids for ids, _ in prepared])
+    embeds = model._embed_sequence(input_ids, [payload for _, payload in prepared])
+    pos, _ = llama_positions(mask)
+    out, _ = prefill(model.model.text, embeds, torch.from_numpy(pos).to(model.device),
+                     torch.from_numpy(mask.astype(np.int32)).to(model.device), input_ids.shape[1])
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("prefill logits have non-finite values")
+    return out
+
+
+def _llava_per_call():
+    """The LLaVA serving entries whose launches :func:`_serve` reads per call:
+    the tower and projector, the prefill and each decode step."""
+    from lmms_owc_tpu_torch.nn import llava as lv
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    return (lv, "encode_images"), (nnq, "prefill"), (nnq, "decode_step")
+
+
+def _check_llava_launches(run: dict, label: str, tower_calls: int, kv_int8: bool = False) -> None:
+    """One chunk, read around each call (``run["per_call"]``): ``tower_calls``
+    tower calls of 23 K2 launches each, one prefill of 32, and 32 K3 (or
+    K3-int8) launches in each decode step; the run's totals are their sums."""
+    k3 = "gqa_decode_attention_int8" if kv_int8 else "gqa_decode_attention"
+    steps = run["decode_steps"]
+    want = {"encode_images": [{"flash_attention": LLAVA_TOWER_LAUNCHES}] * tower_calls,
+            "prefill": [{"flash_attention": LLAVA_LAYERS}], "decode_step": [{k3: LLAVA_LAYERS}] * steps}
+    totals = {"flash_attention": tower_calls * LLAVA_TOWER_LAUNCHES + LLAVA_LAYERS, k3: LLAVA_LAYERS * steps}
+    if steps == 0 or run["per_call"] != want or {k: n for k, n in run["counts"].items() if n} != totals:
+        raise AssertionError(f"{label}: launches per call {_call_summary(run['per_call'])} (totals "
+                             f"{run['counts']}) over {steps} decode steps, expected {_call_summary(want)}")
+
+
+def _call_summary(per_call: dict) -> dict:
+    """{name: {launches of one call as JSON: number of such calls}}, for a log line."""
+    return {name: dict(Counter(json.dumps(c, sort_keys=True) for c in calls)) for name, calls in per_call.items()}
+
+
+def run_llava(dev) -> dict:
+    """Phase 15: llava-1.5-7b with random bf16 weights drawn on the card
+    answers phase 3's 8 requests (six 448x448, two 336x448: the centre crop
+    runs) in one chunk through ``generate_until``, 64 greedy tokens; one tower
+    call (23 K2 launches), 32 prefill launches and 32 K3 launches per decode
+    step; the chunk's prefill logits by phase 4's rule; ``loglikelihood`` on
+    the same images (phase 10's check); then the same requests with
+    ``load_in_8bit`` weights and the int8 KV cache (32 K3-int8 launches per step)."""
+    import torch
+
+    from lmms_owc_tpu_torch.models import get_model
+
+    model, requests, run = serve_bf16(dev, "llava-1.5-7b", None, {}, "llava-1.5-7b bf16", _llava_per_call())
+    _check_llava_launches(run, "llava-1.5-7b bf16", tower_calls=1)
+    lengths = {len(model._prepare_request(r.args[0], *r.args[2:6])[0]) for r in requests}
+    if lengths != {LLAVA_PROMPT_TOKENS}:
+        raise AssertionError(f"llava-1.5-7b: prompts of {lengths} tokens, phase 2 holds {LLAVA_PROMPT_TOKENS}")
+    run["logits"] = _bf16_logits_rule(lambda: _llava_chunk_logits(model, requests), "llava-1.5-7b bf16")
+    run["loglikelihood"] = check_loglikelihood(
+        model, {"flash_attention": LLAVA_TOWER_LAUNCHES + LLAVA_LAYERS, "gqa_decode_attention": 0})
+    del model
+    _free()
+    with _env(LMMS_OWC_KV_INT8="1"):
+        t0 = time.perf_counter()
+        q8 = get_model("llava-1.5-7b", random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS,
+                       device=str(dev), time_phases=True, load_in_8bit=True)
+        torch.cuda.synchronize()
+        log(f"llava-1.5-7b int8: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+        requests = _requests(q8)
+        q8.generate_until(requests)  # warm-up
+        int8 = _serve(q8, requests, per_call=_llava_per_call())
+        _log_run("llava-1.5-7b int8 + int8 KV", int8)
+        _check_llava_launches(int8, "llava-1.5-7b int8 + int8 KV", tower_calls=1, kv_int8=True)
+    run["int8_kv_int8"] = int8
+    del q8
+    _free()
+    return run
+
+
+def llava_checkpoint_config() -> dict:
+    """``llava-1.5-7b``'s preset (full width) with the decoder cut to
+    ``LLAVA_CKPT_LAYERS`` layers, in the released config.json's form."""
+    from lmms_owc_tpu_torch.models.llava_hf import PRESET_CONFIGS
+
+    cfg = json.loads(json.dumps(PRESET_CONFIGS["llava-1.5-7b"]))
+    cfg["text_config"]["num_hidden_layers"] = LLAVA_CKPT_LAYERS
+    cfg.update(model_type="llava", architectures=["LlavaForConditionalGeneration"], pad_token_id=32001,
+               vision_feature_layer=-2, vision_feature_select_strategy="default")
+    return cfg
+
+
+def write_llava_checkpoint(model, cfg: dict, path: Path, label: str) -> dict:
+    """Write a port ``LlavaModel`` as an HF LLaVA checkpoint (the released
+    llava-hf checkpoints' tensor names, :func:`write_tensors`), ``cfg`` as its
+    config.json and the Llama-2-form tokenizer of :func:`llama2_tokenizer`."""
+    out = write_tensors(_hf_layout(model, _NameProbe(LLAVA_HF_PREFIXES)), path, label)
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "tokenizer.json").write_text(json.dumps(llama2_tokenizer()))
+    (path / "tokenizer_config.json").write_text(json.dumps(LLAMA2_TOKENIZER_CONFIG))
+    return out
+
+
+def run_llava_checkpoint(dev) -> dict:
+    """Phase 16: a LLaVA checkpoint at llava-1.5-7b's width with the decoder
+    cut to ``LLAVA_CKPT_LAYERS`` layers (random bf16 weights drawn on the card,
+    the released checkpoints' tensor names, the Llama-2-form
+    ``byte_fallback`` tokenizer of :func:`llama2_tokenizer`). Loaded with
+    ``pretrained=``, every parameter is bit-equal to what was written and
+    phase 3's requests give the tokens of the model it was written from;
+    then ``eval_model.main(argv)`` with ``--model llava-1.5-7b`` on ``toy``
+    writes a results file whose responses equal the in-process ones."""
+    import copy as _copy
+
+    import torch
+
+    from lmms_owc_tpu_torch.nn import llava as lv
+
+    root = Path(tempfile.mkdtemp(prefix="owc_llava_"))
+    try:
+        ckpt = root / "ckpt"
+        ckpt.mkdir()
+        cfg = llava_checkpoint_config()
+        written = lv.init_llava_params(lv.llava_config_from_hf(cfg), torch.Generator(device=dev).manual_seed(16))
+        out = write_llava_checkpoint(written, cfg, ckpt, f"llava-1.5-7b width, {LLAVA_CKPT_LAYERS} layers")
+        model, out["load"] = _load(dev, "llava-1.5-7b", ckpt, batch_size=NUM_REQUESTS)
+        out["parameters_bit_equal"] = _same_parameters(model.model, written, "llava checkpoint load")
+        served = _copy.copy(model)  # the same adapter (config, tokenizer) over the written modules
+        served.model = written
+        requests = _requests(model)
+        served.task_dict = model.task_dict
+        want: list = []
+        _serve(served, requests, want, require_text=False)
+        got: list = []
+        run = _serve(model, requests, got, require_text=False)
+        _same_tokens("llava checkpoint load", got, want)
+        _log_run("llava-1.5-7b checkpoint", run)
+        out["serve"] = dict(run, tokens_identical=True)
+        del served, written
+        _free()
+        reference = cli_reference(model, "llava-1.5-7b")
+        del model
+        _free()
+        cli_out = root / "cli"
+        cli = _cli_in_process(dev, cli_argv("llava-1.5-7b", ckpt, "dtype=bfloat16", ("toy",), cli_out))
+        out["cli"] = _cli_summary(cli, check_cli_outputs(cli_out, ("toy",), cli["results"], CLI_DOCS, reference))
+        for name in ("flash_attention", "gqa_decode_attention"):
+            if cli["counts"][name] <= 0:
+                raise AssertionError(f"llava CLI: {name} was not launched: {cli['counts']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"llava checkpoint and CLI: {json.dumps(_phase_summary(out))}")
+    return out
+
+
+def run_llava_next(dev) -> dict:
+    """Phase 17: llava-next-vicuna-7b with random bf16 weights answers one
+    672x672 and one 1008-wide image (anyres: 5 and 4 tiles, prompt bucket
+    3072, a decode cache of 3136 positions: K3's general kernel past 2048) in
+    one chunk; two tower calls (46 K2 launches), 32 prefill launches and 32
+    K3 launches per step; the chunk's prefill logits by phase 4's rule."""
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    model, requests, run = serve_bf16(dev, "llava-next-vicuna-7b", LLAVA_NEXT_SIZES, {}, "llava-next-vicuna-7b bf16",
+                                      _llava_per_call())
+    _check_llava_launches(run, "llava-next-vicuna-7b bf16", tower_calls=len(LLAVA_NEXT_SIZES))
+    lengths = [len(model._prepare_request(r.args[0], *r.args[2:6])[0]) for r in requests]
+    run.update(prompt_tokens=lengths, bucket=pad_to_bucket(max(lengths)),
+               cache_len=pad_to_bucket(max(lengths)) + MAX_NEW_TOKENS)
+    log(f"llava-next prompts: {lengths} tokens, bucket {run['bucket']}, decode cache {run['cache_len']} positions")
+    if tuple(lengths) != LLAVA_NEXT_PROMPT_TOKENS or run["cache_len"] <= 2048:
+        raise AssertionError(f"llava-next: prompts of {lengths} tokens (phase 2 holds {LLAVA_NEXT_PROMPT_TOKENS}), "
+                             f"decode cache {run['cache_len']} positions (must pass 2048)")
+    run["logits"] = _bf16_logits_rule(lambda: _llava_chunk_logits(model, requests), "llava-next-vicuna-7b bf16")
+    del model
+    _free()
+    return run
+
+
 # ------------------------------------------------------------------ scoring
 
 # Words of phase 13's sentences and predictions: the toy answers, the toy prompts' words and a few more.
@@ -2082,6 +2701,59 @@ def llama3_tokenizer() -> dict:
          "special_tokens": {bos: {"id": bos, "ids": [LLAMA3_SPECIAL_IDS[bos]], "tokens": [bos]}}},
     ]}
     return blob
+
+
+def llama2_tokenizer(words=()) -> dict:
+    """A Llama-2 / Vicuna-form ``tokenizer.json`` (the form of the released
+    llava-hf checkpoints): ``<unk>``/``<s>``/``</s>`` at 0/1/2, the 256
+    ``<0xNN>`` byte tokens, the printable ASCII characters and ``▁``, merges
+    that build ``▁`` + each of ``words`` (and :data:`LLAVA_WORDS`) letter by
+    letter, fillers up to 32000 entries, then ``<image>`` at 32000 and
+    ``<pad>`` at 32001. ``Prepend("▁")`` + ``Replace(" ", "▁")``, BPE with
+    ``byte_fallback`` and ``fuse_unk``, the ``<s>`` template and the
+    ``Replace`` / ``ByteFallback`` / ``Fuse`` / ``Strip`` decoder."""
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(specials + [f"<0x{b:02X}>" for b in range(256)])}
+    for c in ["\u2581"] + [chr(c) for c in range(0x21, 0x7F)]:
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    for word in dict.fromkeys(list(LLAVA_WORDS) + list(words)):
+        piece = "\u2581"
+        for c in word:
+            if piece + c not in vocab:
+                merges.append(f"{piece} {c}")
+                vocab[piece + c] = len(vocab)
+            piece += c
+    while len(vocab) < 32000:
+        vocab[f"\u2581fill{len(vocab)}"] = len(vocab)
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for t, i in [("<unk>", 0), ("<s>", 1), ("</s>", 2), ("<image>", 32000), ("<pad>", 32001)]]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "\u2581"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "\u2581"}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}}, {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "\u2581"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}, {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>", "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+LLAMA2_TOKENIZER_CONFIG = {
+    "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>", "legacy": True,
+    "add_bos_token": True, "add_eos_token": False, "clean_up_tokenization_spaces": False,
+    "tokenizer_class": "LlamaTokenizer",
+}
 
 
 def judge_checkpoint_config() -> dict:
@@ -2369,7 +3041,189 @@ def _host_packages() -> dict:
     return {name: importlib.util.find_spec(name) is not None for name in HOST_PACKAGES}
 
 
-def main() -> int:
+def _module_outputs(model, cap, n: int) -> list:
+    """One captured decode step (no row blocks) on the first ``n`` rows of its
+    inputs: the outputs of the decoder's leaf modules (norms, products), of
+    its attention calls and the logits, in call order."""
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    seen: list = []
+    hooks = [mod.register_forward_hook(lambda m, a, out, _name=name: seen.append((_name, out.clone())))
+             for name, mod in model.model.named_modules()
+             if name and not name.startswith("vision") and not list(mod.children())]
+    real = nnq.gqa_decode_attention
+
+    def attention(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(("attention", out.clone()))
+        return out
+
+    try:
+        with _route(nnq, "gqa_decode_attention", attention):
+            logits = nnq.decode_step(
+                model.model, cap["token_ids"][:n], cap["position_ids"][:, :n],
+                tuple(c[:, :n].clone() for c in cap["cache"]), cap["cache_pos"], cap["kv_mask"][:n].clone())
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen + [("logits", logits)]
+
+
+def _repeat_pool_runs(model, repeats: int = 3) -> dict:
+    """Phase 3b's requests at batch ``POOL_CHECK_BATCH``, decoded ``repeats``
+    times each unpooled and at pool 2, without row blocks and with
+    ``DECODE_ROWS``: per form, whether every repeat gave the first one's
+    tokens, and the rows where the first pooled and unpooled runs differ."""
+    from lmms_owc_tpu_torch.models.qwen2_vl import DECODE_ROWS
+
+    requests = _requests(model)
+    saved = model.batch_size, model.decode_rows
+    model.batch_size = POOL_CHECK_BATCH
+    out: dict = {}
+    try:
+        for rows in (None, DECODE_ROWS):
+            model.decode_rows = rows
+            runs: dict = {}
+            with _env(LMMS_OWC_SORT_BY_VISION="0", LMMS_OWC_KV_INT8=""):
+                for _ in range(repeats):
+                    for pool in ("1", "2"):
+                        with _env(LMMS_OWC_DECODE_POOL=pool):
+                            tokens: list = []
+                            _serve(model, requests, tokens, require_text=False)
+                            runs.setdefault(pool, []).append(np.concatenate(tokens))
+            same = (runs["1"][0] == runs["2"][0]).all(axis=1)
+            out[str(rows)] = dict(
+                repeats_identical={pool: all((r == runs[pool][0]).all() for r in runs[pool]) for pool in runs},
+                pooled_vs_unpooled_differing=np.nonzero(~same)[0].tolist())
+    finally:
+        model.batch_size, model.decode_rows = saved
+    return out
+
+
+def _pool_steps(model, keep_at: int | None = None) -> dict:
+    """Phase 3b's requests without row blocks, unpooled and at pool 2: the
+    logits of every decode step, and with ``keep_at`` a copy of that step's
+    inputs, per run."""
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    requests = _requests(model)
+    saved = model.batch_size, model.decode_rows
+    model.batch_size, model.decode_rows = POOL_CHECK_BATCH, None
+    steps: dict = {}
+    real = nnq.decode_step
+    try:
+        for pool in ("1", "2"):
+            calls = steps[pool] = {"logits": []}
+
+            def spy(m, token_ids, position_ids, cache, cache_pos, kv_mask, *rest, _calls=calls):
+                if len(_calls["logits"]) == keep_at:
+                    _calls["inputs"] = dict(token_ids=token_ids.clone(), position_ids=position_ids.clone(),
+                                            kv_mask=kv_mask.clone(), cache=tuple(c.clone() for c in cache),
+                                            cache_pos=cache_pos)
+                out = real(m, token_ids, position_ids, cache, cache_pos, kv_mask, *rest)
+                _calls["logits"].append(out.clone())
+                return out
+
+            with _env(LMMS_OWC_SORT_BY_VISION="0", LMMS_OWC_KV_INT8="", LMMS_OWC_DECODE_POOL=pool), \
+                    _route(nnq, "decode_step", spy):
+                model.generate_until(requests)
+    finally:
+        model.batch_size, model.decode_rows = saved
+    return steps
+
+
+def _pool_divergence(model) -> dict:
+    """Where pooled decoding (8 rows) parts from unpooled (two chunks of 4)
+    without row blocks: per chunk, the first decode step whose logits differ
+    on its rows; at the first chunk's such step, whether that step's inputs
+    were equal on its rows and which calls (:func:`_module_outputs`) part."""
+    import torch
+
+    steps = _pool_steps(model)
+    unpooled, pooled = steps["1"]["logits"], steps["2"]["logits"]
+    n_steps = len(pooled)
+    first = {}
+    for chunk in (0, 1):
+        rows = slice(chunk * POOL_CHECK_BATCH, (chunk + 1) * POOL_CHECK_BATCH)
+        first[chunk] = next((i for i in range(n_steps)
+                             if not torch.equal(unpooled[chunk * n_steps + i], pooled[i][rows])), None)
+    out = dict(steps=n_steps, first_parting_step={"chunk 0": first[0], "chunk 1": first[1]})
+    if first[0] is not None:
+        caps = _pool_steps(model, keep_at=first[0])
+        a, b = caps["1"]["inputs"], caps["2"]["inputs"]
+        n = POOL_CHECK_BATCH
+        out["inputs_equal"] = dict(
+            token_ids=bool(torch.equal(a["token_ids"], b["token_ids"][:n])),
+            position_ids=bool(torch.equal(a["position_ids"], b["position_ids"][:, :n])),
+            kv_mask=bool(torch.equal(a["kv_mask"], b["kv_mask"][:n])),
+            cache=[bool(torch.equal(x, y[:, :n])) for x, y in zip(a["cache"], b["cache"])])
+        out["parting_calls"] = [name for (name, x), (_, y) in zip(_module_outputs(model, a, n),
+                                                                   _module_outputs(model, b, 2 * n))
+                                if not torch.equal(x, y[:n])][:8]
+    return out
+
+
+def probe_decode_rows(dev) -> dict:
+    """Phase 3's bf16 model and requests served with the adapter's decode row
+    blocks (``DECODE_ROWS``) and without them (None), timed alternately
+    (blocks, none, none, blocks, blocks, none), then one call of each under
+    ``torch.profiler``: its device milliseconds summed over the kernels, the
+    number of kernels and the heaviest ones; then, in bf16 and in int4,
+    whether repeated pooled and unpooled runs give the same tokens
+    (:func:`_repeat_pool_runs`) and where pooled decoding parts from unpooled
+    (:func:`_pool_divergence`); last, on how many rows RMSNorm's f32 mean of
+    squares parts from its value among 128 rows, at each row count. A
+    diagnostic of what the blocks cost and why; the smoke run does not call it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.models.qwen2_vl import DECODE_ROWS
+
+    model, requests, _ = serve_bf16(dev, "qwen2-vl-7b", None, MIN_LAUNCHES, "bf16, unpooled")
+    out: dict = {"decode_rows": DECODE_ROWS, "timed": [], "profiled": {}}
+    try:
+        for rows in (DECODE_ROWS, None, None, DECODE_ROWS, DECODE_ROWS, None):
+            model.decode_rows = rows
+            run = _serve(model, requests)
+            out["timed"].append(dict(decode_rows=rows, seconds=run["seconds"], phase_seconds=run["phase_seconds"],
+                                     decode_steps=run["decode_steps"]))
+        for rows in (DECODE_ROWS, None):
+            model.decode_rows = rows
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model.generate_until(requests)
+                torch.cuda.synchronize()
+            kernels = sorted(
+                ((e.key, e.count, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+                 for e in prof.key_averages()), key=lambda k: -k[2])
+            kernels = [k for k in kernels if k[2] > 0]
+            out["profiled"][str(rows)] = dict(
+                device_ms=sum(k[2] for k in kernels) / 1000, kernels=sum(k[1] for k in kernels),
+                top=[dict(name=name[:90], calls=n, ms=us / 1000) for name, n, us in kernels[:8]])
+        out["repeats"] = {"bf16": _repeat_pool_runs(model)}
+        out["divergence"] = {"bf16": _pool_divergence(model)}
+    finally:
+        model.decode_rows = DECODE_ROWS
+    del model
+    _free()
+    with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
+        q4 = get_model("qwen2-vl-7b", random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS, device=str(dev),
+                       load_in_4bit=True)
+        out["repeats"]["int4"] = _repeat_pool_runs(q4)
+        out["divergence"]["int4"] = _pool_divergence(q4)
+    del q4
+    _free()
+    # Whether RMSNorm's f32 mean of squares gives a row the bits it has among
+    # 128 rows, at each row count (the bf16 cast after it hides most parting).
+    x = torch.randn(128, 1, 3584, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    sq = x.to(torch.bfloat16).float().square()
+    full = sq.mean(dim=-1)
+    out["rms_mean_rows_parting"] = {b: int((sq[:b].mean(dim=-1) != full[:b]).sum())
+                                    for b in (1, 2, 4, 8, 12, 15, 16, 17, 32, 64, 96)}
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2393,10 +3247,26 @@ def main() -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
     for line in _ptxas_summary(_build.ptxas_report(lib_path)):
         log(f"ptxas: {line}")
+    if "--decode-rows-probe" in (sys.argv[1:] if argv is None else argv):
+        log(f"decode rows probe: {json.dumps(probe_decode_rows(dev))}")
+        print(smi)
+        return 0
+
+    wall: dict[str, float] = {}  # wall seconds of each step below, for ``summary wall seconds``
+    since = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        wall[name], since[0] = round(now - since[0], 3), now
 
     parity = check_kernels(dev)
+    mark("2 kernel parity")
     model, requests, counts = run_main_path(dev)
+    mark("3 main path")
     packed = check_packed_tower(model, requests)  # phase 8, on phase 3's bf16 weights
+    mark("8 packed tower")
+    pool_rows = check_pool_rows(model, "bf16")  # phase 3b
+    mark("3b pooled rows")
     # Phases 9-11 on phase 3's bf16 weights, before phase 4 turns them to f32;
     # phase 12 scores toy_semantic with the MiniLM checkpoint of phase 13.
     scoring_root = Path(tempfile.mkdtemp(prefix="owc_scoring_"))
@@ -2407,24 +3277,32 @@ def main() -> int:
         root = Path(tempfile.mkdtemp(prefix="owc_ckpt_"))
         try:
             ckpt, checkpoint = check_checkpoint(dev, model, requests, "qwen2-vl-7b", root, quantized=True)
+            mark("9 checkpoint qwen2-vl-7b")
             loglik = check_loglikelihood(ckpt)
             multi = check_multi_round(ckpt)
             reference = cli_reference(ckpt, "qwen2-vl-7b")
             del ckpt
             _free()
+            mark("10-11 loglikelihood, multi-round")
             with _env(LMMS_OWC_SBERT_PATH=str(sbert_dir)):
                 cli = run_cli(dev, "qwen2-vl-7b", root, reference, out_root=scoring_root / "cli")  # phase 12
+            mark("12 cli")
         finally:
             shutil.rmtree(root, ignore_errors=True)
         scoring = run_scoring(dev, scoring_root / "cli", scoring_root, sbert_dir)  # phase 13
+        mark("13 scoring")
     finally:
         shutil.rmtree(scoring_root, ignore_errors=True)
     check_whole_model(model, requests)
     del model, requests
     _free()
+    mark("4 whole model")
     pool = run_quantized_pool(dev)
+    mark("5 quantized pool")
     int4 = run_int4(dev)
+    mark("6 int4")
     v25, v25_model, v25_requests = run_v25(dev)
+    mark("7 qwen2.5-vl")
     root = Path(tempfile.mkdtemp(prefix="owc_ckpt_"))
     try:
         ckpt, checkpoint25 = check_checkpoint(dev, v25_model, v25_requests, "qwen2.5-vl-7b", root, quantized=False)
@@ -2432,6 +3310,16 @@ def main() -> int:
         _free()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mark("9 checkpoint qwen2.5-vl-7b")
+
+    clip = run_clip(dev)  # phase 14
+    mark("14 clip")
+    llava = run_llava(dev)  # phase 15
+    mark("15 llava-1.5-7b")
+    llava["checkpoint"] = run_llava_checkpoint(dev)  # phase 16
+    mark("16 llava checkpoint")
+    llava["next"] = run_llava_next(dev)  # phase 17
+    mark("17 llava-next")
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
     # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed);
@@ -2441,6 +3329,22 @@ def main() -> int:
     launches["int4_matmul"] = int4["counts"]["int4_matmul"]
     launches["fused_qkv_attention"] = v25["counts"]["fused_qkv_attention"]
     launches["packed_vision_attention"] = packed["launches"]
+    # Phase 2's rows at phases 14-17's shapes, each with the launches of the
+    # run that takes it (the counts those phases checked).
+    also = {name: parity[name]["also"] for name in ("flash_attention", "gqa_decode_attention",
+                                                    "gqa_decode_attention_int8")}
+    def k2(run: dict, entry: str) -> int:  # K2 launches read around each call of ``entry``
+        return sum(c.get("flash_attention", 0) for c in run["per_call"][entry])
+
+    also["flash_attention"]["llava_tower"]["launches"] = k2(llava, "encode_images")
+    also["flash_attention"]["llava_prefill"]["launches"] = k2(llava, "prefill")
+    also["flash_attention"]["llava_next_prefill"]["launches"] = k2(llava["next"], "prefill")
+    also["flash_attention"]["clip_vision"]["launches"] = k2(clip, "clip_vision_forward")
+    also["flash_attention"]["clip_text"]["launches"] = k2(clip, "clip_text_encode")
+    also["gqa_decode_attention"]["llava_decode"]["launches"] = llava["counts"]["gqa_decode_attention"]
+    also["gqa_decode_attention"]["llava_next_decode"]["launches"] = llava["next"]["counts"]["gqa_decode_attention"]
+    also["gqa_decode_attention_int8"]["llava_decode"]["launches"] = \
+        llava["int8_kv_int8"]["counts"]["gqa_decode_attention_int8"]
     kernels = [
         dict(
             name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
@@ -2456,12 +3360,30 @@ def main() -> int:
             summary["unpooled_same_rows"] = run["unpooled_same_rows"]
         log(f"summary {label}: {json.dumps(summary)}")
     log(f"summary packed tower: {json.dumps(packed)}")
+    pooled_rows = {"bf16": pool_rows, "int8_weight_only": pool["pool_rows_int8_weight_only"],
+                   "int4": int4["pool_rows"]}
+    log(f"summary pooled rows: {json.dumps(pooled_rows)}")
     for label, phase in (("checkpoint qwen2-vl-7b", checkpoint), ("checkpoint qwen2.5-vl-7b", checkpoint25)):
         log(f"summary {label}: {json.dumps(_phase_summary(phase))}")
     log(f"summary loglikelihood: {json.dumps(loglik)}")
     log(f"summary multi-round: {json.dumps(multi)}")
     log(f"summary cli: {json.dumps(cli)}")
     log(f"summary scoring: {json.dumps(scoring)}")
+    log(f"summary clip: {json.dumps(clip)}")
+    keys = ("images", "seconds", "images_per_s", "phase_seconds", "peak_gb", "decode_steps", "counts", "logits",
+            "prompt_tokens", "bucket", "cache_len")
+    def served(run: dict) -> dict:
+        return {**{k: run[k] for k in keys if k in run}, "per_call": _call_summary(run["per_call"])}
+
+    llava_summary = {
+        "llava-1.5-7b bf16": served(llava),
+        "llava-1.5-7b loglikelihood": {k: v for k, v in llava["loglikelihood"].items() if k != "losses"},
+        "llava-1.5-7b int8 + int8 KV": served(llava["int8_kv_int8"]),
+        "checkpoint": _phase_summary(llava["checkpoint"]),
+        "llava-next-vicuna-7b bf16": served(llava["next"]),
+    }
+    log(f"summary llava: {json.dumps(llava_summary)}")
+    log(f"summary wall seconds: {json.dumps(wall)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

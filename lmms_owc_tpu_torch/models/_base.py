@@ -5,7 +5,8 @@ device, the ``load_in_8bit``/``load_in_4bit`` flags, the ``--use_cache``
 response cache and the seed), ``rank`` and ``world_size``, the request
 handlers (with the generic multi-round protocol and the loglikelihood request
 helpers), the chat template and the chunk pipeline. Each adapter's
-``load_model`` applies the quantization flags.
+``load_model`` applies the quantization flags. An adapter that sets
+``time_phases`` times its phases with :meth:`Model._phase`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import abc
 import hashlib
 import json
 import os
+import time
+from collections import defaultdict
+from contextlib import contextmanager
 
 import torch
 
@@ -71,6 +75,7 @@ class Model(abc.ABC):
     """
 
     default_device = "cuda"
+    time_phases = False
 
     def __init__(
         self,
@@ -101,6 +106,7 @@ class Model(abc.ABC):
         self._extra_kwargs = kwargs
         self.cache_hook = CacheHook(use_cache)
         self.task_dict: dict = {}
+        self.phase_seconds: dict[str, float] = defaultdict(float)
         self.load_model()
 
     @property
@@ -208,6 +214,24 @@ class Model(abc.ABC):
             return list(tok.encode(continuation, add_special_tokens=False))
         except TypeError:
             return list(tok.encode(continuation))
+
+    @contextmanager
+    def _phase(self, name: str):
+        """Wall seconds of one phase, device work included, summed into
+        :attr:`phase_seconds` (only when the adapter's ``time_phases`` is set:
+        the device is synchronized around the phase)."""
+        if not self.time_phases:
+            yield
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.phase_seconds[name] += time.perf_counter() - t0
 
     def _foreach_chunk_pipelined(self, chunks: list, prepare, run, depth: int = 2, finish=None) -> list:
         """Process chunks with up to ``depth`` chunks' preparation in flight.

@@ -22,9 +22,6 @@ from __future__ import annotations
 import hashlib
 import os
 import re
-import time
-from collections import defaultdict
-from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -126,6 +123,13 @@ VISION_ROW_BUCKETS = (
     80, 96, 112, 128, 160, 192, 224, 256, 320, 384,
 )
 GEN_LEN_BUCKETS = (64, 128, 256, 512)
+# On the card each decode step's float products run on blocks of this many
+# rows (the JAX bench's pool of 2 x batch 48 = 96 rows fits one block, so the
+# weights are read once per step), pooled and unpooled alike: cuBLAS picks its
+# split of K by the row count, and a row's tokens must not depend on its batch.
+# Layers of W8A8 or K4 products keep the batch's rows, at least
+# ``REDUCE_ROWS`` (``decode_step``).
+DECODE_ROWS = 128
 
 
 def plan_decode_pools(
@@ -290,7 +294,6 @@ class Qwen2VL(Model):
         self.system_prompt = system_prompt
         self._jax_params = jax_params
         self.time_phases = bool(time_phases)
-        self.phase_seconds: dict[str, float] = defaultdict(float)
         if int8_activations:
             set_int8_activations(True)
         super().__init__(model_id=preset, **kwargs)
@@ -348,6 +351,8 @@ class Qwen2VL(Model):
         if not checkpoint:
             self.tokenizer = _FallbackTokenizer(self.config)
         self.generator = torch.Generator(device=self.device).manual_seed(self.torch_random_seed)
+        # The CPU path keeps the JAX package's shapes, which its parity tests compare.
+        self.decode_rows = DECODE_ROWS if self.device.type == "cuda" else None
 
     def _check_vocabulary(self) -> None:
         """Every token id the adapter feeds to the embedding or stops on must be
@@ -375,22 +380,6 @@ class Qwen2VL(Model):
         if eos is not None:
             ids.add(int(eos))
         return sorted(ids)
-
-    @contextmanager
-    def _phase(self, name: str):
-        """Wall seconds of one phase, device work included (``time_phases`` only)."""
-        if not self.time_phases:
-            yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.phase_seconds[name] += time.perf_counter() - t0
 
     # -------------------------------------------------------------- prompting
 
@@ -652,6 +641,7 @@ class Qwen2VL(Model):
             temperature=float(gen_kwargs.get("temperature") or 1.0),
             top_p=float(gen_kwargs.get("top_p") or 1.0),
             phase=self._phase,
+            decode_rows=self.decode_rows,
         )
         return self._detokenize(tokens.cpu().numpy())
 
@@ -860,6 +850,7 @@ class Qwen2VL(Model):
                 do_sample=bool(gen_kwargs.get("do_sample", False)),
                 temperature=float(gen_kwargs.get("temperature") or 1.0),
                 top_p=float(gen_kwargs.get("top_p") or 1.0),
+                decode_rows=self.decode_rows,
             )
         return self._detokenize(tokens.cpu().numpy())
 

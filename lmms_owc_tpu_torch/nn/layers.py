@@ -36,6 +36,7 @@ __all__ = [
     "multi_head_attention",
     "quick_gelu",
     "rms_norm",
+    "row_invariant",
     "set_int8_activations",
 ]
 
@@ -98,6 +99,20 @@ def dense_q8(
     return out
 
 
+# K4 takes at most this many rows; more go through the dequantized product.
+INT4_KERNEL_MAX_ROWS = 256
+
+
+def _int4_kernel_takes(q4: torch.Tensor, scale: torch.Tensor, m_rows: int) -> bool:
+    """Whether :func:`dense_q4` launches K4 for ``m_rows`` rows against ``q4``."""
+    return (
+        q4.device.type != "cpu"
+        and q4.dim() == 2
+        and m_rows <= INT4_KERNEL_MAX_ROWS
+        and int4_matmul_supported(2 * q4.shape[-1], q4.shape[-2], scale.shape[-1])
+    )
+
+
 def dense_q4(
     x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -109,15 +124,8 @@ def dense_q4(
     where the JAX package has no kernel either) the weight is dequantized in
     ``x.dtype`` and multiplied.
     """
-    d_out, d_in = q4.shape[-2], 2 * q4.shape[-1]
-    n_groups = scale.shape[-1]
-    m_rows = x.numel() // d_in
-    if (
-        x.device.type != "cpu"
-        and q4.dim() == 2
-        and m_rows <= 256
-        and int4_matmul_supported(d_in, d_out, n_groups)
-    ):
+    d_in, n_groups = 2 * q4.shape[-1], scale.shape[-1]
+    if _int4_kernel_takes(q4, scale, x.numel() // d_in):
         out = int4_matmul(x, q4, scale)
     else:
         w_int = unpack_int4({"q4": q4, "scale": scale})
@@ -129,6 +137,19 @@ def dense_q4(
     if bias is not None:
         out = out + bias
     return out
+
+
+def row_invariant(lin: nn.Module, m_rows: int) -> bool:
+    """Whether ``lin``'s product over ``m_rows`` rows gives each row the same
+    bits at any row count: W8A8's s8 x s8 -> s32 product is exact, and K4
+    splits K by K and N only. cuBLAS's float products (a :class:`Linear`, and
+    the float copy of a weight-only int8 matrix) pick their split of K by
+    the row count, as does the dequantized int4 product past K4's rows."""
+    if isinstance(lin, Int8Linear):
+        return _INT8_ACTIVATIONS
+    if isinstance(lin, Int4Linear):
+        return _int4_kernel_takes(lin.q4, lin.scale, m_rows)
+    return False
 
 
 def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

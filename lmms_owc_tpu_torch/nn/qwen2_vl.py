@@ -39,6 +39,7 @@ from lmms_owc_tpu_torch.nn.layers import (
     embedding,
     gelu,
     quick_gelu,
+    row_invariant,
 )
 from lmms_owc_tpu_torch.nn.loader import find_tensor, load_hf_tensors
 from lmms_owc_tpu_torch.nn.qwen2_5_vl import (
@@ -895,6 +896,14 @@ def write_pool_scales(
     return write_pool_chunk(scale_k, scale_v, sk, sv, row_offset, front)
 
 
+# torch's CUDA reduction over the last dim (RMSNorm's mean of squares) sizes
+# its thread blocks by the row count below 16 rows, and so sums a row in
+# another order (on an H100 a pooled row's norm parted from its unpooled
+# one at 8 rows against 4): decode layers whose products keep the batch's
+# rows still run on at least this many.
+REDUCE_ROWS = 16
+
+
 def _row_blocks(fn, rows: int | None, *xs: torch.Tensor):
     """``fn`` (a row-wise function of tensors with the same leading rows) over
     blocks of exactly ``rows`` rows, the last block zero-padded, its outputs
@@ -906,11 +915,12 @@ def _row_blocks(fn, rows: int | None, *xs: torch.Tensor):
     if rows is None:
         return fn(*xs)
     b = xs[0].shape[0]
-    padded = [torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, -b % rows)) for x in xs]
+    padded = xs if b % rows == 0 else [torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, -b % rows))
+                                       for x in xs]
     outs = [fn(*block) for block in zip(*(p.split(rows) for p in padded))]
     if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts)[:b] for parts in zip(*outs))
-    return torch.cat(outs)[:b]
+        return tuple((parts[0] if len(parts) == 1 else torch.cat(parts))[:b] for parts in zip(*outs))
+    return (outs[0] if len(outs) == 1 else torch.cat(outs))[:b]
 
 
 @torch.inference_mode()
@@ -930,17 +940,29 @@ def decode_step(
     token's K and V (quantized per vector for an int8 cache, with their scales)
     are point-written IN PLACE at ``cache_pos``; the caller's cache tensors
     hold the update afterwards. ``kv_mask`` [B, S] must already mark
-    ``cache_pos`` valid. With ``rows``, everything but the attention (which
-    is per row already) runs on blocks of exactly ``rows`` rows
-    (:func:`_row_blocks`), so a row's logits do not depend on the batch.
+    ``cache_pos`` valid. With ``rows``, a row's logits do not depend on the
+    batch: the layers (everything but the attention, which is per row
+    already) and the head run on blocks of exactly ``rows`` rows
+    (:func:`_row_blocks`) where their products' bits depend on the row count
+    (:func:`row_invariant`), and otherwise (W8A8, K4) on at least
+    ``REDUCE_ROWS`` rows, for the norms' reductions.
     """
     c = model.config
     cache_k, cache_v, *scales = cache
     b = token_ids.shape[0]
+    layer_rows = head_rows = rows
+    if rows is not None:
+        layer0, head = model.layers[0], model.lm_head
+        if all(row_invariant(lin, b) for lin in (layer0.q, layer0.k, layer0.v, layer0.o,
+                                                 layer0.gate, layer0.up, layer0.down)):
+            layer_rows = max(b, REDUCE_ROWS)
+        # An int8 head multiplies in bf16 (``_head_logits``) even under W8A8.
+        if isinstance(head, Int4Linear) and row_invariant(head, b):
+            head_rows = max(b, REDUCE_ROWS)
     x = embedding(model.embed_tokens, token_ids)[:, None, :]
     cos, sin = mrope_cos_sin(position_ids, c)
     for i, layer in enumerate(model.layers):
-        q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), rows, x)
+        q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), layer_rows, x)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if scales:
@@ -958,8 +980,8 @@ def decode_step(
             t = t + layer.o(a)
             return t + layer.mlp(t)
 
-        x = _row_blocks(post, rows, x, attn.reshape(b, 1, -1))
-    return _row_blocks(lambda t: _head_logits(model, model.final_norm(t)), rows, x[:, 0])
+        x = _row_blocks(post, layer_rows, x, attn.reshape(b, 1, -1))
+    return _row_blocks(lambda t: _head_logits(model, model.final_norm(t)), head_rows, x[:, 0])
 
 
 def _sample_token(

@@ -6,14 +6,19 @@ sizing rule; ``resize_host`` runs the port's copy of the JAX package's native
 C++ bicubic resizer (:mod:`lmms_owc_tpu_torch.native`) or PIL, with the same
 identity fast path, so the pixels equal the JAX package's.
 ``patchify_images_batch`` runs the rescale, CLIP normalisation and the 9-D
-patch transpose on the tensor's device.
+patch transpose on the tensor's device. :class:`ClipImageProcessor` is
+``transformers``' ``CLIPImageProcessor`` (the one the JAX package's CLIP
+scorer gets from ``AutoProcessor``), step for step on the host with PIL and
+numpy.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -21,6 +26,7 @@ import torch
 from lmms_owc_tpu_torch.native import native_resizer
 
 __all__ = [
+    "ClipImageProcessor",
     "OPENAI_CLIP_MEAN",
     "OPENAI_CLIP_STD",
     "patchify_images_batch",
@@ -152,3 +158,104 @@ def resize_host_batch(
     return _POOL.map(
         lambda img: resize_host(img, min_pixels, max_pixels, factor), images, n_workers
     )
+
+
+def _size_pair(size, default: int) -> tuple[int, int]:
+    """(height, width) of an HF ``size``/``crop_size`` setting: an int or a dict."""
+    if size is None:
+        return default, default
+    if isinstance(size, int):
+        return size, size
+    return int(size["height"]), int(size["width"])
+
+
+class ClipImageProcessor:
+    """``CLIPImageProcessor``: RGB, a PIL resize of the shortest edge to
+    ``shortest_edge`` (the other edge ``int(shortest_edge * long / short)``,
+    HF's truncation) or to a fixed ``(height, width)``, a centre crop (zero
+    padding where the image is smaller), rescale in f64 then f32, and the
+    per-channel normalisation in f32. Returns f32 [N, 3, H, W]."""
+
+    def __init__(
+        self,
+        shortest_edge: int | None = 224,
+        size_hw: tuple[int, int] | None = None,
+        crop_hw: tuple[int, int] = (224, 224),
+        do_resize: bool = True,
+        do_center_crop: bool = True,
+        do_rescale: bool = True,
+        rescale_factor: float = 1 / 255,
+        do_normalize: bool = True,
+        image_mean=OPENAI_CLIP_MEAN,
+        image_std=OPENAI_CLIP_STD,
+        resample: int = 3,
+        do_convert_rgb: bool = True,
+    ) -> None:
+        self.shortest_edge, self.size_hw, self.crop_hw = shortest_edge, size_hw, crop_hw
+        self.do_resize, self.do_center_crop = do_resize, do_center_crop
+        self.do_rescale, self.rescale_factor = do_rescale, rescale_factor
+        self.do_normalize, self.do_convert_rgb = do_normalize, do_convert_rgb
+        self.image_mean, self.image_std = tuple(image_mean), tuple(image_std)
+        self.resample = int(resample)
+
+    @classmethod
+    def from_pretrained(cls, path: str | Path) -> "ClipImageProcessor":
+        """Read ``preprocessor_config.json`` (HF's defaults for what it leaves out)."""
+        cfg = json.loads((Path(path) / "preprocessor_config.json").read_text())
+        size = cfg.get("size", {"shortest_edge": 224})
+        shortest = size if isinstance(size, int) else size.get("shortest_edge")
+        return cls(
+            shortest_edge=shortest,
+            size_hw=None if shortest is not None else _size_pair(size, 224),
+            crop_hw=_size_pair(cfg.get("crop_size"), 224),
+            do_resize=cfg.get("do_resize", True),
+            do_center_crop=cfg.get("do_center_crop", True),
+            do_rescale=cfg.get("do_rescale", True),
+            rescale_factor=cfg.get("rescale_factor", 1 / 255),
+            do_normalize=cfg.get("do_normalize", True),
+            image_mean=cfg.get("image_mean", OPENAI_CLIP_MEAN),
+            image_std=cfg.get("image_std", OPENAI_CLIP_STD),
+            resample=cfg.get("resample", 3),
+            do_convert_rgb=cfg.get("do_convert_rgb", True),
+        )
+
+    def _output_size(self, height: int, width: int) -> tuple[int, int]:
+        if self.shortest_edge is None:
+            return self.size_hw
+        short, long = (width, height) if width <= height else (height, width)
+        new_short, new_long = self.shortest_edge, int(self.shortest_edge * long / short)
+        return (new_long, new_short) if width <= height else (new_short, new_long)
+
+    def _center_crop(self, arr: np.ndarray) -> np.ndarray:
+        """HF ``center_crop`` of [H, W, C]: a zero-padded canvas where the crop
+        is larger than the image."""
+        crop_h, crop_w = self.crop_hw
+        h, w = arr.shape[:2]
+        top, left = (h - crop_h) // 2, (w - crop_w) // 2
+        if top >= 0 and left >= 0 and top + crop_h <= h and left + crop_w <= w:
+            return arr[top : top + crop_h, left : left + crop_w]
+        new_h, new_w = max(crop_h, h), max(crop_w, w)
+        canvas = np.zeros((new_h, new_w, arr.shape[2]), arr.dtype)
+        top_pad, left_pad = math.ceil((new_h - h) / 2), math.ceil((new_w - w) / 2)
+        canvas[top_pad : top_pad + h, left_pad : left_pad + w] = arr
+        top, left = top + top_pad, left + left_pad
+        return canvas[max(0, top) : min(new_h, top + crop_h), max(0, left) : min(new_w, left + crop_w)]
+
+    def preprocess_one(self, image) -> np.ndarray:
+        if self.do_convert_rgb:
+            image = image.convert("RGB")
+        if self.do_resize:
+            height, width = self._output_size(image.height, image.width)
+            image = image.resize((width, height), resample=self.resample, reducing_gap=None)
+        arr = np.asarray(image)
+        if self.do_center_crop:
+            arr = self._center_crop(arr)
+        if self.do_rescale:
+            arr = (arr.astype(np.float64) * self.rescale_factor).astype(np.float32)
+        if self.do_normalize:
+            arr = arr.astype(np.float32)
+            arr = (arr - np.asarray(self.image_mean, np.float32)) / np.asarray(self.image_std, np.float32)
+        return np.ascontiguousarray(arr.transpose(2, 0, 1), dtype=np.float32)
+
+    def __call__(self, images: list) -> np.ndarray:
+        return np.stack([self.preprocess_one(image) for image in images])

@@ -1,35 +1,56 @@
 """Tokenizers of the port, read from a checkpoint's tokenizer files.
 
 Counterpart of the HF fast tokenizers that the JAX package loads with
-``transformers.AutoTokenizer`` (the port's machine may have neither
-``transformers`` nor ``tokenizers``). :class:`Tokenizer` reads a
-``tokenizer.json`` of one of two forms, and its pipeline is the fast
-tokenizer's:
+``transformers.AutoTokenizer`` / ``AutoProcessor`` (the port's machine may
+have neither ``transformers`` nor ``tokenizers``). :class:`Tokenizer` reads a
+``tokenizer.json`` of one of four forms, or CLIP's ``vocab.json`` +
+``merges.txt``, and its pipeline is the fast tokenizer's:
 
 1. added tokens (the chat and vision specials) are split out of the raw text,
-   longest match first;
-2. each piece between them is normalized (NFC when the file names it);
-3. pre-tokenized: byte-level BPE files by one of three patterns, GPT-2's
+   longest match first; those marked ``normalized`` (CLIP's) are matched in
+   the normalized text instead, as ``tokenizers`` does;
+2. each piece between them is normalized: NFC, CLIP's whitespace collapse
+   and lowercase, or the Llama-2 ``Prepend("▁")`` + ``Replace(" ", "▁")``,
+   as the file names them;
+3. pre-tokenized: byte-level BPE files by one of four patterns, GPT-2's
    (``ByteLevel`` with ``use_regex``), Qwen2's or Llama-3's (``Split`` on
    :data:`QWEN2_PATTERN` or :data:`LLAMA3_PATTERN`, then ``ByteLevel``
-   without its regex); word-level files (``WordLevel``, the form of the JAX
+   without its regex) or CLIP's (``Split`` on :data:`CLIP_PATTERN` with the
+   whitespace between matches removed, then ``ByteLevel`` with its regex);
+   SentencePiece-style BPE files (Llama-2, Vicuna, Mistral: ``byte_fallback``)
+   not at all, or by ``Metaspace`` (spaces to ``▁``, a ``▁`` before the
+   text's first piece); word-level files (``WordLevel``, the form of the JAX
    suite's tiny judge checkpoint) by ``WhitespaceSplit``. Python's ``re``
    has no ``\\p{L}``, so the patterns are hand-written scanners over
    ``unicodedata.category`` that follow the regex engine's leftmost-first
    alternation and backtracking; ``\\s`` is Unicode White_Space, as in
    Oniguruma;
-4. byte-level: each pre-token's UTF-8 bytes are mapped to GPT-2's byte
-   alphabet and merged by BPE, lowest merge rank first; word-level: each
-   pre-token is looked up, the unknown token standing in for the rest;
-5. with ``add_special_tokens``, a ``TemplateProcessing`` post-processor puts
-   its special tokens around the ids (Llama-3's ``<|begin_of_text|>``).
+4. BPE: byte-level pre-tokens are first mapped to GPT-2's byte alphabet;
+   each pre-token's symbols (CLIP's last one with its ``</w>`` end-of-word
+   suffix) are merged lowest merge rank first; a symbol outside the
+   vocabulary becomes its UTF-8 bytes as ``<0xNN>`` tokens under
+   ``byte_fallback``, else the unknown token (consecutive ones fused under
+   ``fuse_unk``), else is dropped. Word-level: each pre-token is looked up,
+   the unknown token standing in for the rest;
+5. with ``add_special_tokens``, the post-processor's special tokens go
+   around the ids (``TemplateProcessing``: Llama-3's ``<|begin_of_text|>``,
+   Llama-2's ``<s>``; ``RobertaProcessing``: CLIP's start and end tokens).
 
-Decoding maps byte-level tokens back to bytes (a token with a character
+Decoding: byte-level tokens map back to bytes (a token with a character
 outside the byte alphabet, such as an added token, contributes its own UTF-8
-bytes) and decodes them with replacement; word-level tokens are joined by
-spaces; special added tokens are skipped on request.
+bytes) and are decoded with replacement, and a CLIP tokenizer then turns each
+``</w>`` into a space and strips the text, as ``CLIPTokenizerFast`` does;
+SentencePiece-style tokens go through the file's decoder chain (``Replace``
+``▁`` by a space, ``ByteFallback``, ``Fuse``, ``Strip``); word-level tokens
+are joined by spaces; special added tokens are skipped on request.
 :meth:`Tokenizer.apply_chat_template` renders the checkpoint's chat template
 with jinja2 as ``transformers`` does.
+
+CLIP's slow tokenizer (``CLIPTokenizer`` without ``ftfy``) differs from the
+fast one on some inputs: it cleans the text with BERT's basic tokenizer, so
+CJK ideographs become one pre-token each and control characters vanish. The
+port follows the fast tokenizer, the one that ``AutoProcessor`` gives the
+JAX package's ``ClipScorer``.
 
 :class:`WordPieceTokenizer` is BERT's (the sentence encoder's): read from
 ``tokenizer.json`` or, failing that, from ``vocab.txt`` and
@@ -52,7 +73,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["GPT2_PATTERN", "LLAMA3_PATTERN", "QWEN2_PATTERN", "Tokenizer", "WordPieceTokenizer"]
+__all__ = ["CLIP_PATTERN", "GPT2_PATTERN", "LLAMA3_PATTERN", "QWEN2_PATTERN", "Tokenizer", "WordPieceTokenizer"]
 
 GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 QWEN2_PATTERN = (
@@ -61,6 +82,13 @@ QWEN2_PATTERN = (
 )
 # Qwen2's pattern with runs of up to three digits (the Llama-3 tokenizers).
 LLAMA3_PATTERN = QWEN2_PATTERN.replace(r"|\p{N}|", r"|\p{N}{1,3}|")
+# CLIP's (``transformers``' CLIP converter), matched on lowercased text; the
+# whitespace between matches is removed.
+CLIP_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"
+# The slow CLIP tokenizer reads this many merges of ``merges.txt`` (after its
+# version line), and the fast one converted from it keeps the same.
+CLIP_MERGES = 49152 - 256 - 2
+_METASPACE = "\u2581"  # "▁", SentencePiece's word boundary
 
 # Unicode White_Space: Oniguruma's \s (Cc 0009-000D, 0085, and Zs, Zl, Zp).
 _WHITESPACE = frozenset(
@@ -165,6 +193,34 @@ def _qwen2_end(text: str, i: int, digits: int = 1) -> int:
     if last >= 0:
         return last + 1
     return _whitespace_end(text, i)
+
+
+def _clip_end(text: str, i: int) -> int:
+    """End of :data:`CLIP_PATTERN`'s match at ``i`` (a character that is no
+    whitespace; the pattern matches every other character)."""
+    k = _contraction(text, i, fold=False)
+    if k:
+        return i + k
+    c = text[i]
+    if _is_letter(c):
+        return _run(text, i, _is_letter)
+    if _is_number(c):
+        return i + 1
+    return _run(text, i, _is_other)
+
+
+def _split_removed(text: str, end_at) -> list[str]:
+    """The matches of a pattern that every non-whitespace character starts,
+    whitespace between them removed (``Split`` with ``Removed`` and ``invert``)."""
+    pieces, i = [], 0
+    while i < len(text):
+        if _is_ws(text[i]):
+            i += 1
+            continue
+        j = end_at(text, i)
+        pieces.append(text[i:j])
+        i = j
+    return pieces
 
 
 def _split(text: str, end_at) -> list[str]:
@@ -285,6 +341,8 @@ def _parse_post_processor(post) -> tuple[list[int], list[int]]:
         return [], []
     if post.get("type") == "TemplateProcessing":
         return _template_ids(post)
+    if post.get("type") == "RobertaProcessing":  # CLIP's: <|startoftext|> ... <|endoftext|>
+        return [post["cls"][1]], [post["sep"][1]]
     if post.get("type") == "Sequence":
         before, after = [], []
         for p in post.get("processors", []):
@@ -294,18 +352,21 @@ def _parse_post_processor(post) -> tuple[list[int], list[int]]:
     raise ValueError(f"tokenizer.json: post_processor {post.get('type')!r} is not implemented")
 
 
-def _added_tokens(added: list[dict]) -> tuple[dict[str, int], set[int]]:
-    """Added tokens ``content -> id`` and the special ones' ids; raises on the
-    flags this module does not implement."""
-    tokens, special = {}, set()
+def _added_tokens(added: list[dict]) -> tuple[dict[str, int], set[int], set[str]]:
+    """Added tokens ``content -> id``, the special ones' ids and the contents
+    matched in the normalized text; raises on the flags this module does not
+    implement."""
+    tokens, special, normalized = {}, set(), set()
     for tok in added:
-        for flag in ("single_word", "lstrip", "rstrip", "normalized"):
+        for flag in ("single_word", "lstrip", "rstrip"):
             if tok.get(flag):
                 raise ValueError(f"tokenizer.json: added token {tok['content']!r} sets {flag}, not implemented")
         tokens[tok["content"]] = int(tok["id"])
         if tok.get("special"):
             special.add(int(tok["id"]))
-    return tokens, special
+        if tok.get("normalized"):
+            normalized.add(tok["content"])
+    return tokens, special, normalized
 
 
 def _split_added(text: str, pattern) -> list[tuple[str, bool]]:
@@ -325,9 +386,94 @@ def _added_pattern(contents) -> re.Pattern | None:
     return re.compile("|".join(map(re.escape, contents))) if contents else None
 
 
+def _metaspace(text: str, first: bool, scheme: str) -> list[str]:
+    """``Metaspace`` without splitting: spaces to ``▁``, and a ``▁`` before a
+    piece that lacks one, always or (``first``) at the start of the text."""
+    text = text.replace(" ", _METASPACE)
+    if (scheme == "always" or (scheme == "first" and first)) and not text.startswith(_METASPACE):
+        text = _METASPACE + text
+    return [text]
+
+
+def _byte_fallback(tokens: list[str]) -> list[str]:
+    """The ``ByteFallback`` decoder: each run of ``<0xNN>`` tokens becomes its
+    UTF-8 text, or one replacement character per byte when it is no UTF-8."""
+    out, run = [], bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("�" * len(run))
+            run.clear()
+
+    for tok in tokens:
+        if len(tok) == 6 and tok.startswith("<0x") and tok.endswith(">"):
+            try:
+                run.append(int(tok[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        flush()
+        out.append(tok)
+    flush()
+    return out
+
+
+def _strip(tok: str, content: str, start: int, stop: int) -> str:
+    """The ``Strip`` decoder on one token: up to ``start`` leading and ``stop``
+    trailing ``content`` characters removed."""
+    a = 0
+    while a < min(start, len(tok)) and tok[a] == content:
+        a += 1
+    b = len(tok)
+    while len(tok) - b < stop and b > a and tok[b - 1] == content:
+        b -= 1
+    return tok[a:b]
+
+
+def _parse_decoder_step(step: dict):
+    """One step of a SentencePiece-style decoder chain, as a function on the token list."""
+    kind = step.get("type")
+    if kind == "Replace" and "String" in step.get("pattern", {}):
+        a, b = step["pattern"]["String"], step["content"]
+        return lambda toks: [t.replace(a, b) for t in toks]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda toks: ["".join(toks)]
+    if kind == "Strip":
+        content, start, stop = step["content"], int(step.get("start", 0)), int(step.get("stop", 0))
+        return lambda toks: [_strip(t, content, start, stop) for t in toks]
+    raise ValueError(f"tokenizer.json: decoder step {json.dumps(step)[:200]} is not implemented")
+
+
+def clip_tokenizer_spec(vocab: dict[str, int], merges: list[str], added: list[dict], bos: str, eos: str,
+                        unk: str) -> dict:
+    """The ``tokenizer.json`` that ``transformers`` converts CLIP's slow
+    tokenizer into (``vocab.json``, the merges, its added tokens)."""
+    return {
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFC"}, {"type": "Replace", "pattern": {"Regex": r"\s+"}, "content": " "}, {"type": "Lowercase"},
+        ]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": CLIP_PATTERN}, "behavior": "Removed", "invert": True},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True},
+        ]},
+        "post_processor": {"type": "RobertaProcessing", "sep": [eos, vocab[eos]], "cls": [bos, vocab[bos]],
+                           "trim_offsets": False, "add_prefix_space": False},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": unk, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "</w>", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
 class Tokenizer:
-    """Byte-level BPE or word-level tokenizer over a ``tokenizer.json``
-    specification (see the module doc).
+    """BPE (byte-level or SentencePiece-style) or word-level tokenizer over a
+    ``tokenizer.json`` specification (see the module doc).
 
     ``eos_token``/``pad_token`` name the end and padding tokens; their ids are
     :attr:`eos_token_id` and :attr:`pad_token_id` (None when unnamed).
@@ -350,25 +496,33 @@ class Tokenizer:
         model = spec["model"]
         if model.get("type") not in ("BPE", "WordLevel"):
             raise ValueError(f"tokenizer.json: model {model.get('type')!r} is not implemented")
-        self._byte_level = model["type"] == "BPE"
-        self._normalize = self._parse_normalizer(spec.get("normalizer"))
-        self._pre_tokenize = self._parse_pre_tokenizer(spec.get("pre_tokenizer"), self._byte_level)
-        self._special_before, self._special_after = _parse_post_processor(spec.get("post_processor"))
         decoder = spec.get("decoder")
-        if self._byte_level and (decoder is None or decoder.get("type") != "ByteLevel"):
-            raise ValueError(f"tokenizer.json: decoder {decoder and decoder.get('type')!r} is not implemented")
-        if not self._byte_level and decoder is not None:
+        # A BPE file is byte-level (GPT-2's byte alphabet, ByteLevel decoder)
+        # or SentencePiece-style (characters as they are, a decoder chain).
+        self._byte_level = model["type"] == "BPE" and (decoder or {}).get("type") == "ByteLevel"
+        self._sentencepiece = model["type"] == "BPE" and not self._byte_level
+        self._decode_steps = []
+        if self._sentencepiece:
+            if decoder is None or decoder.get("type") != "Sequence":
+                raise ValueError(f"tokenizer.json: decoder {decoder and decoder.get('type')!r} is not implemented")
+            self._decode_steps = [_parse_decoder_step(d) for d in decoder.get("decoders", [])]
+        if model["type"] == "WordLevel" and decoder is not None:
             raise ValueError(f"tokenizer.json: decoder {decoder.get('type')!r} of a WordLevel model is not implemented")
-        if self._byte_level:
+        self._normalize = self._parse_normalizer(spec.get("normalizer"))
+        self._pre_tokenize = self._parse_pre_tokenizer(spec.get("pre_tokenizer"), model["type"], self._byte_level)
+        self._special_before, self._special_after = _parse_post_processor(spec.get("post_processor"))
+        self._suffix = ""
+        if model["type"] == "BPE":
             self._parse_bpe(model)
         else:
             self._vocab = dict(model["vocab"])
             unk = model.get("unk_token")
             self._unk_id = self._vocab[unk] if unk in self._vocab else None
-        self._added, self._special = _added_tokens(spec.get("added_tokens") or [])
+        self._added, self._special, normalized = _added_tokens(spec.get("added_tokens") or [])
         self._id_to_token = {i: t for t, i in self._vocab.items()}
         self._id_to_token.update({i: t for t, i in self._added.items()})
-        self._added_pattern = _added_pattern(self._added)
+        self._raw_pattern = _added_pattern(set(self._added) - normalized)
+        self._normalized_pattern = _added_pattern(normalized)
         self.clean_up_tokenization_spaces = bool(clean_up_tokenization_spaces)
         self.eos_token_id = self.convert_tokens_to_ids(eos_token) if eos_token else None
         self.pad_token_id = self.convert_tokens_to_ids(pad_token) if pad_token else None
@@ -380,13 +534,18 @@ class Tokenizer:
 
     @classmethod
     def from_pretrained(cls, path: str | Path) -> "Tokenizer":
-        """Read ``tokenizer.json``, the special tokens and settings of
+        """Read ``tokenizer.json`` (or CLIP's ``vocab.json`` + ``merges.txt``
+        when there is none), the special tokens and settings of
         ``tokenizer_config.json`` and ``special_tokens_map.json`` (the latter
         wins, as in ``transformers``) and the chat template."""
         path = Path(path)
         settings = _read_settings(path)
+        if (path / "tokenizer.json").exists():
+            spec = json.loads((path / "tokenizer.json").read_text())
+        else:
+            spec = cls._clip_spec(path, settings)
         return cls(
-            json.loads((path / "tokenizer.json").read_text()),
+            spec,
             eos_token=settings.get("eos_token"),
             pad_token=settings.get("pad_token"),
             clean_up_tokenization_spaces=settings.get("clean_up_tokenization_spaces", False),
@@ -395,46 +554,110 @@ class Tokenizer:
         )
 
     @staticmethod
+    def _clip_spec(path: Path, settings: dict) -> dict:
+        """The fast tokenizer's specification of a directory that holds CLIP's
+        slow tokenizer files (``vocab.json``, ``merges.txt``)."""
+        cls_name = settings.get("tokenizer_class") or ""
+        if not (path / "vocab.json").exists() or not cls_name.startswith("CLIPTokenizer"):
+            raise ValueError(f"{path}: no tokenizer.json, and no CLIP vocab.json + merges.txt "
+                             f"(tokenizer_class {cls_name!r}); other forms are not implemented")
+        vocab = json.loads((path / "vocab.json").read_text(encoding="utf-8"))
+        lines = (path / "merges.txt").read_text(encoding="utf-8").strip().split("\n")
+        merges = [" ".join(line.split()) for line in lines[1 : CLIP_MERGES + 1]]
+        bos = settings.get("bos_token", "<|startoftext|>")
+        eos = settings.get("eos_token", "<|endoftext|>")
+        unk = settings.get("unk_token", "<|endoftext|>")
+        decoder = settings.get("added_tokens_decoder") or {
+            str(vocab[t]): {"content": t, "normalized": True, "special": True} for t in (bos, eos)
+        }
+        added = [{"id": int(i), **tok} for i, tok in sorted(decoder.items(), key=lambda kv: int(kv[0]))]
+        return clip_tokenizer_spec(vocab, merges, added, bos, eos, unk)
+
+    @staticmethod
     def _parse_normalizer(norm):
         if norm is None:
             return lambda text: text
-        if norm.get("type") == "NFC":
+        kind = norm.get("type")
+        if kind == "Sequence":
+            steps = [Tokenizer._parse_normalizer(n) for n in norm.get("normalizers", [])]
+
+            def run(text):
+                for step in steps:
+                    text = step(text)
+                return text
+
+            return run
+        if kind == "NFC":
             return lambda text: unicodedata.normalize("NFC", text)
-        raise ValueError(f"tokenizer.json: normalizer {norm.get('type')!r} is not implemented")
+        if kind == "Lowercase":
+            return str.lower
+        if kind == "Prepend":
+            prefix = norm["prepend"]
+            return lambda text: prefix + text if text else text
+        if kind == "Replace":
+            pattern, content = norm.get("pattern", {}), norm["content"]
+            if "String" in pattern:
+                return lambda text: text.replace(pattern["String"], content)
+            if pattern.get("Regex") == r"\s+":  # Oniguruma's \s is White_Space
+                return lambda text: _WHITESPACE_RUN.sub(content, text)
+        raise ValueError(f"tokenizer.json: normalizer {json.dumps(norm)[:200]} is not implemented")
 
     @staticmethod
-    def _parse_pre_tokenizer(pre, byte_level_model: bool):
+    def _parse_pre_tokenizer(pre, model_type: str, byte_level_model: bool):
+        """The pre-tokenizer as ``fn(text, first=True)``: ``first`` says the
+        piece starts the raw text (``Metaspace``'s ``prepend_scheme`` "first")."""
+
         def byte_level(p: dict, use_regex: bool) -> bool:
             return (p.get("type") == "ByteLevel" and not p.get("add_prefix_space", True)
                     and bool(p.get("use_regex", True)) == use_regex)
 
         scanners = {QWEN2_PATTERN: _qwen2_end, LLAMA3_PATTERN: partial(_qwen2_end, digits=3)}
-        if not byte_level_model:
+        if model_type == "WordLevel":
             if pre is not None and pre.get("type") == "WhitespaceSplit":
-                return lambda text: [w for w in _WHITESPACE_RUN.split(text) if w]
+                return lambda text, first=True: [w for w in _WHITESPACE_RUN.split(text) if w]
+        elif not byte_level_model:  # SentencePiece-style BPE
+            if pre is None:
+                return lambda text, first=True: [text]
+            if (pre.get("type") == "Metaspace" and pre.get("replacement") == _METASPACE and not pre.get("split", True)
+                    and pre.get("prepend_scheme", "always") in ("always", "first", "never")):
+                return lambda text, first=True: _metaspace(text, first, pre.get("prepend_scheme", "always"))
         elif pre is not None and byte_level(pre, True):
-            return lambda text: _split(text, _gpt2_end)
+            return lambda text, first=True: _split(text, _gpt2_end)
         elif pre is not None and pre.get("type") == "Sequence" and len(pre.get("pretokenizers", [])) == 2:
             split, last = pre["pretokenizers"]
             pattern = (split.get("pattern") or {}).get("Regex")
             if (split.get("type") == "Split" and pattern in scanners
                     and split.get("behavior") == "Isolated" and not split.get("invert")
                     and byte_level(last, False)):
-                return lambda text: _split(text, scanners[pattern])
+                return lambda text, first=True: _split(text, scanners[pattern])
+            if (split.get("type") == "Split" and pattern == CLIP_PATTERN and split.get("behavior") == "Removed"
+                    and split.get("invert") and byte_level(last, True)):
+                return lambda text, first=True: [
+                    p for piece in _split_removed(text, _clip_end) for p in _split(piece, _gpt2_end)
+                ]
         raise ValueError(
             f"tokenizer.json: pre_tokenizer {json.dumps(pre)[:300]} is not implemented (supported: ByteLevel "
-            "with use_regex and no prefix space, and Sequence[Split(Qwen2 or Llama-3 pattern, Isolated), "
-            "ByteLevel(no regex)] for BPE; WhitespaceSplit for WordLevel)"
+            "with use_regex and no prefix space, Sequence[Split(Qwen2 or Llama-3 pattern, Isolated), "
+            "ByteLevel(no regex)] and CLIP's Sequence[Split(CLIP pattern, Removed, inverted), ByteLevel] for "
+            "byte-level BPE; none or Metaspace without splitting for SentencePiece-style BPE; WhitespaceSplit "
+            "for WordLevel)"
         )
 
     def _parse_bpe(self, model: dict) -> None:
-        for key in ("dropout", "unk_token", "continuing_subword_prefix", "end_of_word_suffix"):
+        for key in ("dropout", "continuing_subword_prefix"):
             if model.get(key):
                 raise ValueError(f"tokenizer.json: BPE {key}={model[key]!r} is not implemented")
-        if model.get("byte_fallback"):
-            raise ValueError("tokenizer.json: BPE byte_fallback is not implemented")
+        self._byte_fallback = bool(model.get("byte_fallback"))
+        if self._byte_fallback and self._byte_level:
+            raise ValueError("tokenizer.json: BPE byte_fallback of a byte-level model is not implemented")
+        self._suffix = model.get("end_of_word_suffix") or ""
+        self._fuse_unk = bool(model.get("fuse_unk"))
         self._ignore_merges = bool(model.get("ignore_merges", False))
         self._vocab: dict[str, int] = dict(model["vocab"])
+        unk = model.get("unk_token")
+        if unk is not None and unk not in self._vocab:
+            raise ValueError(f"tokenizer.json: BPE unk_token {unk!r} is not in the vocabulary")
+        self._unk_id = self._vocab[unk] if unk is not None else None
         self._ranks: dict[tuple[str, str], int] = {}
         for rank, merge in enumerate(model.get("merges", [])):
             a, b = merge.split(" ", 1) if isinstance(merge, str) else merge
@@ -449,14 +672,45 @@ class Tokenizer:
             return self._added[token]
         return self._vocab.get(token)
 
+    def _symbols(self, word: str) -> list[str | int]:
+        """The BPE symbols of one pre-token before any merge, as ``tokenizers``
+        makes them: its characters (the last with the end-of-word suffix),
+        ``<0xNN>`` byte tokens for one outside the vocabulary under
+        ``byte_fallback``, else the unknown token's id (an int, which no merge
+        names; runs fused under ``fuse_unk``), else nothing. An unknown token
+        is held until the next character found in the vocabulary or the end of
+        the word, so byte tokens between may come before it."""
+        parts: list[str | int] = []
+        unk = False
+        for k, c in enumerate(word):
+            s = c + self._suffix if k == len(word) - 1 else c
+            if s in self._vocab:
+                if unk:
+                    parts.append(self._unk_id)
+                    unk = False
+                parts.append(s)
+                continue
+            if self._byte_fallback:
+                fallback = [f"<0x{b:02X}>" for b in s.encode("utf-8")]
+                if all(t in self._vocab for t in fallback):
+                    parts.extend(fallback)
+                    continue
+            if self._unk_id is not None:
+                if unk and not self._fuse_unk:
+                    parts.append(self._unk_id)
+                unk = True
+        if unk:
+            parts.append(self._unk_id)
+        return parts
+
     def _bpe(self, word: str) -> list[int]:
-        """Ids of one pre-token (already in the byte alphabet)."""
+        """Ids of one pre-token (already in the byte alphabet for a byte-level model)."""
         if word in self._cache:
             return self._cache[word]
-        if self._ignore_merges and word in self._vocab:
-            ids = [self._vocab[word]]
+        if self._ignore_merges and word + self._suffix in self._vocab:
+            ids = [self._vocab[word + self._suffix]]
         else:
-            parts = [c for c in word if c in self._vocab]  # no unknown token: others are dropped
+            parts = self._symbols(word)
             ranks = self._ranks
             while len(parts) > 1:
                 pairs = [(ranks.get((a, b)), k) for k, (a, b) in enumerate(zip(parts, parts[1:]))]
@@ -474,7 +728,7 @@ class Tokenizer:
                         merged.append(parts[k])
                         k += 1
                 parts = merged
-            ids = [self._vocab[p] for p in parts]
+            ids = [p if isinstance(p, int) else self._vocab[p] for p in parts]
         self._cache[word] = ids
         return ids
 
@@ -486,11 +740,13 @@ class Tokenizer:
             raise ValueError(f"{word!r} is outside the vocabulary and the model names no unknown token")
         return [self._unk_id]
 
-    def _encode_plain(self, text: str) -> list[int]:
+    def _encode_normalized(self, text: str, first: bool) -> list[int]:
         ids: list[int] = []
-        for piece in self._pre_tokenize(self._normalize(text)):
+        for piece in self._pre_tokenize(text, first):
             if self._byte_level:
                 ids.extend(self._bpe("".join(_BYTE_TO_CHAR[b] for b in piece.encode("utf-8"))))
+            elif self._sentencepiece:
+                ids.extend(self._bpe(piece))
             else:
                 ids.extend(self._word(piece))
         return ids
@@ -499,11 +755,37 @@ class Tokenizer:
         """Token ids of ``text``; with ``add_special_tokens``, wrapped in the
         post-processor's special tokens (none for a ``ByteLevel`` one)."""
         ids: list[int] = []
-        for piece, added in _split_added(text, self._added_pattern):
-            ids.extend([self._added[piece]] if added else self._encode_plain(piece))
+        offset = 0
+        for piece, added in _split_added(text, self._raw_pattern):
+            if added:
+                ids.append(self._added[piece])
+            elif piece:
+                pos = 0
+                for sub, sub_added in _split_added(self._normalize(piece), self._normalized_pattern):
+                    if sub_added:
+                        ids.append(self._added[sub])
+                    elif sub:
+                        ids.extend(self._encode_normalized(sub, first=offset == 0 and pos == 0))
+                    pos += len(sub)
+            offset += len(piece)
         if add_special_tokens:
             ids = self._special_before + ids + self._special_after
         return ids
+
+    def __call__(self, texts: list[str]) -> dict[str, np.ndarray]:
+        """``input_ids`` and ``attention_mask`` [N, longest row], int64, each row
+        encoded with its special tokens and right-padded with the padding
+        token: ``tokenizer(texts, padding=True)``."""
+        if self.pad_token_id is None:
+            raise ValueError("this tokenizer names no padding token")
+        rows = [self.encode(t) for t in texts]
+        width = max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            mask[i, : len(r)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
 
     def apply_chat_template(
         self, messages: list[dict], tokenize: bool = False, add_generation_prompt: bool = False
@@ -532,7 +814,9 @@ class Tokenizer:
         """Text of ``ids``: ids outside the vocabulary are dropped, special added
         tokens too under ``skip_special_tokens``. Byte-level: each run of
         ordinary tokens is decoded on its own and added tokens are kept
-        verbatim; word-level: the tokens joined by spaces."""
+        verbatim (then CLIP's ``</w>`` become spaces and the text is
+        stripped); SentencePiece-style: every token through the decoder
+        chain; word-level: the tokens joined by spaces."""
         out, run = [], []
         for i in ids:
             i = int(i)
@@ -551,6 +835,12 @@ class Tokenizer:
                 run.append(tok)
         if self._byte_level:
             out.append(self._decode_tokens(run))
+            text = "".join(out)
+            if self._suffix:
+                text = text.replace(self._suffix, " ").strip()
+        elif self._sentencepiece:
+            for step in self._decode_steps:
+                out = step(out)
             text = "".join(out)
         else:
             text = " ".join(out)
@@ -668,7 +958,7 @@ class WordPieceTokenizer:
             template = ([post["cls"][1]], [post["sep"][1]])
         else:
             template = _parse_post_processor(post)
-        added, _ = _added_tokens(spec.get("added_tokens") or [])
+        added, _, _ = _added_tokens(spec.get("added_tokens") or [])
         return cls(
             model["vocab"],
             lowercase=bool(norm.get("lowercase", True)),

@@ -441,3 +441,212 @@ def test_scoring_phase_fails_loudly(tiny_scoring, fault, monkeypatch):
     main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
     assert not [n for n in ast.walk(main) if isinstance(n, ast.ExceptHandler)]
     assert "run_scoring" in {n.func.id for n in ast.walk(main) if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+
+
+# ------------------------------------------------------------- phases 3b, 14-17
+
+
+def test_clip_and_llava_phase_workloads():
+    """Phase 14 scores 64 images of eight sizes against 16 prompts at
+    openai/clip-vit-large-patch14's config; phase 17's two llava-next images
+    make prompts of bucket 3072 and a decode cache past 2048 positions."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models.llava_hf import PRESET_CONFIGS, _FallbackLlavaTokenizer
+    from lmms_owc_tpu_torch.nn import anyres
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    assert chip_smoke.MIN_POOL_AGREEMENT == 1.0 and chip_smoke.POOL_CHECK_BATCH == 4
+    vision, text = chip_smoke.CLIP_CONFIG["vision_config"], chip_smoke.CLIP_CONFIG["text_config"]
+    assert (vision["hidden_size"], vision["num_hidden_layers"], vision["num_attention_heads"], vision["patch_size"],
+            vision["image_size"]) == (1024, 24, 16, 14, 224)
+    assert (text["hidden_size"], text["num_hidden_layers"], text["num_attention_heads"], text["vocab_size"],
+            text["max_position_embeddings"]) == (768, 12, 12, 49408, 77)
+    assert chip_smoke.CLIP_IMAGES == 64 and len(chip_smoke.CLIP_CLASSES) == 16
+    assert (chip_smoke.CLIP_VISION_LAUNCHES, chip_smoke.CLIP_TEXT_LAUNCHES) == (
+        vision["num_hidden_layers"], text["num_hidden_layers"])
+    pins = PRESET_CONFIGS["llava-next-vicuna-7b"]["image_grid_pinpoints"]
+    prompt = _FallbackLlavaTokenizer(32000).encode("USER: <image>\n" + chip_smoke.PROMPT + " ASSISTANT:")
+    lengths = []
+    for hw in chip_smoke.LLAVA_NEXT_SIZES:
+        n_h, n_w = anyres.anyres_grid_shape(hw, pins, 336)
+        tiles = torch.zeros(1 + n_h * n_w, 576, 1)
+        packed = anyres.pack_anyres_features(tiles, hw, pins, 336, 14, torch.zeros(1), max_patches=None)
+        lengths.append(len(prompt) - 1 + packed.shape[0])
+    assert tuple(lengths) == chip_smoke.LLAVA_NEXT_PROMPT_TOKENS
+    assert pad_to_bucket(max(lengths)) == 3072 and pad_to_bucket(max(lengths)) + chip_smoke.MAX_NEW_TOKENS > 2048
+    assert len(prompt) - 1 + 576 == chip_smoke.LLAVA_PROMPT_TOKENS and pad_to_bucket(587) == 640
+    cfg = chip_smoke.llava_checkpoint_config()
+    assert cfg["text_config"]["num_hidden_layers"] == chip_smoke.LLAVA_CKPT_LAYERS == 2
+    assert cfg["text_config"]["hidden_size"] == 4096 and cfg["pad_token_id"] == 32001
+
+
+def test_clip_vocab_is_clips_layout():
+    import chip_smoke
+    from lmms_owc_tpu_torch.tokenizer import Tokenizer, clip_tokenizer_spec
+
+    vocab, merges = chip_smoke.clip_vocab()
+    specials = [{"id": vocab[t], "content": t, "normalized": True, "special": True}
+                for t in ("<|startoftext|>", "<|endoftext|>")]
+    tok = Tokenizer(clip_tokenizer_spec(vocab, merges, specials, "<|startoftext|>", "<|endoftext|>",
+                                        "<|endoftext|>"), pad_token="<|endoftext|>")
+    prompts = [f"a photo of a {c}." for c in chip_smoke.CLIP_CLASSES]
+    assert tok(prompts)["input_ids"].shape == (16, chip_smoke.CLIP_TEXT_LEN)  # phase 2's CLIP text row
+    assert len(vocab) == 49408 and sorted(vocab.values()) == list(range(49408))
+    assert vocab["<|startoftext|>"] == 49406 and vocab["<|endoftext|>"] == 49407
+    assert all(a + b in vocab for a, b in (m.split() for m in merges)) and "cat</w>" in vocab
+
+
+def test_clip_checkpoint_writer_round_trip(tmp_path, monkeypatch):
+    """Phase 14's checkpoint at a tiny config: ``transformers``' CLIPModel and
+    processor read it, and the port's scorer gives their logits."""
+    from PIL import Image
+    from transformers import CLIPModel, CLIPProcessor
+
+    import chip_smoke
+    from lmms_owc_tpu_torch import no_tf32
+    from lmms_owc_tpu_torch.nn.clip import ClipScorer
+
+    no_tf32()
+    tiny = dict(chip_smoke.CLIP_CONFIG, projection_dim=16,
+                vision_config=dict(chip_smoke.CLIP_CONFIG["vision_config"], hidden_size=32, num_hidden_layers=2,
+                                   num_attention_heads=2, intermediate_size=64, projection_dim=16),
+                text_config=dict(chip_smoke.CLIP_CONFIG["text_config"], hidden_size=32, num_hidden_layers=2,
+                                 num_attention_heads=2, intermediate_size=64, projection_dim=16))
+    monkeypatch.setattr(chip_smoke, "CLIP_CONFIG", tiny)
+    out = chip_smoke.write_clip_checkpoint(torch.device("cpu"), tmp_path)
+    assert out["vocab"] == 49408
+    rng = np.random.RandomState(0)
+    images = [Image.fromarray(rng.randint(0, 255, (h, w, 3), dtype=np.uint8)) for h, w in chip_smoke.CLIP_SIZES[:4]]
+    prompts = [f"a photo of a {c}." for c in chip_smoke.CLIP_CLASSES[:5]]
+    hf = CLIPModel.from_pretrained(str(tmp_path)).eval()
+    inputs = CLIPProcessor.from_pretrained(str(tmp_path))(images=images, text=prompts, return_tensors="pt",
+                                                          padding=True)
+    with torch.no_grad():
+        want = hf(**inputs).logits_per_image.numpy()
+    got = ClipScorer.from_pretrained(str(tmp_path), device="cpu").score(images, prompts)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_llava_checkpoint_writer_round_trip(tmp_path):
+    """Phase 16's writer at llava-tiny's widths: ``transformers``'
+    LlavaForConditionalGeneration reads every tensor, and the port loads
+    every parameter bit-equal with the Llama-2-form tokenizer."""
+    from transformers import AutoTokenizer, LlavaForConditionalGeneration
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.models.llava_hf import PRESET_CONFIGS
+    from lmms_owc_tpu_torch.nn import llava as lv
+
+    cfg = dict(PRESET_CONFIGS["llava-tiny"], model_type="llava", pad_token_id=32001)
+    cfg["text_config"] = dict(cfg["text_config"], tie_word_embeddings=False)
+    written = lv.init_llava_params(lv.llava_config_from_hf(cfg), torch.Generator().manual_seed(0), torch.float32)
+    chip_smoke.write_llava_checkpoint(written, cfg, tmp_path, "tiny")
+    hf = LlavaForConditionalGeneration.from_pretrained(str(tmp_path))
+    hf_state = hf.state_dict()
+    layout = dict(chip_smoke._hf_layout(written, chip_smoke._NameProbe(chip_smoke.LLAVA_HF_PREFIXES)))
+    assert len(layout) == len(list(written.parameters()))
+    assert torch.equal(hf_state["model.language_model.layers.1.self_attn.o_proj.weight"],
+                       written.text.layers[1].o.weight)
+    assert torch.equal(hf_state["model.vision_tower.vision_model.embeddings.patch_embedding.weight"].flatten(1),
+                       written.vision.patch_embed.weight)
+    assert torch.equal(hf_state["lm_head.weight"], written.text.lm_head.weight)
+    loaded = get_model("llava-1.5-7b", pretrained=str(tmp_path), dtype="float32", device="cpu")
+    assert chip_smoke._same_parameters(loaded.model, written, "round trip") == len(layout)
+    prompt = "USER: <image>\n" + chip_smoke.PROMPT + " ASSISTANT:"
+    assert loaded.tokenizer.encode(prompt) == AutoTokenizer.from_pretrained(str(tmp_path)).encode(prompt)
+
+
+def _cpu_serve(model, requests, tokens=None, require_text=True):
+    """``_serve`` without the card's clocks and counters."""
+    import chip_smoke
+
+    with chip_smoke._decode_steps() as steps, chip_smoke._tokens(model, tokens if tokens is not None else []):
+        model.generate_until(requests)
+    return dict(seconds=0.0, decode_steps=len(steps), phase_seconds={})
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_pool_rows_check(monkeypatch, fault):
+    """Phase 3b's check on qwen2-vl-tiny on the CPU with the card's 128-row
+    blocks: two chunks of 4 unpooled, one pool of 8; every row the same, and
+    a row that differs fails the phase."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.models.qwen2_vl import DECODE_ROWS
+
+    model = get_model("qwen2-vl-tiny", batch_size=8, dtype="float32", device="cpu")
+    model.decode_rows = DECODE_ROWS
+    serve = _cpu_serve
+    if fault:
+        def serve(model, requests, tokens=None, require_text=True):
+            out = _cpu_serve(model, requests, tokens)
+            if len(tokens) == 1:  # the pooled run
+                tokens[0][5, 3] += 1
+            return out
+    monkeypatch.setattr(chip_smoke, "_serve", serve)
+    if fault:
+        with pytest.raises(AssertionError, match=r"differ from unpooled ones on rows \[5\]"):
+            chip_smoke.check_pool_rows(model, "cpu")
+        return
+    out = chip_smoke.check_pool_rows(model, "cpu")
+    assert out["rows"] == out["same_rows"] == 8 and out["decode_rows"] == 128 and model.batch_size == 8
+    assert out["decode_steps"]["unpooled"] > out["decode_steps"]["pool2"] > 0 and model.decode_rows == DECODE_ROWS
+
+
+def test_per_call_reads_launches_around_each_call():
+    """``_per_call`` records each call's launches (the counters' difference
+    across it) and puts the entry back afterwards."""
+    import types
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    def tower(n):
+        att.launch_counts["flash_attention"] += n
+        return n
+
+    mod = types.SimpleNamespace(tower=tower)
+    chip_smoke._reset_counts()
+    try:
+        with chip_smoke._per_call((mod, "tower")) as calls:
+            assert [mod.tower(24), mod.tower(0), mod.tower(12)] == [24, 0, 12]
+    finally:
+        chip_smoke._reset_counts()
+    assert calls == {"tower": [{"flash_attention": 24}, {}, {"flash_attention": 12}]} and mod.tower is tower
+
+
+@pytest.mark.parametrize("fault", [None, "tower_and_prefill_swapped", "decode_steps_uneven", "int8_cache"])
+def test_llava_launch_check_reads_each_call(fault):
+    """Phases 15 and 17 hold the launches of each tower call (23), the prefill
+    (32) and each decode step (32 K3): equal totals split otherwise fail."""
+    import chip_smoke
+
+    steps = 3
+    tower, prefill, decode = [{"flash_attention": 23}] * 2, [{"flash_attention": 32}], [{"gqa_decode_attention": 32}] * 3
+    if fault == "tower_and_prefill_swapped":
+        tower, prefill = [{"flash_attention": 32}, {"flash_attention": 14}], [{"flash_attention": 32}]
+    elif fault == "decode_steps_uneven":
+        decode = [{"gqa_decode_attention": 31}, {"gqa_decode_attention": 33}, {"gqa_decode_attention": 32}]
+    run = dict(decode_steps=steps, per_call={"encode_images": tower, "prefill": prefill, "decode_step": decode},
+               counts={"flash_attention": 78, "gqa_decode_attention": 96, "gqa_decode_attention_int8": 0})
+    check = lambda: chip_smoke._check_llava_launches(run, "tiny", tower_calls=2, kv_int8=fault == "int8_cache")
+    if fault is None:
+        check()
+    else:
+        with pytest.raises(AssertionError, match="launches per call"):
+            check()
+
+
+def test_pool_divergence_probe_on_the_cpu():
+    """The decode-rows probe's divergence finder on qwen2-vl-tiny: on the
+    CPU the float products part by row count, so pooled decoding parts from
+    unpooled at some step whose inputs were still equal, in a named call."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    model = get_model("qwen2-vl-tiny", batch_size=8, dtype="float32", device="cpu")
+    out = chip_smoke._pool_divergence(model)
+    assert out["steps"] == chip_smoke.MAX_NEW_TOKENS - 1 and out["first_parting_step"]["chunk 0"] is not None
+    assert all(out["inputs_equal"][k] for k in ("token_ids", "position_ids", "kv_mask")) and all(out["inputs_equal"]["cache"])
+    assert out["parting_calls"] and model.batch_size == 8 and model.decode_rows is None

@@ -410,3 +410,26 @@ def test_scoring_modules_load_no_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SCORING_NO_JAX_OK" in proc.stdout
+
+
+def test_clip_and_llava_modules_load_no_jax():
+    """The model registry (with the LLaVA adapter) and the CLIP pipeline load
+    no ``jax``, ``lmms_owc_tpu`` or ``ABSENT_ON_THE_CARD`` module, and a tiny
+    LLaVA answers on the CPU without them."""
+    code = (
+        "import sys\n"
+        "import lmms_owc_tpu_torch.models, lmms_owc_tpu_torch.pipelines.image, lmms_owc_tpu_torch.nn.anyres\n"
+        "from lmms_owc_tpu_torch.models import get_model\n"
+        "m = get_model('llava-tiny', batch_size=2, dtype='float32', device='cpu')\n"
+        "class R:\n    def __init__(self, a): self.args = a\n"
+        "assert len(m.generate_until([R(('hi', {'max_new_tokens': 2}, None, 0, 't', 's'))])) == 1\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib') or k.startswith(('jax.', 'jaxlib.'))\n"
+        "             or (k.startswith('lmms_owc_tpu') and not k.startswith('lmms_owc_tpu_torch')))\n"
+        "assert not bad, bad\n"
+        f"absent = sorted(k for k in sys.modules if k.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+        "assert not absent, absent\n"
+        "print('LLAVA_NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LLAVA_NO_JAX_OK" in proc.stdout

@@ -233,3 +233,93 @@ def test_port_pooled_equals_unpooled(kv_int8, jax_and_tree, monkeypatch):
     pooled = port.generate_until(_requests(port))
     assert pooled_runs == [1, 1]
     assert pooled == base
+
+
+@pytest.mark.parametrize("rows", [3, 128])
+@pytest.mark.parametrize("pool", [1, 2], ids=["unpooled", "pool2"])
+def test_adapter_blocked_decode_equals_unblocked(rows, pool, jax_and_tree, monkeypatch):
+    """The adapter's row-blocked decode (``decode_rows``, on the card
+    ``DECODE_ROWS``) gives the tokens of the unblocked one, pooled and
+    unpooled: blocks of 3 rows split and pad the 2-row chunks and the 4-row
+    pool, a block of 128 pads them all to one block."""
+    _, tree = jax_and_tree
+    port = tmod.Qwen2VL(preset="qwen2-vl-tiny", batch_size=2, dtype="float32", device="cpu", jax_params=tree)
+    assert port.decode_rows is None and tmod.DECODE_ROWS == 128  # the CPU keeps the JAX shapes
+    monkeypatch.setenv("LMMS_OWC_SORT_BY_VISION", "0")
+    monkeypatch.setenv("LMMS_OWC_DECODE_POOL", str(pool))
+    want, want_tokens = _generate(port, monkeypatch)
+    monkeypatch.setenv("LMMS_OWC_SORT_BY_VISION", "0")
+    monkeypatch.setenv("LMMS_OWC_DECODE_POOL", str(pool))
+    port.decode_rows = rows
+    seen_rows = []
+    real = tq.decode_step
+    monkeypatch.setattr(tq, "decode_step", lambda *a: seen_rows.append(a[-1]) or real(*a))
+    got, got_tokens = _generate(port, monkeypatch)
+    assert set(seen_rows) == {rows}
+    assert got == want
+    for g, w in zip(got_tokens, want_tokens):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["float", "int8", "int8-w8a8", "int4-kernel", "int4-dequantized"])
+def test_decode_step_blocks_only_row_dependent_products(case, jax_and_tree, monkeypatch):
+    """``decode_step(rows=...)`` pads to row blocks only the products whose bits
+    depend on the row count (:func:`row_invariant`): float and weight-only int8
+    layers, every head but K4's; W8A8 layers and K4 (here a device where K4
+    takes the rows, stood in for by its plain version) keep the batch's rows,
+    padded to ``REDUCE_ROWS`` for the norms. Either way the tokens equal the
+    unblocked decode's."""
+    _, tree = jax_and_tree
+    bits = {"int8": 8, "int8-w8a8": 8, "int4-kernel": 4, "int4-dequantized": 4}.get(case)
+    if bits:
+        jtree = jax.tree_util.tree_map(jnp.asarray, tree)
+        tree = jax.tree_util.tree_map(
+            np.asarray, (jquant.quantize_params_int8 if bits == 8 else jquant.quantize_params_int4)(jtree))
+    port = tmod.Qwen2VL(preset="qwen2-vl-tiny", batch_size=2, dtype="float32", device="cpu", jax_params=tree,
+                        load_in_8bit=bits == 8, load_in_4bit=bits == 4)
+    if case == "int4-kernel":
+        monkeypatch.setattr(tl, "_int4_kernel_takes", lambda q4, scale, m: m <= tl.INT4_KERNEL_MAX_ROWS)
+    monkeypatch.setenv("LMMS_OWC_SORT_BY_VISION", "0")
+    tl.set_int8_activations(case == "int8-w8a8")
+    try:
+        want, want_tokens = _generate(port, monkeypatch)
+        if case == "int4-kernel":
+            monkeypatch.setattr(tl, "_int4_kernel_takes", lambda q4, scale, m: m <= tl.INT4_KERNEL_MAX_ROWS)
+        monkeypatch.setenv("LMMS_OWC_SORT_BY_VISION", "0")
+        port.decode_rows = 3
+        seen = []
+        real = tq._row_blocks
+        monkeypatch.setattr(tq, "_row_blocks", lambda fn, rows, *xs: seen.append(rows) or real(fn, rows, *xs))
+        got, got_tokens = _generate(port, monkeypatch)
+    finally:
+        tl.set_int8_activations(False)
+    layers = len(port.model.layers)
+    steps = len(seen) // (2 * layers + 1)
+    assert steps > 0 and len(seen) == steps * (2 * layers + 1)
+    layer_rows = tq.REDUCE_ROWS if case in ("int8-w8a8", "int4-kernel") else 3  # the batches are below 16 rows
+    assert port.model.lm_head is None  # tied: the head reads the float embedding, so it is blocked
+    head_rows = 3
+    assert [r for i, r in enumerate(seen) if (i + 1) % (2 * layers + 1)] == [layer_rows] * (2 * layers * steps)
+    assert seen[2 * layers::2 * layers + 1] == [head_rows] * steps
+    assert got == want
+    for g, w in zip(got_tokens, want_tokens):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_row_invariant():
+    """Which products keep their bits at any row count: W8A8 int8 and K4 up
+    to its 256 rows; float, weight-only int8 and the dequantized int4 product
+    (on the CPU, or past K4's rows) do not."""
+    w = torch.randn(64, 256, generator=torch.Generator().manual_seed(0))
+    lin = tl.Linear(256, 64, False, torch.float32, "cpu")
+    q8, q4 = tl.Int8Linear.from_weight(w, False, torch.float32), tl.Int4Linear.from_weight(w, False, torch.float32)
+    assert not tl.row_invariant(lin, 8) and not tl.row_invariant(q8, 8) and not tl.row_invariant(q4, 8)
+    tl.set_int8_activations(True)
+    try:
+        assert tl.row_invariant(q8, 8) and tl.row_invariant(q8, 4096)
+    finally:
+        tl.set_int8_activations(False)
+    # Off the CPU (a meta tensor stands in for the card) K4 takes 256-block shapes up to 256 rows.
+    q4 = tl.Int4Linear(512, 256, False, torch.bfloat16, "meta")
+    assert tl.row_invariant(q4, 256) and not tl.row_invariant(q4, 257)
+    assert not tl.row_invariant(tl.Int4Linear(512, 64, False, torch.bfloat16, "meta"), 8)  # N off K4's blocks

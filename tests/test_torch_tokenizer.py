@@ -15,6 +15,7 @@ import copy
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
@@ -202,3 +203,181 @@ def test_scanners_match_the_regex_engine(text):
     for pattern, end in ((tk.QWEN2_PATTERN, tk._qwen2_end), (tk.GPT2_PATTERN, tk._gpt2_end)):
         split = pre_tokenizers.Split(Regex(pattern), behavior="isolated", invert=False)
         assert tk._split(text, end) == [piece for piece, _ in split.pre_tokenize_str(text)]
+
+
+# ------------------------------------------------------------------ CLIP BPE
+
+
+def _clip_vocab_and_merges() -> tuple[dict, list[str]]:
+    """Every byte character, alone and with ``</w>``, plus merges that build
+    a few words (the layout of CLIP's ``vocab.json`` + ``merges.txt``)."""
+    from lmms_owc_tpu_torch.tokenizer import _BYTE_TO_CHAR
+
+    chars = [_BYTE_TO_CHAR[b] for b in range(256)]
+    tokens = chars + [c + "</w>" for c in chars]
+    merges = []
+    for word in ("photo", "cat", "the", "dog", "of", "a", "it's", "blue", "sky"):
+        piece = word[0]
+        for k, c in enumerate(word[1:], 1):
+            c = c + "</w>" if k == len(word) - 1 else c
+            merges.append(f"{piece} {c}")
+            tokens.append(piece + c)
+            piece += c
+    vocab = {}
+    for t in tokens + ["<|startoftext|>", "<|endoftext|>"]:
+        vocab.setdefault(t, len(vocab))
+    return vocab, list(dict.fromkeys(merges))
+
+
+@pytest.fixture(scope="module", params=["clip-vocab-merges", "clip-tokenizer-json"])
+def clip_pair(request, tmp_path_factory):
+    """CLIP's slow files (``vocab.json`` + ``merges.txt``, as ``CLIPTokenizer``
+    saves them) or the fast ``tokenizer.json``; both against the fast
+    tokenizer that ``AutoTokenizer`` / ``AutoProcessor`` build."""
+    from transformers import CLIPTokenizer, CLIPTokenizerFast
+
+    path = tmp_path_factory.mktemp(request.param.replace("-", "_"))
+    vocab, merges = _clip_vocab_and_merges()
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    cls = CLIPTokenizer if request.param == "clip-vocab-merges" else CLIPTokenizerFast
+    cls(str(path / "vocab.json"), str(path / "merges.txt")).save_pretrained(str(path))
+    assert (path / "tokenizer.json").exists() == (request.param == "clip-tokenizer-json")
+    hf = _hf(path)
+    assert type(hf).__name__ == "CLIPTokenizerFast"
+    return request.param, Tokenizer.from_pretrained(path), hf
+
+
+CLIP_SNIPPETS = ["a photo of the cat", "A PHOTO OF THE CAT", "it's", "IT'S", "'s", "  blue\t\tsky \n", "123",
+                 "café", "日本語", "<|endoftext|>", "<|startoftext|>", "<|ENDOFTEXT|>", "!!?", "x'y", "😀"]
+
+
+def _clip_text():
+    piece = st.one_of(st.sampled_from(CLIP_SNIPPETS), st.text(alphabet=LETTERS + OTHERS + " \t\n", max_size=6))
+    return st.lists(piece, max_size=10).map("".join)
+
+
+@EXAMPLES
+@given(text=_clip_text())
+def test_clip_encode_matches_transformers(clip_pair, text):
+    _, ours, hf = clip_pair
+    assert ours.encode(text) == hf.encode(text)
+    assert ours.encode(text, add_special_tokens=False) == hf.encode(text, add_special_tokens=False)
+
+
+@EXAMPLES
+@given(data=st.data())
+def test_clip_decode_matches_transformers(clip_pair, data):
+    _, ours, hf = clip_pair
+    seq = data.draw(st.lists(st.integers(0, hf.vocab_size - 1), max_size=16))
+    for skip in (False, True):
+        assert ours.decode(seq, skip_special_tokens=skip) == hf.decode(seq, skip_special_tokens=skip)
+
+
+def test_clip_specials_and_padding(clip_pair):
+    _, ours, hf = clip_pair
+    assert ours.eos_token_id == ours.pad_token_id == hf.pad_token_id == hf.eos_token_id
+    texts = ["a photo of the cat", "dog", "", "the blue sky of it's"]
+    np.testing.assert_array_equal(ours(texts)["input_ids"], hf(texts, padding=True, return_tensors="np")["input_ids"])
+    np.testing.assert_array_equal(ours(texts)["attention_mask"],
+                                  hf(texts, padding=True, return_tensors="np")["attention_mask"])
+
+
+def test_clip_follows_the_fast_tokenizer_where_the_slow_one_differs(tmp_path):
+    """Without ``ftfy`` the slow ``CLIPTokenizer`` cleans text with BERT's basic
+    tokenizer: CJK ideographs become one pre-token each and control
+    characters vanish. The port gives the fast tokenizer's ids."""
+    from transformers import CLIPTokenizer
+
+    vocab, merges = _clip_vocab_and_merges()
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    slow = CLIPTokenizer(str(tmp_path / "vocab.json"), str(tmp_path / "merges.txt"))
+    slow.save_pretrained(str(tmp_path))
+    ours, fast = Tokenizer.from_pretrained(tmp_path), _hf(tmp_path)
+    for text in ("日本語", "a\x07b"):
+        assert ours.encode(text) == fast.encode(text) != slow.encode(text)
+
+
+def test_clip_merges_read_as_the_slow_tokenizer_reads_them(tmp_path):
+    """Only the first ``CLIP_MERGES`` merges after the version line count."""
+    from lmms_owc_tpu_torch.tokenizer import CLIP_MERGES
+
+    vocab, merges = _clip_vocab_and_merges()
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "CLIPTokenizer"}))
+    spec = Tokenizer._clip_spec(tmp_path, {"tokenizer_class": "CLIPTokenizer"})
+    assert spec["model"]["merges"] == merges and CLIP_MERGES == 48894
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges * 6000) + "\n")
+    assert len(Tokenizer._clip_spec(tmp_path, {"tokenizer_class": "CLIPTokenizer"})["model"]["merges"]) == CLIP_MERGES
+
+
+# --------------------------------------------------- Llama-2 / Vicuna / Mistral
+
+
+def _llama_form(form: str) -> dict:
+    """``chip_smoke.llama2_tokenizer`` (the legacy ``Prepend`` + ``Replace``
+    normalizer), its ``Metaspace`` form, or the legacy form without the upper
+    128 byte tokens (so unknown characters fall to a fused ``<unk>``)."""
+    blob = chip_smoke.llama2_tokenizer(words=("hello", "world", "cat's", "image"))
+    if form == "metaspace":
+        blob["normalizer"] = None
+        blob["pre_tokenizer"] = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first",
+                                 "split": False}
+    elif form == "partial-bytes":  # the ids stay dense: the tokens are renamed
+        vocab = blob["model"]["vocab"]
+        for b in range(0x80, 0x100):
+            vocab[f"\u2581nobyte{b}"] = vocab.pop(f"<0x{b:02X}>")
+    return blob
+
+
+@pytest.fixture(scope="module", params=["legacy", "metaspace", "partial-bytes"])
+def llama_pair(request, tmp_path_factory):
+    path = tmp_path_factory.mktemp(request.param.replace("-", "_"))
+    (path / "tokenizer.json").write_text(json.dumps(_llama_form(request.param)))
+    config = dict(chip_smoke.LLAMA2_TOKENIZER_CONFIG, legacy=request.param != "metaspace")
+    (path / "tokenizer_config.json").write_text(json.dumps(config))
+    hf = _hf(path)
+    assert type(hf).__name__ == "LlamaTokenizerFast"
+    return request.param, Tokenizer.from_pretrained(path), hf
+
+
+LLAMA_SNIPPETS = ["USER: ", "<image>", "\n", "<s>", "</s>", "<pad>", "<unk>", " ASSISTANT:", "[INST] ", " [/INST]",
+                  "hello world", "  ", "cat's", "café", "日本語", "😀", "\t", "What type of object is in this photo?"]
+
+
+def _llama_text():
+    piece = st.one_of(st.sampled_from(LLAMA_SNIPPETS), st.text(alphabet=LETTERS + OTHERS + " \t\n", max_size=6))
+    return st.lists(piece, max_size=10).map("".join)
+
+
+@EXAMPLES
+@given(text=_llama_text())
+def test_llama_encode_matches_transformers(llama_pair, text):
+    _, ours, hf = llama_pair
+    assert ours.encode(text) == hf.encode(text)
+    assert ours.encode(text, add_special_tokens=False) == hf.encode(text, add_special_tokens=False)
+
+
+@EXAMPLES
+@given(data=st.data())
+def test_llama_decode_matches_transformers(llama_pair, data):
+    _, ours, hf = llama_pair
+    ids = list(range(0, 420)) + list(range(31990, 32002))
+    seq = data.draw(st.lists(st.sampled_from(ids), max_size=16))
+    for skip in (False, True):
+        assert ours.decode(seq, skip_special_tokens=skip) == hf.decode(seq, skip_special_tokens=skip)
+
+
+def test_llama_specials_and_prompt(llama_pair):
+    name, ours, hf = llama_pair
+    assert (ours.eos_token_id, ours.pad_token_id) == (hf.eos_token_id, hf.pad_token_id) == (2, 32001)
+    for content, idx in (("<unk>", 0), ("<s>", 1), ("</s>", 2), ("<image>", 32000), ("<pad>", 32001)):
+        assert ours.convert_tokens_to_ids(content) == hf.convert_tokens_to_ids(content) == idx
+    prompt = "USER: <image>\nWhat type of object is in this photo? ASSISTANT:"
+    ids = ours.encode(prompt)
+    assert ids == hf.encode(prompt) and ids[0] == 1 and ids.count(32000) == 1
+    assert ours.decode(ids, skip_special_tokens=True) == hf.decode(ids, skip_special_tokens=True)
+    if name == "partial-bytes":
+        assert ours.encode("é😀x", add_special_tokens=False).count(0) == 1  # one fused <unk>
