@@ -34,7 +34,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    are held too: K2's general instance at head_dim 64 (the LLaVA tower in
    bf16 over 577 keys; the CLIP scorer's towers in f32), its Hopper instance
    at G = 1 (the Vicuna prefill at buckets 640 and 3072), and K3 at G = 1
-   (bf16 and int8 over 704 positions, bf16 over llava-next's 3136).
+   (bf16 and int8 over 704 positions, bf16 over llava-next's 3136). Phases
+   18-20's shapes: K2 at head_dim 72 (the SigLIP towers) in bf16 over
+   onevision's tiles with no mask and over Idefics2's padded batch in the
+   tensor-mask form, and in f32 in both mask forms; K2's Hopper instance at
+   Mistral's G = 4 and over onevision's 4096-token bucket; K3 at G = 4 and
+   at onevision's 4160-position cache (the general kernel).
 3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
    on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
@@ -105,7 +110,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     serving configuration (int8 + W8A8, pool 2, int8 KV cache) on ``toy``
     must launch K3-int8; then the command in a subprocess on the
     ``toy_suite`` tag (4 documents of each task, toy_semantic scored) must
-    exit 0 and write its results file. Each CLI run's launches are in the
+    exit 0 and write its results file; then one of the paper's benchmarks,
+    ``caltech101`` with its ``base`` prompt (64 tokens), from a synthesised
+    image folder of four classes of the vendored ``metadata.csv``
+    (converted by the task's own download hook, the split tables through
+    ``LMMS_OWC_ASSETS_DIR``), through ``python -m
+    lmms_owc_tpu_torch.eval_model`` in a scratch working directory: 8
+    documents, the synthesised classes as targets, the four metrics finite
+    (MiniLM from phase 13's checkpoint). Each CLI run's launches are in the
     ``summary cli`` line; the kernels line keeps each kernel's launches from
     its own main path.
 13. Scoring (after phase 12, whose toy_semantic task scores with this
@@ -156,12 +168,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     cache (the general kernel past 2048); launches printed and checked; the
     chunk's prefill logits by phase 4's rule. ``summary llava`` holds
     phases 15-17.
+18. LLaVA-OneVision-Qwen2-7B with random bf16 weights: phase 3's 8 requests
+    in one chunk through anyres (36 SigLIP tiles; prompts of 3712 and 1741
+    tokens, bucket 4096, decode cache 4160): 8 tower calls of 26 K2
+    launches at head_dim 72, 28 prefill launches, 28 K3 per step (the
+    general kernel past 2048 positions), each read around its call; prefill
+    logits by phase 4's rule; ``loglikelihood`` by phase 10's at batch 2.
+19. Idefics2-8B with random bf16 weights: four images of mixed aspect,
+    padded to one 448 x 672 grid (every patch mask has gaps): one tower
+    call of 27 K2 launches in the tensor-mask form, 32 prefill launches
+    (Hopper, G = 4), 32 K3 per step; logits and ``loglikelihood`` as 18.
+20. A full-width checkpoint of each family with 2 decoder layers (the
+    published tensor names, the Qwen2 fixture tokenizer with ``<image>`` at
+    151646, the Mistral form with Idefics2's three added tokens) loaded
+    bit-equal and serving the model's own tokens. ``summary siglip`` holds
+    phases 18-20.
 
 The host packages that the CLIs import (and those it must do without) are
 logged as present or missing at the start.
 
 Phases run in the order 1-3, 8, 3b, 9 (Qwen2-VL), 10, 11, 12, 13, 4, 5
-(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 14-17.
+(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 14-20.
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -321,6 +348,34 @@ LLAVA_NEXT_SIZES = [(672, 672), (336, 1008)]
 LLAVA_HF_PREFIXES = ("language_model.model.", "language_model.lm_head.", "vision_tower.", "multi_modal_projector.",
                      "image_newline")
 CLIP_HF_PREFIXES = ("vision_model.", "text_model.", "visual_projection.", "text_projection.", "logit_scale")
+# Phases 18-20: the SigLIP families at their published widths. LLaVA-OneVision
+# 7B: SigLIP-SO400M at 384 px (26 layers, 16 heads of 72, 729 patches a tile)
+# over Qwen2-7B (28 layers, 28/4 heads of 128); phase 3's requests: a 448x448
+# image takes 5 anyres tiles and a 3712-token prompt, a 336x448 one 3 tiles
+# and 1741 tokens (prompt bucket 4096, decode cache 4160: K3's general kernel).
+ONEVISION_PRESET = "llava-onevision-qwen2-7b-ov"
+ONEVISION_TOWER_LAUNCHES = 26
+ONEVISION_LAYERS = 28
+ONEVISION_PROMPT_TOKENS = {(448, 448): 3712, (336, 448): 1741}
+ONEVISION_TILES = {(448, 448): 5, (336, 448): 3}
+# Idefics2-8B: SigLIP at 980 px (27 layers, 16 heads of 72), the perceiver (64
+# latents), Mistral-7B (32 layers, 32/8 heads of 128: G = 4). Four images of
+# mixed aspect, (H, W) before the processor's resize; padded to one 448 x 672
+# grid of 32 x 48 patches, so every image's patch mask has gaps (K2's tensor
+# form). Prompts of 78 tokens, bucket 128, decode cache 192.
+IDEFICS2_PRESET = "idefics2-8b"
+IDEFICS2_TOWER_LAUNCHES = 27
+IDEFICS2_LAYERS = 32
+IDEFICS2_SIZES = [(448, 448), (336, 448), (448, 336), (378, 672)]
+IDEFICS2_PROMPT_TOKENS = 78
+# Phase 20's checkpoints: full width, the decoder cut to this many layers.
+SIGLIP_CKPT_LAYERS = 2
+# The published checkpoints' tensor prefixes (transformers writes them).
+ONEVISION_HF_PREFIXES = ("model.language_model.", "model.vision_tower.", "model.multi_modal_projector.",
+                         "model.image_newline", "lm_head.")
+IDEFICS2_HF_PREFIXES = ("model.text_model.", "model.vision_model.", "model.connector.", "lm_head.")
+IDEFICS2_SPECIAL_IDS = {"<fake_token_around_image>": 32000, "<image>": 32001, "<end_of_utterance>": 32002}
+ONEVISION_IMAGE_ID = 151646
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
@@ -615,7 +670,8 @@ def check_kernels(dev) -> dict[str, dict]:
         results[name]["also"] = rows
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results.update(check_tower_entries(dev, gen))
-    for name, rows in [*check_scoring_shapes(dev, gen).items(), *check_llava_shapes(dev, gen).items()]:
+    for name, rows in [*check_scoring_shapes(dev, gen).items(), *check_llava_shapes(dev, gen).items(),
+                       *check_siglip_shapes(dev, gen).items()]:
         results[name].setdefault("also", {}).update(rows)
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results["int4_matmul"] = check_int4(dev, gen)
@@ -827,6 +883,134 @@ def check_llava_shapes(dev, gen) -> dict[str, dict]:
                 _bound(4.0 * hd * nh * valid, nbytes), lib_label,
             )
             del cache, library
+        del qd, ck, cv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def idefics2_patch_mask(sizes=IDEFICS2_SIZES, longest: int = 980, patch: int = 14):
+    """[N, gh*gw] int32 patch masks of ``sizes`` (H, W) as the Idefics2
+    adapter's variable-aspect preprocessing lays them out (resize within the
+    edge budget, pad to one grid rounded to 8 patches)."""
+    from lmms_owc_tpu_torch.models.idefics2 import Idefics2
+    from lmms_owc_tpu_torch.nn.idefics2 import variable_patch_layout
+
+    dims = []
+    for h, w in sizes:
+        rw, rh = Idefics2._hf_resize_dims(w, h, max(patch, round(longest * 378 / 980)), longest)
+        dims.append((rh, rw))
+    step = 8 * patch
+    gh = max(min(-(-max(h for h, _ in dims) // step) * step, longest), max(h for h, _ in dims)) // patch
+    gw = max(min(-(-max(w for _, w in dims) // step) * step, longest), max(w for _, w in dims)) // patch
+    return variable_patch_layout(dims, (gh, gw), longest // patch, patch)[1]
+
+
+def check_siglip_shapes(dev, gen) -> dict[str, dict]:
+    """Phase 2 at phases 18-20's shapes, each held to its plain version with
+    its bound and SDPA's time: K2 at head_dim 72 (its tiles padded to 80
+    columns; the Hopper instance in bf16, the general one in f32), in bf16
+    over LLaVA-OneVision's anyres tiles ([5, 16, 729, 72], no mask: the
+    contiguous form's full run) and over
+    Idefics2's padded batch (the tensor-mask form, [4, 16, 1536, 72] with the
+    adapter's patch masks), and in f32 in both mask forms; K2's Hopper
+    instance at Mistral's G = 4 (q [4, 32, 128, 128] over 8 KV heads, 78-token
+    prompts) and at Qwen2-7B's G = 7 over onevision's 4096-position bucket;
+    K3's Hopper instance at G = 4 ([32, 4, 8, 192, 128]) and its general
+    kernel at onevision's 4160-position cache. Returns ``{kernel: {label: row}}``."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    rows: dict[str, dict] = {"flash_attention": {}, "gqa_decode_attention": {}}
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    d = 72
+    imask = torch.from_numpy(idefics2_patch_mask()).to(dev)
+    b, l = 2, 729
+    runs = torch.tensor([[0, l], [0, 500]], device=dev)
+    cmask = ((torch.arange(l, device=dev)[None] >= runs[:, :1]) & (torch.arange(l, device=dev)[None] < runs[:, 1:]))
+    gmask = (torch.rand((b, l), generator=gen, device=dev) < 0.6).to(torch.int32)
+    gmask[:, 0] = 1
+    for label, dtype, shape, mask, contiguous in (
+        ("onevision_tower", torch.bfloat16, (5, 16, 729), None, False),
+        ("idefics2_tower", torch.bfloat16, (imask.shape[0], 16, imask.shape[1]), imask, False),
+        ("d72_contiguous_f32", torch.float32, (b, 16, l), cmask.to(torch.int32), True),
+        ("d72_tensor_f32", torch.float32, (b, 16, l), gmask, False),
+    ):
+        n, h, length = shape
+        q, k, v = (randn(dtype, n, h, length, d) for _ in range(3))
+        f32 = dtype == torch.float32
+        tol = dict(atol=CLIP_TOL, rtol=CLIP_TOL) if f32 else {}
+        kw = dict(kv_mask=mask)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=contiguous, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), **tol)
+        keys = mask if mask is not None else torch.ones((n, length), dtype=torch.int32, device=dev)
+        form = "no mask" if mask is None else ("(start, end) runs" if contiguous else "gappy int32 tensor mask")
+        rows["flash_attention"][label] = _row(
+            f"q/k/v [{n}, {h}, {length}, {d}] {'f32' if f32 else 'bf16'}, non-causal, {form} (SigLIP, D = 72)", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=contiguous, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw),
+                     _sdpa(q, k, v, None if mask is None else keys.bool()[:, None, None, :])),
+            _attention_bound(keys, h, h, length, d, causal=False, elt=4 if f32 else 2,
+                             extra_bytes=0 if mask is None else 4 * keys.numel(),
+                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+            SDPA,
+        )
+        del q, k, v
+
+    # The decoders' prefill: Mistral at G = 4, Qwen2-7B at G = 7 (two rows of the bucket).
+    hd = 128
+    for label, (b, nh, kvh, l), lengths in (
+        ("mistral_prefill", (4, 32, 8, 128), [IDEFICS2_PROMPT_TOKENS] * 4),
+        ("onevision_prefill", (2, 28, 4, 4096), list(ONEVISION_PROMPT_TOKENS.values())),
+    ):
+        q, k, v = randn(torch.bfloat16, b, nh, l, hd), randn(torch.bfloat16, b, kvh, l, hd), randn(torch.bfloat16, b, kvh, l, hd)
+        starts = l - torch.tensor(lengths, device=dev)
+        pos = torch.arange(l, device=dev)
+        pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
+        kw = dict(causal=True, kv_mask=pmask)
+        valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        rows["flash_attention"][label] = _row(
+            f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, G = {nh // kvh}, causal, left-padded "
+            f"({'Mistral-7B' if kvh == 8 else 'Qwen2-7B'})", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+            _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        )
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # The decoders' decode: the prompt bucket's keys from each row's start, then 5 generated.
+    for label, (layers, b, nh, kvh, prompt, s), lengths in (
+        ("mistral_decode", (IDEFICS2_LAYERS, 4, 32, 8, 128, 192), [IDEFICS2_PROMPT_TOKENS] * 4),
+        ("onevision_decode", (ONEVISION_LAYERS, 8, 28, 4, 4096, 4160),
+         [ONEVISION_PROMPT_TOKENS[(448, 448)]] * 6 + [ONEVISION_PROMPT_TOKENS[(336, 448)]] * 2),
+    ):
+        qd = randn(torch.bfloat16, b, nh, hd)
+        ck, cv = (randn(torch.bfloat16, layers, b, kvh, s, hd) for _ in range(2))
+        spos = torch.arange(s, device=dev)
+        dstarts = prompt - torch.tensor(lengths, device=dev)
+        dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
+        valid = int(dmask.sum())
+        last = layers - 1
+        tol = dict(atol=LONG_CACHE_TOL["bf16"][0], rtol=0.0, rel_l2=LONG_CACHE_TOL["bf16"][1]) if s > 2048 else {}
+        errs = [_compare(f"gqa_decode_attention {label}[layer {layer}]",
+                         att.gqa_decode_attention(qd, ck, cv, layer, dmask),
+                         att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask), **tol)
+                for layer in (0, last)]
+        kernel_kind = "general kernel with the score workspace" if s > 2048 else "Hopper instance"
+        rows["gqa_decode_attention"][label] = _row(
+            f"q [{b}, {nh}, {hd}] bf16, cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16, G = {nh // kvh}, "
+            f"layers 0 and {last} ({kernel_kind})", max(errs),
+            _timings(lambda: att.gqa_decode_attention(qd, ck, cv, last, dmask),
+                     lambda: att.gqa_decode_attention_plain(qd, ck, cv, last, dmask),
+                     _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :])),
+            _bound(4.0 * hd * nh * valid, 2 * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s), SDPA,
+        )
         del qd, ck, cv
         torch.cuda.empty_cache()
     return rows
@@ -1094,7 +1278,8 @@ def _int4_library(qp: dict):
 def check_ragged_bf16(dev, gen) -> None:
     """The Hopper instances at ragged bf16 shapes the main paths also reach
     (prompt buckets such as 288 are not multiples of the 64-key tile; the
-    decode cache splits unevenly), within TOL of the plain versions."""
+    decode cache splits unevenly; head_dim 72 padded to 80 columns), within
+    TOL of the plain versions."""
     import torch
 
     from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
@@ -1138,6 +1323,21 @@ def check_ragged_bf16(dev, gen) -> None:
         errs[f"combined L={length}"] = _compare(
             f"fused_qkv_attention[L={length}]", att.fused_qkv_attention(x, 16, 16, **kw),
             att.fused_qkv_attention_plain(x, 16, 16, **kw))
+    # Head_dim 72 (the SigLIP towers): the Hopper instance over 200 keys with a
+    # gappy mask (a 192-row block and a tail) and over one short block; with
+    # rope, which the Hopper instance does not take at 72, the general one.
+    for length, masked, rope in ((200, True, False), (50, False, False), (50, False, True)):
+        q, k, v = (randn(2, 16, length, 72) for _ in range(3))
+        kw = {}
+        if masked:
+            kw["kv_mask"] = (torch.rand((2, length), generator=gen, device=dev) > 0.3).to(torch.int32)
+            kw["kv_mask"][:, 0] = 1
+        if rope:
+            angles = randn(2, length, 36).float()
+            kw.update(rope_cos=torch.cos(angles), rope_sin=torch.sin(angles))
+        label = f"D=72 L={length}{' gappy' if masked else ''}{' rope' if rope else ''}"
+        errs[label] = _compare(f"flash_attention[{label}]", att.flash_attention(q, k, v, **kw),
+                               att.flash_attention_plain(q, k, v, **kw))
     # Decode with uneven splits: S = 100 (2 x 64) in bf16, S = 520 (7 x 80) with an int8 cache.
     for s, int8 in ((100, False), (520, True)):
         qd, ck, cv = randn(5, 28, 128), randn(2, 5, 4, s, 128), randn(2, 5, 4, s, 128)
@@ -1300,8 +1500,9 @@ def _plain_flash(*args, kv_mask_contiguous=False, **kw):
 @contextmanager
 def _attention(**fns):
     """Route the model's attention entries, by name, through other functions
-    (``flash_attention`` in the decoder and in the CLIP towers)."""
+    (``flash_attention`` in the decoder, the CLIP towers and the SigLIP tower)."""
     from lmms_owc_tpu_torch.nn import clip as nnclip
+    from lmms_owc_tpu_torch.nn import idefics2 as nnidf
     from lmms_owc_tpu_torch.nn import qwen2_5_vl as nnq25
     from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
 
@@ -1310,6 +1511,7 @@ def _attention(**fns):
             stack.enter_context(_route(nnq25 if name == "fused_qkv_attention" else nnq, name, fn))
             if name == "flash_attention":
                 stack.enter_context(_route(nnclip, name, fn))
+                stack.enter_context(_route(nnidf, name, fn))
         yield
 
 
@@ -2292,6 +2494,126 @@ def run_cli(dev, preset: str, ckpt: Path, reference: list[str], model_args: str 
     return summary
 
 
+# Phase 12's run of one of the paper's benchmarks: ``caltech101`` with its
+# ``base`` prompt (64 tokens) from a synthesised image folder of a few classes
+# of the vendored ``metadata.csv``.
+BENCHMARK_TASK = "caltech101"
+BENCHMARK_FOLDERS = ("Faces", "Leopards", "accordion", "airplanes")
+BENCHMARK_PER_CLASS = 3  # one train image and two test images per class
+BENCHMARK_METRICS = ("concept_semantic_similarity", "exact_match", "semantic_similarity", "textual_inclusion")
+BENCHMARK_SIZES = [(300, 200), (180, 260), (224, 224)]
+CLASSIFICATION_CONFIGS = Path(__file__).resolve().parent / "lmms_owc_tpu_torch" / "tasks" / "configs" / "classification"
+
+
+def write_classification_folder(work: Path, name: str = BENCHMARK_TASK, folders=BENCHMARK_FOLDERS,
+                                per_class: int = BENCHMARK_PER_CLASS) -> dict:
+    """A synthesised ``name`` benchmark under ``work``: images in the layout
+    of the extracted archive (``.cache/data/caltech101/caltech-101/
+    101_ObjectCategories/<folder>/``, so the task's download finds its
+    extraction root and fetches nothing) and split tables under
+    ``assets/<name>/`` (the vendored ``metadata.csv``, and a
+    ``split_coop.csv`` listing these images: the first of each class for
+    train, the rest for test), which ``LMMS_OWC_ASSETS_DIR=<work>/assets``
+    puts ahead of the vendored tables. Returns the paths and the test docs'
+    class names in table order."""
+    import csv
+
+    from PIL import Image
+
+    rng = np.random.RandomState(12)
+    images = work / ".cache" / "data" / name / "caltech-101" / "101_ObjectCategories"
+    assets = work / "assets" / name
+    assets.mkdir(parents=True)
+    shutil.copy(CLASSIFICATION_CONFIGS / name / "assets" / "metadata.csv", assets / "metadata.csv")
+    with open(assets / "metadata.csv", newline="") as f:
+        folder_to_class = {row["folder_name"]: row["class_name"] for row in csv.DictReader(f)}
+    rows, test_classes = [], []
+    for folder in folders:
+        (images / folder).mkdir(parents=True)
+        for i in range(per_class):
+            h, w = BENCHMARK_SIZES[i % len(BENCHMARK_SIZES)]
+            rel = f"{folder}/image_{i + 1:04d}.jpg"
+            Image.fromarray(rng.randint(0, 255, (h, w, 3), dtype=np.uint8)).save(images / rel)
+            split = "train" if i == 0 else "test"
+            rows.append((split, rel))
+            if split == "test":
+                test_classes.append(folder_to_class[folder].replace("_", " "))
+    with open(assets / "split_coop.csv", "w", newline="") as f:
+        csv.writer(f).writerows([("split", "filename"), *rows])
+    return dict(work=work, assets_dir=work / "assets", cache_dir=work / ".cache", data_dir=work / "data",
+                test_classes=test_classes)
+
+
+def convert_classification_folder(folder: dict, name: str = BENCHMARK_TASK) -> Path:
+    """The task's own download hook (the port's ``download_benchmark``) turns
+    the synthesised folder into ``data/<name>`` under the folder's work
+    directory, reading the split tables through ``LMMS_OWC_ASSETS_DIR``."""
+    import importlib.util
+
+    path = CLASSIFICATION_CONFIGS / name / "assets" / f"_{name}_utils.py"
+    spec = importlib.util.spec_from_file_location(f"_{name}_utils", path)
+    utils = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(utils)
+    if not (folder["cache_dir"] / "data" / name).is_dir():  # never let the hook reach for the archive
+        raise AssertionError(f"{name}: the synthesised extraction root is missing under {folder['cache_dir']}")
+    with _env(LMMS_OWC_ASSETS_DIR=str(folder["assets_dir"])):
+        utils.download(output_dir=str(folder["data_dir"]), cache_dir=str(folder["cache_dir"]))
+    return folder["data_dir"] / name
+
+
+def run_cli_benchmark(dev, preset: str, ckpt: Path, work: Path, model_args: str = "dtype=bfloat16") -> dict:
+    """Phase 12, the paper's benchmark: a synthesised ``caltech101`` folder
+    (:func:`write_classification_folder`) converted by the task's download
+    hook, then ``python -m lmms_owc_tpu_torch.eval_model --tasks caltech101``
+    (the ``base`` prompt, 64 tokens) from the checkpoint in a subprocess whose
+    working directory is ``work``, so ``dataset_path: data/caltech101``
+    resolves there, with ``LMMS_OWC_ASSETS_DIR`` naming the split tables.
+    One results file and one samples line per test image, targets equal to
+    the synthesised classes, the four metrics finite; ``semantic_similarity``
+    must come from the MiniLM checkpoint that ``LMMS_OWC_SBERT_PATH`` names
+    (the fallback encoder's warning fails the phase)."""
+    import math
+
+    t0 = time.perf_counter()
+    folder = write_classification_folder(work)
+    converted = convert_classification_folder(folder)
+    out = work / "out"
+    cmd = [sys.executable, "-m", "lmms_owc_tpu_torch.eval_model", "--model", preset,
+           "--model_args", f"pretrained={ckpt},{model_args}", "--tasks", BENCHMARK_TASK,
+           "--batch_size", str(CLI_BATCH), "--log_samples", "--output_path", str(out), "--seed", "0,1234,1234,1234"]
+    root = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "LMMS_OWC_ASSETS_DIR": str(folder["assets_dir"]), "LMMS_OWC_TPU_LOG_LEVEL": "WARNING",
+           "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True, timeout=900, env=env)
+    seconds = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {BENCHMARK_TASK}: exited {proc.returncode}: {proc.stderr[-3000:]}")
+    if "MiniLM weights not found" in proc.stderr:
+        raise AssertionError(f"CLI {BENCHMARK_TASK}: semantic similarity took the fallback encoder")
+    results = list(out.rglob("*_results.json"))
+    samples = list(out.rglob(f"*_samples_{BENCHMARK_TASK}.jsonl"))
+    if len(results) != 1 or len(samples) != 1:
+        raise AssertionError(f"CLI {BENCHMARK_TASK}: {len(results)} results and {len(samples)} samples files")
+    lines = sorted((json.loads(line) for line in samples[0].read_text().splitlines()), key=lambda x: x["doc_id"])
+    targets = [line["target"] for line in lines]
+    if targets != folder["test_classes"]:
+        raise AssertionError(f"CLI {BENCHMARK_TASK}: targets {targets} != the synthesised classes "
+                             f"{folder['test_classes']}")
+    written = json.loads(results[0].read_text())
+    metrics = {m: written["results"][BENCHMARK_TASK][f"{m},none"] for m in BENCHMARK_METRICS}
+    if not all(isinstance(v, float) and math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"CLI {BENCHMARK_TASK}: metrics {metrics}")
+    max_new = written["configs"][BENCHMARK_TASK]["generation_kwargs"]["max_new_tokens"]
+    if max_new != MAX_NEW_TOKENS:
+        raise AssertionError(f"CLI {BENCHMARK_TASK}: max_new_tokens {max_new}, the base prompt's is {MAX_NEW_TOKENS}")
+    summary = dict(task=BENCHMARK_TASK, docs=len(lines), dataset=str(converted.relative_to(work)),
+                   seconds=seconds, phase_seconds=time.perf_counter() - t0, metrics=metrics,
+                   max_new_tokens=max_new, sample=lines[0]["resps"][0][0][:60])
+    log(f"CLI {BENCHMARK_TASK}: {json.dumps(summary)}")
+    return summary
+
+
 # ------------------------------------------------------- CLIP and LLaVA
 
 
@@ -2437,22 +2759,28 @@ def run_clip(dev) -> dict:
     return out
 
 
-def _llava_chunk_logits(model, requests):
-    """Last-position prefill logits of one chunk of LLaVA requests (tower, projector, prefill)."""
+def _prefill_logits(model, embeds, pos, mask, bucket):
+    """Last-position prefill logits of the adapter's decoder over one chunk's embeddings."""
     import torch
 
-    from lmms_owc_tpu_torch.nn.llama import llama_positions
     from lmms_owc_tpu_torch.nn.qwen2_vl import prefill
+
+    out, _ = prefill(model.model.text, embeds, torch.from_numpy(pos).to(model.device),
+                     torch.from_numpy(mask.astype(np.int32)).to(model.device), bucket)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("prefill logits have non-finite values")
+    return out
+
+
+def _llava_chunk_logits(model, requests):
+    """Last-position prefill logits of one chunk of LLaVA requests (tower, projector, prefill)."""
+    from lmms_owc_tpu_torch.nn.llama import llama_positions
 
     prepared = [model._prepare_request(r.args[0], *r.args[2:6]) for r in requests]
     input_ids, mask = model._left_pad([ids for ids, _ in prepared])
     embeds = model._embed_sequence(input_ids, [payload for _, payload in prepared])
     pos, _ = llama_positions(mask)
-    out, _ = prefill(model.model.text, embeds, torch.from_numpy(pos).to(model.device),
-                     torch.from_numpy(mask.astype(np.int32)).to(model.device), input_ids.shape[1])
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("prefill logits have non-finite values")
-    return out
+    return _prefill_logits(model, embeds, pos, mask, input_ids.shape[1])
 
 
 def _llava_per_call():
@@ -2464,18 +2792,29 @@ def _llava_per_call():
     return (lv, "encode_images"), (nnq, "prefill"), (nnq, "decode_step")
 
 
-def _check_llava_launches(run: dict, label: str, tower_calls: int, kv_int8: bool = False) -> None:
+def _check_tower_launches(run: dict, label: str, tower: str, tower_calls: int, tower_launches: int, layers: int,
+                          kv_int8: bool = False, tensor_mask: bool = False) -> None:
     """One chunk, read around each call (``run["per_call"]``): ``tower_calls``
-    tower calls of 23 K2 launches each, one prefill of 32, and 32 K3 (or
-    K3-int8) launches in each decode step; the run's totals are their sums."""
+    calls of the ``tower`` entry of ``tower_launches`` K2 launches each (each
+    in the tensor-mask form with ``tensor_mask``), one prefill of ``layers``,
+    and ``layers`` K3 (or K3-int8) launches in each decode step; the run's
+    totals are their sums."""
     k3 = "gqa_decode_attention_int8" if kv_int8 else "gqa_decode_attention"
     steps = run["decode_steps"]
-    want = {"encode_images": [{"flash_attention": LLAVA_TOWER_LAUNCHES}] * tower_calls,
-            "prefill": [{"flash_attention": LLAVA_LAYERS}], "decode_step": [{k3: LLAVA_LAYERS}] * steps}
-    totals = {"flash_attention": tower_calls * LLAVA_TOWER_LAUNCHES + LLAVA_LAYERS, k3: LLAVA_LAYERS * steps}
+    per_tower = {"flash_attention": tower_launches,
+                 **({"flash_attention_tensor_mask": tower_launches} if tensor_mask else {})}
+    want = {tower: [per_tower] * tower_calls, "prefill": [{"flash_attention": layers}],
+            "decode_step": [{k3: layers}] * steps}
+    totals = {"flash_attention": tower_calls * tower_launches + layers, k3: layers * steps,
+              **({"flash_attention_tensor_mask": tower_calls * tower_launches} if tensor_mask else {})}
     if steps == 0 or run["per_call"] != want or {k: n for k, n in run["counts"].items() if n} != totals:
         raise AssertionError(f"{label}: launches per call {_call_summary(run['per_call'])} (totals "
                              f"{run['counts']}) over {steps} decode steps, expected {_call_summary(want)}")
+
+
+def _check_llava_launches(run: dict, label: str, tower_calls: int, kv_int8: bool = False) -> None:
+    """Phases 15 and 17: CLIP tower calls of 23 K2 launches, a prefill of 32, 32 K3 (or K3-int8) per step."""
+    _check_tower_launches(run, label, "encode_images", tower_calls, LLAVA_TOWER_LAUNCHES, LLAVA_LAYERS, kv_int8)
 
 
 def _call_summary(per_call: dict) -> dict:
@@ -2620,6 +2959,215 @@ def run_llava_next(dev) -> dict:
     del model
     _free()
     return run
+
+
+# ------------------------------------------------------------ SigLIP families
+
+
+def _siglip_per_call():
+    """The SigLIP families' serving entries whose launches :func:`_serve` reads
+    per call: the tower, the prefill and each decode step."""
+    from lmms_owc_tpu_torch.nn import idefics2 as nnidf
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    return (nnidf, "siglip_vision_forward"), (nnq, "prefill"), (nnq, "decode_step")
+
+
+def _onevision_chunk_logits(model, requests):
+    """One chunk of LLaVA-OneVision requests: anyres tiles through the tower,
+    packing, then the prefill."""
+    from lmms_owc_tpu_torch.nn.llama import llama_positions
+
+    prepared = [model._prepare(r.args[0], *r.args[2:6]) for r in requests]
+    input_ids, mask = model._left_pad([ids for ids, _ in prepared])
+    embeds = model._embed_sequence(input_ids, [feats for _, feats in prepared])
+    pos, _ = llama_positions(mask)
+    return _prefill_logits(model, embeds, pos, mask, input_ids.shape[1])
+
+
+def _idefics2_chunk_logits(model, requests):
+    """One chunk of Idefics2 requests: the padded batch through the tower and
+    the perceiver, then the prefill."""
+    embeds, pos, mask, _, bucket = model._prepare_chunk([r.args for r in requests])
+    return _prefill_logits(model, embeds, pos, mask, bucket)
+
+
+def run_onevision(dev) -> dict:
+    """Phase 18: llava-onevision-qwen2-7b-ov with random bf16 weights drawn on
+    the card answers phase 3's 8 requests in one chunk (anyres: 5 tiles for a
+    448x448 image, 3 for a 336x448 one, prompts of 3712 and 1741 tokens,
+    bucket 4096, decode cache 4160: K3's general kernel), 64 greedy tokens:
+    one tower call per image (26 K2 launches at head_dim 72), 28 prefill
+    launches and 28 K3 launches per step, read around each call; the prefill
+    logits of a chunk of one image of each size by phase 4's rule;
+    ``loglikelihood`` on the same images by phase 10's, at batch 2."""
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    label = f"{ONEVISION_PRESET} bf16"
+    model, requests, run = serve_bf16(dev, ONEVISION_PRESET, None, {}, label, _siglip_per_call())
+    _check_tower_launches(run, label, "siglip_vision_forward", len(requests), ONEVISION_TOWER_LAUNCHES,
+                          ONEVISION_LAYERS)
+    lengths = [len(model._prepare(r.args[0], *r.args[2:6])[0]) for r in requests]
+    want = [ONEVISION_PROMPT_TOKENS[(448, 448)]] * 6 + [ONEVISION_PROMPT_TOKENS[(336, 448)]] * 2
+    bucket = pad_to_bucket(max(lengths))
+    run.update(prompt_tokens=lengths, bucket=bucket, cache_len=bucket + MAX_NEW_TOKENS,
+               tiles=[ONEVISION_TILES[(448, 448)]] * 6 + [ONEVISION_TILES[(336, 448)]] * 2)
+    log(f"{label}: prompts of {lengths} tokens, bucket {bucket}, decode cache {run['cache_len']} positions")
+    if lengths != want or run["cache_len"] <= 2048:
+        raise AssertionError(f"{label}: prompts of {lengths} tokens (phase 2 holds {want}), "
+                             f"decode cache {run['cache_len']} positions (must pass 2048)")
+    run["logits"] = _bf16_logits_rule(lambda: _onevision_chunk_logits(model, [requests[0], requests[-1]]), label)
+    model.batch_size = 2  # the plain and f32 paths' [B, H, 4096, 4096] scores stay a few GB
+    run["loglikelihood"] = check_loglikelihood(model, {
+        "flash_attention": len(requests) * ONEVISION_TOWER_LAUNCHES + len(requests) // 2 * ONEVISION_LAYERS,
+        "gqa_decode_attention": 0})
+    del model
+    _free()
+    return run
+
+
+def run_idefics2(dev) -> dict:
+    """Phase 19: idefics2-8b with random bf16 weights drawn on the card
+    answers four requests of mixed aspect in one chunk (the processor's
+    variable-aspect resize, padded to one 448 x 672 grid: every image's patch
+    mask has gaps), 64 greedy tokens: one tower call for the batch (27 K2
+    launches at head_dim 72, all in the tensor-mask form), 32 prefill
+    launches (K2's Hopper instance at G = 4) and 32 K3 launches per step,
+    read around each call; the chunk's prefill logits by phase 4's rule;
+    ``loglikelihood`` on phase 3's 8 images by phase 10's."""
+    label = f"{IDEFICS2_PRESET} bf16"
+    model, requests, run = serve_bf16(dev, IDEFICS2_PRESET, IDEFICS2_SIZES, {}, label, _siglip_per_call())
+    _check_tower_launches(run, label, "siglip_vision_forward", 1, IDEFICS2_TOWER_LAUNCHES, IDEFICS2_LAYERS,
+                          tensor_mask=True)
+    lengths = [len(model.tokenizer.encode(model._build_prompt(r.args[0], 1))) for r in requests]
+    pixels, _, patch_mask = model._preprocess_hf([model._visuals(r.args)[0] for r in requests])
+    run.update(prompt_tokens=lengths, grid=list(pixels.shape[2:]), valid_patches=patch_mask.sum(1).tolist())
+    log(f"{label}: prompts of {lengths} tokens, images padded to {run['grid']}, valid patches {run['valid_patches']}")
+    if lengths != [IDEFICS2_PROMPT_TOKENS] * len(requests) or not (patch_mask == 0).any(1).all():
+        raise AssertionError(f"{label}: prompts of {lengths} tokens (phase 2 holds {IDEFICS2_PROMPT_TOKENS}); "
+                             f"every image's patch mask must have gaps: {run['valid_patches']}")
+    run["logits"] = _bf16_logits_rule(lambda: _idefics2_chunk_logits(model, requests), label)
+    run["loglikelihood"] = check_loglikelihood(model, {
+        "flash_attention": IDEFICS2_TOWER_LAUNCHES + IDEFICS2_LAYERS,
+        "flash_attention_tensor_mask": IDEFICS2_TOWER_LAUNCHES, "gqa_decode_attention": 0})
+    del model
+    _free()
+    return run
+
+
+def onevision_checkpoint_config() -> dict:
+    """``llava-onevision-qwen2-7b-ov``'s preset (full width) with the decoder
+    cut to ``SIGLIP_CKPT_LAYERS`` layers, in the released config.json's form."""
+    from lmms_owc_tpu_torch.models.llava_onevision import PRESET_CONFIGS
+
+    cfg = json.loads(json.dumps(PRESET_CONFIGS[ONEVISION_PRESET]))
+    cfg["text_config"]["num_hidden_layers"] = SIGLIP_CKPT_LAYERS
+    cfg["vision_config"]["vision_use_head"] = False  # the released tower has no pooling head
+    cfg.update(model_type="llava_onevision", architectures=["LlavaOnevisionForConditionalGeneration"])
+    return cfg
+
+
+def idefics2_checkpoint_config() -> dict:
+    """``idefics2-8b``'s preset (full width) with the decoder cut to
+    ``SIGLIP_CKPT_LAYERS`` layers, in the released config.json's form."""
+    from lmms_owc_tpu_torch.models.idefics2 import PRESET_CONFIGS
+
+    cfg = json.loads(json.dumps(PRESET_CONFIGS[IDEFICS2_PRESET]))
+    cfg["text_config"]["num_hidden_layers"] = SIGLIP_CKPT_LAYERS
+    # The released form names the perceiver's width and epsilon (the port's defaults for the preset).
+    cfg["perceiver_config"].update(hidden_size=cfg["text_config"]["hidden_size"], rms_norm_eps=1e-6)
+    cfg.update(model_type="idefics2", architectures=["Idefics2ForConditionalGeneration"])
+    return cfg
+
+
+def idefics2_tokenizer() -> dict:
+    """Idefics2's Mistral ``tokenizer.json`` form: :func:`llama2_tokenizer`
+    with ``<fake_token_around_image>``, ``<image>`` and ``<end_of_utterance>``
+    as added tokens at 32000-32002, inside the 32003-token vocabulary."""
+    blob = llama2_tokenizer()
+    blob["added_tokens"] = [t for t in blob["added_tokens"] if t["id"] < 32000] + [
+        {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+         "special": True} for t, i in IDEFICS2_SPECIAL_IDS.items()]
+    return blob
+
+
+def write_siglip_checkpoint(family: str, dev, path: Path, seed: int) -> tuple[object, dict, dict]:
+    """A full-width checkpoint of ``family`` ("onevision" or "idefics2") with
+    ``SIGLIP_CKPT_LAYERS`` decoder layers: random bf16 weights drawn on the
+    card into the port's module tree, written under the published tensor
+    names with config.json and the family's tokenizer (the Qwen2 fixture with
+    its specials and ``<image>`` at their published ids; the Mistral form of
+    :func:`idefics2_tokenizer`). Returns (written model, config, write stats)."""
+    import torch
+
+    from lmms_owc_tpu_torch.models import llava_onevision as ov
+    from lmms_owc_tpu_torch.nn import idefics2 as idf
+    from lmms_owc_tpu_torch.nn.llama import llama_config_from_hf
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if family == "onevision":
+        cfg = onevision_checkpoint_config()
+        vis = cfg["vision_config"]
+        vision = idf.SiglipVisionConfig(hidden_size=vis["hidden_size"], num_layers=vis["num_hidden_layers"],
+                                        num_heads=vis["num_attention_heads"],
+                                        intermediate_size=vis["intermediate_size"],
+                                        image_size=vis["image_size"], patch_size=vis["patch_size"])
+        decoder = llama_config_from_hf(cfg["text_config"]).to_decoder_config()
+        written = _random_module(ov.OnevisionModel(decoder, vision, True, torch.bfloat16, dev), gen)
+        prefixes, label = ONEVISION_HF_PREFIXES, f"{ONEVISION_PRESET} width, {SIGLIP_CKPT_LAYERS} layers"
+        tokenizer = pinned_tokenizer(json.loads(FIXTURE_TOKENIZER.read_text()),
+                                     {**QWEN2_SPECIAL_IDS, "<image>": ONEVISION_IMAGE_ID})
+        tokenizer_config = {"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+                            "clean_up_tokenization_spaces": False}
+    else:
+        cfg = idefics2_checkpoint_config()
+        config = idf.idefics2_config_from_hf(cfg)
+        # HF's connector: the modality projection's inner width is the text intermediate size.
+        written = _random_module(idf.Idefics2Model(config, torch.bfloat16, dev, config.text.intermediate_size), gen)
+        prefixes, label = IDEFICS2_HF_PREFIXES, f"{IDEFICS2_PRESET} width, {SIGLIP_CKPT_LAYERS} layers"
+        tokenizer, tokenizer_config = idefics2_tokenizer(), dict(LLAMA2_TOKENIZER_CONFIG, pad_token="<unk>")
+    out = write_tensors(_hf_layout(written, _NameProbe(prefixes)), path, label)
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "tokenizer.json").write_text(json.dumps(tokenizer))
+    (path / "tokenizer_config.json").write_text(json.dumps(tokenizer_config))
+    return written, cfg, out
+
+
+def run_siglip_checkpoints(dev) -> dict:
+    """Phase 20: for each SigLIP family, a full-width checkpoint with
+    ``SIGLIP_CKPT_LAYERS`` decoder layers and the full tower
+    (:func:`write_siglip_checkpoint`), loaded with ``pretrained=``: every
+    parameter bit-equal to what was written, and the family's requests
+    (phase 18's and phase 19's images) give the tokens of the model it was
+    written from, through the loaded tokenizer."""
+    import copy as _copy
+
+    out = {}
+    for family, preset, sizes, seed in (("onevision", ONEVISION_PRESET, None, 18),
+                                        ("idefics2", IDEFICS2_PRESET, IDEFICS2_SIZES, 19)):
+        root = Path(tempfile.mkdtemp(prefix=f"owc_{family}_"))
+        try:
+            written, _, stats = write_siglip_checkpoint(family, dev, root, seed)
+            model, stats["load"] = _load(dev, preset, root, batch_size=NUM_REQUESTS)
+            stats["parameters_bit_equal"] = _same_parameters(model.model, written, f"{family} checkpoint load")
+            served = _copy.copy(model)  # the same adapter (config, tokenizer) over the written modules
+            served.model = written
+            requests = _requests(model, sizes)
+            served.task_dict = model.task_dict
+            want: list = []
+            _serve(served, requests, want, require_text=False)
+            got: list = []
+            run = _serve(model, requests, got, require_text=False)
+            _same_tokens(f"{family} checkpoint load", got, want)
+            _log_run(f"{preset} checkpoint", run)
+            stats["serve"] = dict(run, tokens_identical=True)
+            del served, written, model
+            _free()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out[family] = stats
+        log(f"{family} checkpoint: {json.dumps(_phase_summary(stats))}")
+    return out
 
 
 # ------------------------------------------------------------------ scoring
@@ -3286,6 +3834,8 @@ def main(argv: list[str] | None = None) -> int:
             mark("10-11 loglikelihood, multi-round")
             with _env(LMMS_OWC_SBERT_PATH=str(sbert_dir)):
                 cli = run_cli(dev, "qwen2-vl-7b", root, reference, out_root=scoring_root / "cli")  # phase 12
+                (scoring_root / "bench").mkdir()
+                cli[BENCHMARK_TASK] = run_cli_benchmark(dev, "qwen2-vl-7b", root, scoring_root / "bench")
             mark("12 cli")
         finally:
             shutil.rmtree(root, ignore_errors=True)
@@ -3320,6 +3870,12 @@ def main(argv: list[str] | None = None) -> int:
     mark("16 llava checkpoint")
     llava["next"] = run_llava_next(dev)  # phase 17
     mark("17 llava-next")
+    onevision = run_onevision(dev)  # phase 18
+    mark("18 llava-onevision")
+    idefics2 = run_idefics2(dev)  # phase 19
+    mark("19 idefics2")
+    siglip_checkpoints = run_siglip_checkpoints(dev)  # phase 20
+    mark("20 siglip checkpoints")
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
     # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed);
@@ -3343,6 +3899,14 @@ def main(argv: list[str] | None = None) -> int:
     also["flash_attention"]["clip_text"]["launches"] = k2(clip, "clip_text_encode")
     also["gqa_decode_attention"]["llava_decode"]["launches"] = llava["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention"]["llava_next_decode"]["launches"] = llava["next"]["counts"]["gqa_decode_attention"]
+    also["flash_attention"]["onevision_tower"]["launches"] = k2(onevision, "siglip_vision_forward")
+    also["flash_attention"]["idefics2_tower"]["launches"] = k2(idefics2, "siglip_vision_forward")
+    also["flash_attention"]["onevision_prefill"]["launches"] = k2(onevision, "prefill")
+    also["flash_attention"]["mistral_prefill"]["launches"] = k2(idefics2, "prefill")
+    for label in ("d72_contiguous_f32", "d72_tensor_f32"):  # parity forms no phase serves
+        also["flash_attention"][label]["launches"] = 0
+    also["gqa_decode_attention"]["onevision_decode"]["launches"] = onevision["counts"]["gqa_decode_attention"]
+    also["gqa_decode_attention"]["mistral_decode"]["launches"] = idefics2["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention_int8"]["llava_decode"]["launches"] = \
         llava["int8_kv_int8"]["counts"]["gqa_decode_attention_int8"]
     kernels = [
@@ -3383,6 +3947,15 @@ def main(argv: list[str] | None = None) -> int:
         "llava-next-vicuna-7b bf16": served(llava["next"]),
     }
     log(f"summary llava: {json.dumps(llava_summary)}")
+    siglip_summary = {
+        f"{ONEVISION_PRESET} bf16": {**served(onevision), "tiles": onevision["tiles"]},
+        f"{ONEVISION_PRESET} loglikelihood": {k: v for k, v in onevision["loglikelihood"].items() if k != "losses"},
+        f"{IDEFICS2_PRESET} bf16": {**served(idefics2), "grid": idefics2["grid"],
+                                    "valid_patches": idefics2["valid_patches"]},
+        f"{IDEFICS2_PRESET} loglikelihood": {k: v for k, v in idefics2["loglikelihood"].items() if k != "losses"},
+        "checkpoints": {family: _phase_summary(stats) for family, stats in siglip_checkpoints.items()},
+    }
+    log(f"summary siglip: {json.dumps(siglip_summary)}")
     log(f"summary wall seconds: {json.dumps(wall)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

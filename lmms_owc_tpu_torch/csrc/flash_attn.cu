@@ -23,12 +23,16 @@
 // elements of K and V (the ViT at L=1024, D=80; the prefill at L~320, D=128),
 // far above the card's ~295 flop/byte balance point.
 //
-// Two designs. The bf16 instances at head_dim 80 and 128 (every main-path
-// shape) are the Hopper kernel of namespace sm90 below: a cp.async ring of
+// Two designs. The bf16 instances at head_dim 72 (without rope), 80 and 128
+// (every main-path shape, and the SigLIP towers of LLaVA-OneVision and
+// Idefics2) are the Hopper kernel of namespace sm90 below: a cp.async ring of
 // K/V stages, wgmma for both products, rope once per token. The general
-// kernel serves f32, head_dims 16/32/64 and views whose rows are not 16-byte
-// aligned: the two products run on mma.sync m16n8k16 bf16 tiles (f32: CUDA
-// cores) with f32 accumulation, synchronous loads, rope per tile. In both, the
+// kernel serves f32, head_dims 16/32/64 (and 72 with rope) and views whose
+// rows are not 16-byte aligned: the two products run on mma.sync m16n8k16
+// bf16 tiles (f32: CUDA cores) with f32 accumulation, synchronous loads, rope
+// per tile. Both lay a head_dim of 72 out as 80 columns in shared memory
+// (tile_cols), the last 8 zero, so the QK product steps 16 columns at a time
+// over it; the output keeps its 72 columns. In both, the
 // score tile never leaves registers (its accumulator fragments are re-packed
 // as the A operand of the PV product); blocks that the causal diagonal or the
 // (start, end) key range exclude are skipped, and with a tensor mask (its own
@@ -76,6 +80,13 @@ constexpr int kBK = 64;        // keys per k block
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kPad = 8;        // shared-memory row padding (elements): no bank conflicts
 
+// Columns of a q/k/v tile in shared memory: head_dim rounded up to the
+// m16n8k16 depth of 16. At head_dim 72 (SigLIP) the QK product runs over
+// 80 columns, the last 8 zero-filled, so they add nothing to the scores;
+// the PV product and the output stay at 72 columns (9 n8 tiles). The other
+// head dims are multiples of 16 and keep their layout.
+__host__ __device__ constexpr int tile_cols(int d) { return (d + 15) / 16 * 16; }
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -115,13 +126,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
 }
 
 // Copies token rows [row0, row0 + kRows) of one head into shared memory
-// [kRows][D + kPad], zero-filling rows at or past `nrows`. With `cos` set, the
+// [kRows][tile_cols(D) + kPad], zero-filling rows at or past `nrows`. With `cos` set, the
 // pair (i, i + D/2) of each row is rotated by the rope table in f32.
 template <typename T, int D, int kRows>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride, int row0,
                                           int nrows, const float* cos, const float* sin) {
   constexpr int kHalf = D / 2;
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = tile_cols(D) + kPad;
+  if constexpr (tile_cols(D) != D) {  // zero the columns past head_dim (QK reads them)
+    constexpr int kTail = tile_cols(D) - D;
+    for (int idx = threadIdx.x; idx < kRows * kTail; idx += kThreads)
+      dst[(idx / kTail) * kLd + D + idx % kTail] = from_f<T>(0.f);
+  }
   for (int idx = threadIdx.x; idx < kRows * kHalf; idx += kThreads) {
     const int r = idx / kHalf;
     const int i = idx - r * kHalf;
@@ -150,9 +166,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const __nv_bfloat16* qs,
                                    const __nv_bfloat16* ks, int r_lo, int g, int tig, float*) {
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = tile_cols(D) + kPad;
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
+  for (int kc = 0; kc < tile_cols(D) / 16; ++kc) {
     const int c = kc * 16 + tig * 2;
     const uint32_t a0 = ld_pair(qs + r_lo * kLd + c);
     const uint32_t a1 = ld_pair(qs + (r_lo + 8) * kLd + c);
@@ -169,7 +185,7 @@ __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const __nv_bfloat16* 
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const float* qs, const float* ks,
                                    int r_lo, int g, int tig, float*) {
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = tile_cols(D) + kPad;
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
@@ -190,7 +206,7 @@ __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const float* qs, cons
 template <int D>
 __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 8][4],
                                    const __nv_bfloat16* vs, int g, int tig, float*) {
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = tile_cols(D) + kPad;
 #pragma unroll
   for (int kc = 0; kc < kBK / 16; ++kc) {
     const uint32_t a0 = pack_pair(p[2 * kc][0], p[2 * kc][1]);
@@ -211,7 +227,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 
 template <int D>
 __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 8][4],
                                    const float* vs, int g, int tig, float* ps) {
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = tile_cols(D) + kPad;
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
@@ -235,7 +251,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 
 
 template <typename T, int D, bool kTensorMask>
 __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = tile_cols(D) + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + kBQ * kLd;
@@ -359,7 +375,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
 
 template <typename T, int D, bool kTensorMask>
 cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (D + kPad) * sizeof(T) +
+  constexpr size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (tile_cols(D) + kPad) * sizeof(T) +
                           (std::is_same<T, float>::value ? 4 * 16 * kBK * sizeof(float) : 0);
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance
       flash_kernel<T, D, kTensorMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -381,6 +397,7 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 72: return launch<T, 72>(a, stream);
     case 80: return launch<T, 80>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
@@ -389,7 +406,13 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 
 
 // ============================================================================
-// The Hopper design of the bf16 instances at head_dim 80 and 128.
+// The Hopper design of the bf16 instances at head_dim 72, 80 and 128.
+//
+// Head_dim 72 runs as 80: its q, k and v rows are nine 16-byte chunks, the
+// tenth chunk of each tile row is zero-filled (cp.async with no source
+// bytes), QK takes 5 k-steps and PV the m64n80 product, whose last 8 output
+// columns are zero and not stored. takes() sends it no rope (72 / 2 is not
+// a whole number of 16-byte chunks).
 //
 // A CTA of kWG warpgroups owns 64 * kWG query rows of one head: three
 // warpgroups (192 rows) share each K/V tile when the query is longer than 64
@@ -560,8 +583,10 @@ template <int D, bool kTensorMask, int kWG>
 __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   constexpr int kThreads = 128 * kWG;  // kWG warpgroups share each K/V tile
   constexpr int kBQ = kBK * kWG;       // query rows per CTA, 64 per warpgroup
-  constexpr int kTile = kBK * D * 2;   // bytes of one k or v tile, or of a warpgroup's q rows
-  constexpr int kChunks = D / 8;      // 16-byte chunks per row
+  constexpr int kCols = tile_cols(D);  // columns in shared memory: 72 -> 80, the last 8 zero
+  constexpr int kTile = kBK * kCols * 2;  // bytes of one k or v tile, or of a warpgroup's q rows
+  constexpr int kChunks = kCols / 8;  // 16-byte chunks per row in shared memory
+  constexpr int kDataChunks = D / 8;  // of which hold data (the rest are zero-filled)
   constexpr int kHalfChunks = D / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* qs = smem;
@@ -631,10 +656,11 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
       const uint32_t kd = smem_addr(ks + stage * kTile), vd = smem_addr(vs + stage * kTile);
       for (int idx = tid; idx < kBK * kChunks; idx += kThreads) {
         const int r = idx / kChunks, c = idx - r * kChunks;
-        const bool valid = kb0 + r < a.lk;
+        const bool valid = kb0 + r < a.lk && c < kDataChunks;
         const long long row = valid ? kb0 + r : 0;
-        cp_async16(kd + core_offset<kBK>(r, c), kp + row * a.k_sl + c * 8, valid);
-        cp_async16(vd + core_offset<kBK>(r, c), vp + row * a.v_sl + c * 8, valid);
+        const int col = valid ? c * 8 : 0;
+        cp_async16(kd + core_offset<kBK>(r, c), kp + row * a.k_sl + col, valid);
+        cp_async16(vd + core_offset<kBK>(r, c), vp + row * a.v_sl + col, valid);
       }
     }
     cp_async_commit();
@@ -645,23 +671,33 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   // The q tile, rotated as it is read when a rope table is given.
   const float* cs = a.cos != nullptr ? a.cos + b * a.rope_sb : nullptr;
   const float* sn = a.sin != nullptr ? a.sin + b * a.rope_sb : nullptr;
-  for (int idx = tid; idx < kBQ * kHalfChunks; idx += kThreads) {
-    const int r = idx / kHalfChunks, c = idx - r * kHalfChunks;
-    const int row = q0 + r;
-    uint4 x1 = make_uint4(0, 0, 0, 0), x2 = x1;
-    if (row < a.lq) {
-      const __nv_bfloat16* p = qp + row * a.q_sl;
-      x1 = *reinterpret_cast<const uint4*>(p + c * 8);
-      x2 = *reinterpret_cast<const uint4*>(p + D / 2 + c * 8);
-      if (cs != nullptr) rotate8(x1, x2, cs + row * (D / 2) + c * 8, sn + row * (D / 2) + c * 8);
+  if constexpr (kCols == D) {
+    for (int idx = tid; idx < kBQ * kHalfChunks; idx += kThreads) {
+      const int r = idx / kHalfChunks, c = idx - r * kHalfChunks;
+      const int row = q0 + r;
+      uint4 x1 = make_uint4(0, 0, 0, 0), x2 = x1;
+      if (row < a.lq) {
+        const __nv_bfloat16* p = qp + row * a.q_sl;
+        x1 = *reinterpret_cast<const uint4*>(p + c * 8);
+        x2 = *reinterpret_cast<const uint4*>(p + D / 2 + c * 8);
+        if (cs != nullptr) rotate8(x1, x2, cs + row * (D / 2) + c * 8, sn + row * (D / 2) + c * 8);
+      }
+      *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c)) = x1;
+      *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c + kHalfChunks)) = x2;
     }
-    *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c)) = x1;
-    *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c + kHalfChunks)) = x2;
+  } else {  // padded columns (takes() sends no rope here): chunks past head_dim are zero
+    for (int idx = tid; idx < kBQ * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx - r * kChunks;
+      const int row = q0 + r;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (row < a.lq && c < kDataChunks) x = *reinterpret_cast<const uint4*>(qp + row * a.q_sl + c * 8);
+      *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c)) = x;
+    }
   }
 
-  float o[D / 2];
+  float o[kCols / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
   float m_row[2] = {-INFINITY, -INFINITY};
   float l_row[2] = {0.f, 0.f};
   const int r_lo = warp * 16 + g;  // this thread's rows r_lo and r_lo + 8 (warpgroup warp / 4)
@@ -674,7 +710,7 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   auto issue_qk = [&](int i) {
     const uint32_t k_addr = smem_addr(ks + (i % kStages) * kTile);
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
+    for (int kc = 0; kc < kCols / 16; ++kc) {
       wgmma_ss_n64(s, make_desc(q_addr + kc * 2 * kBQ * 16, kBQ * 16, 128),
                    make_desc(k_addr + kc * 2 * kBK * 16, kBK * 16, 128), kc > 0);
     }
@@ -690,7 +726,7 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   // one CTA, so the keys are rotated here, in shared memory, as each tile
   // lands (still once per token); otherwise the pre-pass has rotated them
   // (a.k_rot is then set).
-  const bool rope_k = cs != nullptr && a.k_rot == nullptr;
+  const bool rope_k = kCols == D && cs != nullptr && a.k_rot == nullptr;
   auto rope_tile = [&](int i) {
     if (!rope_k) return;
     const int kb0 = (kTensorMask ? tiles[i] & ~kFullTile : t0 + i) * kBK;
@@ -800,12 +836,12 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
     const uint32_t v_addr = smem_addr(vs + (i % kStages) * kTile);
 #pragma unroll
     for (int kc = 0; kc < kBK / 16; ++kc) {
-      wgmma_pv<D>(o, pa[kc], make_desc(v_addr + kc * 2 * 128, 128, kBK * 16));
+      wgmma_pv<kCols>(o, pa[kc], make_desc(v_addr + kc * 2 * 128, 128, kBK * 16));
     }
   };
   auto rescale_o = [&]() {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[n * 4 + c] *= corr[c >> 1];
     }
@@ -852,7 +888,7 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
 
 template <int D, bool kTensorMask, int kWG>
 constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kWG + 2 * kStages) * kBK * D * 2 +
+  return static_cast<size_t>(kWG + 2 * kStages) * kBK * tile_cols(D) * 2 +
          (kTensorMask ? kMaxTiles * sizeof(int) + kMaxKeys : 0);
 }
 
@@ -866,7 +902,7 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
   const dim3 grid((a.lq + kBK * kWG - 1) / (kBK * kWG), a.heads, a.batch);
   FlashArgs args = a;
   args.k_rot = nullptr;  // the kernel rotates the keys itself: one CTA meets each key tile
-  if (a.cos != nullptr && (grid.x > 1 || a.heads != a.kv_heads)) {  // rotate the keys once into the scratch, then read them from there
+  if (tile_cols(D) == D && a.cos != nullptr && (grid.x > 1 || a.heads != a.kv_heads)) {  // rotate the keys once into the scratch, then read them from there
     const long long threads = static_cast<long long>(a.batch) * a.kv_heads * a.lk * (D / 16);
     rope_keys_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
         a, static_cast<__nv_bfloat16*>(a.k_rot));
@@ -882,11 +918,13 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Whether the Hopper instances take this call: bf16 at head_dim 80 or 128,
-// 16-byte aligned q/k/v rows, a tensor mask that fits shared memory, and the
-// keys' scratch when rope is on. Anything else runs the general kernel above.
+// Whether the Hopper instances take this call: bf16 at head_dim 72 (no rope),
+// 80 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits shared
+// memory, and the keys' scratch when rope is on. Anything else runs the
+// general kernel above.
 bool takes(const FlashArgs& a) {
-  if (a.dtype != 1 || (a.head_dim != 80 && a.head_dim != 128)) return false;
+  if (a.dtype != 1 || (a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 128)) return false;
+  if (a.head_dim == 72 && a.cos != nullptr) return false;
   if (a.mask != nullptr && a.lk > kMaxKeys) return false;
   if (a.cos != nullptr && a.k_rot == nullptr) return false;
   const long long strides[] = {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl, a.v_sb, a.v_sh, a.v_sl};
@@ -924,7 +962,13 @@ extern "C" int owc_flash_attention(const FlashArgs* args, void* stream) {
   if (a.heads <= 0 || a.kv_heads <= 0 || a.heads % a.kv_heads != 0) return cudaErrorInvalidValue;
   if (a.batch == 0 || a.lq == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sm90::takes(a)) return a.head_dim == 80 ? sm90::launch<80>(a, s) : sm90::launch<128>(a, s);
+  if (sm90::takes(a)) {
+    switch (a.head_dim) {
+      case 72: return sm90::launch<72>(a, s);
+      case 80: return sm90::launch<80>(a, s);
+      default: return sm90::launch<128>(a, s);
+    }
+  }
   if (a.dtype == 1) return dispatch_head_dim<__nv_bfloat16>(a, s);
   if (a.dtype == 0) return dispatch_head_dim<float>(a, s);
   return cudaErrorInvalidValue;

@@ -12,7 +12,8 @@
     (CPU and CUDA activities) and writes a Chrome trace there.
   - seeding covers python/numpy/torch: the third seed is ``torch_random_seed``,
     which the adapter's ``torch.Generator`` takes.
-  - ``check_integrity`` raises (:mod:`lmms_owc_tpu_torch.engine._integrity`).
+  - ``check_integrity`` runs the port's task tests for the selected tasks in a
+    subprocess (:mod:`lmms_owc_tpu_torch.engine._integrity`), before the model loads.
 """
 
 from __future__ import annotations
@@ -490,7 +491,7 @@ def simple_evaluate(
 
     if not tasks:
         raise ValueError("no tasks specified, or no tasks found")
-    if check_integrity:  # before the model loads: the port's check raises
+    if check_integrity:  # before the model loads: a failing check costs no load
         from lmms_owc_tpu_torch.engine._integrity import run_task_tests
 
         run_task_tests(task_list=tasks)

@@ -7,7 +7,7 @@ from lmms_owc_tpu_torch.models._api import (
     register_model,
 )
 from lmms_owc_tpu_torch.models._base import Model
-from lmms_owc_tpu_torch.models import fake, llava_hf, qwen2_vl  # noqa: F401  (register the adapters)
+from lmms_owc_tpu_torch.models import fake, idefics2, llava_hf, llava_onevision, qwen2_vl  # noqa: F401  (register the adapters)
 
 __all__ = [
     "MODELS",

@@ -19,10 +19,11 @@ import time
 from collections import defaultdict
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 from lmms_owc_tpu_torch._device import get_device
-from lmms_owc_tpu_torch.utils import foreach_chunk_pipelined
+from lmms_owc_tpu_torch.utils import foreach_chunk_pipelined, pad_to_bucket
 
 __all__ = ["CacheHook", "Model"]
 
@@ -232,6 +233,36 @@ class Model(abc.ABC):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.phase_seconds[name] += time.perf_counter() - t0
+
+    @property
+    def pad_token_id(self) -> int:
+        """The id that left-pads prompts (and, with the EOS ids, ends a
+        generated row): the decoder config's."""
+        return self.config.pad_token_id
+
+    def _left_pad(self, rows: list[list[int]]) -> tuple[np.ndarray, np.ndarray]:
+        """(input_ids, mask) [B, bucket]: rows left-padded with the pad id to
+        the length bucket of the longest."""
+        bucket = pad_to_bucket(max(len(ids) for ids in rows))
+        input_ids = np.full((len(rows), bucket), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), bucket), np.int64)
+        for row, ids in enumerate(rows):
+            input_ids[row, bucket - len(ids) :] = ids
+            mask[row, bucket - len(ids) :] = 1
+        return input_ids, mask
+
+    def _detokenize(self, tokens: np.ndarray) -> list[str]:
+        """Trim each row at the first EOS/pad token and decode to text."""
+        stop = set(self.eos_token_ids) | {self.pad_token_id}
+        texts = []
+        for row in range(tokens.shape[0]):
+            ids = []
+            for tok in tokens[row]:
+                if int(tok) in stop:
+                    break
+                ids.append(int(tok))
+            texts.append(self.tokenizer.decode(ids, skip_special_tokens=True))
+        return texts
 
     def _foreach_chunk_pipelined(self, chunks: list, prepare, run, depth: int = 2, finish=None) -> list:
         """Process chunks with up to ``depth`` chunks' preparation in flight.

@@ -395,29 +395,6 @@ class LlavaHf(Model):
 
     # ------------------------------------------------------------- generation
 
-    def _detokenize(self, tokens: np.ndarray) -> list[str]:
-        """Trim each row at the first EOS/pad token and decode to text."""
-        stop = set(self.eos_token_ids) | {self.config.pad_token_id}
-        texts = []
-        for row in range(tokens.shape[0]):
-            ids = []
-            for tok in tokens[row]:
-                if int(tok) in stop:
-                    break
-                ids.append(int(tok))
-            texts.append(self.tokenizer.decode(ids, skip_special_tokens=True))
-        return texts
-
-    def _left_pad(self, rows: list[list[int]]) -> tuple[np.ndarray, np.ndarray]:
-        """(input_ids, mask) [B, bucket]: rows left-padded with the pad id."""
-        bucket = pad_to_bucket(max(len(ids) for ids in rows))
-        input_ids = np.full((len(rows), bucket), self.config.pad_token_id, np.int64)
-        mask = np.zeros((len(rows), bucket), np.int64)
-        for row, ids in enumerate(rows):
-            input_ids[row, bucket - len(ids) :] = ids
-            mask[row, bucket - len(ids) :] = 1
-        return input_ids, mask
-
     def generate_until(self, requests) -> list[str]:
         collator = Collator(
             [req.args for req in requests],

@@ -606,19 +606,6 @@ class Qwen2VL(Model):
         )
         return embeds, position_ids, attention_mask, next_pos, bucket_len
 
-    def _detokenize(self, tokens: np.ndarray) -> list[str]:
-        """Trim each row at the first EOS/pad token and decode to text."""
-        texts = []
-        eos_set = set(self.eos_token_ids) | {self.config.pad_token_id}
-        for row in range(tokens.shape[0]):
-            ids = []
-            for tok in tokens[row]:
-                if int(tok) in eos_set:
-                    break
-                ids.append(int(tok))
-            texts.append(self.tokenizer.decode(ids, skip_special_tokens=True))
-        return texts
-
     def _run_batch(self, batch: list[tuple], gen_kwargs: dict, vision_flat=None) -> list[str]:
         """Generate for one macro batch of (token_ids, vision_spans, grids)."""
         max_new_tokens = int(gen_kwargs.get("max_new_tokens", DEFAULT_MAX_NEW_TOKENS))

@@ -1,5 +1,4 @@
-"""Host utilities of the port: the JAX package's ``utils`` (its ``_data``
-download helpers excepted)."""
+"""Host utilities of the port: the JAX package's ``utils``."""
 
 from lmms_owc_tpu_torch.utils._caching import (
     delete_cache,
@@ -31,6 +30,12 @@ from lmms_owc_tpu_torch.utils._core import (
     sanitize_task_name,
     simple_parse_args_string,
 )
+from lmms_owc_tpu_torch.utils._data import (
+    download_data,
+    extract_data,
+    load_image_folder_as_hf_dataset,
+    write_jsonl,
+)
 from lmms_owc_tpu_torch.utils._logging import deprecated_positional, get_logger, rank_zero_only
 from lmms_owc_tpu_torch.utils._tables import make_table
 
@@ -41,6 +46,8 @@ __all__ = [
     "convert_non_serializable",
     "create_iterator",
     "delete_cache",
+    "download_data",
+    "extract_data",
     "get_datetime_str",
     "get_git_commit_hash",
     "get_logger",
@@ -49,6 +56,7 @@ __all__ = [
     "import_function",
     "json_dumps_deterministic",
     "load_from_cache",
+    "load_image_folder_as_hf_dataset",
     "load_yaml_config",
     "make_table",
     "pad_to_bucket",
@@ -65,4 +73,5 @@ __all__ = [
     "sanitize_task_name",
     "save_to_cache",
     "simple_parse_args_string",
+    "write_jsonl",
 ]

@@ -650,3 +650,122 @@ def test_pool_divergence_probe_on_the_cpu():
     assert out["steps"] == chip_smoke.MAX_NEW_TOKENS - 1 and out["first_parting_step"]["chunk 0"] is not None
     assert all(out["inputs_equal"][k] for k in ("token_ids", "position_ids", "kv_mask")) and all(out["inputs_equal"]["cache"])
     assert out["parting_calls"] and model.batch_size == 8 and model.decode_rows is None
+
+
+# ------------------------------------------------------- phases 18-20 (SigLIP)
+
+
+def test_siglip_phase_workloads():
+    """Phases 18-20's shapes: the presets' published widths (SigLIP 1152 wide,
+    16 heads of 72; 26 layers for onevision, 27 for Idefics2; Qwen2-7B 28/4
+    heads, Mistral-7B 32/8), phase 3's images tiled by anyres into the prompt
+    lengths phase 2 holds (a cache past 2048 positions), Idefics2's four
+    images padded to one grid where every patch mask has gaps, and the
+    checkpoints cut in depth only."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models.idefics2 import PRESET_CONFIGS as IDF, _FallbackIdeficsTokenizer
+    from lmms_owc_tpu_torch.models.llava_onevision import PRESET_CONFIGS as OV, _FallbackOVTokenizer
+    from lmms_owc_tpu_torch.nn import anyres
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    ov, idf = OV[chip_smoke.ONEVISION_PRESET], IDF[chip_smoke.IDEFICS2_PRESET]
+    for cfg, layers in ((ov, chip_smoke.ONEVISION_TOWER_LAUNCHES), (idf, chip_smoke.IDEFICS2_TOWER_LAUNCHES)):
+        v = cfg["vision_config"]
+        assert (v["hidden_size"], v["num_attention_heads"], v["num_hidden_layers"]) == (1152, 16, layers)
+        assert v["hidden_size"] // v["num_attention_heads"] == 72
+    t = ov["text_config"]
+    assert (t["hidden_size"], t["num_hidden_layers"], t["num_attention_heads"], t["num_key_value_heads"]) == (
+        3584, chip_smoke.ONEVISION_LAYERS, 28, 4)
+    t = idf["text_config"]
+    assert (t["hidden_size"], t["num_hidden_layers"], t["num_attention_heads"], t["num_key_value_heads"]) == (
+        4096, chip_smoke.IDEFICS2_LAYERS, 32, 8)
+    pins = anyres.default_grid_pinpoints(384, 6)
+    prompt = _FallbackOVTokenizer(chip_smoke.ONEVISION_IMAGE_ID).encode(
+        f"<|im_start|>user\n<image>\n{chip_smoke.PROMPT}<|im_end|>\n<|im_start|>assistant\n")
+    for hw, want in chip_smoke.ONEVISION_PROMPT_TOKENS.items():
+        n_h, n_w = anyres.anyres_grid_shape(hw, pins, 384)
+        assert 1 + n_h * n_w == chip_smoke.ONEVISION_TILES[hw]
+        tiles = torch.zeros(1 + n_h * n_w, 729, 1)
+        packed = anyres.pack_anyres_features(tiles, hw, pins, 384, 14, torch.zeros(1), max_patches=9)
+        assert len(prompt) - 1 + packed.shape[0] == want
+    bucket = pad_to_bucket(max(chip_smoke.ONEVISION_PROMPT_TOKENS.values()))
+    assert bucket == 4096 and bucket + chip_smoke.MAX_NEW_TOKENS > 2048
+    image_block = "<fake_token_around_image>" + "<image>" * 64 + "<fake_token_around_image>"
+    assert len(_FallbackIdeficsTokenizer(32001).encode(
+        f"User:{image_block}{chip_smoke.PROMPT}<end_of_utterance>\nAssistant:")) == chip_smoke.IDEFICS2_PROMPT_TOKENS
+    mask = chip_smoke.idefics2_patch_mask()
+    assert mask.shape == (4, 32 * 48) and (mask == 0).any(1).all() and mask.sum(1).tolist() == [1024, 864, 864, 1296]
+    for cfg in (chip_smoke.onevision_checkpoint_config(), chip_smoke.idefics2_checkpoint_config()):
+        assert cfg["text_config"]["num_hidden_layers"] == chip_smoke.SIGLIP_CKPT_LAYERS == 2
+        assert cfg["vision_config"]["num_hidden_layers"] in (26, 27)
+
+
+@pytest.mark.parametrize("fault", [None, "tower_call_short", "no_tensor_mask", "decode_steps_uneven"])
+def test_siglip_launch_check_reads_each_call(fault):
+    """Phases 18 and 19 hold each tower call's K2 launches at head_dim 72 (in
+    the tensor-mask form for Idefics2), the prefill's and each step's K3."""
+    import chip_smoke
+
+    tower = [{"flash_attention": 27, "flash_attention_tensor_mask": 27}]
+    prefill, decode = [{"flash_attention": 32}], [{"gqa_decode_attention": 32}] * 3
+    if fault == "tower_call_short":
+        tower = [{"flash_attention": 26, "flash_attention_tensor_mask": 26}]
+    elif fault == "no_tensor_mask":
+        tower = [{"flash_attention": 27}]
+    elif fault == "decode_steps_uneven":
+        decode = [{"gqa_decode_attention": 31}, {"gqa_decode_attention": 33}, {"gqa_decode_attention": 32}]
+    counts = {"flash_attention": sum(c["flash_attention"] for c in tower + prefill),
+              "flash_attention_tensor_mask": sum(c.get("flash_attention_tensor_mask", 0) for c in tower),
+              "gqa_decode_attention": 96}
+    run = dict(decode_steps=3, per_call={"siglip_vision_forward": tower, "prefill": prefill, "decode_step": decode},
+               counts=counts)
+    check = lambda: chip_smoke._check_tower_launches(run, "tiny", "siglip_vision_forward", 1, 27, 32,
+                                                     tensor_mask=True)
+    if fault is None:
+        check()
+    else:
+        with pytest.raises(AssertionError, match="launches per call"):
+            check()
+
+
+@pytest.mark.parametrize("family", ["onevision", "idefics2"])
+def test_siglip_checkpoint_writer_round_trip(tmp_path, monkeypatch, family):
+    """Phase 20's writer at the tiny presets' widths: ``transformers`` reads
+    every tensor of the checkpoint under the published names (none missing,
+    none unexpected), the port loads every parameter bit-equal, and the
+    port's tokenizer encodes the family's prompt as ``AutoTokenizer`` does."""
+    from tokenizers import Tokenizer
+    from transformers import Idefics2ForConditionalGeneration, LlavaOnevisionForConditionalGeneration
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    monkeypatch.setattr(chip_smoke, "ONEVISION_PRESET", "llava-onevision-tiny")
+    monkeypatch.setattr(chip_smoke, "IDEFICS2_PRESET", "idefics2-tiny")
+    written, cfg, out = chip_smoke.write_siglip_checkpoint(family, torch.device("cpu"), tmp_path, 0)
+    assert out["bytes"] > 0 and cfg["text_config"]["num_hidden_layers"] == 2
+    cls = LlavaOnevisionForConditionalGeneration if family == "onevision" else Idefics2ForConditionalGeneration
+    hf, info = cls.from_pretrained(str(tmp_path), output_loading_info=True)
+    assert not info["missing_keys"] and not info["unexpected_keys"], info
+    state = hf.state_dict()
+    if family == "onevision":
+        assert torch.equal(state["model.vision_tower.vision_model.encoder.layers.1.self_attn.q_proj.weight"].bfloat16(),
+                           written.vision.layers[1].q.weight)
+        assert torch.equal(state["model.image_newline"].bfloat16(), written.image_newline)
+        preset, prompt = "llava-onevision-tiny", f"<|im_start|>user\n<image>\n{chip_smoke.PROMPT}<|im_end|>\n"
+    else:
+        assert torch.equal(state["model.connector.perceiver_resampler.latents"].bfloat16(), written.perceiver.latents)
+        assert torch.equal(state["model.vision_model.embeddings.patch_embedding.weight"].flatten(1).bfloat16(),
+                           written.vision.patch_embed.weight)
+        preset = "idefics2-tiny"
+        prompt = f"User:<fake_token_around_image><image><image><fake_token_around_image>{chip_smoke.PROMPT}" \
+                 "<end_of_utterance>\nAssistant:"
+    loaded = get_model(preset, pretrained=str(tmp_path), dtype="bfloat16", device="cpu")
+    assert chip_smoke._same_parameters(loaded.model, written, "round trip") == len(list(written.parameters()))
+    # The ``tokenizers`` library reading the same tokenizer.json (AutoTokenizer
+    # adds the Qwen2 class's own specials for a llava_onevision config).
+    want = Tokenizer.from_file(str(tmp_path / "tokenizer.json")).encode(prompt).ids
+    assert loaded.tokenizer.encode(prompt) == want
+    specials = (chip_smoke.ONEVISION_IMAGE_ID,) if family == "onevision" else tuple(
+        chip_smoke.IDEFICS2_SPECIAL_IDS.values())
+    assert set(specials) <= set(want)

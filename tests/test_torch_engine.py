@@ -212,9 +212,18 @@ def test_task_index_matches_jax(toy_task_path):
     assert port.task_index == ref.task_index
     assert (port.all_tasks, port.all_subtasks, port.all_tags) == (ref.all_tasks, ref.all_subtasks, ref.all_tags)
     assert port.list_all_tasks() == ref.list_all_tasks()
-    # The port's default directory is its own: nothing of the JAX package's configs.
+    # The port's default directory is its own copy of the JAX package's
+    # configs: the same tasks and tags, every YAML under lmms_owc_tpu_torch/.
     default = TaskManager(include_path=toy_task_path)
-    assert default.task_index == port.task_index
+    jax_default = JaxTaskManager(include_path=toy_task_path)
+
+    def as_jax(index):
+        return {k: dict(v, yaml_path=str(v["yaml_path"]).replace("/lmms_owc_tpu_torch/", "/lmms_owc_tpu/"))
+                for k, v in index.items()}
+
+    assert len(default.task_index) > len(port.task_index) + 100
+    assert as_jax(default.task_index) == as_jax(jax_default.task_index)
+    assert (default.all_subtasks, default.all_tags) == (jax_default.all_subtasks, jax_default.all_tags)
     assert not any("lmms_owc_tpu/" in str(v["yaml_path"]) for v in default.task_index.values())
 
 

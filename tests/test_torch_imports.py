@@ -353,18 +353,21 @@ def test_load_yaml_config_matches_jax_on_every_task_config():
 
 
 def test_cli_run_loads_no_jax(tmp_path, toy_dataset):
-    """A port CLI run of the fake model on ``toy``, and one with
-    ``--check_integrity`` (which the port refuses), leave no ``jax`` or
-    ``lmms_owc_tpu*`` module (other than the port) in ``sys.modules``."""
+    """A port CLI run of the fake model on ``toy`` with ``--check_integrity``
+    (which runs the port's toy task tests in a subprocess and passes), one
+    whose check raises for an unknown task, and a plain run leave no ``jax``
+    or ``lmms_owc_tpu*`` module (other than the port) in ``sys.modules``."""
     code = (
         "import sys\n"
+        "from lmms_owc_tpu_torch.engine import simple_evaluate\n"
         "from lmms_owc_tpu_torch.eval_model import main\n"
-        "try:\n"
-        "    main(['--model', 'fake', '--tasks', 'toy', '--check_integrity',"
+        "main(['--model', 'fake', '--tasks', 'toy', '--check_integrity',"
         f" '--include_path', {str(REPO_ROOT / 'tests' / 'fixtures' / 'tasks')!r}, '--limit', '2'])\n"
-        "    raise SystemExit('--check_integrity did not raise')\n"
-        "except NotImplementedError:\n"
-        "    pass\n"
+        "try:\n"
+        "    simple_evaluate(model_name='fake', tasks=['no_such_task'], check_integrity=True)\n"
+        "    raise SystemExit('--check_integrity did not raise for an unknown task')\n"
+        "except RuntimeError as err:\n"
+        "    assert 'integrity tests failed' in str(err), err\n"
         f"main(['--model', 'fake', '--model_args', 'response_mode=target', '--tasks', 'toy,toy_mc,toy_multiround',"
         f" '--include_path', {str(REPO_ROOT / 'tests' / 'fixtures' / 'tasks')!r}, '--limit', '2', '--log_samples',"
         f" '--output_path', {str(tmp_path)!r}])\n"
