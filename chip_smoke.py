@@ -39,7 +39,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    onevision's tiles with no mask and over Idefics2's padded batch in the
    tensor-mask form, and in f32 in both mask forms; K2's Hopper instance at
    Mistral's G = 4 and over onevision's 4096-token bucket; K3 at G = 4 and
-   at onevision's 4160-position cache (the general kernel).
+   at onevision's 4160-position cache (the general kernel). Phases 21-23's
+   shapes: K2 at head_dim 88 (BLIP ViT-g, tiles 96 columns wide) in bf16 over
+   [8, 16, 257, 88] through the Hopper instance (the fused qkv's views) and
+   the general one (a 90-element row stride), and in f32 at a ragged shape;
+   K2's general instance at head_dim 64 over InternViT's [20, 16, 1025, 64];
+   K2's Hopper instance at G = 6 (Qwen2-1.5B) over a 2048 bucket and at
+   G = 1 over the Vicuna prefill's 128; K3 at G = 6 (Hopper over 352
+   positions, the general kernel over 2112) and at G = 1 over 192.
 3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
    on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
@@ -174,6 +181,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     launches at head_dim 72, 28 prefill launches, 28 K3 per step (the
     general kernel past 2048 positions), each read around its call; prefill
     logits by phase 4's rule; ``loglikelihood`` by phase 10's at batch 2.
+7b. Qwen2.5-VL quantized (run after phase 7's checkpoint round trip):
+   ``qwen2.5-vl-7b`` with weights drawn and quantized on the card, on phase
+   7's 8 requests. int8 weight-only at batch 4, unpooled against pool 2,
+   every row equal; W8A8 + pool 2 + the int8 KV cache against the same
+   requests unpooled, every row equal, 28 K3-int8 launches in every decode
+   step, one pooled step's logits by phase 4's rule; int4: 197 K4 launches
+   in every decode step, one step's logits through K4 against the plain
+   version, then unpooled against pool 2, every row equal. ``summary
+   qwen2.5-vl quantized`` holds each run's images/s, phase seconds and peak.
 19. Idefics2-8B with random bf16 weights: four images of mixed aspect,
     padded to one 448 x 672 grid (every patch mask has gaps): one tower
     call of 27 K2 launches in the tensor-mask form, 32 prefill launches
@@ -183,12 +199,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     151646, the Mistral form with Idefics2's three added tokens) loaded
     bit-equal and serving the model's own tokens. ``summary siglip`` holds
     phases 18-20.
+21. InternVL2-2B with random bf16 weights: phase 3's 8 requests in one chunk
+    (20 tiles; prompts of 279 and 1815 tokens, bucket 2048, decode cache
+    2112: K3's general kernel at G = 6): one tower call of 24 K2 launches
+    at head_dim 64, 28 prefill launches, 28 K3 per step, each read around
+    its call; prefill logits by phase 4's rule; ``loglikelihood`` by
+    phase 10's.
+22. InstructBLIP-Vicuna-7B with random bf16 weights: the same requests:
+    one tower call of 39 K2 launches at head_dim 88, no launch in the
+    Q-Former, 32 prefill launches, 32 K3 per step; logits and
+    ``loglikelihood`` as 21.
+23. A full-width checkpoint of each with 2 decoder layers (the published
+    tensor names and shapes; the Qwen2 fixture tokenizer with ``<img>``,
+    ``</img>`` and ``<IMG_CONTEXT>`` at their published ids; the Llama-2
+    form and a ``qformer_tokenizer/``) loaded bit-equal and serving the
+    model's own tokens. ``summary internvl_blip`` holds phases 21-23.
 
 The host packages that the CLIs import (and those it must do without) are
 logged as present or missing at the start.
 
 Phases run in the order 1-3, 8, 3b, 9 (Qwen2-VL), 10, 11, 12, 13, 4, 5
-(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 14-20.
+(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 7b, 14-23.
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -376,6 +407,36 @@ ONEVISION_HF_PREFIXES = ("model.language_model.", "model.vision_tower.", "model.
 IDEFICS2_HF_PREFIXES = ("model.text_model.", "model.vision_model.", "model.connector.", "lm_head.")
 IDEFICS2_SPECIAL_IDS = {"<fake_token_around_image>": 32000, "<image>": 32001, "<end_of_utterance>": 32002}
 ONEVISION_IMAGE_ID = 151646
+# Phase 7b: qwen2.5-vl-7b quantized on phase 7's requests, at batch 4 (two
+# chunks unpooled, one pool of 8 rows under LMMS_OWC_DECODE_POOL=2).
+V25_QUANT_BATCH = 4
+# Phases 21-23. InternVL2-2B: InternViT-300M at 448 px (24 layers, 16 heads of
+# 64, 1025 tokens a tile, 256 after the pixel shuffle) over Qwen2-1.5B (28
+# layers, 12/2 heads of 128: G = 6). Phase 3's requests: a 448x448 image is one
+# tile (a 279-token prompt), a 336x448 one 6 tiles and a thumbnail (1815
+# tokens): 20 tiles in one tower call, prompt bucket 2048, decode cache 2112
+# (K3's general kernel past 2048 positions).
+INTERNVL_PRESET = "internvl2-2b"
+INTERNVL_TOWER_LAUNCHES = 24
+INTERNVL_LAYERS = 28
+INTERNVL_TILES = {(448, 448): 1, (336, 448): 7}
+INTERNVL_PROMPT_TOKENS = {(448, 448): 279, (336, 448): 1815}
+# InstructBLIP-Vicuna-7B: BLIP ViT-g at 224 px (39 layers, 16 heads of 88, 257
+# tokens), the Q-Former (12 layers, 32 queries; plain attention, no kernel),
+# Vicuna-7B (32 layers, 32/32 heads of 128). Prompts of 32 queries + 9 text
+# tokens, bucket 128, decode cache 192.
+BLIP_PRESET = "instructblip-vicuna-7b"
+BLIP_TOWER_LAUNCHES = 39
+BLIP_LAYERS = 32
+BLIP_PROMPT_TOKENS = 41
+# Phase 23's checkpoints: full width, the decoder cut to this many layers.
+FAMILY_CKPT_LAYERS = 2
+INTERNVL_HF_PREFIXES = ("language_model.model.", "language_model.lm_head.", "vision_tower.", "multi_modal_projector.")
+BLIP_HF_PREFIXES = ("language_model.model.", "language_model.lm_head.", "vision_model.", "qformer.", "query_tokens",
+                    "language_projection.")
+INTERNVL_SPECIAL_IDS = {"<img>": 151665, "</img>": 151666, "<IMG_CONTEXT>": 151667}
+FAMILY_3D_TENSORS = ("embeddings.cls_token", "embeddings.position_embeddings", "embeddings.class_embedding",
+                     "embeddings.position_embedding", "query_tokens")
 KERNELS = {
     "vision_qkv_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:1025"),
     "flash_attention": ("lmms_owc_tpu_torch/csrc/flash_attn.cu", "lmms_owc_tpu/ops/attention.py:139"),
@@ -671,7 +732,7 @@ def check_kernels(dev) -> dict[str, dict]:
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results.update(check_tower_entries(dev, gen))
     for name, rows in [*check_scoring_shapes(dev, gen).items(), *check_llava_shapes(dev, gen).items(),
-                       *check_siglip_shapes(dev, gen).items()]:
+                       *check_siglip_shapes(dev, gen).items(), *check_internvl_blip_shapes(dev, gen).items()]:
         results[name].setdefault("also", {}).update(rows)
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results["int4_matmul"] = check_int4(dev, gen)
@@ -1016,6 +1077,126 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
     return rows
 
 
+def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
+    """Phase 2 at phases 21-23's shapes, each held to its plain version with
+    its bound and SDPA's time: K2 at head_dim 88 (BLIP ViT-g, tiles 96 columns
+    wide) in bf16 over the tower's [8, 16, 257, 88], once through the Hopper
+    instance (head-offset views of the fused qkv projection, as the tower
+    passes them) and once through the general one (views with a 90-element
+    row stride, which the Hopper instance does not take), and in f32 (the
+    general instance) at a ragged [2, 16, 200, 88] with (start, end) runs
+    (block_k < L); K2's general bf16 instance at head_dim 64 over InternViT's
+    [20, 16, 1025, 64] (phase 21's 20 tiles); K2's Hopper instance at G = 6
+    (Qwen2-1.5B: 12/2 heads of 128) over phase 21's prompts in the 2048
+    bucket and at G = 1 over the Vicuna prefill's bucket 128; K3 at G = 6,
+    the Hopper instance over a 352-position cache (a chunk of 448x448 images)
+    and the general kernel over phase 21's 2112 positions, and at G = 1 over
+    phase 22's 192. Returns ``{kernel: {label: row}}``."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    rows: dict[str, dict] = {"flash_attention": {}, "gqa_decode_attention": {}}
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    b, h, l, d = 8, 16, 257, 88
+    qkv = randn(torch.bfloat16, b, l, 3, h, d)
+    wide = [randn(torch.bfloat16, b, h, l, d + 2)[..., :d] for _ in range(3)]
+    runs = torch.tensor([[0, 200], [37, 170]], device=dev)
+    pos = torch.arange(200, device=dev)
+    cmask = ((pos[None] >= runs[:, :1]) & (pos[None] < runs[:, 1:])).to(torch.int32)
+    for label, (q, k, v), mask, form in (
+        ("blip_tower", [qkv[:, :, i].transpose(1, 2) for i in range(3)], None,
+         "bf16, head-offset views of the fused qkv [8, 257, 3, 16, 88] (the Hopper instance)"),
+        ("blip_tower_general", wide, None, "bf16, views with a 90-element row stride (the general instance)"),
+        ("d88_ragged_f32", [randn(torch.float32, 2, h, 200, d) for _ in range(3)], cmask,
+         "f32, (start, end) runs (0, 200) and (37, 170) (the general instance)"),
+        ("internvit_tower", [randn(torch.bfloat16, 20, 16, 1025, 64) for _ in range(3)], None,
+         "bf16, InternViT-300M's 20 tiles (the general instance at D = 64)"),
+    ):
+        n, nh, length, dim = q.shape
+        f32 = q.dtype == torch.float32
+        kw = dict(kv_mask=mask)
+        tol = dict(atol=CLIP_TOL, rtol=CLIP_TOL) if f32 else {}
+        valid = None
+        if mask is not None:  # rows before the run's start have no valid key
+            valid = (torch.arange(length, device=dev)[None] >= runs[:, :1])[:, None, :].expand(n, nh, length)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), valid, **tol)
+        keys = mask if mask is not None else torch.ones((n, length), dtype=torch.int32, device=dev)
+        rows["flash_attention"][label] = _row(
+            f"q/k/v [{n}, {nh}, {length}, {dim}] {form}, non-causal", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw),
+                     _sdpa(q, k, v, None if mask is None else keys.bool()[:, None, None, :])),
+            _attention_bound(keys, nh, nh, length, dim, causal=False, elt=4 if f32 else 2,
+                             extra_bytes=0 if mask is None else 8 * n,
+                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+            SDPA,
+        )
+        del q, k, v
+    del qkv, wide
+    torch.cuda.empty_cache()
+
+    # The decoders' prefill: Qwen2-1.5B at G = 6 over phase 21's bucket, Vicuna at G = 1.
+    hd = 128
+    internvl_lengths = [INTERNVL_PROMPT_TOKENS[(448, 448)]] * 6 + [INTERNVL_PROMPT_TOKENS[(336, 448)]] * 2
+    for label, (b, nh, kvh, l), lengths, model in (
+        ("internvl_prefill", (8, 12, 2, 2048), internvl_lengths, "Qwen2-1.5B"),
+        ("blip_prefill", (8, 32, 32, 128), [BLIP_PROMPT_TOKENS] * 8, "Vicuna-7B"),
+    ):
+        q, k, v = randn(torch.bfloat16, b, nh, l, hd), randn(torch.bfloat16, b, kvh, l, hd), randn(torch.bfloat16, b, kvh, l, hd)
+        starts = l - torch.tensor(lengths, device=dev)
+        pos = torch.arange(l, device=dev)
+        pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
+        kw = dict(causal=True, kv_mask=pmask)
+        valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        rows["flash_attention"][label] = _row(
+            f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, G = {nh // kvh}, causal, left-padded "
+            f"({model})", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+            _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        )
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # The decoders' decode: the prompt bucket's keys from each row's start, then 5 generated.
+    for label, (layers, b, nh, kvh, prompt, s), lengths in (
+        ("internvl_decode_short", (INTERNVL_LAYERS, 8, 12, 2, 288, 352), [INTERNVL_PROMPT_TOKENS[(448, 448)]] * 8),
+        ("internvl_decode", (INTERNVL_LAYERS, 8, 12, 2, 2048, 2112), internvl_lengths),
+        ("blip_decode", (BLIP_LAYERS, 8, 32, 32, 128, 192), [BLIP_PROMPT_TOKENS] * 8),
+    ):
+        qd = randn(torch.bfloat16, b, nh, hd)
+        ck, cv = (randn(torch.bfloat16, layers, b, kvh, s, hd) for _ in range(2))
+        spos = torch.arange(s, device=dev)
+        dstarts = prompt - torch.tensor(lengths, device=dev)
+        dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
+        valid = int(dmask.sum())
+        last = layers - 1
+        tol = dict(atol=LONG_CACHE_TOL["bf16"][0], rtol=0.0, rel_l2=LONG_CACHE_TOL["bf16"][1]) if s > 2048 else {}
+        errs = [_compare(f"gqa_decode_attention {label}[layer {layer}]",
+                         att.gqa_decode_attention(qd, ck, cv, layer, dmask),
+                         att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask), **tol)
+                for layer in (0, last)]
+        kernel_kind = "general kernel with the score workspace" if s > 2048 else "Hopper instance"
+        rows["gqa_decode_attention"][label] = _row(
+            f"q [{b}, {nh}, {hd}] bf16, cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16, G = {nh // kvh}, "
+            f"layers 0 and {last} ({kernel_kind})", max(errs),
+            _timings(lambda: att.gqa_decode_attention(qd, ck, cv, last, dmask),
+                     lambda: att.gqa_decode_attention_plain(qd, ck, cv, last, dmask),
+                     _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :])),
+            _bound(4.0 * hd * nh * valid, 2 * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s), SDPA,
+        )
+        del qd, ck, cv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _v25_window_layout(grid):
     """(slot_src, valid [W*S] int32, tok_idx, W, S) of one image in the
     Qwen2.5-VL-7B window layout, as the adapter builds it."""
@@ -1323,19 +1504,21 @@ def check_ragged_bf16(dev, gen) -> None:
         errs[f"combined L={length}"] = _compare(
             f"fused_qkv_attention[L={length}]", att.fused_qkv_attention(x, 16, 16, **kw),
             att.fused_qkv_attention_plain(x, 16, 16, **kw))
-    # Head_dim 72 (the SigLIP towers): the Hopper instance over 200 keys with a
-    # gappy mask (a 192-row block and a tail) and over one short block; with
-    # rope, which the Hopper instance does not take at 72, the general one.
-    for length, masked, rope in ((200, True, False), (50, False, False), (50, False, True)):
-        q, k, v = (randn(2, 16, length, 72) for _ in range(3))
+    # Head_dims 72 (the SigLIP towers) and 88 (BLIP ViT-g): the Hopper instance
+    # over 200 keys with a gappy mask (a 192-row block and a tail) and over one
+    # short block; with rope, which the Hopper instance does not take at 72 or
+    # 88, the general one.
+    for d, length, masked, rope in [(d, *case) for d in (72, 88)
+                                    for case in ((200, True, False), (50, False, False), (50, False, True))]:
+        q, k, v = (randn(2, 16, length, d) for _ in range(3))
         kw = {}
         if masked:
             kw["kv_mask"] = (torch.rand((2, length), generator=gen, device=dev) > 0.3).to(torch.int32)
             kw["kv_mask"][:, 0] = 1
         if rope:
-            angles = randn(2, length, 36).float()
+            angles = randn(2, length, d // 2).float()
             kw.update(rope_cos=torch.cos(angles), rope_sin=torch.sin(angles))
-        label = f"D=72 L={length}{' gappy' if masked else ''}{' rope' if rope else ''}"
+        label = f"D={d} L={length}{' gappy' if masked else ''}{' rope' if rope else ''}"
         errs[label] = _compare(f"flash_attention[{label}]", att.flash_attention(q, k, v, **kw),
                                att.flash_attention_plain(q, k, v, **kw))
     # Decode with uneven splits: S = 100 (2 x 64) in bf16, S = 520 (7 x 80) with an int8 cache.
@@ -1500,9 +1683,12 @@ def _plain_flash(*args, kv_mask_contiguous=False, **kw):
 @contextmanager
 def _attention(**fns):
     """Route the model's attention entries, by name, through other functions
-    (``flash_attention`` in the decoder, the CLIP towers and the SigLIP tower)."""
+    (``flash_attention`` in the decoder, the CLIP towers, the SigLIP tower,
+    InternViT and BLIP ViT)."""
     from lmms_owc_tpu_torch.nn import clip as nnclip
     from lmms_owc_tpu_torch.nn import idefics2 as nnidf
+    from lmms_owc_tpu_torch.nn import instructblip as nnib
+    from lmms_owc_tpu_torch.nn import internvl as nniv
     from lmms_owc_tpu_torch.nn import qwen2_5_vl as nnq25
     from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
 
@@ -1510,8 +1696,8 @@ def _attention(**fns):
         for name, fn in fns.items():
             stack.enter_context(_route(nnq25 if name == "fused_qkv_attention" else nnq, name, fn))
             if name == "flash_attention":
-                stack.enter_context(_route(nnclip, name, fn))
-                stack.enter_context(_route(nnidf, name, fn))
+                for module in (nnclip, nnidf, nniv, nnib):
+                    stack.enter_context(_route(module, name, fn))
         yield
 
 
@@ -1868,33 +2054,35 @@ def run_quantized_pool(dev) -> dict:
     return run
 
 
-def _pool_pair(model, requests, label: str):
-    """``requests`` decoded unpooled and under ``LMMS_OWC_DECODE_POOL=2`` (bf16
-    cache, prompt order): (rows with the same tokens [bool], unpooled run, pooled run)."""
+def _pool_pair(model, requests, label: str, kv_int8: bool = False, per_call=()):
+    """``requests`` decoded unpooled and under ``LMMS_OWC_DECODE_POOL=2`` (the
+    bf16 cache, or with ``kv_int8`` the int8 one; prompt order): (rows with
+    the same tokens [bool], unpooled run, pooled run)."""
     tokens: dict[str, list] = {}
     runs = {}
-    with _env(LMMS_OWC_SORT_BY_VISION="0", LMMS_OWC_KV_INT8=""):
+    with _env(LMMS_OWC_SORT_BY_VISION="0", LMMS_OWC_KV_INT8="1" if kv_int8 else ""):
         for pool in ("1", "2"):
             with _env(LMMS_OWC_DECODE_POOL=pool):
                 tokens[pool] = []
-                runs[pool] = _serve(model, requests, tokens[pool])
+                runs[pool] = _serve(model, requests, tokens[pool], **({"per_call": per_call} if per_call else {}))
     if len(tokens["1"]) != 2 or len(tokens["2"]) != 1:
         raise AssertionError(f"{label}: expected two chunks unpooled and one pool, got {len(tokens['1'])} and "
                              f"{len(tokens['2'])} decodes")
     return (np.concatenate(tokens["1"]) == tokens["2"][0]).all(axis=1), runs["1"], runs["2"]
 
 
-def check_pool_rows(model, label: str) -> dict:
-    """Phase 3b (ROADMAP Queue 3): phase 3's 8 requests in prompt order at
-    batch ``POOL_CHECK_BATCH`` (two chunks of 4), decoded unpooled and under
-    ``LMMS_OWC_DECODE_POOL=2`` (one pool of 8 rows); every row must give the
-    same tokens. The adapter passes ``DECODE_ROWS`` to the decode, which
-    pads to those row blocks the products whose bits depend on the row count."""
+def check_pool_rows(model, label: str, sizes=None) -> dict:
+    """Phase 3b (ROADMAP Queue 3): phase 3's 8 requests (or 8 of ``sizes``)
+    in prompt order at batch ``POOL_CHECK_BATCH`` (two chunks of 4), decoded
+    unpooled and under ``LMMS_OWC_DECODE_POOL=2`` (one pool of 8 rows); every
+    row must give the same tokens. The adapter passes ``DECODE_ROWS`` to the
+    decode, which pads to those row blocks the products whose bits depend on
+    the row count."""
     from lmms_owc_tpu_torch.models.qwen2_vl import DECODE_ROWS
 
     if model.decode_rows != DECODE_ROWS:
         raise AssertionError(f"{label}: the adapter decodes on {model.decode_rows}-row blocks, not {DECODE_ROWS}")
-    requests = _requests(model)
+    requests = _requests(model, sizes)
     saved = model.batch_size
     model.batch_size = POOL_CHECK_BATCH
     try:
@@ -1912,32 +2100,37 @@ def check_pool_rows(model, label: str) -> dict:
     return out
 
 
-def run_int4(dev) -> dict:
-    """Phase 6: int4 weights, 8 requests unpooled; K4 on every decode product;
-    then phase 3b's check that pooled tokens equal unpooled ones."""
+def run_int4(dev, preset: str = "qwen2-vl-7b", sizes=None) -> dict:
+    """Phase 6 (and phase 7b's int4 half with ``qwen2.5-vl-7b`` on phase 7's
+    sizes): int4 weights, 8 requests unpooled; K4 on every decode-step
+    product (197 in every step) and one step's logits through K4 held to the
+    plain version; then phase 3b's check that pooled tokens equal unpooled ones."""
     import torch
 
     from lmms_owc_tpu_torch.models import get_model
     from lmms_owc_tpu_torch.nn import layers
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
     from lmms_owc_tpu_torch.ops import int4_matmul as i4
     from lmms_owc_tpu_torch.ops.quant import dequantize_int4
 
+    label = f"{preset} int4"
     with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
         t0 = time.perf_counter()
         model = get_model(
-            "qwen2-vl-7b", random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS, device=str(dev),
+            preset, random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS, device=str(dev),
             time_phases=True, load_in_4bit=True,
         )
         torch.cuda.synchronize()
-        log(f"qwen2-vl-7b int4: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
+        log(f"{label}: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
-        requests = _requests(model)
+        requests = _requests(model, sizes)
         capture: dict = {}
         with _decode_steps(capture):
             model.generate_until(requests)  # warm-up; keeps one decode step's inputs
-        run = _serve(model, requests)
-        _log_run("int4, unpooled", run)
-        _check_min_per_step(run, "int4_matmul")
+        run = _serve(model, requests, per_call=((nnq, "decode_step"),))
+        _log_run(f"{label}, unpooled", run)
+        _check_every_step(run, label, {"int4_matmul": MIN_LAUNCHES_PER_DECODE_STEP["int4_matmul"],
+                                       "gqa_decode_attention": 28})
 
         def exact(x, q4, scale):
             w = dequantize_int4({"q4": q4, "scale": scale})
@@ -1945,12 +2138,85 @@ def run_int4(dev) -> dict:
 
         run["decode_step"] = check_decode_step(
             model, capture, layers, "int4_matmul", i4.int4_matmul_plain, exact,
-            "int4 decode step (K4 vs plain)",
+            f"{label} decode step (K4 vs plain)",
         )
-        run["pool_rows"] = check_pool_rows(model, "int4")  # K4 keeps the batch's rows
+        run["pool_rows"] = check_pool_rows(model, label, sizes)  # K4 keeps the batch's rows
     del model, capture
     _free()
     return run
+
+
+def _check_every_step(run: dict, label: str, want: dict[str, int]) -> None:
+    """Every decode step of ``run`` (read around each call) launched exactly
+    ``want`` of the kernels ``want`` names. Other kernels are not compared:
+    with two chunks, the next chunk's tower runs on the pipeline's helper
+    thread while a step of this one decodes, and the counters are global."""
+    steps = run["per_call"]["decode_step"]
+    if not steps or any({name: step.get(name, 0) for name in want} != want for step in steps):
+        raise AssertionError(f"{label}: decode-step launches {_call_summary({'decode_step': steps})}, "
+                             f"expected {want} in every step")
+
+
+def run_v25_quantized(dev, preset: str = "qwen2.5-vl-7b") -> dict:
+    """Phase 7b: qwen2.5-vl-7b with weights drawn and quantized on the card,
+    on phase 7's 8 requests (the 392x448 images pad their windows: the tower
+    takes K2's tensor mask). int8: weight-only, unpooled against pool 2 at
+    batch 4, every row equal; then W8A8 + pool 2 + the int8 KV cache against
+    the same requests unpooled, every row equal, K3-int8 28 times in every
+    decode step, and one pooled decode step's logits by phase 4's rule. int4:
+    8 requests unpooled (K4 on every decode-step product, 197 per step, one
+    step's logits through K4 held to the plain version), then unpooled
+    against pool 2, every row equal. Images/s, phase seconds and peak memory
+    of each run are logged and returned."""
+    import torch
+
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+    from lmms_owc_tpu_torch.nn.layers import set_int8_activations
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    steps = ((nnq, "decode_step"),)
+    out: dict = {}
+    with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
+        t0 = time.perf_counter()
+        model = get_model(preset, random_init=True, dtype="bfloat16", device=str(dev), time_phases=True,
+                          batch_size=V25_QUANT_BATCH, load_in_8bit=True, int8_activations=True)
+        torch.cuda.synchronize()
+        log(f"{preset} int8: weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    try:
+        set_int8_activations(False)  # weight-only int8 first
+        out["pool_rows_int8_weight_only"] = check_pool_rows(model, f"{preset} int8 weight-only", V25_SIZES)
+        set_int8_activations(True)
+        requests = _requests(model, V25_SIZES)
+        capture: dict = {}
+        with _env(LMMS_OWC_DECODE_POOL="2", LMMS_OWC_KV_INT8="1", LMMS_OWC_SORT_BY_VISION="0"), \
+                _decode_steps(capture):
+            model.generate_until(requests)  # warm-up; keeps one pooled decode step's inputs
+        label = f"{preset} int8 + W8A8 + int8 KV"
+        same, unpooled, pooled = _pool_pair(model, requests, label, kv_int8=True, per_call=steps)
+        for name, run in (("unpooled", unpooled), ("pool 2", pooled)):
+            _log_run(f"{label}, {name}", run)
+            _check_every_step(run, f"{label}, {name}", {"gqa_decode_attention_int8": 28})
+        out["int8_w8a8_kv_int8"] = dict(pooled, unpooled=unpooled, rows=int(same.size), same_rows=int(same.sum()))
+        log(f"{label}: rows with the same tokens pooled and unpooled {int(same.sum())} of {same.size}")
+        if not same.all():
+            raise AssertionError(f"{label}: pooled tokens differ from unpooled ones on rows {np.nonzero(~same)[0].tolist()}")
+
+        def exact(q, ck, cv, i, mask, *scales):
+            return att.gqa_decode_attention_plain(q.float(), ck, cv, i, mask, *scales).to(q.dtype)
+
+        with _env(LMMS_OWC_KV_INT8="1"):
+            out["int8_w8a8_kv_int8"]["decode_step"] = check_decode_step(
+                model, capture, nnq, "gqa_decode_attention", att.gqa_decode_attention_plain, exact,
+                f"{label} pooled decode step (int8 decode kernel vs plain)")
+    finally:
+        set_int8_activations(False)
+    del model, capture
+    _free()
+
+    out["int4"] = run_int4(dev, preset, V25_SIZES)
+    return out
 
 
 # ------------------------------------------------------------- checkpoints
@@ -2031,7 +2297,8 @@ def _hf_layout(model, probe=None) -> list[tuple[str, object]]:
     """(checkpoint name, tensor) of every parameter of a port model in the
     published HF layout: the names its own ``hf_tensor`` looks up (under the
     prefixes ``probe`` accepts), the patch kernel back in its Conv3d shape
-    ``[embed, 3, t, p, p]`` (CLIP's in its Conv2d shape ``[embed, 3, p, p]``)."""
+    ``[embed, 3, t, p, p]`` (CLIP's, SigLIP's, InternViT's and BLIP's in their
+    Conv2d shape ``[embed, 3, p, p]``)."""
     probe = probe if probe is not None else _NameProbe()
     out = []
     for name, param in model.named_parameters():
@@ -2040,7 +2307,7 @@ def _hf_layout(model, probe=None) -> list[tuple[str, object]]:
         if probe.asked.endswith("patch_embed.proj.weight"):
             v = model.vision.config
             t = t.reshape(t.shape[0], v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size)
-        elif probe.asked.endswith("embeddings.patch_embedding.weight"):
+        elif probe.asked.endswith(("embeddings.patch_embedding.weight", "patch_embeddings.projection.weight")):
             p = round((t.shape[1] // 3) ** 0.5)
             t = t.reshape(t.shape[0], 3, p, p)
         out.append((probe.asked, t))
@@ -3170,6 +3437,205 @@ def run_siglip_checkpoints(dev) -> dict:
     return out
 
 
+# --------------------------------------------------- InternVL2 and InstructBLIP
+
+
+def _internvl_per_call():
+    """InternVL2's serving entries whose launches :func:`_serve` reads per
+    call: the tower, the prefill and each decode step."""
+    from lmms_owc_tpu_torch.nn import internvl as nniv
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    return (nniv, "internvit_forward"), (nnq, "prefill"), (nnq, "decode_step")
+
+
+def _blip_per_call():
+    """InstructBLIP's serving entries read per call: the tower, the Q-Former,
+    the prefill and each decode step."""
+    from lmms_owc_tpu_torch.nn import instructblip as nnib
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    return (nnib, "blip_vision_forward"), (nnib, "qformer_forward"), (nnq, "prefill"), (nnq, "decode_step")
+
+
+def _family_chunk_logits(model, requests):
+    """One chunk of InternVL2 or InstructBLIP requests: the adapter's
+    preparation (tower, projector or Q-Former, embeddings), then the prefill."""
+    embeds, pos, mask, _, bucket = model._prepare_chunk([r.args for r in requests])
+    return _prefill_logits(model, embeds, pos, mask, bucket)
+
+
+def _prompt_layout(run: dict, label: str, lengths: list[int], want: list[int]) -> None:
+    """Record the prompts' lengths, bucket and decode cache; they must be those phase 2 holds."""
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    bucket = pad_to_bucket(max(lengths))
+    run.update(prompt_tokens=lengths, bucket=bucket, cache_len=bucket + MAX_NEW_TOKENS)
+    log(f"{label}: prompts of {lengths} tokens, bucket {bucket}, decode cache {run['cache_len']} positions")
+    if lengths != want:
+        raise AssertionError(f"{label}: prompts of {lengths} tokens, phase 2 holds {want}")
+
+
+def run_internvl(dev) -> dict:
+    """Phase 21: internvl2-2b with random bf16 weights drawn on the card
+    answers phase 3's 8 requests in one chunk (a 448x448 image is one tile, a
+    336x448 one 6 tiles and a thumbnail: 20 tiles, prompts of 279 and 1815
+    tokens, bucket 2048, decode cache 2112: K3's general kernel at G = 6),
+    64 greedy tokens: one tower call of 24 K2 launches (head_dim 64), 28
+    prefill launches and 28 K3 per decode step, read around each call; the
+    chunk's prefill logits by phase 4's rule; ``loglikelihood`` by phase 10's."""
+    label = f"{INTERNVL_PRESET} bf16"
+    model, requests, run = serve_bf16(dev, INTERNVL_PRESET, None, {}, label, _internvl_per_call())
+    _check_tower_launches(run, label, "internvit_forward", 1, INTERNVL_TOWER_LAUNCHES, INTERNVL_LAYERS)
+    sizes = [(448, 448)] * 6 + [(336, 448)] * 2
+    tiles = [len(model._tile_images(model._request_visuals(*r.args[2:6]))[0]) for r in requests]
+    lengths = [len(model.tokenizer.encode(model._build_prompt(PROMPT, [n]))) for n in tiles]
+    run["tiles"] = tiles
+    _prompt_layout(run, label, lengths, [INTERNVL_PROMPT_TOKENS[size] for size in sizes])
+    if tiles != [INTERNVL_TILES[size] for size in sizes] or run["cache_len"] <= 2048:
+        raise AssertionError(f"{label}: tiles {tiles}, decode cache {run['cache_len']} (must pass 2048)")
+    run["logits"] = _bf16_logits_rule(lambda: _family_chunk_logits(model, requests), label)
+    run["loglikelihood"] = check_loglikelihood(model, {
+        "flash_attention": INTERNVL_TOWER_LAUNCHES + INTERNVL_LAYERS, "gqa_decode_attention": 0})
+    del model
+    _free()
+    return run
+
+
+def run_instructblip(dev) -> dict:
+    """Phase 22: instructblip-vicuna-7b with random bf16 weights drawn on the
+    card answers phase 3's 8 requests in one chunk (224 px, 32 queries and 9
+    text tokens, bucket 128, decode cache 192), 64 greedy tokens: one tower
+    call of 39 K2 launches at head_dim 88 (the Hopper instance, over the
+    fused qkv's head-offset views), no launch in the Q-Former, 32 prefill
+    launches and 32 K3 per decode step, read around each call; the chunk's
+    prefill logits by phase 4's rule; ``loglikelihood`` by phase 10's."""
+    label = f"{BLIP_PRESET} bf16"
+    model, requests, run = serve_bf16(dev, BLIP_PRESET, None, {}, label, _blip_per_call())
+    qformer = run["per_call"].pop("qformer_forward")
+    if qformer != [{}]:
+        raise AssertionError(f"{label}: the Q-Former's call launched {qformer}, expected one call and no launch")
+    _check_tower_launches(run, label, "blip_vision_forward", 1, BLIP_TOWER_LAUNCHES, BLIP_LAYERS)
+    run["per_call"]["qformer_forward"] = qformer
+    lengths = [model.config.num_query_tokens + len(model.tokenizer.encode(PROMPT))] * len(requests)
+    _prompt_layout(run, label, lengths, [BLIP_PROMPT_TOKENS] * len(requests))
+    run["logits"] = _bf16_logits_rule(lambda: _family_chunk_logits(model, requests), label)
+    run["loglikelihood"] = check_loglikelihood(model, {
+        "flash_attention": BLIP_TOWER_LAUNCHES + BLIP_LAYERS, "gqa_decode_attention": 0})
+    del model
+    _free()
+    return run
+
+
+def internvl_checkpoint_config() -> dict:
+    """``internvl2-2b``'s preset (full width) with the decoder cut to
+    ``FAMILY_CKPT_LAYERS`` layers, in the released "-hf" config.json's form."""
+    from lmms_owc_tpu_torch.models.internvl2 import PRESET_CONFIGS
+
+    cfg = json.loads(json.dumps(PRESET_CONFIGS[INTERNVL_PRESET]))
+    cfg["text_config"]["num_hidden_layers"] = FAMILY_CKPT_LAYERS
+    cfg["text_config"].pop("rope_scaling", None)  # the released configs have none (plain RoPE)
+    cfg["vision_config"].update(use_qk_norm=False, attention_bias=True, layer_norm_eps=1e-6, use_mean_pooling=True)
+    cfg.update(model_type="internvl", architectures=["InternVLForConditionalGeneration"], downsample_ratio=0.5,
+               vision_feature_layer=-1, vision_feature_select_strategy="default")
+    return cfg
+
+
+def instructblip_checkpoint_config() -> dict:
+    """``instructblip-vicuna-7b``'s preset (full width) with the decoder cut to
+    ``FAMILY_CKPT_LAYERS`` layers, in the released config.json's form."""
+    from lmms_owc_tpu_torch.models.instructblip import PRESET_CONFIGS
+
+    cfg = json.loads(json.dumps(PRESET_CONFIGS[BLIP_PRESET]))
+    cfg["text_config"]["num_hidden_layers"] = FAMILY_CKPT_LAYERS
+    cfg.update(model_type="instructblip", architectures=["InstructBlipForConditionalGeneration"])
+    return cfg
+
+
+def write_family_checkpoint(family: str, dev, path: Path, seed: int) -> tuple[object, dict]:
+    """A full-width checkpoint of ``family`` ("internvl" or "instructblip")
+    with ``FAMILY_CKPT_LAYERS`` decoder layers: random bf16 weights drawn on
+    the card into the port's module tree (InternViT in its released form,
+    without a final LN), written under the published tensor names with
+    config.json and the family's tokenizers (the Qwen2 fixture with its
+    specials and ``<img>``, ``</img>``, ``<IMG_CONTEXT>`` at their published
+    ids; the Llama-2 form of :func:`llama2_tokenizer` and a
+    ``qformer_tokenizer/`` of BERT's 30522-entry layout). Returns (written
+    model, write stats)."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn import instructblip as ib
+    from lmms_owc_tpu_torch.nn import internvl as iv
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if family == "internvl":
+        cfg = internvl_checkpoint_config()
+        written = _random_module(iv.InternVLModel(iv.internvl_config_from_hf(cfg), torch.bfloat16, dev,
+                                                  final_ln=False), gen)
+        prefixes = INTERNVL_HF_PREFIXES
+        tokenizer = pinned_tokenizer(json.loads(FIXTURE_TOKENIZER.read_text()),
+                                     {**QWEN2_SPECIAL_IDS, **INTERNVL_SPECIAL_IDS})
+        tokenizer_config = {"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+                            "clean_up_tokenization_spaces": False}
+    else:
+        cfg = instructblip_checkpoint_config()
+        written = _random_module(ib.InstructBlipModel(ib.instructblip_config_from_hf(cfg), torch.bfloat16, dev), gen)
+        prefixes = BLIP_HF_PREFIXES
+        tokenizer = llama2_tokenizer()
+        tokenizer["added_tokens"] = [t for t in tokenizer["added_tokens"] if t["content"] != "<pad>"]
+        tokenizer_config = dict(LLAMA2_TOKENIZER_CONFIG, pad_token="<unk>")
+        qdir = path / "qformer_tokenizer"
+        qdir.mkdir()
+        (qdir / "vocab.txt").write_text("\n".join(minilm_vocab()) + "\n")
+        (qdir / "tokenizer_config.json").write_text(json.dumps({"do_lower_case": True, "model_max_length": 512}))
+    # InternViT's and BLIP's class and position embeddings and the Q-Former's
+    # query tokens are [1, N, E] in the published checkpoints.
+    layout = [(name, t.reshape(1, -1, t.shape[-1]) if name.endswith(FAMILY_3D_TENSORS) else t)
+              for name, t in _hf_layout(written, _NameProbe(prefixes))]
+    out = write_tensors(layout, path, f"{family} at full width, {FAMILY_CKPT_LAYERS} decoder layers")
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "tokenizer.json").write_text(json.dumps(tokenizer))
+    (path / "tokenizer_config.json").write_text(json.dumps(tokenizer_config))
+    return written, out
+
+
+def run_family_checkpoints(dev) -> dict:
+    """Phase 23: for InternVL2 and InstructBLIP, a full-width checkpoint with
+    ``FAMILY_CKPT_LAYERS`` decoder layers and the full tower
+    (:func:`write_family_checkpoint`), loaded with ``pretrained=``: every
+    parameter bit-equal to what was written, and phase 3's requests give the
+    tokens of the model it was written from, through the loaded tokenizers."""
+    import copy as _copy
+
+    out = {}
+    for family, preset, seed in (("internvl", INTERNVL_PRESET, 21), ("instructblip", BLIP_PRESET, 22)):
+        root = Path(tempfile.mkdtemp(prefix=f"owc_{family}_"))
+        try:
+            written, stats = write_family_checkpoint(family, dev, root, seed)
+            model, stats["load"] = _load(dev, preset, root, batch_size=NUM_REQUESTS)
+            stats["parameters_bit_equal"] = _same_parameters(model.model, written, f"{family} checkpoint load")
+            if family == "instructblip" and model.qformer_tokenizer is None:
+                raise AssertionError("instructblip checkpoint: the qformer_tokenizer/ directory was not read")
+            served = _copy.copy(model)  # the same adapter (config, tokenizers) over the written modules
+            served.model = written
+            requests = _requests(model)
+            served.task_dict = model.task_dict
+            want: list = []
+            _serve(served, requests, want, require_text=False)
+            got: list = []
+            run = _serve(model, requests, got, require_text=False)
+            _same_tokens(f"{family} checkpoint load", got, want)
+            _log_run(f"{preset} checkpoint", run)
+            stats["serve"] = dict(run, tokens_identical=True)
+            del served, written, model
+            _free()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out[family] = stats
+        log(f"{family} checkpoint: {json.dumps(_phase_summary(stats))}")
+    return out
+
+
 # ------------------------------------------------------------------ scoring
 
 # Words of phase 13's sentences and predictions: the toy answers, the toy prompts' words and a few more.
@@ -3861,6 +4327,8 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     mark("9 checkpoint qwen2.5-vl-7b")
+    v25_quantized = run_v25_quantized(dev)  # phase 7b
+    mark("7b qwen2.5-vl quantized")
 
     clip = run_clip(dev)  # phase 14
     mark("14 clip")
@@ -3876,6 +4344,12 @@ def main(argv: list[str] | None = None) -> int:
     mark("19 idefics2")
     siglip_checkpoints = run_siglip_checkpoints(dev)  # phase 20
     mark("20 siglip checkpoints")
+    internvl = run_internvl(dev)  # phase 21
+    mark("21 internvl2")
+    blip = run_instructblip(dev)  # phase 22
+    mark("22 instructblip")
+    family_checkpoints = run_family_checkpoints(dev)  # phase 23
+    mark("23 internvl and instructblip checkpoints")
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
     # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed);
@@ -3903,8 +4377,15 @@ def main(argv: list[str] | None = None) -> int:
     also["flash_attention"]["idefics2_tower"]["launches"] = k2(idefics2, "siglip_vision_forward")
     also["flash_attention"]["onevision_prefill"]["launches"] = k2(onevision, "prefill")
     also["flash_attention"]["mistral_prefill"]["launches"] = k2(idefics2, "prefill")
-    for label in ("d72_contiguous_f32", "d72_tensor_f32"):  # parity forms no phase serves
-        also["flash_attention"][label]["launches"] = 0
+    also["flash_attention"]["internvit_tower"]["launches"] = k2(internvl, "internvit_forward")
+    also["flash_attention"]["internvl_prefill"]["launches"] = k2(internvl, "prefill")
+    also["flash_attention"]["blip_tower"]["launches"] = k2(blip, "blip_vision_forward")
+    also["flash_attention"]["blip_prefill"]["launches"] = k2(blip, "prefill")
+    for label in ("d72_contiguous_f32", "d72_tensor_f32", "blip_tower_general", "d88_ragged_f32"):
+        also["flash_attention"][label]["launches"] = 0  # parity forms no phase serves
+    also["gqa_decode_attention"]["internvl_decode"]["launches"] = internvl["counts"]["gqa_decode_attention"]
+    also["gqa_decode_attention"]["internvl_decode_short"]["launches"] = 0  # phase 21's cache passes 2048
+    also["gqa_decode_attention"]["blip_decode"]["launches"] = blip["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention"]["onevision_decode"]["launches"] = onevision["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention"]["mistral_decode"]["launches"] = idefics2["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention_int8"]["llava_decode"]["launches"] = \
@@ -3956,6 +4437,25 @@ def main(argv: list[str] | None = None) -> int:
         "checkpoints": {family: _phase_summary(stats) for family, stats in siglip_checkpoints.items()},
     }
     log(f"summary siglip: {json.dumps(siglip_summary)}")
+    quantized_keys = ("images", "seconds", "images_per_s", "phase_seconds", "peak_gb", "decode_steps", "counts",
+                      "decode_step", "rows", "same_rows")
+    v25_summary = {
+        "int8 weight-only pooled rows": v25_quantized["pool_rows_int8_weight_only"],
+        "int8 + W8A8 + int8 KV, pool 2": {k: v for k, v in v25_quantized["int8_w8a8_kv_int8"].items()
+                                          if k in quantized_keys},
+        "int8 + W8A8 + int8 KV, unpooled": {k: v for k, v in v25_quantized["int8_w8a8_kv_int8"]["unpooled"].items()
+                                            if k in quantized_keys},
+        "int4": {k: v for k, v in v25_quantized["int4"].items() if k in quantized_keys + ("pool_rows",)},
+    }
+    log(f"summary qwen2.5-vl quantized: {json.dumps(v25_summary)}")
+    family_summary = {
+        f"{INTERNVL_PRESET} bf16": {**served(internvl), "tiles": internvl["tiles"]},
+        f"{INTERNVL_PRESET} loglikelihood": {k: v for k, v in internvl["loglikelihood"].items() if k != "losses"},
+        f"{BLIP_PRESET} bf16": served(blip),
+        f"{BLIP_PRESET} loglikelihood": {k: v for k, v in blip["loglikelihood"].items() if k != "losses"},
+        "checkpoints": {family: _phase_summary(stats) for family, stats in family_checkpoints.items()},
+    }
+    log(f"summary internvl_blip: {json.dumps(family_summary)}")
     log(f"summary wall seconds: {json.dumps(wall)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

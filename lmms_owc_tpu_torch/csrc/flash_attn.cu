@@ -23,16 +23,17 @@
 // elements of K and V (the ViT at L=1024, D=80; the prefill at L~320, D=128),
 // far above the card's ~295 flop/byte balance point.
 //
-// Two designs. The bf16 instances at head_dim 72 (without rope), 80 and 128
-// (every main-path shape, and the SigLIP towers of LLaVA-OneVision and
-// Idefics2) are the Hopper kernel of namespace sm90 below: a cp.async ring of
-// K/V stages, wgmma for both products, rope once per token. The general
-// kernel serves f32, head_dims 16/32/64 (and 72 with rope) and views whose
-// rows are not 16-byte aligned: the two products run on mma.sync m16n8k16
-// bf16 tiles (f32: CUDA cores) with f32 accumulation, synchronous loads, rope
-// per tile. Both lay a head_dim of 72 out as 80 columns in shared memory
-// (tile_cols), the last 8 zero, so the QK product steps 16 columns at a time
-// over it; the output keeps its 72 columns. In both, the
+// Two designs. The bf16 instances at head_dim 72 and 88 (without rope), 80
+// and 128 (every main-path shape, the SigLIP towers of LLaVA-OneVision and
+// Idefics2, BLIP ViT-g of InstructBLIP) are the Hopper kernel of namespace
+// sm90 below: a cp.async ring of K/V stages, wgmma for both products, rope
+// once per token. The general kernel serves f32, head_dims 16/32/64 (and 72
+// and 88 with rope) and views whose rows are not 16-byte aligned: the two
+// products run on mma.sync m16n8k16 bf16 tiles (f32: CUDA cores) with f32
+// accumulation, synchronous loads, rope per tile. Both lay a head_dim of 72
+// out as 80 columns in shared memory (tile_cols), and 88 as 96, the columns
+// past head_dim zero, so the QK product steps 16 columns at a time over them;
+// the output keeps its 72 or 88 columns. In both, the
 // score tile never leaves registers (its accumulator fragments are re-packed
 // as the A operand of the PV product); blocks that the causal diagonal or the
 // (start, end) key range exclude are skipped, and with a tensor mask (its own
@@ -82,9 +83,10 @@ constexpr int kPad = 8;        // shared-memory row padding (elements): no bank 
 
 // Columns of a q/k/v tile in shared memory: head_dim rounded up to the
 // m16n8k16 depth of 16. At head_dim 72 (SigLIP) the QK product runs over
-// 80 columns, the last 8 zero-filled, so they add nothing to the scores;
-// the PV product and the output stay at 72 columns (9 n8 tiles). The other
-// head dims are multiples of 16 and keep their layout.
+// 80 columns, and at 88 (BLIP ViT-g) over 96, the last 8 zero-filled, so they
+// add nothing to the scores; the PV product and the output stay at 72 or 88
+// columns (9 or 11 n8 tiles). The other head dims are multiples of 16 and
+// keep their layout.
 __host__ __device__ constexpr int tile_cols(int d) { return (d + 15) / 16 * 16; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -399,6 +401,7 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
     case 64: return launch<T, 64>(a, stream);
     case 72: return launch<T, 72>(a, stream);
     case 80: return launch<T, 80>(a, stream);
+    case 88: return launch<T, 88>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -406,13 +409,15 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 
 
 // ============================================================================
-// The Hopper design of the bf16 instances at head_dim 72, 80 and 128.
+// The Hopper design of the bf16 instances at head_dim 72, 80, 88 and 128.
 //
 // Head_dim 72 runs as 80: its q, k and v rows are nine 16-byte chunks, the
 // tenth chunk of each tile row is zero-filled (cp.async with no source
 // bytes), QK takes 5 k-steps and PV the m64n80 product, whose last 8 output
-// columns are zero and not stored. takes() sends it no rope (72 / 2 is not
-// a whole number of 16-byte chunks).
+// columns are zero and not stored. Head_dim 88 runs as 96 the same way:
+// eleven chunks and a zero-filled twelfth, QK in 6 k-steps, PV the m64n96
+// product with its last 8 columns not stored. takes() sends neither rope
+// (72 / 2 and 88 / 2 are not whole numbers of 16-byte chunks).
 //
 // A CTA of kWG warpgroups owns 64 * kWG query rows of one head: three
 // warpgroups (192 rows) share each K/V tile when the query is longer than 64
@@ -519,6 +524,15 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (m64n96) += A(64x16, bf16 fragments in registers) * B(16x96), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, {%48,%49,%50,%51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (m64n128) += A(64x16, bf16 fragments in registers) * B(16x128), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -533,6 +547,10 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
 template <>
 __device__ __forceinline__ void wgmma_pv<80>(float (&o)[40], const uint32_t (&a)[4], uint64_t desc_b) {
   wgmma_rs_n80(o, a, desc_b, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&o)[48], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_rs_n96(o, a, desc_b, 1);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -583,7 +601,7 @@ template <int D, bool kTensorMask, int kWG>
 __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   constexpr int kThreads = 128 * kWG;  // kWG warpgroups share each K/V tile
   constexpr int kBQ = kBK * kWG;       // query rows per CTA, 64 per warpgroup
-  constexpr int kCols = tile_cols(D);  // columns in shared memory: 72 -> 80, the last 8 zero
+  constexpr int kCols = tile_cols(D);  // columns in shared memory: 72 -> 80 and 88 -> 96, the last 8 zero
   constexpr int kTile = kBK * kCols * 2;  // bytes of one k or v tile, or of a warpgroup's q rows
   constexpr int kChunks = kCols / 8;  // 16-byte chunks per row in shared memory
   constexpr int kDataChunks = D / 8;  // of which hold data (the rest are zero-filled)
@@ -918,13 +936,13 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Whether the Hopper instances take this call: bf16 at head_dim 72 (no rope),
-// 80 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits shared
+// Whether the Hopper instances take this call: bf16 at head_dim 72 or 88 (no
+// rope), 80 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits shared
 // memory, and the keys' scratch when rope is on. Anything else runs the
 // general kernel above.
 bool takes(const FlashArgs& a) {
-  if (a.dtype != 1 || (a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 128)) return false;
-  if (a.head_dim == 72 && a.cos != nullptr) return false;
+  if (a.dtype != 1 || (a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 88 && a.head_dim != 128)) return false;
+  if (tile_cols(a.head_dim) != a.head_dim && a.cos != nullptr) return false;
   if (a.mask != nullptr && a.lk > kMaxKeys) return false;
   if (a.cos != nullptr && a.k_rot == nullptr) return false;
   const long long strides[] = {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl, a.v_sb, a.v_sh, a.v_sl};
@@ -966,6 +984,7 @@ extern "C" int owc_flash_attention(const FlashArgs* args, void* stream) {
     switch (a.head_dim) {
       case 72: return sm90::launch<72>(a, s);
       case 80: return sm90::launch<80>(a, s);
+      case 88: return sm90::launch<88>(a, s);
       default: return sm90::launch<128>(a, s);
     }
   }

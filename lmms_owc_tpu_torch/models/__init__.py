@@ -7,7 +7,15 @@ from lmms_owc_tpu_torch.models._api import (
     register_model,
 )
 from lmms_owc_tpu_torch.models._base import Model
-from lmms_owc_tpu_torch.models import fake, idefics2, llava_hf, llava_onevision, qwen2_vl  # noqa: F401  (register the adapters)
+from lmms_owc_tpu_torch.models import (  # noqa: F401  (register the adapters)
+    fake,
+    idefics2,
+    instructblip,
+    internvl2,
+    llava_hf,
+    llava_onevision,
+    qwen2_vl,
+)
 
 __all__ = [
     "MODELS",

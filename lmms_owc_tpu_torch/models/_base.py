@@ -184,6 +184,16 @@ class Model(abc.ABC):
             task = task[1]
         return task.dataset[split][doc_id]
 
+    def _request_visuals(self, doc_to_visual, doc_id, task_name: str, split: str) -> list:
+        """The visuals of a generate_until request's document: none when the
+        task is unknown or the request has no ``doc_to_visual``."""
+        task = self.task_dict.get(task_name)
+        if isinstance(task, tuple):
+            task = task[1]
+        if task is None or doc_to_visual is None:
+            return []
+        return doc_to_visual(task.dataset[split][doc_id]) or []
+
     def _resolve_loglikelihood_request(self, req) -> tuple[str, str, list]:
         """(context, continuation_text, visuals) for a loglikelihood request.
 

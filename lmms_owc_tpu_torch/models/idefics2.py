@@ -343,14 +343,7 @@ class Idefics2(Model):
             return vision.reshape(-1, vision.shape[-1])
 
     def _visuals(self, args) -> list:
-        ctx, _gk, doc_to_visual, doc_id, task_name, split = args[:6]
-        task = self.task_dict.get(task_name)
-        if isinstance(task, tuple):
-            task = task[1]
-        visuals = (
-            doc_to_visual(task.dataset[split][doc_id]) if (task is not None and doc_to_visual is not None) else []
-        ) or []
-        return self._expand_visuals(visuals)
+        return self._expand_visuals(self._request_visuals(*args[2:6]))
 
     # -------------------------------------------------------------- sequences
 

@@ -362,13 +362,7 @@ class LlavaHf(Model):
             )
 
     def _prepare_request(self, ctx, doc_to_visual, doc_id, task_name, split):
-        task = self.task_dict.get(task_name)
-        if isinstance(task, tuple):
-            task = task[1]
-        visuals = []
-        if task is not None and doc_to_visual is not None:
-            doc = task.dataset[split][doc_id]
-            visuals = doc_to_visual(doc) or []
+        visuals = self._request_visuals(doc_to_visual, doc_id, task_name, split)
         prompt = self._build_prompt(ctx, len(visuals))
         ids = self.tokenizer.encode(prompt)
 

@@ -337,12 +337,7 @@ class LlavaOnevision(Model):
 
     def _prepare(self, ctx, doc_to_visual, doc_id, task_name, split):
         """(expanded ids, packed features of each image) for one request."""
-        task = self.task_dict.get(task_name)
-        if isinstance(task, tuple):
-            task = task[1]
-        visuals = (
-            doc_to_visual(task.dataset[split][doc_id]) if (task is not None and doc_to_visual is not None) else []
-        ) or []
+        visuals = self._request_visuals(doc_to_visual, doc_id, task_name, split)
         features = [self._encode_one_image(img) for img in visuals]
         ids = self.tokenizer.encode(self._build_prompt(ctx, len(visuals)))
         expanded: list[int] = []

@@ -640,13 +640,7 @@ class Qwen2VL(Model):
         return text
 
     def _fetch_visuals(self, args: tuple) -> list:
-        _ctx, _gen_kwargs, doc_to_visual, doc_id, task_name, split = args[:6]
-        task = self.task_dict.get(task_name)
-        if isinstance(task, tuple):
-            task = task[1]
-        if task is None or doc_to_visual is None:
-            return []
-        return doc_to_visual(task.dataset[split][doc_id]) or []
+        return self._request_visuals(*args[2:6])
 
     def _prepare_requests_batch(self, chunk: list[tuple]) -> tuple[list[tuple], object]:
         """One batched vision pass over every image of the chunk, then

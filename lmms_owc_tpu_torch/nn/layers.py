@@ -59,21 +59,31 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = Non
     return out
 
 
+def _int_mm_operands(a: torch.Tensor, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``a`` [M, K] and ``q`` [N, K] zero-padded to the shapes ``torch._int_mm``
+    takes on CUDA: M > 16 and K, N multiples of 8 (the Qwen2.5-VL tower's MLP
+    is 3420 wide). Zero columns add nothing to the int32 sums, so the product's
+    first M rows and N columns are exact."""
+    m, k = a.shape
+    pad_m, pad_k, pad_n = 32 - m if m <= 16 else 0, -k % 8, -q.shape[0] % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        q = F.pad(q, (0, pad_k, 0, pad_n))
+    return a, q
+
+
 def _int8_mm(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Exact s8 x s8 -> s32 product ``a @ q.T`` for a [M, K] and q [N, K].
 
-    ``torch._int_mm`` on CUDA takes M > 16 and K, N multiples of 8: fewer rows
-    are zero-padded (and cut off after); other K or N raise. There is no float
-    fallback.
+    On CUDA the operands are zero-padded to the shapes ``torch._int_mm``
+    takes (:func:`_int_mm_operands`) and the result cut back. There is no
+    float fallback.
     """
-    m = a.shape[0]
+    m, n = a.shape[0], q.shape[0]
     if a.device.type != "cpu":
-        k, n = a.shape[1], q.shape[0]
-        if k % 8 or n % 8:
-            raise ValueError(f"W8A8 on CUDA needs K and N multiples of 8, got K={k}, N={n}")
-        if m <= 16:
-            a = F.pad(a, (0, 0, 0, 32 - m))
-    return torch._int_mm(a, q.t())[:m]
+        a, q = _int_mm_operands(a, q)
+    return torch._int_mm(a, q.t())[:m, :n]
 
 
 def dense_q8(

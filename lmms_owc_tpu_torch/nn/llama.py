@@ -66,15 +66,18 @@ class LlamaConfig:
     def to_decoder_config(self) -> Qwen2VLConfig:
         """View as a Qwen2VLConfig with uniform mrope sections (== standard RoPE).
 
-        Longrope (Phi-3) scaling is not ported yet and raises."""
+        As in the JAX package, a scaling of another type than llama3 or
+        longrope (an ``mrope`` text config's sections, ``default``) changes
+        nothing: the three position streams are identical, so any sections
+        give standard RoPE. Longrope (Phi-3) scaling is not ported yet and raises."""
         hd2 = (self.hidden_size // self.num_heads) // 2
         third = hd2 // 3
         rope_llama3 = None
-        if self.rope_scaling:
-            scaling = dict(self.rope_scaling)
-            rope_type = scaling.get("rope_type", scaling.get("type"))
-            if rope_type != "llama3":
-                raise NotImplementedError(f"rope scaling {rope_type!r} is not ported (llama3 only)")
+        scaling = dict(self.rope_scaling or ())
+        rope_type = scaling.get("rope_type", scaling.get("type"))
+        if rope_type == "longrope":
+            raise NotImplementedError("rope scaling 'longrope' is not ported (llama3 only)")
+        if rope_type == "llama3":
             rope_llama3 = (
                 scaling["factor"],
                 scaling["low_freq_factor"],

@@ -73,6 +73,41 @@ def test_flash_attention_matches_pallas_k2(with_rope, block_q, block_k):
         np.testing.assert_allclose(out[i, :, s:].numpy(), ref[i, :, s:], atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("kvh,causal,masked,with_rope", [
+    (4, False, False, False), (4, False, True, False), (2, True, True, False), (4, False, False, True),
+])
+def test_flash_attention_head_dim_88_matches_pallas_k2(kvh, causal, masked, with_rope):
+    """BLIP ViT-g's head_dim 88 (the CUDA kernel lays its tiles out 96 columns
+    wide): the plain version against the JAX kernel in interpret mode at
+    L = 100 with 32-key blocks (block_k < L: the multi-block online softmax
+    and a ragged last block), non-causal MHA as the tower runs it, and GQA,
+    causal, (start, end) runs and rope."""
+    rng = np.random.RandomState(88)
+    b, h, l, d = 2, 4, 100, 88
+    q = rng.randn(b, h, l, d).astype(np.float32)
+    k = rng.randn(b, kvh, l, d).astype(np.float32)
+    v = rng.randn(b, kvh, l, d).astype(np.float32)
+    runs = [(0, l), (23, l)] if masked else [(0, l)] * b
+    mask = _run_mask(b, l, runs) if masked else None
+    cos = sin = None
+    if with_rope:
+        cos, sin = _rope_tables(rng, b, l, d)
+    ref = jatt.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        kv_mask=None if mask is None else jnp.asarray(mask), kv_mask_contiguous=masked,
+        block_q=32, block_k=32, use_pallas=True, interpret=True,
+        rope_cos=None if cos is None else jnp.asarray(cos), rope_sin=None if sin is None else jnp.asarray(sin),
+    )
+    out = tatt.flash_attention(
+        _t(q), _t(k), _t(v), causal=causal, kv_mask=None if mask is None else _t(mask), kv_mask_contiguous=masked,
+        rope_cos=None if cos is None else _t(cos), rope_sin=None if sin is None else _t(sin),
+    )
+    assert out.shape == (b, h, l, d) and 88 in tatt._FLASH_HEAD_DIMS
+    ref = np.asarray(ref)
+    for i, (s, _e) in enumerate(runs):  # rows before the run start have no valid key
+        np.testing.assert_allclose(out[i, :, s:].numpy(), ref[i, :, s:], atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("masked,with_rope", [(False, False), (True, True), (True, False)])
 @pytest.mark.parametrize("block_k", [128, 32])
 def test_vision_qkv_attention_matches_pallas_k1(masked, with_rope, block_k):
@@ -549,6 +584,25 @@ def test_flash_launch_passes_key_rotation_scratch(fake_flash, dtype):
     with_rope, without = fake_flash.calls
     assert bool(with_rope["k_rot"]) == (dtype == torch.bfloat16) and not without["k_rot"]
     assert with_rope["cos"] and with_rope["rope_sb"] == l * d // 2 and not without["cos"]
+
+
+def test_flash_launch_takes_blip_qkv_views_at_head_dim_88(fake_flash):
+    """The BLIP tower's launch: q, k and v as head-offset views of its fused
+    qkv output [B, L, 3, 16, 88] reach the kernel at head_dim 88 with the
+    projection's strides (multiples of 8 elements, as the Hopper instance
+    takes them), no copy, no rope scratch."""
+    b, l, nh, hd = 2, 257, 16, 88
+    qkv = torch.randn(b, l, 3, nh, hd).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = torch.empty(b, nh, l, hd, dtype=torch.bfloat16)
+    tatt._launch_flash("flash_attention", q, k, v, out, causal=False, kv_mask=None, kv_mask_contiguous=False,
+                       scale=hd ** -0.5, rope_cos=None, rope_sin=None)
+    (call,) = fake_flash.calls
+    assert call["head_dim"] == 88 and (call["heads"], call["kv_heads"], call["lq"], call["lk"]) == (nh, nh, l, l)
+    assert (call["q_sb"], call["q_sh"], call["q_sl"]) == (l * 3 * nh * hd, hd, 3 * nh * hd)
+    assert call["k"] - call["q"] == nh * hd * 2 and call["v"] - call["k"] == nh * hd * 2
+    assert all(call[f"{r}_s{a}"] % 8 == 0 for r in "qkv" for a in "bhl") and not call["k_rot"]
+    assert tatt.launch_counts["flash_attention"] == 1
 
 
 @pytest.mark.parametrize("case", ["head_dim", "unit_stride", "bf16_alignment", "shape", "gqa", "mask", "rope"])

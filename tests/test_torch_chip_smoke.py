@@ -769,3 +769,87 @@ def test_siglip_checkpoint_writer_round_trip(tmp_path, monkeypatch, family):
     specials = (chip_smoke.ONEVISION_IMAGE_ID,) if family == "onevision" else tuple(
         chip_smoke.IDEFICS2_SPECIAL_IDS.values())
     assert set(specials) <= set(want)
+
+
+def test_internvl_blip_phase_workloads():
+    """Phases 21-23's shapes: the presets' published widths (InternViT-300M 1024
+    wide, 16 heads of 64, 24 layers, over Qwen2-1.5B 12/2 heads; BLIP ViT-g
+    1408 wide, 16 heads of 88, 39 layers, over Vicuna-7B 32/32 heads), phase
+    3's images tiled into the prompt lengths phase 2 holds (bucket 2048, a
+    cache past 2048 positions; 32 queries and 9 text tokens in bucket 128),
+    and the checkpoints cut in depth only."""
+    import chip_smoke
+    from PIL import Image
+
+    from lmms_owc_tpu_torch.models import instructblip as blip
+    from lmms_owc_tpu_torch.models import internvl2 as ivl
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    iv_cfg, ib_cfg = ivl.PRESET_CONFIGS[chip_smoke.INTERNVL_PRESET], blip.PRESET_CONFIGS[chip_smoke.BLIP_PRESET]
+    for v, layers, hd in ((iv_cfg["vision_config"], chip_smoke.INTERNVL_TOWER_LAUNCHES, 64),
+                          (ib_cfg["vision_config"], chip_smoke.BLIP_TOWER_LAUNCHES, 88)):
+        assert (v["num_attention_heads"], v["num_hidden_layers"], v["hidden_size"] // v["num_attention_heads"]) == (
+            16, layers, hd)
+    t = iv_cfg["text_config"]
+    assert (t["num_hidden_layers"], t["num_attention_heads"], t["num_key_value_heads"]) == (
+        chip_smoke.INTERNVL_LAYERS, 12, 2)
+    t = ib_cfg["text_config"]
+    assert (t["num_hidden_layers"], t["num_attention_heads"], t["num_key_value_heads"]) == (
+        chip_smoke.BLIP_LAYERS, 32, 32)
+    fallback = ivl._FallbackInternVLTokenizer(151667)
+    for (h, w), tiles in chip_smoke.INTERNVL_TILES.items():
+        assert len(ivl.dynamic_preprocess(Image.new("RGB", (w, h)), max_num=6, image_size=448)) == tiles
+        prompt = ("<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n<|im_start|>user\n<img>"
+                  + "<IMG_CONTEXT>" * (256 * tiles) + f"</img>\n{chip_smoke.PROMPT}<|im_end|>\n<|im_start|>assistant\n")
+        assert len(fallback.encode(prompt)) == chip_smoke.INTERNVL_PROMPT_TOKENS[(h, w)]
+    bucket = pad_to_bucket(max(chip_smoke.INTERNVL_PROMPT_TOKENS.values()))
+    assert bucket == 2048 and bucket + chip_smoke.MAX_NEW_TOKENS == 2112
+    assert 32 + len(blip._FallbackBlipTokenizer().encode(chip_smoke.PROMPT)) == chip_smoke.BLIP_PROMPT_TOKENS
+    assert pad_to_bucket(chip_smoke.BLIP_PROMPT_TOKENS) + chip_smoke.MAX_NEW_TOKENS == 192
+    for cfg, layers in ((chip_smoke.internvl_checkpoint_config(), 24), (chip_smoke.instructblip_checkpoint_config(), 39)):
+        assert cfg["text_config"]["num_hidden_layers"] == chip_smoke.FAMILY_CKPT_LAYERS == 2
+        assert cfg["vision_config"]["num_hidden_layers"] == layers
+
+
+@pytest.mark.parametrize("family", ["internvl", "instructblip"])
+def test_family_checkpoint_writer_round_trip(tmp_path, monkeypatch, family):
+    """Phase 23's writer at the tiny presets' widths: ``transformers`` reads
+    every tensor of the checkpoint under the published names (none missing,
+    none unexpected) in the published shapes, the port loads every parameter
+    bit-equal (the Q-Former tokenizer from ``qformer_tokenizer/``), and the
+    port's tokenizer encodes the family's prompt as ``tokenizers`` does."""
+    from tokenizers import Tokenizer
+    from transformers import InstructBlipForConditionalGeneration, InternVLForConditionalGeneration
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+
+    monkeypatch.setattr(chip_smoke, "INTERNVL_PRESET", "internvl2-tiny")
+    monkeypatch.setattr(chip_smoke, "BLIP_PRESET", "instructblip-tiny")
+    tiny_vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [w.lower() for w in chip_smoke.PROMPT.split()]
+    monkeypatch.setattr(chip_smoke, "minilm_vocab", lambda: tiny_vocab)
+    written, out = chip_smoke.write_family_checkpoint(family, torch.device("cpu"), tmp_path, 0)
+    assert out["bytes"] > 0
+    cls = InternVLForConditionalGeneration if family == "internvl" else InstructBlipForConditionalGeneration
+    hf, info = cls.from_pretrained(str(tmp_path), output_loading_info=True)
+    assert not info["missing_keys"] and not info["unexpected_keys"], info
+    state = {k: v.bfloat16() for k, v in hf.state_dict().items()}
+    if family == "internvl":
+        assert torch.equal(state["model.vision_tower.encoder.layer.1.lambda_1"], written.vision.layers[1].lambda_1)
+        assert torch.equal(state["model.vision_tower.embeddings.position_embeddings"][0],
+                           written.vision.position_embeddings)
+        preset = "internvl2-tiny"
+        prompt = f"<|im_start|>user\n<img><IMG_CONTEXT></img>\n{chip_smoke.PROMPT}<|im_end|>\n"
+        specials = tuple(chip_smoke.INTERNVL_SPECIAL_IDS.values())
+    else:
+        assert torch.equal(state["query_tokens"][0], written.qformer.query_tokens)
+        assert torch.equal(state["vision_model.embeddings.patch_embedding.weight"].flatten(1),
+                           written.vision.patch_embed.weight)
+        preset, prompt, specials = "instructblip-tiny", chip_smoke.PROMPT, (1,)
+    loaded = get_model(preset, pretrained=str(tmp_path), dtype="bfloat16", device="cpu")
+    assert chip_smoke._same_parameters(loaded.model, written, "round trip") == len(list(written.parameters()))
+    want = Tokenizer.from_file(str(tmp_path / "tokenizer.json")).encode(prompt).ids
+    assert loaded.tokenizer.encode(prompt) == want and set(specials) <= set(want)
+    if family == "instructblip":
+        assert loaded.qformer_tokenizer is not None
+        assert loaded._qformer_encode("What is it?")[0] == tiny_vocab.index("[CLS]")

@@ -436,3 +436,27 @@ def test_clip_and_llava_modules_load_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LLAVA_NO_JAX_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("model", ["internvl2-tiny", "instructblip-tiny"])
+def test_internvl_and_instructblip_cli_runs_load_no_jax(model, tmp_path, toy_dataset):
+    """The port's CLI answers ``toy`` with each new tiny adapter on the CPU
+    (``device=cpu``) and leaves no ``jax``, ``lmms_owc_tpu`` or
+    ``ABSENT_ON_THE_CARD`` module in ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "from lmms_owc_tpu_torch.eval_model import main\n"
+        f"main(['--model', {model!r}, '--model_args', 'dtype=float32,device=cpu', '--tasks', 'toy',"
+        f" '--include_path', {str(REPO_ROOT / 'tests' / 'fixtures' / 'tasks')!r}, '--limit', '2', '--batch_size', '2',"
+        f" '--output_path', {str(tmp_path)!r}])\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib') or k.startswith(('jax.', 'jaxlib.'))\n"
+        "             or (k.startswith('lmms_owc_tpu') and not k.startswith('lmms_owc_tpu_torch')))\n"
+        "assert not bad, bad\n"
+        f"absent = sorted(k for k in sys.modules if k.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+        "assert not absent, absent\n"
+        "print('FAMILY_CLI_NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FAMILY_CLI_NO_JAX_OK" in proc.stdout
+    assert len(list(tmp_path.rglob("*_results.json"))) == 1

@@ -166,6 +166,23 @@ def test_w8a8_switch_read_per_call(monkeypatch, w8a8):
     torch.testing.assert_close(lin(x), weight_only, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("m,k,n", [(3, 1280, 3420), (40, 3420, 1280), (17, 1285, 8), (96, 256, 512)])
+def test_int_mm_operands_pad_to_the_cards_shapes(m, k, n):
+    """On CUDA ``torch._int_mm`` takes M > 16 and K, N multiples of 8; the
+    operands W8A8 hands it there are zero-padded so that the product is
+    exact at any shape (the Qwen2.5-VL tower's 3420-wide MLP raised under
+    W8A8 on the card), and operands that need no padding are not copied."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    q = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    pa, pq = tl._int_mm_operands(a, q)
+    assert pa.shape[0] > 16 and pa.shape[1] % 8 == 0 and pq.shape == (-(-n // 8) * 8, pa.shape[1])
+    got = torch._int_mm(pa, pq.t())[:m, :n]
+    assert torch.equal(got, (a.long() @ q.long().t()).int())
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        assert pa is a and pq is q
+
+
 # ------------------------------------------------------------------------- K4
 
 
