@@ -213,13 +213,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     tensor names and shapes; the Qwen2 fixture tokenizer with ``<img>``,
     ``</img>`` and ``<IMG_CONTEXT>`` at their published ids; the Llama-2
     form and a ``qformer_tokenizer/``) loaded bit-equal and serving the
-    model's own tokens. ``summary internvl_blip`` holds phases 21-23.
+    model's own tokens; after phase 24, phi3v's from phase 24's model (its
+    first 2 decoder layers, in the released layout: fused ``qkv_proj`` and
+    ``gate_up_proj``, the tower under ``model.vision_embed_tokens.``, the
+    longrope config with no ``vision_config``, the Llama-2 form with Phi-3's
+    five added tokens). ``summary internvl_blip`` holds phases 21-23.
+24. Phi-3-Vision (``phi3v``) with random bf16 weights at the published
+    widths (CLIP ViT-L/14-336; Phi-3-mini, 32 layers of 32 heads of 96, with
+    a longrope scaling of 48 short factors, attention factor 1.19): phase
+    3's 8 requests in one chunk at 16 crops (a 448x448 image is 4x4 crops and
+    the global view, a 336x448 one 3x4; bucket 3072, decode cache 3136),
+    64 greedy tokens: 8 tower calls of 23 K2 launches at head_dim 64, 32
+    prefill launches at head_dim 96, 32 K3 per step (the general kernel),
+    each read around its call; the port's host stage timers on for the
+    measured run, their table logged; prefill logits by phase 4's rule and
+    ``loglikelihood`` by phase 10's. ``summary phi3v``. Phase 2 holds K2 at
+    head_dim 96 (Hopper over phase 24's prefill, general in bf16 and f32)
+    and at the tower's [17, 16, 577, 64], and K3 at head_dim 96 over phase
+    24's cache in bf16 and f32.
 
 The host packages that the CLIs import (and those it must do without) are
 logged as present or missing at the start.
 
 Phases run in the order 1-3, 8, 3b, 9 (Qwen2-VL), 10, 11, 12, 13, 4, 5
-(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 7b, 14-23.
+(with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 7b, 14-24, 23
+(phi3v).
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -435,6 +453,26 @@ INTERNVL_HF_PREFIXES = ("language_model.model.", "language_model.lm_head.", "vis
 BLIP_HF_PREFIXES = ("language_model.model.", "language_model.lm_head.", "vision_model.", "qformer.", "query_tokens",
                     "language_projection.")
 INTERNVL_SPECIAL_IDS = {"<img>": 151665, "</img>": 151666, "<IMG_CONTEXT>": 151667}
+# Phi-3-Vision (phase 24): CLIP ViT-L/14-336 (24 layers, 16 heads of 64; the
+# features of its second-to-last layer: 23 K2 launches per tower call, one call
+# per image over the global view and its crops) and Phi-3-mini (32 layers,
+# 32/32 heads of 96, vocab 32064) with a longrope scaling of 48 short factors
+# over 131072 / 4096 positions (attention factor 1.19). At 16 crops a 448x448
+# image is 4x4 crops and the global view ([17, 16, 577, 64] per tower call),
+# a 336x448 one 3x4 and the global view; their prompt lengths, bucket and
+# decode cache are computed by :func:`phi3v_prompt_tokens`.
+PHI3V_PRESET = "phi3v"
+PHI3V_SMOKE_PRESET = "phi3v-longrope"  # phi3v's widths with the longrope scaling, registered by the smoke
+PHI3V_TOWER_LAUNCHES = 23
+PHI3V_LAYERS = 32
+PHI3V_CROPS = 16
+# Synthetic short and long factors of the released config's form (48 = head_dim / 2).
+PHI3V_SHORT_FACTORS = [round(1.0 + 0.025 * i, 3) for i in range(48)]
+PHI3V_LONG_FACTORS = [round(1.0 + 0.5 * i, 3) for i in range(48)]
+PHI3V_HF_PREFIXES = ("model.", "lm_head.")
+# The Phi-3 chat specials at their published ids, and the image placeholder.
+PHI3V_SPECIAL_IDS = {"<|endoftext|>": 32000, "<|assistant|>": 32001, "<|end|>": 32007, "<|user|>": 32010,
+                     "<|image_1|>": 32044}
 FAMILY_3D_TENSORS = ("embeddings.cls_token", "embeddings.position_embeddings", "embeddings.class_embedding",
                      "embeddings.position_embedding", "query_tokens")
 KERNELS = {
@@ -732,7 +770,8 @@ def check_kernels(dev) -> dict[str, dict]:
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results.update(check_tower_entries(dev, gen))
     for name, rows in [*check_scoring_shapes(dev, gen).items(), *check_llava_shapes(dev, gen).items(),
-                       *check_siglip_shapes(dev, gen).items(), *check_internvl_blip_shapes(dev, gen).items()]:
+                       *check_siglip_shapes(dev, gen).items(), *check_internvl_blip_shapes(dev, gen).items(),
+                       *check_phi3v_shapes(dev, gen).items()]:
         results[name].setdefault("also", {}).update(rows)
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results["int4_matmul"] = check_int4(dev, gen)
@@ -1197,6 +1236,124 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
     return rows
 
 
+def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
+    """Phase 2 at phase 24's shapes, each held to its plain version with its
+    bound and SDPA's time: K2's Hopper instance at head_dim 96 (Phi-3-mini,
+    MHA) over phase 24's prompts, causal and left-padded in their bucket
+    (:func:`phi3v_prompt_tokens`); K2's general instance at head_dim 96 in
+    bf16 (views with a 98-element row stride, which the Hopper instance does
+    not take) and in f32 at a ragged [2, 32, 200, 96] with (start, end) runs
+    (block_k < L: the multi-block online softmax); K2's general bf16 instance
+    at head_dim 64 over the Phi-3 tower's [17, 16, 577, 64] (a 448x448 image's
+    global view and 16 crops); K3's general kernel at head_dim 96, G = 1, over
+    phase 24's decode cache in bf16 and f32, held to ``LONG_CACHE_TOL``.
+    Returns ``{kernel: {label: row}}``."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops import attention as att
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    rows: dict[str, dict] = {"flash_attention": {}, "gqa_decode_attention": {}}
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    hd, nh = 96, 32
+    lengths = phi3v_prompt_tokens()
+    bucket = pad_to_bucket(max(lengths))
+    cache_len = bucket + MAX_NEW_TOKENS
+
+    def left_padded(b, l, lens):
+        starts = l - torch.tensor(lens, device=dev)
+        pos = torch.arange(l, device=dev)
+        return (pos[None, :] >= starts[:, None]).to(torch.int32)
+
+    # The prefill (Hopper, the decoder's shapes) and the general bf16 instance on unaligned views.
+    for label, (b, l), lens, form in (
+        ("phi3_prefill", (8, bucket), lengths, "bf16 (the Hopper instance)"),
+        ("d96_general", (8, 512), [512, 480, 400, 333, 256, 200, 97, 1],
+         "bf16, views with a 98-element row stride (the general instance)"),
+    ):
+        if label == "d96_general":
+            q, k, v = (randn(torch.bfloat16, b, nh, l, hd + 2)[..., :hd] for _ in range(3))
+        else:
+            q, k, v = (randn(torch.bfloat16, b, nh, l, hd) for _ in range(3))
+        pmask = left_padded(b, l, lens)
+        kw = dict(causal=True, kv_mask=pmask)
+        valid_rows = pmask.bool()[:, None, :].expand(b, nh, l)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        rows["flash_attention"][label] = _row(
+            f"q/k/v [{b}, {nh}, {l}, {hd}] {form}, MHA, causal, left-padded (Phi-3-mini)", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+            _attention_bound(pmask, nh, nh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        )
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # f32 at a ragged shape, and the tower, non-causal.
+    runs = torch.tensor([[0, 200], [37, 170]], device=dev)
+    pos = torch.arange(200, device=dev)
+    cmask = ((pos[None] >= runs[:, :1]) & (pos[None] < runs[:, 1:])).to(torch.int32)
+    for label, (q, k, v), mask, form in (
+        ("d96_ragged_f32", [randn(torch.float32, 2, nh, 200, hd) for _ in range(3)], cmask,
+         "f32, (start, end) runs (0, 200) and (37, 170) (the general instance)"),
+        ("phi3_tower", [randn(torch.bfloat16, 17, 16, 577, 64) for _ in range(3)], None,
+         "bf16, a 448x448 image's global view and 16 crops through CLIP-L/336 (the general instance at D = 64)"),
+    ):
+        n, heads, length, dim = q.shape
+        f32 = q.dtype == torch.float32
+        kw = dict(kv_mask=mask)
+        tol = dict(atol=CLIP_TOL, rtol=CLIP_TOL) if f32 else {}
+        valid = None
+        if mask is not None:  # rows before the run's start have no valid key
+            valid = (torch.arange(length, device=dev)[None] >= runs[:, :1])[:, None, :].expand(n, heads, length)
+        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                       att.flash_attention_plain(q, k, v, **kw), valid, **tol)
+        keys = mask if mask is not None else torch.ones((n, length), dtype=torch.int32, device=dev)
+        rows["flash_attention"][label] = _row(
+            f"q/k/v [{n}, {heads}, {length}, {dim}] {form}, non-causal", err,
+            _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                     lambda: att.flash_attention_plain(q, k, v, **kw),
+                     _sdpa(q, k, v, None if mask is None else keys.bool()[:, None, None, :])),
+            _attention_bound(keys, heads, heads, length, dim, causal=False, elt=4 if f32 else 2,
+                             extra_bytes=0 if mask is None else 8 * n,
+                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+            SDPA,
+        )
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # The decode: the prompt bucket's keys from each row's start, then 5 generated.
+    b, last = 8, PHI3V_LAYERS - 1
+    spos = torch.arange(cache_len, device=dev)
+    dstarts = bucket - torch.tensor(lengths, device=dev)
+    dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < bucket + 5)).to(torch.int32)
+    valid = int(dmask.sum())
+    for label, dtype, key in (("phi3_decode", torch.bfloat16, "bf16"), ("phi3_decode_f32", torch.float32, "f32")):
+        qd = randn(dtype, b, nh, hd)
+        ck, cv = (randn(dtype, PHI3V_LAYERS, b, nh, cache_len, hd) for _ in range(2))
+        atol, rel_l2 = LONG_CACHE_TOL[key]
+        errs = [_compare(f"gqa_decode_attention {label}[layer {layer}]",
+                         att.gqa_decode_attention(qd, ck, cv, layer, dmask),
+                         att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask), atol=atol, rtol=0.0, rel_l2=rel_l2)
+                for layer in (0, last)]
+        elt = 2 if dtype == torch.bfloat16 else 4
+        rows["gqa_decode_attention"][label] = _row(
+            f"q [{b}, {nh}, {hd}] {key}, cache [{PHI3V_LAYERS}, {b}, {nh}, {cache_len}, {hd}] {key}, G = 1, "
+            f"layers 0 and {last} (the general kernel; Phi-3-mini)", max(errs),
+            _timings(lambda: att.gqa_decode_attention(qd, ck, cv, last, dmask),
+                     lambda: att.gqa_decode_attention_plain(qd, ck, cv, last, dmask),
+                     _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :])),
+            _bound(4.0 * hd * nh * valid, elt * (2 * b * nh * hd + 2 * nh * hd * valid) + 4 * b * cache_len,
+                   PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS), SDPA,
+        )
+        del qd, ck, cv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _v25_window_layout(grid):
     """(slot_src, valid [W*S] int32, tok_idx, W, S) of one image in the
     Qwen2.5-VL-7B window layout, as the adapter builds it."""
@@ -1507,9 +1664,12 @@ def check_ragged_bf16(dev, gen) -> None:
     # Head_dims 72 (the SigLIP towers) and 88 (BLIP ViT-g): the Hopper instance
     # over 200 keys with a gappy mask (a 192-row block and a tail) and over one
     # short block; with rope, which the Hopper instance does not take at 72 or
-    # 88, the general one.
-    for d, length, masked, rope in [(d, *case) for d in (72, 88)
-                                    for case in ((200, True, False), (50, False, False), (50, False, True))]:
+    # 88, the general one. Head_dim 96 (Phi-3-mini) takes rope in the Hopper
+    # instance: in the kernel over one short block, through the keys'
+    # pre-pass over two blocks.
+    cases = ((200, True, False), (50, False, False), (50, False, True))
+    for d, length, masked, rope in [(d, *case) for d in (72, 88, 96)
+                                    for case in cases + (((200, False, True),) if d == 96 else ())]:
         q, k, v = (randn(2, 16, length, d) for _ in range(3))
         kw = {}
         if masked:
@@ -1611,32 +1771,33 @@ def _requests(model, sizes=None):
     return [_Req(i) for i in range(len(docs))]
 
 
-def serve_bf16(dev, preset: str, sizes, min_launches: dict[str, int], label: str,
-               per_call=()) -> tuple[object, list, dict]:
-    """``preset`` with random bf16 weights drawn on the card answers 8 image
-    requests through generate_until (a warm-up call, then the measured one,
-    with :func:`_serve`'s ``per_call``); each kernel in ``min_launches`` must
-    have run at least that often."""
+def serve_bf16(dev, model_id: str, sizes, min_launches: dict[str, int], label: str,
+               per_call=(), host_timers: bool = False, **model_kwargs) -> tuple[object, list, dict]:
+    """The registered model ``model_id`` with random bf16 weights drawn on
+    the card answers 8 image requests through generate_until (a warm-up
+    call, then the measured one, with :func:`_serve`'s ``per_call`` and
+    ``host_timers``); each kernel in ``min_launches`` must have run at least
+    that often. ``model_kwargs`` go to ``get_model``."""
     import torch
 
     from lmms_owc_tpu_torch.models import get_model
 
     t0 = time.perf_counter()
     model = get_model(
-        preset, random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS,
-        device=str(dev), time_phases=True,
+        model_id, random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS,
+        device=str(dev), time_phases=True, **model_kwargs,
     )
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.model.parameters())
-    log(f"{preset}: {n_params / 1e9:.3f} B parameters drawn on the card in "
+    log(f"{model_id}: {n_params / 1e9:.3f} B parameters drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     requests = _requests(model, sizes)
     model.generate_until(requests)  # warm-up: cuBLAS handles, allocator, kernel library
-    run = _serve(model, requests, per_call=per_call)
+    run = _serve(model, requests, per_call=per_call, host_timers=host_timers)
     _log_run(label, run)
     for name, least in min_launches.items():
         if run["counts"][name] < least:
-            raise AssertionError(f"{name} launched {run['counts'][name]} times in the {preset} run, expected >= {least}")
+            raise AssertionError(f"{name} launched {run['counts'][name]} times in the {model_id} run, expected >= {least}")
     return model, requests, run
 
 
@@ -1908,20 +2069,49 @@ def _tokens(model, out: list):
         del model._detokenize
 
 
-def _serve(model, requests, tokens: list | None = None, require_text: bool = True, per_call=()) -> dict:
+@contextmanager
+def _host_timers():
+    """The port's host stage timers (``LMMS_OWC_HOST_PROF``) on for the block,
+    from zero; yields a list that receives the lines of their table."""
+    import io
+    from contextlib import redirect_stdout
+
+    from lmms_owc_tpu_torch.utils import _hostprof
+
+    saved, table = _hostprof.ENABLED, []
+    _hostprof.ENABLED = True
+    _hostprof.hostprof_reset()
+    try:
+        yield table
+        out = io.StringIO()
+        with redirect_stdout(out):
+            _hostprof.hostprof_dump("generate_until")
+        table.extend(line.strip() for line in out.getvalue().splitlines())
+    finally:
+        _hostprof.ENABLED = saved
+        _hostprof.hostprof_reset()
+
+
+def _serve(model, requests, tokens: list | None = None, require_text: bool = True, per_call=(),
+           host_timers: bool = False) -> dict:
     """One measured generate_until with the counts set to 0 just before it.
     ``require_text``: every answer must be a non-empty string (off where a
     checkpoint's tokenizer decodes the random model's tokens, which may all
     lie past its vocabulary; the tokens are compared instead). ``per_call``:
     ``(module, name)`` entries whose launches are read around each call
-    (:func:`_per_call`), returned as ``per_call``."""
+    (:func:`_per_call`), returned as ``per_call``. ``host_timers``: the port's
+    host stage timers run for the call, and their table is returned as
+    ``hostprof`` (host time only: no span waits for the device)."""
     import torch
 
     model.phase_seconds.clear()
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    with _per_call(*per_call) as calls, _decode_steps() as steps, \
-            _tokens(model, tokens if tokens is not None else []):
+    with ExitStack() as stack:
+        table = stack.enter_context(_host_timers()) if host_timers else None
+        calls = stack.enter_context(_per_call(*per_call))
+        steps = stack.enter_context(_decode_steps())
+        stack.enter_context(_tokens(model, tokens if tokens is not None else []))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outputs = model.generate_until(requests)
@@ -1935,6 +2125,7 @@ def _serve(model, requests, tokens: list | None = None, require_text: bool = Tru
         phase_seconds={k: round(v, 4) for k, v in model.phase_seconds.items()},
         peak_gb=torch.cuda.max_memory_allocated() / 1e9, decode_steps=len(steps), counts=counts,
         sample=outputs[0][:60], **({"per_call": calls} if per_call else {}),
+        **({"hostprof": table} if host_timers else {}),
     )
 
 
@@ -3636,6 +3827,211 @@ def run_family_checkpoints(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- Phi-3-Vision
+
+
+def _phi3v_per_call():
+    """Phi-3-Vision's serving entries whose launches :func:`_serve` reads per
+    call: the CLIP tower (one call per image), the prefill and each decode step."""
+    from lmms_owc_tpu_torch.nn import clip as nnclip
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+
+    return (nnclip, "clip_vision_forward"), (nnq, "prefill"), (nnq, "decode_step")
+
+
+def phi3v_smoke_config() -> dict:
+    """``phi3v``'s preset (the published widths) with a longrope scaling of
+    the released config's form: 48 short and long factors."""
+    from lmms_owc_tpu_torch.models.phi3v import PRESET_CONFIGS
+
+    cfg = json.loads(json.dumps(PRESET_CONFIGS[PHI3V_PRESET]))
+    cfg["text_config"]["rope_scaling"] = {"type": "longrope", "short_factor": PHI3V_SHORT_FACTORS,
+                                          "long_factor": PHI3V_LONG_FACTORS}
+    return cfg
+
+
+@contextmanager
+def _phi3v_smoke_preset():
+    """:func:`phi3v_smoke_config` registered as the adapter's preset
+    ``PHI3V_SMOKE_PRESET`` for the block."""
+    from lmms_owc_tpu_torch.models import phi3v as p3
+
+    p3.PRESET_CONFIGS[PHI3V_SMOKE_PRESET] = phi3v_smoke_config()
+    try:
+        yield
+    finally:
+        p3.PRESET_CONFIGS.pop(PHI3V_SMOKE_PRESET, None)
+
+
+def phi3v_prompt_tokens(sizes=None) -> list[int]:
+    """The prompt length of each of phase 3's requests (or of ``sizes``) at
+    phase 24's configuration, computed: the HD transform's crop grid (h x w
+    crops of 336 px, at most ``PHI3V_CROPS``) gives (h*w)*144 + h*12 + 1 +
+    12*13 image rows (half = 12 units a side), and the fallback tokenizer the
+    prompt's other tokens."""
+    from types import SimpleNamespace
+
+    from PIL import Image
+
+    from lmms_owc_tpu_torch.models import phi3v as p3
+
+    vision = p3.clip_config(p3.PRESET_CONFIGS[PHI3V_PRESET]["vision_config"])
+    size, half = vision.image_size, vision.image_size // vision.patch_size // 2
+    text = len(p3._FallbackPhi3Tokenizer().encode(p3.Phi3v._build_prompt(None, PROMPT, 1))) - 1
+    out = []
+    for h, w in sizes or [(448, 448)] * 6 + [(336, 448)] * 2:
+        hd = p3.Phi3v._hd_transform(SimpleNamespace(vision_config=vision), Image.new("RGB", (w, h)), PHI3V_CROPS)
+        rows, cols = hd.size[1] // size, hd.size[0] // size
+        out.append(rows * cols * half * half + rows * half + 1 + half * (half + 1) + text)
+    return out
+
+
+def run_phi3v(dev) -> tuple[dict, object]:
+    """Phase 24: phi3v at the published widths (CLIP ViT-L/14-336, Phi-3-mini
+    with :func:`phi3v_smoke_config`'s longrope scaling) with random bf16
+    weights drawn on the card answers phase 3's 8 requests in one chunk at 16
+    crops (4x4 crops for a 448x448 image, 3x4 for a 336x448 one, each with its
+    global view; the prompt lengths of :func:`phi3v_prompt_tokens`, bucket
+    3072, decode cache 3136: K3's general kernel at head_dim 96), 64 greedy
+    tokens, with the port's host stage timers on: one tower call per image of
+    23 K2 launches (head_dim 64), 32 prefill launches (head_dim 96) and 32 K3
+    per decode step, read around each call; the prefill logits of a chunk of
+    one image of each size by phase 4's rule; ``loglikelihood`` by phase
+    10's, at batch 2. Returns the run and the model (phase 23 writes its
+    checkpoint from it)."""
+    from lmms_owc_tpu_torch.models.phi3v import IMAGE_TOKEN_ID
+
+    label = f"{PHI3V_PRESET} bf16"
+    with _phi3v_smoke_preset():
+        model, requests, run = serve_bf16(dev, PHI3V_PRESET, None, {}, label, _phi3v_per_call(), host_timers=True,
+                                          preset=PHI3V_SMOKE_PRESET, num_crops=PHI3V_CROPS)
+    log(f"{label} host stages: {'; '.join(run['hostprof'])}")
+    factor = model.decoder_config.rope_longrope[0]
+    if model.decoder_config.head_dim != 96 or not 1.19 < factor < 1.20:
+        raise AssertionError(f"{label}: head_dim {model.decoder_config.head_dim}, longrope attention factor {factor}")
+    _check_tower_launches(run, label, "clip_vision_forward", len(requests), PHI3V_TOWER_LAUNCHES, PHI3V_LAYERS)
+    prepared = model._prepare_rows([(PROMPT, model._request_visuals(*r.args[2:6]), []) for r in requests])
+    lengths = [len(ids) for ids, _ in prepared]
+    run["image_rows"] = [sum(t == IMAGE_TOKEN_ID for t in ids) for ids, _ in prepared]
+    run["longrope_attention_factor"] = factor
+    _prompt_layout(run, label, lengths, phi3v_prompt_tokens())
+    if run["cache_len"] <= 2048:
+        raise AssertionError(f"{label}: decode cache {run['cache_len']} (must pass 2048)")
+    run["logits"] = _bf16_logits_rule(lambda: _family_chunk_logits(model, [requests[0], requests[-1]]), label)
+    model.batch_size = 2  # the plain and f32 paths' [B, 32, 3072, 3072] scores stay a few GB
+    run["loglikelihood"] = check_loglikelihood(model, {
+        "flash_attention": len(requests) * PHI3V_TOWER_LAUNCHES + len(requests) // 2 * PHI3V_LAYERS,
+        "gqa_decode_attention": 0})
+    model.batch_size = NUM_REQUESTS
+    _free()
+    return run, model
+
+
+def phi3v_checkpoint_config() -> dict:
+    """:func:`phi3v_smoke_config`'s decoder (full width, its longrope
+    scaling) cut to ``FAMILY_CKPT_LAYERS`` layers, in the released
+    config.json's form: the Phi-3 decoder's fields at the top level, the
+    image embedding's settings, no ``vision_config`` (the adapter takes
+    CLIP-L/336)."""
+    text = phi3v_smoke_config()["text_config"]
+    return {**text, "num_hidden_layers": FAMILY_CKPT_LAYERS, "model_type": "phi3_v",
+            "architectures": ["Phi3VForCausalLM"], "pad_token_id": PHI3V_SPECIAL_IDS["<|endoftext|>"],
+            "bos_token_id": 1, "eos_token_id": PHI3V_SPECIAL_IDS["<|end|>"],
+            "embd_layer": {"embedding_cls": "image", "hd_transform_order": "sub_glb", "projection_cls": "mlp",
+                           "use_hd_transform": True, "with_learnable_separator": True},
+            "img_processor": {"image_dim_out": 1024, "model_name": "openai/clip-vit-large-patch14-336",
+                              "name": "clip_vision_model", "num_img_tokens": 144}}
+
+
+def phi3v_tokenizer() -> dict:
+    """The Llama-2 form of :func:`llama2_tokenizer` (``byte_fallback``) with
+    its ``<image>`` and ``<pad>`` replaced by Phi-3's five added tokens at
+    their published ids (``PHI3V_SPECIAL_IDS``; the ids between them added
+    fillers)."""
+    blob = llama2_tokenizer()
+    blob["added_tokens"] = [t for t in blob["added_tokens"] if t["id"] < 32000]
+    return pinned_tokenizer(blob, PHI3V_SPECIAL_IDS)
+
+
+def phi3v_layout(written) -> list[tuple[str, object]]:
+    """(checkpoint name, tensor) of a :class:`Phi3vModel` in the released
+    layout: the decoder under ``model.`` with each layer's q/k/v fused into
+    ``qkv_proj`` and gate/up into ``gate_up_proj``, the CLIP tower under
+    ``model.vision_embed_tokens.img_processor.``, ``img_projection.0/2``, and
+    ``sub_GN`` [1, 1, 1, 4E] and ``glb_GN`` [1, 1, 4E]."""
+    import torch
+
+    tensors = dict(_hf_layout(written, _NameProbe(PHI3V_HF_PREFIXES)))
+    fused = {"self_attn.q_proj.weight": ("self_attn.qkv_proj.weight", ("q_proj", "k_proj", "v_proj")),
+             "mlp.gate_proj.weight": ("mlp.gate_up_proj.weight", ("gate_proj", "up_proj"))}
+    out = []
+    for name, t in tensors.items():
+        if name.startswith("model.layers."):
+            if name.endswith(("self_attn.k_proj.weight", "self_attn.v_proj.weight", "mlp.up_proj.weight")):
+                continue  # fused into the tensor of the first part
+            for first, (target, parts) in fused.items():
+                if name.endswith(first):
+                    t = torch.cat([tensors[name.replace(parts[0], part)] for part in parts])
+                    name = name[: -len(first)] + target
+        elif name.endswith("sub_GN"):
+            t = t.reshape(1, 1, 1, -1)
+        elif name.endswith("glb_GN"):
+            t = t.reshape(1, 1, -1)
+        out.append((name, t))
+    return out
+
+
+def run_phi3v_checkpoint(dev, model) -> dict:
+    """Phase 23, phi3v (run after phase 24, from its model): the phase-24
+    model's tower, projector, separators, embeddings, head and first
+    ``FAMILY_CKPT_LAYERS`` decoder layers, written at full width in the
+    released layout (:func:`phi3v_layout`, :func:`phi3v_checkpoint_config`,
+    :func:`phi3v_tokenizer`), loaded with ``pretrained=``: every parameter
+    bit-equal to what was written, and phase 3's requests give the tokens of
+    the model it was written from, through the loaded tokenizer."""
+    import copy as _copy
+
+    import torch
+
+    from lmms_owc_tpu_torch.models.phi3v import Phi3vModel
+    from lmms_owc_tpu_torch.nn.llama import llama_config_from_hf
+
+    cfg = phi3v_checkpoint_config()
+    written = Phi3vModel(llama_config_from_hf(cfg), model.vision_config, torch.bfloat16, dev)
+    source = dict(model.model.named_parameters())
+    with torch.no_grad():
+        for name, p in written.named_parameters():
+            p.copy_(source[name])
+    root = Path(tempfile.mkdtemp(prefix="owc_phi3v_"))
+    try:
+        stats = write_tensors(phi3v_layout(written), root, f"phi3v at full width, {FAMILY_CKPT_LAYERS} decoder layers")
+        (root / "config.json").write_text(json.dumps(cfg))
+        (root / "tokenizer.json").write_text(json.dumps(phi3v_tokenizer()))
+        (root / "tokenizer_config.json").write_text(json.dumps(dict(
+            LLAMA2_TOKENIZER_CONFIG, eos_token="<|end|>", pad_token="<|endoftext|>")))
+        loaded, stats["load"] = _load(dev, PHI3V_PRESET, root, batch_size=NUM_REQUESTS, num_crops=PHI3V_CROPS)
+        stats["parameters_bit_equal"] = _same_parameters(loaded.model, written, "phi3v checkpoint load")
+        if loaded.decoder_config.rope_longrope != model.decoder_config.rope_longrope:
+            raise AssertionError("phi3v checkpoint: the longrope scaling did not load as written")
+        served = _copy.copy(loaded)  # the same adapter (config, tokenizer) over the written modules
+        served.model = written
+        requests = _requests(loaded)
+        served.task_dict = loaded.task_dict
+        want: list = []
+        _serve(served, requests, want, require_text=False)
+        got: list = []
+        run = _serve(loaded, requests, got, require_text=False)
+        _same_tokens("phi3v checkpoint load", got, want)
+        _log_run(f"{PHI3V_PRESET} checkpoint", run)
+        stats["serve"] = dict(run, tokens_identical=True)
+        del served, written, loaded
+        _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phi3v checkpoint: {json.dumps(_phase_summary(stats))}")
+    return stats
+
+
 # ------------------------------------------------------------------ scoring
 
 # Words of phase 13's sentences and predictions: the toy answers, the toy prompts' words and a few more.
@@ -4350,6 +4746,12 @@ def main(argv: list[str] | None = None) -> int:
     mark("22 instructblip")
     family_checkpoints = run_family_checkpoints(dev)  # phase 23
     mark("23 internvl and instructblip checkpoints")
+    phi3v, phi3v_model = run_phi3v(dev)  # phase 24
+    mark("24 phi3v")
+    family_checkpoints["phi3v"] = run_phi3v_checkpoint(dev, phi3v_model)  # phase 23, from phase 24's model
+    del phi3v_model
+    _free()
+    mark("23 phi3v checkpoint")
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
     # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed);
@@ -4381,8 +4783,13 @@ def main(argv: list[str] | None = None) -> int:
     also["flash_attention"]["internvl_prefill"]["launches"] = k2(internvl, "prefill")
     also["flash_attention"]["blip_tower"]["launches"] = k2(blip, "blip_vision_forward")
     also["flash_attention"]["blip_prefill"]["launches"] = k2(blip, "prefill")
-    for label in ("d72_contiguous_f32", "d72_tensor_f32", "blip_tower_general", "d88_ragged_f32"):
+    also["flash_attention"]["phi3_tower"]["launches"] = k2(phi3v, "clip_vision_forward")
+    also["flash_attention"]["phi3_prefill"]["launches"] = k2(phi3v, "prefill")
+    for label in ("d72_contiguous_f32", "d72_tensor_f32", "blip_tower_general", "d88_ragged_f32", "d96_general",
+                  "d96_ragged_f32"):
         also["flash_attention"][label]["launches"] = 0  # parity forms no phase serves
+    also["gqa_decode_attention"]["phi3_decode"]["launches"] = phi3v["counts"]["gqa_decode_attention"]
+    also["gqa_decode_attention"]["phi3_decode_f32"]["launches"] = 0
     also["gqa_decode_attention"]["internvl_decode"]["launches"] = internvl["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention"]["internvl_decode_short"]["launches"] = 0  # phase 21's cache passes 2048
     also["gqa_decode_attention"]["blip_decode"]["launches"] = blip["counts"]["gqa_decode_attention"]
@@ -4456,6 +4863,12 @@ def main(argv: list[str] | None = None) -> int:
         "checkpoints": {family: _phase_summary(stats) for family, stats in family_checkpoints.items()},
     }
     log(f"summary internvl_blip: {json.dumps(family_summary)}")
+    phi3v_summary = {
+        f"{PHI3V_PRESET} bf16": {**served(phi3v), "image_rows": phi3v["image_rows"], "hostprof": phi3v["hostprof"],
+                                 "longrope_attention_factor": phi3v["longrope_attention_factor"]},
+        f"{PHI3V_PRESET} loglikelihood": {k: v for k, v in phi3v["loglikelihood"].items() if k != "losses"},
+    }
+    log(f"summary phi3v: {json.dumps(phi3v_summary)}")
     log(f"summary wall seconds: {json.dumps(wall)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

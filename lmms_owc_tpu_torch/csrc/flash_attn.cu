@@ -23,14 +23,15 @@
 // elements of K and V (the ViT at L=1024, D=80; the prefill at L~320, D=128),
 // far above the card's ~295 flop/byte balance point.
 //
-// Two designs. The bf16 instances at head_dim 72 and 88 (without rope), 80
-// and 128 (every main-path shape, the SigLIP towers of LLaVA-OneVision and
-// Idefics2, BLIP ViT-g of InstructBLIP) are the Hopper kernel of namespace
-// sm90 below: a cp.async ring of K/V stages, wgmma for both products, rope
-// once per token. The general kernel serves f32, head_dims 16/32/64 (and 72
-// and 88 with rope) and views whose rows are not 16-byte aligned: the two
-// products run on mma.sync m16n8k16 bf16 tiles (f32: CUDA cores) with f32
-// accumulation, synchronous loads, rope per tile. Both lay a head_dim of 72
+// Two designs. The bf16 instances at head_dim 72 and 88 (without rope), 80,
+// 96 and 128 (every main-path shape, the SigLIP towers of LLaVA-OneVision
+// and Idefics2, BLIP ViT-g of InstructBLIP, Phi-3-mini's prefill) are the
+// Hopper kernel of namespace sm90 below: a cp.async ring of K/V stages,
+// wgmma for both products, rope once per token. The general kernel serves
+// f32, head_dims 16/32/64 (and 72 and 88 with rope) and views whose rows are
+// not 16-byte aligned, at every head_dim: the two products run on mma.sync
+// m16n8k16 bf16 tiles (f32: CUDA cores) with f32 accumulation, synchronous
+// loads, rope per tile. Both lay a head_dim of 72
 // out as 80 columns in shared memory (tile_cols), and 88 as 96, the columns
 // past head_dim zero, so the QK product steps 16 columns at a time over them;
 // the output keeps its 72 or 88 columns. In both, the
@@ -402,6 +403,7 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
     case 72: return launch<T, 72>(a, stream);
     case 80: return launch<T, 80>(a, stream);
     case 88: return launch<T, 88>(a, stream);
+    case 96: return launch<T, 96>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -409,7 +411,7 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 
 
 // ============================================================================
-// The Hopper design of the bf16 instances at head_dim 72, 80, 88 and 128.
+// The Hopper design of the bf16 instances at head_dim 72, 80, 88, 96 and 128.
 //
 // Head_dim 72 runs as 80: its q, k and v rows are nine 16-byte chunks, the
 // tenth chunk of each tile row is zero-filled (cp.async with no source
@@ -417,7 +419,9 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 // columns are zero and not stored. Head_dim 88 runs as 96 the same way:
 // eleven chunks and a zero-filled twelfth, QK in 6 k-steps, PV the m64n96
 // product with its last 8 columns not stored. takes() sends neither rope
-// (72 / 2 and 88 / 2 are not whole numbers of 16-byte chunks).
+// (72 / 2 and 88 / 2 are not whole numbers of 16-byte chunks). Head_dim 96
+// (Phi-3-mini's decoder) fills its twelve chunks: QK takes 6 k-steps, PV the
+// m64n96 product with every column stored, and rope runs as at 80 and 128.
 //
 // A CTA of kWG warpgroups owns 64 * kWG query rows of one head: three
 // warpgroups (192 rows) share each K/V tile when the query is longer than 64
@@ -430,7 +434,7 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 //     shared memory as K-major operands (head_dim/16 steps: 5 at D = 80);
 //     O += P V runs m64nDk16 with P re-packed from the S accumulators into
 //     bf16 A fragments in registers and V read as an MN-major operand
-//     (N = D = 80 or 128, a multiple of 8). Tiles are stored as 8x8 core
+//     (N = D = 80, 96 or 128, a multiple of 8). Tiles are stored as 8x8 core
 //     matrices (no swizzle: 160-byte rows do not fit the 128-byte pattern), so
 //     the same layout is K-major for Q and K and MN-major for V.
 //   * Rope, once per token: the q tile is rotated in f32 as it is read (once
@@ -937,11 +941,13 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
 }
 
 // Whether the Hopper instances take this call: bf16 at head_dim 72 or 88 (no
-// rope), 80 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits shared
+// rope), 80, 96 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits shared
 // memory, and the keys' scratch when rope is on. Anything else runs the
 // general kernel above.
 bool takes(const FlashArgs& a) {
-  if (a.dtype != 1 || (a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 88 && a.head_dim != 128)) return false;
+  if (a.dtype != 1 || (a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 88 && a.head_dim != 96 &&
+                       a.head_dim != 128))
+    return false;
   if (tile_cols(a.head_dim) != a.head_dim && a.cos != nullptr) return false;
   if (a.mask != nullptr && a.lk > kMaxKeys) return false;
   if (a.cos != nullptr && a.k_rot == nullptr) return false;
@@ -985,6 +991,7 @@ extern "C" int owc_flash_attention(const FlashArgs* args, void* stream) {
       case 72: return sm90::launch<72>(a, s);
       case 80: return sm90::launch<80>(a, s);
       case 88: return sm90::launch<88>(a, s);
+      case 96: return sm90::launch<96>(a, s);
       default: return sm90::launch<128>(a, s);
     }
   }

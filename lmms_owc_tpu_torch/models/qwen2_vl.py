@@ -14,7 +14,9 @@ as one pool, and ``LMMS_OWC_KV_INT8`` keeps the decode cache in int8. A
 ``pretrained`` checkpoint directory (HF layout: ``config.json``, safetensors
 shards, ``tokenizer.json``) is read by the port's own safetensors reader and
 byte-level BPE tokenizer (:mod:`lmms_owc_tpu_torch.nn.loader`,
-:mod:`lmms_owc_tpu_torch.tokenizer`).
+:mod:`lmms_owc_tpu_torch.tokenizer`). Under ``LMMS_OWC_HOST_PROF=1`` the host
+stages carry the JAX adapter's timers (:mod:`lmms_owc_tpu_torch.utils._hostprof`),
+and a pooled ``generate_until`` prints their table.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from lmms_owc_tpu_torch.ops.image import (
 )
 from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
+from lmms_owc_tpu_torch.utils._hostprof import hostprof, hostprof_dump, hostprof_reset
 
 log = get_logger(__name__)
 
@@ -442,7 +445,8 @@ class Qwen2VL(Model):
         dtype = self.model.dtype
         dev = self.device
 
-        resized = resize_host_batch(all_visuals, self.min_pixels, self.max_pixels, factor)
+        with hostprof("prep_resize"):
+            resized = resize_host_batch(all_visuals, self.min_pixels, self.max_pixels, factor)
         grids = [(1, hw[0] // v.patch_size, hw[1] // v.patch_size) for _, hw in resized]
 
         by_size: dict[tuple[int, int], list[int]] = {}
@@ -451,13 +455,17 @@ class Qwen2VL(Model):
 
         by_bucket: dict[int, list[tuple[list[int], int, torch.Tensor]]] = {}
         for hw, indices in by_size.items():
-            stacked = torch.from_numpy(np.stack([resized[i][0] for i in indices])).to(dev)
+            with hostprof("prep_stack"):
+                stacked = np.stack([resized[i][0] for i in indices])  # [n, C, H, W]
             num_patches = (hw[0] // v.patch_size) * (hw[1] // v.patch_size)
             bucket = pad_to_bucket(num_patches, PATCH_BUCKETS)
-            patches = patchify_images_batch(
-                stacked, v.patch_size, v.temporal_patch_size, v.spatial_merge_size, dtype
-            )
-            patches = torch.nn.functional.pad(patches, (0, 0, 0, bucket - num_patches))
+            with hostprof("prep_upload"):
+                stacked_dev = torch.from_numpy(stacked).to(dev)
+            with hostprof("prep_patchify"):
+                patches = patchify_images_batch(
+                    stacked_dev, v.patch_size, v.temporal_patch_size, v.spatial_merge_size, dtype
+                )
+                patches = torch.nn.functional.pad(patches, (0, 0, 0, bucket - num_patches))
             by_bucket.setdefault(bucket, []).append((indices, num_patches, patches))
 
         group_outputs: list[torch.Tensor] = []
@@ -497,7 +505,8 @@ class Qwen2VL(Model):
                 gids_dev = torch.from_numpy(seg_gids).to(dev)
                 freqs = freq_table_dev[gids_dev]
                 patch_mask = None if all_full else mask_table_dev[gids_dev]
-                out = self.model.vision(seg_patches, freqs, patch_mask)  # [m_rows, merged, hidden]
+                with hostprof("prep_tower"):
+                    out = self.model.vision(seg_patches, freqs, patch_mask)  # [m_rows, merged, hidden]
                 group_outputs.append(out.reshape(m_rows * merged_bucket, -1))
                 for row, (idx, merged_count) in enumerate(row_info[s : s + cap]):
                     spans[idx] = (flat_offset + row * merged_bucket, merged_count)
@@ -524,7 +533,8 @@ class Qwen2VL(Model):
         dtype = self.model.dtype
         dev = self.device
 
-        resized = resize_host_batch(all_visuals, self.min_pixels, self.max_pixels, factor)
+        with hostprof("prep_resize"):
+            resized = resize_host_batch(all_visuals, self.min_pixels, self.max_pixels, factor)
         grids = [(1, hw[0] // v25.patch_size, hw[1] // v25.patch_size) for _, hw in resized]
         by_size: dict[tuple[int, int, int], list[int]] = {}
         for idx, grid in enumerate(grids):
@@ -648,12 +658,13 @@ class Qwen2VL(Model):
         (token_ids, vision_spans, grids)."""
         all_visuals: list = []
         counts: list[int] = []
-        for args in chunk:
-            visuals = self._fetch_visuals(args)
-            counts.append(len(visuals))
-            all_visuals.extend(visuals)
+        with hostprof("prep_fetch"):
+            for args in chunk:
+                visuals = self._fetch_visuals(args)
+                counts.append(len(visuals))
+                all_visuals.extend(visuals)
 
-        with self._phase("vision"):
+        with self._phase("vision"), hostprof("prep_vision"):
             vision_flat, spans, flat_grids = self._encode_images_flat(all_visuals)
 
         merge_sq = self.config.vision.spatial_merge_size**2
@@ -735,7 +746,10 @@ class Qwen2VL(Model):
 
         pool_n = int(os.environ.get("LMMS_OWC_DECODE_POOL", "1"))
         if pool_n > 1:
-            return collator.get_original(self._generate_pooled(chunks, pool_n, pool_bucket_fn))
+            hostprof_reset()
+            out = collator.get_original(self._generate_pooled(chunks, pool_n, pool_bucket_fn))
+            hostprof_dump(f"generate_until n={len(requests)}")
+            return out
 
         def run(chunk, prepared):
             rows, vision_flat = prepared
@@ -791,11 +805,13 @@ class Qwen2VL(Model):
         row_offset = 0
         for (rows, vision_flat), bucket_len in zip(prepared_list, bucket_lens):
             with self._phase("prefill"):
-                embeds, position_ids, attention_mask, next_pos, _ = self._build_batch_inputs(rows, vision_flat)
-                mask = torch.from_numpy(attention_mask.astype(np.int32)).to(dev)
-                logits, ks, vs = qvl.prefill_logits(
-                    self.model, embeds, torch.from_numpy(position_ids).to(dev), mask
-                )
+                with hostprof("build_inputs"):
+                    embeds, position_ids, attention_mask, next_pos, _ = self._build_batch_inputs(rows, vision_flat)
+                    mask = torch.from_numpy(attention_mask.astype(np.int32)).to(dev)
+                with hostprof("prefill_dispatch"):
+                    logits, ks, vs = qvl.prefill_logits(
+                        self.model, embeds, torch.from_numpy(position_ids).to(dev), mask
+                    )
                 if not cache:
                     shape = (ks.shape[0], total_rows, ks.shape[2], cache_len, ks.shape[4])
                     kv_dtype = torch.int8 if kv_int8 else ks.dtype
@@ -817,7 +833,7 @@ class Qwen2VL(Model):
                 next_all.append(next_pos)
                 row_offset += len(rows)
 
-        with self._phase("decode"):
+        with self._phase("decode"), hostprof("decode_dispatch"):
             tokens = qvl.decode_pool(
                 self.model,
                 cache,
@@ -833,7 +849,10 @@ class Qwen2VL(Model):
                 top_p=float(gen_kwargs.get("top_p") or 1.0),
                 decode_rows=self.decode_rows,
             )
-        return self._detokenize(tokens.cpu().numpy())
+        with hostprof("fetch"):
+            tokens_np = tokens.cpu().numpy()
+        with hostprof("detok"):
+            return self._detokenize(tokens_np)
 
     def generate_until_multi_round(self, requests) -> list[list[str]]:
         """Staged conversation until the task's ``doc_to_text`` signals the end.

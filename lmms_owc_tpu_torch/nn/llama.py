@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`lmms_owc_tpu.nn.llama`. A Llama decoder is the
 RMSNorm/GQA/SwiGLU block of :mod:`lmms_owc_tpu_torch.nn.qwen2_vl` with
-standard 1D RoPE (M-RoPE with three identical position streams), llama3
-frequency scaling, no attention biases and no vision tower: a
+standard 1D RoPE (M-RoPE with three identical position streams), llama3 or
+longrope (Phi-3) frequency scaling, no attention biases and no vision tower: a
 :class:`~lmms_owc_tpu_torch.nn.qwen2_vl.Qwen2VLModel` built ``text_only`` from
 :meth:`LlamaConfig.to_decoder_config`. Prefill, decode and generation are the
 decoder's (K2 for the prefill, K3 for each decode step on the card). Used by
@@ -12,6 +12,7 @@ the Llama-3.2 judge (:mod:`lmms_owc_tpu_torch.nn.judge`).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -66,17 +67,20 @@ class LlamaConfig:
     def to_decoder_config(self) -> Qwen2VLConfig:
         """View as a Qwen2VLConfig with uniform mrope sections (== standard RoPE).
 
-        As in the JAX package, a scaling of another type than llama3 or
-        longrope (an ``mrope`` text config's sections, ``default``) changes
-        nothing: the three position streams are identical, so any sections
-        give standard RoPE. Longrope (Phi-3) scaling is not ported yet and raises."""
+        As in the JAX package, llama3 scaling damps the low frequencies, and
+        longrope (Phi-3) divides them by its short factors at every length,
+        with the attention factor ``sqrt(1 + ln(factor) / ln(original_max))``
+        (``factor = max_position_embeddings / original_max``, 1 when that is
+        not above 1) on the rope tables; its long factors are never used. A
+        scaling of another type (an ``mrope`` text config's sections,
+        ``default``, early Phi-3's ``su``) changes nothing: the three position
+        streams are identical, so any sections give standard RoPE."""
         hd2 = (self.hidden_size // self.num_heads) // 2
         third = hd2 // 3
         rope_llama3 = None
+        rope_longrope = None
         scaling = dict(self.rope_scaling or ())
         rope_type = scaling.get("rope_type", scaling.get("type"))
-        if rope_type == "longrope":
-            raise NotImplementedError("rope scaling 'longrope' is not ported (llama3 only)")
         if rope_type == "llama3":
             rope_llama3 = (
                 scaling["factor"],
@@ -84,8 +88,17 @@ class LlamaConfig:
                 scaling["high_freq_factor"],
                 scaling["original_max_position_embeddings"],
             )
+        elif rope_type == "longrope":
+            original_max = scaling.get(
+                "original_max_position_embeddings",
+                self.original_max_position_embeddings or self.max_position_embeddings,
+            )
+            factor = self.max_position_embeddings / original_max
+            attention_factor = 1.0 if factor <= 1.0 else math.sqrt(1 + math.log(factor) / math.log(original_max))
+            rope_longrope = (attention_factor, tuple(scaling["short_factor"]))
         return Qwen2VLConfig(
             rope_llama3=rope_llama3,
+            rope_longrope=rope_longrope,
             vocab_size=self.vocab_size,
             hidden_size=self.hidden_size,
             num_layers=self.num_layers,

@@ -124,6 +124,8 @@ class Qwen2VLConfig:
     # Llama3-style RoPE frequency scaling: (factor, low_freq_factor, high_freq_factor,
     # original_max_position_embeddings), or None for plain RoPE.
     rope_llama3: tuple | None = None
+    # Phi-3 longrope scaling: (attention_factor, per-dim rescale factors tuple).
+    rope_longrope: tuple | None = None
     vision: Qwen2VLVisionConfig = field(default_factory=Qwen2VLVisionConfig)
 
     @property
@@ -675,17 +677,25 @@ def mrope_cos_sin(position_ids: torch.Tensor, config: Qwen2VLConfig) -> tuple[to
     """Combine t/h/w rotary tables into [B, L, head_dim/2] cos/sin (f32).
 
     ``position_ids`` [3, B, L]; the result lives on its device. A config with
-    ``rope_llama3`` scales the frequencies first.
+    ``rope_llama3`` scales the frequencies first; one with ``rope_longrope``
+    divides them by its factors and multiplies cos and sin by its attention
+    factor, so the factor reaches q and k in the prefill and every decode step.
     """
     hd2 = config.head_dim // 2
     exponent = torch.arange(0, hd2, dtype=torch.float32, device=position_ids.device) / hd2
     inv_freq = 1.0 / (config.rope_theta ** exponent)
     if config.rope_llama3 is not None:
         inv_freq = _llama3_scale_inv_freq(inv_freq, config.rope_llama3)
+    if config.rope_longrope is not None:
+        attention_factor, ext_factors = config.rope_longrope
+        inv_freq = inv_freq / torch.tensor(ext_factors, dtype=torch.float32, device=inv_freq.device)
     freqs = position_ids[..., None].float() * inv_freq  # [3, B, L, hd/2]
     chunks = torch.split(freqs, list(config.mrope_section), dim=-1)
     combined = torch.cat([chunk[i % 3] for i, chunk in enumerate(chunks)], dim=-1)
-    return torch.cos(combined), torch.sin(combined)
+    cos, sin = torch.cos(combined), torch.sin(combined)
+    if config.rope_longrope is not None:  # no extra launches in the other families' decode steps
+        cos, sin = cos * attention_factor, sin * attention_factor
+    return cos, sin
 
 
 # ======================================================================== decoder

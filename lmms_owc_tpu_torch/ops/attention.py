@@ -64,7 +64,7 @@ __all__ = [
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FLASH_HEAD_DIMS = (16, 32, 64, 72, 80, 88, 128)
+_FLASH_HEAD_DIMS = (16, 32, 64, 72, 80, 88, 96, 128)
 # The decode kernel's limits (csrc/decode_attn.cu): the Hopper instances take a
 # bf16 query at these head dims, groups up to 8 and a split plan of at most 8
 # splits (the portable thread-block cluster size) of at most 256 keys; the

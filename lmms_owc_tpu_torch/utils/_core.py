@@ -21,6 +21,8 @@ from typing import Any
 
 from tqdm import tqdm
 
+from lmms_owc_tpu_torch.utils._hostprof import hostprof
+
 __all__ = [
     "create_iterator",
     "parse_string_args",
@@ -47,6 +49,9 @@ def foreach_chunk_pipelined(chunks: list, prepare, run, depth: int = 2, finish=N
     outputs. With ``finish`` the loop is a three-stage pipeline: ``run`` only
     dispatches device work and returns a handle, and ``finish(chunk, handle)``
     for chunk k runs after chunk k+1's dispatch and returns the outputs.
+    Under ``LMMS_OWC_HOST_PROF`` the waits for a prepared chunk and the
+    ``run`` and ``finish`` calls are timed (``prep_wait``, ``run_total``,
+    ``finish_total``; :mod:`lmms_owc_tpu_torch.utils._hostprof`).
     """
     results: list = []
     if not chunks:
@@ -56,18 +61,22 @@ def foreach_chunk_pipelined(chunks: list, prepare, run, depth: int = 2, finish=N
         pending: deque = deque(pool.submit(prepare, chunk) for chunk in chunks[:depth])
         inflight = None  # (chunk, handle) awaiting finish
         for i, chunk in enumerate(chunks):
-            prepared = pending.popleft().result()
+            with hostprof("prep_wait"):
+                prepared = pending.popleft().result()
             if i + depth < len(chunks):
                 pending.append(pool.submit(prepare, chunks[i + depth]))
-            out = run(chunk, prepared)
+            with hostprof("run_total"):
+                out = run(chunk, prepared)
             if finish is None:
                 results.extend(out)
                 continue
             if inflight is not None:
-                results.extend(finish(*inflight))
+                with hostprof("finish_total"):
+                    results.extend(finish(*inflight))
             inflight = (chunk, out)
         if finish is not None and inflight is not None:
-            results.extend(finish(*inflight))
+            with hostprof("finish_total"):
+                results.extend(finish(*inflight))
     return results
 
 

@@ -611,9 +611,9 @@ def test_flash_wrapper_checks_raise(fake_flash, case):
     b, h, kvh, l, d = 1, 4, 2, 8, 16
     q, k = torch.randn(b, h, l, d).to(torch.bfloat16), torch.randn(b, kvh, l, d).to(torch.bfloat16)
     v, out, kw = k, torch.empty(b, h, l, d, dtype=torch.bfloat16), {}
-    if case == "head_dim":
-        q, k = torch.randn(b, h, l, 96).to(torch.bfloat16), torch.randn(b, kvh, l, 96).to(torch.bfloat16)
-        v, out = k, torch.empty(b, h, l, 96, dtype=torch.bfloat16)
+    if case == "head_dim":  # 112: a multiple of 16 that no instance is built for
+        q, k = torch.randn(b, h, l, 112).to(torch.bfloat16), torch.randn(b, kvh, l, 112).to(torch.bfloat16)
+        v, out = k, torch.empty(b, h, l, 112, dtype=torch.bfloat16)
     elif case == "unit_stride":
         q = torch.randn(b, h, d, l).to(torch.bfloat16).transpose(2, 3)
     elif case == "bf16_alignment":
@@ -679,3 +679,104 @@ def test_split_decode_order_matches_jax_reference(seq):
         jnp.asarray(q[:, :, None]), jnp.asarray(k), jnp.asarray(v), kv_mask=jnp.asarray(mask), scale=scale
     )
     np.testing.assert_allclose(got, np.asarray(ref)[:, :, 0], atol=TOL, rtol=TOL)
+
+
+# ------------------------------------------------- head_dim 96 (Phi-3-mini's decoder)
+
+
+@pytest.mark.parametrize("with_rope", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_head_dim_96_matches_jax(causal, with_rope):
+    """Phi-3-mini's head_dim 96 at the JAX kernel tests' MHA shape (b, h,
+    kvh, d) = (4, 8, 8, 96): the plain version against the JAX
+    ``attention_reference`` and the Pallas K2 in interpret mode (32-key blocks
+    over L = 80: the multi-block online softmax and a ragged last block), with
+    left-padded (start, end) runs as the prefill passes them."""
+    rng = np.random.RandomState(96)
+    b, h, kvh, l, d = 4, 8, 8, 80, 96
+    q = rng.randn(b, h, l, d).astype(np.float32)
+    k = rng.randn(b, kvh, l, d).astype(np.float32)
+    v = rng.randn(b, kvh, l, d).astype(np.float32)
+    runs = [(0, l), (11, l), (47, l), (79, l)]
+    mask = _run_mask(b, l, runs)
+    cos = sin = None
+    if with_rope:
+        cos, sin = _rope_tables(rng, b, l, d)
+    out = tatt.flash_attention(
+        _t(q), _t(k), _t(v), causal=causal, kv_mask=_t(mask), kv_mask_contiguous=True,
+        rope_cos=None if cos is None else _t(cos), rope_sin=None if sin is None else _t(sin),
+    )
+    kernel = jatt.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, kv_mask=jnp.asarray(mask),
+        kv_mask_contiguous=True, block_q=32, block_k=32, use_pallas=True, interpret=True,
+        rope_cos=None if cos is None else jnp.asarray(cos), rope_sin=None if sin is None else jnp.asarray(sin),
+    )
+    if with_rope:
+        from lmms_owc_tpu.nn.layers import apply_rope as japply_rope
+
+        jq, jk = (japply_rope(jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin)) for x in (q, k))
+    else:
+        jq, jk = jnp.asarray(q), jnp.asarray(k)
+    reference = jatt.attention_reference(jq, jk, jnp.asarray(v), causal=causal, kv_mask=jnp.asarray(mask))
+    assert out.shape == (b, h, l, d) and 96 in tatt._FLASH_HEAD_DIMS
+    for want in (np.asarray(kernel), np.asarray(reference)):
+        for i, (s, _e) in enumerate(runs):  # rows before the run start have no valid key
+            np.testing.assert_allclose(out[i, :, s:].numpy(), want[i, :, s:], atol=TOL, rtol=TOL)
+
+
+def test_gqa_decode_attention_head_dim_96_matches_pallas_k3():
+    """Phi-3-mini's decode, MHA (G = 1) at head_dim 96, the JAX kernel tests'
+    (4, 8, 8, 96): the plain version against the Pallas K3 in interpret mode
+    on two layers of the stacked cache."""
+    rng = np.random.RandomState(3)
+    b, h, kvh, d, layers, s = 4, 8, 8, 96, 3, 64
+    q = rng.randn(b, h, d).astype(np.float32)
+    ck = rng.randn(layers, b, kvh, s, d).astype(np.float32)
+    cv = rng.randn(layers, b, kvh, s, d).astype(np.float32)
+    mask = (rng.rand(b, s) > 0.3).astype(np.int32)
+    mask[0] = 1
+    for layer in (0, 2):
+        ref = jatt.gqa_decode_attention(
+            jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(layer, jnp.int32),
+            jnp.asarray(mask), use_pallas=True, interpret=True,
+        )
+        out = tatt.gqa_decode_attention(_t(q), _t(ck), _t(cv), layer, _t(mask))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("seq", _ADAPTER_CACHE_LENGTHS)
+def test_decode_launch_at_head_dim_96_takes_the_general_kernel(fake_decode, seq):
+    """Phi-3-mini's decode (32 heads of 96, G = 1) at every cache length the
+    adapter builds: the Hopper instances are built for head_dim 64 and 128
+    only, so the general kernel takes it, in bf16 and f32, with no score
+    workspace (one f32 score row of at most 8704 positions fits in shared
+    memory)."""
+    b, kvh, h, d = 1, 32, 32, 96
+    for dtype in (torch.bfloat16, torch.float32):
+        cache = torch.zeros(1, b, kvh, seq, d, dtype=dtype)
+        tatt._launch_decode(torch.zeros(b, h, d, dtype=dtype), cache, cache, 0,
+                            torch.ones(b, seq, dtype=torch.int32), None, None, 0.1)
+        a = fake_decode.calls[-1]
+        taken, needs = _decode_kernel_takes(a)
+        hopper = a["dtype"] == 1 and a["head_dim"] in (64, 128)
+        assert taken and not hopper and not needs and not a["workspace"]
+        assert not tatt.decode_needs_workspace(dtype == torch.bfloat16, d, 1, seq)
+    assert len(fake_decode.calls) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_launch_at_head_dim_96(fake_flash, dtype):
+    """Phi-3-mini's prefill launch: q/k/v [B, 32, L, 96] with causal
+    left-padded (start, end) runs reach the kernel at head_dim 96; a bf16 call
+    with rope carries the keys' rotation scratch (the Hopper instance takes
+    rope at 96: 48 columns are six 16-byte chunks), an f32 one none."""
+    b, h, l, d = 2, 32, 24, 96
+    q, k = torch.randn(b, h, l, d).to(dtype), torch.randn(b, h, l, d).to(dtype)
+    mask = torch.tensor([[1] * l, [0] * 5 + [1] * (l - 5)])
+    cos, sin = torch.ones(b, l, d // 2), torch.zeros(b, l, d // 2)
+    tatt._launch_flash("flash_attention", q, k, k, torch.empty(q.shape, dtype=dtype), causal=True, kv_mask=mask,
+                       kv_mask_contiguous=True, scale=d ** -0.5, rope_cos=cos, rope_sin=sin)
+    (call,) = fake_flash.calls
+    assert call["head_dim"] == 96 and call["causal"] == 1 and call["mask_se"] and not call["mask"]
+    assert bool(call["k_rot"]) == (dtype == torch.bfloat16)
+    assert tatt.launch_counts["flash_attention"] == 1

@@ -853,3 +853,87 @@ def test_family_checkpoint_writer_round_trip(tmp_path, monkeypatch, family):
     if family == "instructblip":
         assert loaded.qformer_tokenizer is not None
         assert loaded._qformer_encode("What is it?")[0] == tiny_vocab.index("[CLS]")
+
+
+def test_phi3v_phase_workloads():
+    """Phase 24's shapes, computed: Phi-3-mini's 32 layers of 32 heads of 96
+    over CLIP-L/336 (23 of its 24 layers per tower call, 16 heads of 64);
+    phase 3's 448x448 images expand to 2509 image rows and the 336x448 ones
+    to 1921 (4x4 and 3x4 crops), prompts of 2521 and 1933 tokens, bucket
+    3072, decode cache 3136 (past 2048: K3's general kernel); the longrope
+    scaling's 48 factors give an attention factor of 1.19; the checkpoint is
+    cut in depth only and has no vision_config (the adapter takes CLIP-L/336)."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import phi3v as p3
+    from lmms_owc_tpu_torch.nn.llama import llama_config_from_hf
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    cfg = chip_smoke.phi3v_smoke_config()
+    text = llama_config_from_hf(cfg["text_config"]).to_decoder_config()
+    assert (text.num_layers, text.num_heads, text.num_kv_heads, text.head_dim) == (chip_smoke.PHI3V_LAYERS, 32, 32, 96)
+    assert len(text.rope_longrope[1]) == 48 and abs(text.rope_longrope[0] - 1.1902380714238083) < 1e-12
+    vision = p3.clip_config(cfg["vision_config"])
+    assert vision.num_layers - 1 == chip_smoke.PHI3V_TOWER_LAUNCHES and vision.hidden_size // vision.num_heads == 64
+    lengths = chip_smoke.phi3v_prompt_tokens()
+    assert lengths == [2509 + 12] * 6 + [1921 + 12] * 2
+    bucket = pad_to_bucket(max(lengths))
+    assert bucket == 3072 and bucket + chip_smoke.MAX_NEW_TOKENS == 3136
+    ckpt = chip_smoke.phi3v_checkpoint_config()
+    assert ckpt["num_hidden_layers"] == chip_smoke.FAMILY_CKPT_LAYERS == 2 and "vision_config" not in ckpt
+    assert ckpt["hidden_size"] == 3072 and ckpt["rope_scaling"] == cfg["text_config"]["rope_scaling"]
+
+
+def test_phi3v_checkpoint_writer_round_trip(tmp_path, monkeypatch):
+    """Phase 23's phi3v writer at tiny widths: the layout's names and shapes
+    are those of the released layout (as ``tests/test_checkpoint_matrix.py``
+    synthesizes it: fused ``qkv_proj`` / ``gate_up_proj``, the CLIP tower
+    under ``model.vision_embed_tokens.img_processor.``, ``sub_GN`` and
+    ``glb_GN``), the port loads every parameter bit-equal and the longrope
+    scaling as written, and its tokenizer encodes the Phi-3 prompt as
+    ``tokenizers`` does, the specials at their published ids."""
+    import json
+
+    from tokenizers import Tokenizer
+
+    import chip_smoke
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.models import phi3v as p3
+    from lmms_owc_tpu_torch.nn.llama import llama_config_from_hf
+    from lmms_owc_tpu_torch.nn.loader import load_safetensors_state
+    from tests.test_checkpoint_matrix import _build_phi3v
+
+    monkeypatch.setattr(chip_smoke, "PHI3V_PRESET", "phi3v-tiny")
+    monkeypatch.setattr(chip_smoke, "PHI3V_SHORT_FACTORS", [1.0 + 0.1 * i for i in range(8)])
+    monkeypatch.setattr(chip_smoke, "PHI3V_LONG_FACTORS", [2.0] * 8)
+    cfg = chip_smoke.phi3v_checkpoint_config()
+    # The tiny tower at 336 px (the released crop size): the shapes of _build_phi3v's tower.
+    vis = dict(p3.PRESET_CONFIGS["phi3v-tiny"]["vision_config"], image_size=336)
+    cfg.update(vision_config=vis, max_position_embeddings=512, original_max_position_embeddings=128,
+               tie_word_embeddings=False)  # the released form: its own lm_head
+    gen = torch.Generator().manual_seed(0)
+    written = p3.init_phi3v_params(llama_config_from_hf(cfg), p3.clip_config(vis), gen, torch.bfloat16)
+    with torch.no_grad():
+        written.sub_gn.normal_(generator=gen)
+        written.glb_gn.normal_(generator=gen)
+    layout = chip_smoke.phi3v_layout(written)
+    ckpt, released = tmp_path / "ckpt", tmp_path / "released"
+    ckpt.mkdir()
+    released.mkdir()
+    _build_phi3v(released)
+    want = {name: tuple(t.shape) for name, t in load_safetensors_state(released).items()}
+    got = {name: tuple(t.shape) for name, t in layout}
+    assert set(want) - set(got) <= {"model.vision_embed_tokens.img_processor.vision_model.embeddings.position_ids"}
+    assert {n: s for n, s in want.items() if n in got} == got
+    assert chip_smoke.write_tensors(layout, ckpt, "tiny phi3v")["bytes"] > 0
+    (ckpt / "config.json").write_text(json.dumps(cfg))
+    (ckpt / "tokenizer.json").write_text(json.dumps(chip_smoke.phi3v_tokenizer()))
+    (ckpt / "tokenizer_config.json").write_text(json.dumps(dict(
+        chip_smoke.LLAMA2_TOKENIZER_CONFIG, eos_token="<|end|>", pad_token="<|endoftext|>")))
+    loaded = get_model("phi3v-tiny", pretrained=str(ckpt), dtype="bfloat16", device="cpu")
+    assert chip_smoke._same_parameters(loaded.model, written, "round trip") == len(list(written.parameters()))
+    assert loaded.decoder_config.rope_longrope == llama_config_from_hf(cfg).to_decoder_config().rope_longrope
+    assert (loaded.pad_token_id, loaded.tokenizer.eos_token_id) == (32000, 32007)
+    prompt = loaded._build_prompt(chip_smoke.PROMPT, 1)
+    ids = Tokenizer.from_file(str(ckpt / "tokenizer.json")).encode(prompt).ids
+    assert loaded.tokenizer.encode(prompt) == ids
+    assert {32010, 32044, 32007, 32001} <= set(ids) and ids[0] == 1

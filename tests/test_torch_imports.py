@@ -460,3 +460,44 @@ def test_internvl_and_instructblip_cli_runs_load_no_jax(model, tmp_path, toy_dat
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FAMILY_CLI_NO_JAX_OK" in proc.stdout
     assert len(list(tmp_path.rglob("*_results.json"))) == 1
+
+
+def test_hostprof_matches_jax(monkeypatch, capsys):
+    """The port's copy of the host stage timers: the same functions, the same
+    no-op when off, and on the same spans under the same clock the same
+    accumulators and the same printed table."""
+    import inspect
+    import itertools
+    import time
+
+    from lmms_owc_tpu.utils import _hostprof as jax_hostprof
+    from lmms_owc_tpu_torch.utils import _hostprof as port_hostprof
+
+    for name in ("_timed", "hostprof", "hostprof_reset", "hostprof_dump"):
+        assert inspect.getsource(getattr(port_hostprof, name)) == inspect.getsource(getattr(jax_hostprof, name))
+    printed = {}
+    for label, mod in (("port", port_hostprof), ("jax", jax_hostprof)):
+        clock = itertools.count(0.0, 0.0125)
+        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+        monkeypatch.setattr(mod, "ENABLED", False)
+        with mod.hostprof("off"):
+            pass
+        assert "off" not in mod._acc
+        monkeypatch.setattr(mod, "ENABLED", True)
+        mod.hostprof_reset()
+        for name in ("prep_wait", "run_total", "prep_wait", "detok"):
+            with mod.hostprof(name):
+                pass
+        try:
+            with mod.hostprof("fetch"):
+                raise KeyError("timed all the same")
+        except KeyError:
+            pass
+        mod.hostprof_dump("parity")
+        printed[label] = (capsys.readouterr().out, dict(mod._acc), dict(mod._counts))
+        mod.hostprof_reset()
+        mod.hostprof_dump("empty")
+        assert capsys.readouterr().out == ""
+    assert printed["port"] == printed["jax"]
+    assert printed["port"][2] == {"prep_wait": 2, "run_total": 1, "detok": 1, "fetch": 1}
+    assert "[hostprof parity] total attributed" in printed["port"][0]

@@ -136,15 +136,22 @@ def test_params_from_jax_copies_every_leaf(modules):
 
 def test_mrope_text_config_maps_as_in_jax():
     """The tiny preset's ``mrope`` rope scaling gives standard RoPE in both
-    packages (a scaling type other than llama3 and longrope changes nothing;
-    longrope is not ported and raises)."""
+    packages (a scaling type other than llama3 and longrope changes nothing),
+    and a longrope scaling on the same text config maps as in the JAX
+    package: its short factors and the attention factor."""
     text = adapter.PRESET_CONFIGS["internvl2-tiny"]["text_config"]
     want = jllama.llama_config_from_hf(text).to_decoder_config()
     got = tllama.llama_config_from_hf(text).to_decoder_config()
     assert got.rope_llama3 is want.rope_llama3 is None
+    assert got.rope_longrope is want.rope_longrope is None
     assert got.mrope_section == want.mrope_section
-    with pytest.raises(NotImplementedError, match="longrope"):
-        tllama.llama_config_from_hf(dict(text, rope_scaling={"type": "longrope"})).to_decoder_config()
+    longrope = dict(text, max_position_embeddings=4096, original_max_position_embeddings=1024,
+                    rope_scaling={"type": "longrope", "short_factor": [1.0 + 0.1 * i for i in range(8)],
+                                  "long_factor": [3.0] * 8})
+    want = jllama.llama_config_from_hf(longrope).to_decoder_config()
+    got = tllama.llama_config_from_hf(longrope).to_decoder_config()
+    assert got.rope_longrope == want.rope_longrope and got.rope_longrope[0] > 1.0
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("size", [(300, 300), (896, 448), (336, 448), (640, 200), (97, 211), (1200, 900)])
