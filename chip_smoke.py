@@ -232,12 +232,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     and at the tower's [17, 16, 577, 64], and K3 at head_dim 96 over phase
     24's cache in bf16 and f32.
 
+25. Tensor parallelism: the card is one H100 and NCCL refuses two ranks on
+    one device, so two processes on ``cuda:0`` each initialise a gloo group
+    (the port's all-reduces run on CUDA tensors over gloo) and, through
+    ``get_model(..., model_parallel=2)``: (a) ``qwen2-vl-7b`` (14 query and
+    2 KV heads a rank, G = 7; 8 tower heads of 80; an MLP 9472 wide; half
+    the vocabulary) answers phase 3's 8 requests in bf16, then in int8 +
+    W8A8 + the int8 KV cache, (c) in int4 (K4 at the shards' shapes), each
+    with its prefill logits held by phase 4's rule (bf16: against phase 4's
+    f32-attention logits; the quantized forms: against phases 5's and 6's
+    unsharded logits from the same seed), the share of tokens equal to the
+    unsharded model's, images/s, phase times, peak memory per rank, and in
+    bf16 the all-reduces' share of one decode step logged; (b) the
+    ``qwen2-vl-flagship-dryrun`` preset in f32 with ``load_in_8bit``: the
+    unsharded tokens on every row; (d) the judge with ``data_parallel``:
+    phase 13's answers on every row. Phase 2 holds K1 at 8 heads, K2 at
+    14/2 heads over phase 3's prefill, K3 at q [8, 14, 128] over a
+    [28, 8, 2, 384, 128] cache and K4 on each rank's products at M = 8.
+    ``summary tensor parallel``.
+
 The host packages that the CLIs import (and those it must do without) are
-logged as present or missing at the start.
+logged as present or missing at the start, with whether the port's JPEG
+loader builds (libjpeg).
 
 Phases run in the order 1-3, 8, 3b, 9 (Qwen2-VL), 10, 11, 12, 13, 4, 5
 (with 3b in int8), 6 (with 3b in int4), 7, 9 (Qwen2.5-VL), 7b, 14-24, 23
-(phi3v).
+(phi3v), 25.
 The second-to-last line is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -512,6 +532,21 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores (the f32 flash kernel's CUDA-core products)
 PEAK_BYTES_PER_S = 3.35e12
 # Keys of each kernel row on the kernels line (and of its "also"/"all" rows).
+# Phase 25: tensor parallelism on the one card, two processes over gloo.
+TP_RANKS = 2
+TP_TIMEOUT = 900  # seconds for both processes, their model loads included
+TP_WARMUP_TOKENS = 4  # each form's warm-up call: the measured shapes, a few gloo-bound decode steps
+FLAGSHIP_DRYRUN = "qwen2-vl-flagship-dryrun"
+# (label, get_model arguments, environment) of the qwen2-vl-7b forms at tp = 2.
+TP_FORMS = (
+    ("bf16", {}, {"LMMS_OWC_DECODE_POOL": "1", "LMMS_OWC_KV_INT8": ""}),
+    ("int8_w8a8_kv_int8", {"load_in_8bit": True, "int8_activations": True},
+     {"LMMS_OWC_DECODE_POOL": "1", "LMMS_OWC_KV_INT8": "1"}),
+    ("int4", {"load_in_4bit": True}, {"LMMS_OWC_DECODE_POOL": "1", "LMMS_OWC_KV_INT8": ""}),
+)
+# K4 at one rank's products of qwen2-vl-7b at tp = 2 (K -> N).
+TP_INT4_SHAPES = {"q": (3584, 1792), "o": (1792, 3584), "k/v": (3584, 256), "gate/up": (3584, 9472),
+                  "down": (9472, 3584), "lm_head": (3584, 76032)}
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "bound_share", "library_ms", "library_device_ms", "library", "shape")
 
@@ -775,6 +810,18 @@ def check_kernels(dev) -> dict[str, dict]:
         results[name].setdefault("also", {}).update(rows)
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     results["int4_matmul"] = check_int4(dev, gen)
+    tp_rows = check_tp_shapes(dev, gen)  # phase 25's sharded shapes
+    results["int4_matmul"]["all"].update(tp_rows.pop("int4_matmul"))
+    results["int4_matmul"]["max_abs_err"] = max(r["max_abs_err"] for r in results["int4_matmul"]["all"].values())
+    for label, row in results["int4_matmul"]["all"].items():
+        if label.startswith("tp "):
+            log(f"parity int4_matmul {label}: {row['shape']}: max abs err {row['max_abs_err']:.3e}; per call "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms; device "
+                f"kernel {row['device_ms']} ms, library {row['library_device_ms']} ms; bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+    for name, rows in tp_rows.items():
+        results[name].setdefault("also", {}).update(rows)
+        results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows.values()])
     for name, r in results.items():
         for label, row in [(name, r)] + [(f"{name} ({k})", v) for k, v in r.get("also", {}).items()]:
             log(f"parity {label}: {row['shape']}: max abs err {row['max_abs_err']:.3e}; per call "
@@ -1746,9 +1793,9 @@ def check_f32_kernels(dev, gen) -> None:
         raise AssertionError(f"f32 kernel forms disagree with their plain versions beyond {tol}: {errs}")
 
 
-def _requests(model, sizes=None):
+def _requests(model, sizes=None, max_new_tokens: int = MAX_NEW_TOKENS):
     """Image requests as the JAX bench builds them; by default 8: six 448x448
-    and two 336x448 images."""
+    and two 336x448 images, ``MAX_NEW_TOKENS`` greedy tokens."""
     from PIL import Image
 
     rng = np.random.RandomState(0)
@@ -1762,7 +1809,7 @@ def _requests(model, sizes=None):
         dataset = {"test": docs}
 
     model.task_dict["smoke"] = _Task()
-    gen_kwargs = {"max_new_tokens": MAX_NEW_TOKENS, "do_sample": False, "until": None}
+    gen_kwargs = {"max_new_tokens": max_new_tokens, "do_sample": False, "until": None}
 
     class _Req:
         def __init__(self, doc_id):
@@ -2230,6 +2277,7 @@ def run_quantized_pool(dev) -> dict:
             f"{run['unpooled_same_rows']:.4f} (required >= {MIN_POOL_AGREEMENT})")
         if run["unpooled_same_rows"] < MIN_POOL_AGREEMENT:
             raise AssertionError(f"pooled and unpooled tokens agree on {run['unpooled_same_rows']:.4f} of the rows")
+        run["tp_reference"] = tp_reference(model, _requests(model))  # phase 25's W8A8 bar, unpooled
 
         def exact(q, ck, cv, i, mask, *scales):
             return att.gqa_decode_attention_plain(q.float(), ck, cv, i, mask, *scales).to(q.dtype)
@@ -2332,6 +2380,8 @@ def run_int4(dev, preset: str = "qwen2-vl-7b", sizes=None) -> dict:
             f"{label} decode step (K4 vs plain)",
         )
         run["pool_rows"] = check_pool_rows(model, label, sizes)  # K4 keeps the batch's rows
+        if preset == "qwen2-vl-7b":
+            run["tp_reference"] = tp_reference(model, _requests(model))  # phase 25's int4 bar
     del model, capture
     _free()
     return run
@@ -3363,7 +3413,8 @@ def run_llava_checkpoint(dev) -> dict:
         ckpt = root / "ckpt"
         ckpt.mkdir()
         cfg = llava_checkpoint_config()
-        written = lv.init_llava_params(lv.llava_config_from_hf(cfg), torch.Generator(device=dev).manual_seed(16))
+        written = lv.init_llava_params(lv.LlavaModel(lv.llava_config_from_hf(cfg), torch.bfloat16, "meta"),
+                                       torch.Generator(device=dev).manual_seed(16))
         out = write_llava_checkpoint(written, cfg, ckpt, f"llava-1.5-7b width, {LLAVA_CKPT_LAYERS} layers")
         model, out["load"] = _load(dev, "llava-1.5-7b", ckpt, batch_size=NUM_REQUESTS)
         out["parameters_bit_equal"] = _same_parameters(model.model, written, "llava checkpoint load")
@@ -4279,7 +4330,7 @@ def check_judge(dev, prompts: list[str] | None = None, make=None) -> dict:
 
     prompts = prompts or judge_prompts(JUDGE_PROMPTS)
     make = make or (lambda int8: JudgeModel.random_init(seed=0, load_in_8bit=int8, device=dev))
-    forms, logits = {}, None
+    forms, logits, answers = {}, None, None
     for int8 in (False, True):
         t0 = time.perf_counter()
         judge = make(int8)
@@ -4300,6 +4351,7 @@ def check_judge(dev, prompts: list[str] | None = None, make=None) -> dict:
                                  f"{pooled[bad[0]]!r} vs {base[bad[0]]!r}")
         forms[label]["pooled_same_rows"] = len(base)
         forms[label]["sample"] = base[0]
+        answers = answers if int8 else base
         if not int8 and dev.type == "cuda":
             prepared = judge._prepare_chunk(prompts[:JUDGE_BATCH])
             embeds, pos, mask, _ = judge._inputs(prepared)
@@ -4316,6 +4368,7 @@ def check_judge(dev, prompts: list[str] | None = None, make=None) -> dict:
         _free()
     out = dict(forms=forms, logits=logits, batch=JUDGE_BATCH, pool=JUDGE_POOL)
     log(f"scoring judge: {json.dumps(out)}")
+    out["answers"] = answers  # the bf16 unpooled answers, phase 25(d)'s bar
     return out
 
 
@@ -4445,10 +4498,14 @@ def _ptxas_summary(report: str) -> list[str]:
 
 
 def _host_packages() -> dict:
-    """Whether each host package of ``HOST_PACKAGES`` is importable here."""
+    """Whether each host package of ``HOST_PACKAGES`` is importable here, and
+    whether the port's JPEG loader builds (g++ with libjpeg)."""
     import importlib.util
 
-    return {name: importlib.util.find_spec(name) is not None for name in HOST_PACKAGES}
+    from lmms_owc_tpu_torch.native import native_loader_available
+
+    found = {name: importlib.util.find_spec(name) is not None for name in HOST_PACKAGES}
+    return dict(found, libjpeg=native_loader_available())
 
 
 def _module_outputs(model, cap, n: int) -> list:
@@ -4633,6 +4690,338 @@ def probe_decode_rows(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 25: tensor parallelism
+
+
+def check_tp_shapes(dev, gen) -> dict[str, dict]:
+    """Phase 2 at phase 25's sharded shapes (``qwen2-vl-7b`` at tp = 2): K2's
+    Hopper instance at 14/2 heads over phase 3's prefill, K3 at q [8, 14, 128]
+    against cache [28, 8, 2, 384, 128], K1 at 8 tower heads of 80, and K4 on
+    each rank's products at M = 8 (q/o 3584 -> 1792 and 1792 -> 3584, k/v
+    3584 -> 256, gate/up 3584 -> 9472, down 9472 -> 3584, the head 3584 ->
+    76032). Returns ``{kernel: {label: row}}``; the K4 rows go under ``all``."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.layers import apply_rope
+    from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLVisionConfig, vision_rope_cos_sin
+    from lmms_owc_tpu_torch.ops import attention as att
+    from lmms_owc_tpu_torch.ops import int4_matmul as i4
+    from lmms_owc_tpu_torch.ops.quant import quantize_int4
+
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf16)
+
+    rows: dict[str, dict] = {"flash_attention": {}, "gqa_decode_attention": {}, "vision_qkv_attention": {},
+                             "int4_matmul": {}}
+    n, p, h, d = 8, 1024, 16 // TP_RANKS, 80
+    qkv = randn(n, p, 3 * h * d)
+    freqs = torch.from_numpy(vision_rope_cos_sin([(1, 32, 32)], Qwen2VLVisionConfig())).to(dev)
+    cos, sin = torch.cos(freqs)[None].expand(n, p, d // 2), torch.sin(freqs)[None].expand(n, p, d // 2)
+    vmask = torch.ones((n, p), dtype=torch.int32, device=dev)
+    vmask[n // 2 :, 768:] = 0
+    kw = dict(kv_mask=vmask, rope_cos=cos, rope_sin=sin)
+    err = _compare("vision_qkv_attention[tp]", att.vision_qkv_attention(qkv, h, d, **kw),
+                   att.vision_qkv_attention_plain(qkv, h, d, **kw))
+    vq, vk, vv = qkv.view(n, p, 3, h, d).permute(2, 0, 3, 1, 4)
+    rows["vision_qkv_attention"]["tp_tower"] = _row(
+        f"qkv [{n}, {p}, {3 * h * d}] bf16 ({h} heads a rank at tp = {TP_RANKS}), rope, mask (0, 768) on "
+        f"{n // 2} rows", err,
+        _timings(lambda: att.vision_qkv_attention(qkv, h, d, **kw),
+                 lambda: att.vision_qkv_attention_plain(qkv, h, d, **kw),
+                 _sdpa(apply_rope(vq, cos, sin), apply_rope(vk, cos, sin), vv, vmask.bool()[:, None, None, :])),
+        _attention_bound(vmask, h, h, p, d, causal=False, extra_bytes=2 * 4 * n * p * d // 2 + 8 * n), SDPA,
+    )
+    del qkv
+
+    b, nh, kvh, l, hd = 8, 28 // TP_RANKS, 4 // TP_RANKS, 320, 128
+    q, k, v = randn(b, nh, l, hd), randn(b, kvh, l, hd), randn(b, kvh, l, hd)
+    starts = torch.tensor([0, 3, 17, 40, 64, 100, 191, 250], device=dev)
+    pos = torch.arange(l, device=dev)
+    pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
+    kw = dict(causal=True, kv_mask=pmask)
+    valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
+    err = _compare("flash_attention[tp]", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                   att.flash_attention_plain(q, k, v, **kw), valid_rows)
+    rows["flash_attention"]["tp_prefill"] = _row(
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16 (tp = {TP_RANKS}: G = {nh // kvh}), causal, "
+        "left-padded", err,
+        _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
+                 lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
+        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+    )
+    del q, k, v
+
+    layers, s = 28, 384
+    qd = randn(b, nh, hd)
+    ck, cv = randn(layers, b, kvh, s, hd), randn(layers, b, kvh, s, hd)
+    spos = torch.arange(s, device=dev)
+    dmask = ((spos[None, :] >= starts[:, None]) & (spos[None, :] < l + 5)).to(torch.int32)
+    errs = [_compare(f"gqa_decode_attention[tp, layer {i}]", att.gqa_decode_attention(qd, ck, cv, i, dmask),
+                     att.gqa_decode_attention_plain(qd, ck, cv, i, dmask)) for i in (0, layers - 1)]
+    rows["gqa_decode_attention"]["tp_decode"] = _row(
+        f"q [{b}, {nh}, {hd}], cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16 (tp = {TP_RANKS}), layers 0 and "
+        f"{layers - 1}", max(errs),
+        _timings(lambda: att.gqa_decode_attention(qd, ck, cv, layers - 1, dmask),
+                 lambda: att.gqa_decode_attention_plain(qd, ck, cv, layers - 1, dmask),
+                 _sdpa(qd[:, :, None], ck[layers - 1], cv[layers - 1], dmask.bool()[:, None, None, :])),
+        _attention_bound(dmask, nh, kvh, 1, hd, causal=False, extra_bytes=4 * b * s), SDPA,
+    )
+    del ck, cv
+
+    m = min(INT4_ROWS)
+    for name, (kk, nn) in TP_INT4_SHAPES.items():
+        qp = quantize_int4(torch.randn((nn, kk), generator=gen, device=dev) * 0.02)
+        q4, scale = qp["q4"], qp["scale"]
+        library, described = _int4_library(qp)
+        del qp
+        x = torch.randn((m, kk), generator=gen, device=dev).to(bf16)
+        err = _compare(f"int4_matmul[tp {name}]", i4.int4_matmul(x, q4, scale), i4.int4_matmul_plain(x, q4, scale))
+        t = _timings(lambda: i4.int4_matmul(x, q4, scale), lambda: i4.int4_matmul_plain(x, q4, scale),
+                     (lambda: library(x)) if library is not None else None)
+        bound = _bound(2.0 * m * nn * kk, 2 * m * kk + nn * kk // 2 + 4 * nn * (kk // 128) + 2 * m * nn)
+        rows["int4_matmul"][f"tp {name} M={m}"] = _row(
+            f"x [{m}, {kk}] bf16, q4 [{nn}, {kk // 2}] int8, scale [{nn}, {kk // 128}] (a rank's {name} at "
+            f"tp = {TP_RANKS})", err, t, bound, described)
+        del q4, scale, library
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_reference(model, requests, exact: bool = False) -> dict:
+    """Phase 25's bar from an unsharded model with phase 3's seed: one chunk's
+    prefill logits through the kernels (with ``exact``, also with the
+    attention in f32, phase 4's "exact") and the tokens of ``requests``, on the host."""
+    import torch
+
+    out = dict(logits=_chunk_logits(model, requests).cpu())
+    if exact:
+        with _attention(flash_attention=_exact_flash, vision_qkv_attention=_exact_vision,
+                        fused_qkv_attention=_exact_fused):
+            out["exact"] = _chunk_logits(model, requests).cpu()
+    tokens: list = []
+    with _tokens(model, tokens):
+        model.generate_until(requests)
+    torch.cuda.synchronize()
+    return dict(out, tokens=np.concatenate(tokens))
+
+
+def _allreduce_share(model, capture) -> dict:
+    """One captured decode step as the adapter runs it (its decode row
+    blocks): its time (median, CUDA events) and the time its model-group
+    all-reduces take, each timed between two synchronizes."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn import qwen2_vl as nnq
+    from lmms_owc_tpu_torch.parallel.mesh import ModelGroup
+
+    def step():
+        cache = tuple(c.clone() for c in capture["cache"])
+        return nnq.decode_step(model.model, capture["token_ids"], capture["position_ids"], cache,
+                               capture["cache_pos"], capture["kv_mask"].clone(), model.decode_rows)
+
+    step_ms = _median_ms(step, warmup=2, iters=10)
+    real, spent, calls = ModelGroup.all_reduce, [0.0], [0]
+
+    def timed(self, t, op="sum"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, t, op)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        calls[0] += 1
+        return out
+
+    ModelGroup.all_reduce = timed
+    try:
+        for _ in range(5):
+            step()
+    finally:
+        ModelGroup.all_reduce = real
+    allreduce_ms = spent[0] * 1e3 / 5
+    return dict(step_ms=step_ms, allreduce_ms=allreduce_ms, allreduces=calls[0] // 5,
+                share=allreduce_ms / step_ms)
+
+
+def tp_rank(rank: int, port: int, work: str) -> None:
+    """One of phase 25's two processes on ``cuda:0``: a gloo group of
+    ``TP_RANKS``, then (a) ``qwen2-vl-7b`` at tp = 2 in bf16 and in int8 +
+    W8A8 + the int8 KV cache, (c) in int4, (b) the flagship dry-run preset,
+    (d) the judge with ``data_parallel``. Rank 0 writes what it measured."""
+    import datetime
+
+    import torch
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", rank=rank, world_size=TP_RANKS,
+                                         timeout=datetime.timedelta(seconds=600))
+    from lmms_owc_tpu_torch import get_device, no_tf32
+    from lmms_owc_tpu_torch.models import get_model
+    from lmms_owc_tpu_torch.nn.judge import JudgeModel
+    from lmms_owc_tpu_torch.nn.layers import set_int8_activations
+    from lmms_owc_tpu_torch.ops import _build
+    from lmms_owc_tpu_torch.parallel.dryrun import flagship_outputs
+
+    no_tf32()
+    _build.load_library()
+    dev = get_device("cuda")
+    say = log if rank == 0 else (lambda msg: None)
+    out: dict = {"forms": {}}
+    logits: dict = {}
+    for label, kwargs, env in TP_FORMS:
+        with _env(**env):
+            t0 = time.perf_counter()
+            model = get_model("qwen2-vl-7b", random_init=True, dtype="bfloat16", batch_size=NUM_REQUESTS,
+                              device=str(dev), time_phases=True, model_parallel=TP_RANKS, **kwargs)
+            torch.cuda.synchronize()
+            init_seconds = time.perf_counter() - t0
+            layer, block = model.model.layers[0], model.model.vision.blocks[0]
+            shards = dict(heads=layer.heads, kv_heads=layer.kv_heads, tower_heads=model.model.vision.heads,
+                          vocab_rows=int(model.model.embed_tokens.shape[0]), up_rows=_out_rows(layer.up),
+                          down_cols=_out_rows(layer.down.inner, 1), tower_qkv_rows=_out_rows(block.qkv))
+            if shards["up_rows"] * TP_RANKS != 18944 or shards["heads"] * TP_RANKS != 28:
+                raise AssertionError(f"phase 25 {label}: rank {rank} holds {shards}, not half of the 7B")
+            capture: dict = {}
+            with _decode_steps(capture):  # a short warm-up at the measured shapes; keeps one decode step's inputs
+                model.generate_until(_requests(model, max_new_tokens=TP_WARMUP_TOKENS))
+            requests = _requests(model)
+            tokens: list = []
+            run = _serve(model, requests, tokens)
+            run.update(init_seconds=init_seconds, shards=shards, tokens=np.concatenate(tokens).tolist())
+            logits[label] = _chunk_logits(model, requests).cpu()
+            if label == "bf16":
+                run["decode_step"] = _allreduce_share(model, capture)
+            say(f"tp = {TP_RANKS} {label}: {json.dumps({k: v for k, v in run.items() if k != 'tokens'})}")
+            out["forms"][label] = run
+            set_int8_activations(False)
+            del model, capture
+            _free()
+    with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
+        out["flagship"] = flagship_outputs(TP_RANKS, str(dev), MAX_NEW_TOKENS)
+    with _env(LMMS_OWC_KV_INT8="0", LMMS_OWC_JUDGE_DECODE_POOL="0"):
+        judge = JudgeModel.random_init(seed=0, device=dev, data_parallel=True)
+        judge.batch_size = JUDGE_BATCH
+        t0 = time.perf_counter()
+        answers = judge.score_pairs(judge_prompts(JUDGE_PROMPTS), None, None)
+        torch.cuda.synchronize()
+        out["judge"] = dict(answers=answers, seconds=time.perf_counter() - t0, ranks=judge.ranks)
+        del judge
+        _free()
+    torch.distributed.barrier()
+    if rank == 0:
+        torch.save(logits, Path(work) / "logits.pt")
+        (Path(work) / "rank0.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def _out_rows(lin, axis: int = 0) -> int:
+    """A linear module's output rows (``axis`` 1: input columns; int4 counts packed bytes)."""
+    for name in ("weight", "q", "q4"):
+        if hasattr(lin, name):
+            return int(getattr(lin, name).shape[axis])
+    raise TypeError(type(lin).__name__)
+
+
+def _token_agreement(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float((got == want).mean())
+
+
+def run_tensor_parallel(dev, refs: dict, judge_answers: list[str], plain_vs_exact: float) -> dict:
+    """Phase 25: ``TP_RANKS`` processes on the one card (:func:`tp_rank`) over
+    gloo. (a) bf16: prefill logits held by phase 4's rule against phase 3's
+    f32-attention logits (``refs["bf16"]``); int8 + W8A8 and (c) int4: the
+    logits within that rule's bound of the unsharded model's (phases 5 and 6,
+    same seed); the share of tokens that agree, images/s, phase times and
+    peak memory per rank logged. (b) The flagship dry-run preset: the
+    unsharded model's tokens on every row. (d) The judge: phase 13's answers
+    on every row."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from lmms_owc_tpu_torch.parallel.dryrun import flagship_outputs
+
+    work = Path(tempfile.mkdtemp(prefix="owc_tp_"))
+    procs = []
+    try:
+        with _env(LMMS_OWC_DECODE_POOL="1", LMMS_OWC_KV_INT8=""):
+            flagship = flagship_outputs(1, str(dev), MAX_NEW_TOKENS)
+            _free()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank, args=(rank, port, str(work))) for rank in range(TP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, TP_TIMEOUT - (time.perf_counter() - t0)))
+        if any(p.is_alive() or p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 25: rank exit codes {[p.exitcode for p in procs]} "
+                                 f"(None: still running after {TP_TIMEOUT} s)")
+        out = json.loads((work / "rank0.json").read_text())
+        logits = torch.load(work / "logits.pt")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+    return check_tp_results(out, logits, flagship, refs, judge_answers, plain_vs_exact)
+
+
+def check_tp_results(out: dict, logits: dict, flagship, refs: dict, judge_answers: list[str],
+                     plain_vs_exact: float) -> dict:
+    """Phase 25's gates on what rank 0 wrote (:func:`run_tensor_parallel`)."""
+    bound = max(LOGITS_REL_L2, 1.25 * plain_vs_exact)
+    for label, ref_key in (("bf16", "bf16"), ("int8_w8a8_kv_int8", "int8_w8a8"), ("int4", "int4")):
+        run, ref = out["forms"][label], refs[ref_key]
+        got = logits[label].float()
+        run["logits"] = {
+            "tp_vs_unsharded": _rel_l2(got, ref["logits"].float()),
+            "argmax_agreement": float((got.argmax(-1) == ref["logits"].argmax(-1)).float().mean()),
+            "bound": bound,
+        }
+        if "exact" in ref:
+            run["logits"]["tp_vs_exact"] = _rel_l2(got, ref["exact"].float())
+        key = "tp_vs_exact" if "exact" in ref else "tp_vs_unsharded"
+        run["token_agreement"] = _token_agreement(run.pop("tokens"), ref["tokens"])
+        log(f"phase 25 {label}: tp = {TP_RANKS} logits {json.dumps(run['logits'])}; tokens equal to the "
+            f"unsharded model's: {run['token_agreement']:.4f}")
+        if run["logits"][key] > bound:
+            raise AssertionError(f"phase 25 {label}: tp logits {key} {run['logits'][key]:.3e} > {bound:.3e}")
+        # The row-parallel W8A8 product reduces the global amax and the int32
+        # partials, so it is the unsharded product: bit-equal logits, every token.
+        if "w8a8" in label and (run["logits"]["tp_vs_unsharded"] != 0.0 or run["token_agreement"] != 1.0):
+            raise AssertionError(f"phase 25 {label}: tp W8A8 differs from the unsharded model (logits "
+                                 f"{run['logits']['tp_vs_unsharded']:.3e}, tokens {run['token_agreement']:.4f})")
+        decode = "gqa_decode_attention_int8" if "kv_int8" in label else "gqa_decode_attention"
+        least = {"vision_qkv_attention": MIN_LAUNCHES["vision_qkv_attention"],
+                 "flash_attention": MIN_LAUNCHES["flash_attention"], decode: 28 * run["decode_steps"]}
+        for name, n in least.items():
+            if run["decode_steps"] == 0 or run["counts"][name] < n:
+                raise AssertionError(f"phase 25 {label}: {name} launched {run['counts'][name]} times, expected >= {n}")
+    _check_min_per_step(out["forms"]["int4"], "int4_matmul")
+    same = np.asarray([a == b for a, b in zip(out.pop("flagship"), flagship, strict=True)])
+    log(f"phase 25(b) {FLAGSHIP_DRYRUN} f32 int8: rows with the unsharded tokens {int(same.sum())} of {same.size}")
+    if not same.all():
+        raise AssertionError(f"phase 25(b): sharded tokens differ from unsharded ones on rows {np.nonzero(~same)[0]}")
+    answers = out["judge"].pop("answers")
+    bad = [i for i, (a, b) in enumerate(zip(answers, judge_answers, strict=True)) if a != b]
+    out["judge"]["same_rows"] = len(answers) - len(bad)
+    log(f"phase 25(d) judge data_parallel over {out['judge']['ranks']} ranks: {out['judge']['same_rows']} of "
+        f"{len(answers)} answers equal to one rank's")
+    if bad:
+        raise AssertionError(f"phase 25(d): data-parallel judge answers differ on rows {bad}")
+    out["flagship"] = dict(rows=int(same.size), same_rows=int(same.sum()))
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import torch
 
@@ -4702,16 +5091,20 @@ def main(argv: list[str] | None = None) -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         scoring = run_scoring(dev, scoring_root / "cli", scoring_root, sbert_dir)  # phase 13
+        judge_answers = scoring["judge"].pop("answers")
         mark("13 scoring")
     finally:
         shutil.rmtree(scoring_root, ignore_errors=True)
-    check_whole_model(model, requests)
+    tp_refs = {"bf16": tp_reference(model, requests, exact=True)}  # phase 25's bar, before phase 4's f32
+    plain_vs_exact = check_whole_model(model, requests)["plain_vs_exact"]
     del model, requests
     _free()
     mark("4 whole model")
     pool = run_quantized_pool(dev)
+    tp_refs["int8_w8a8"] = pool.pop("tp_reference")
     mark("5 quantized pool")
     int4 = run_int4(dev)
+    tp_refs["int4"] = int4.pop("tp_reference")
     mark("6 int4")
     v25, v25_model, v25_requests = run_v25(dev)
     mark("7 qwen2.5-vl")
@@ -4752,6 +5145,9 @@ def main(argv: list[str] | None = None) -> int:
     del phi3v_model
     _free()
     mark("23 phi3v checkpoint")
+    tp = run_tensor_parallel(dev, tp_refs, judge_answers, plain_vs_exact)  # phase 25
+    del tp_refs
+    mark("25 tensor parallel")
 
     # Each kernel's launches from the main path that carries it: phase 3 (bf16),
     # phase 5 (int8 cache), phase 6 (int4), phase 7 (Qwen2.5-VL) or phase 8 (packed);
@@ -4797,6 +5193,10 @@ def main(argv: list[str] | None = None) -> int:
     also["gqa_decode_attention"]["mistral_decode"]["launches"] = idefics2["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention_int8"]["llava_decode"]["launches"] = \
         llava["int8_kv_int8"]["counts"]["gqa_decode_attention_int8"]
+    tp_counts = tp["forms"]["bf16"]["counts"]  # phase 25's rank 0, bf16
+    also["flash_attention"]["tp_prefill"]["launches"] = tp_counts["flash_attention"]
+    also["gqa_decode_attention"]["tp_decode"]["launches"] = tp_counts["gqa_decode_attention"]
+    parity["vision_qkv_attention"]["also"]["tp_tower"]["launches"] = tp_counts["vision_qkv_attention"]
     kernels = [
         dict(
             name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
@@ -4869,6 +5269,7 @@ def main(argv: list[str] | None = None) -> int:
         f"{PHI3V_PRESET} loglikelihood": {k: v for k, v in phi3v["loglikelihood"].items() if k != "losses"},
     }
     log(f"summary phi3v: {json.dumps(phi3v_summary)}")
+    log(f"summary tensor parallel: {json.dumps(tp)}")
     log(f"summary wall seconds: {json.dumps(wall)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

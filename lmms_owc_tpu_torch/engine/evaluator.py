@@ -2,7 +2,10 @@
 (setup wrapper), the JAX package's ``engine.evaluator`` over ``torch.distributed``.
 
   - request sharding by rank is the JAX evaluator's (create_iterator over docs),
-    where rank is the ``torch.distributed`` rank.
+    where rank is the ``torch.distributed`` rank, or under an adapter's mesh
+    the data coordinate: the ranks of one model group serve the same
+    requests, the collectives run over each rank's data group, and only the
+    ranks at model coordinate 0 gather the samples and write.
   - per-rank request-count padding is kept, so every rank runs the same number
     of batches and meets the same barriers.
   - the rank-0 gather of samples and metrics is ``all_gather_object``, and the
@@ -53,27 +56,28 @@ __all__ = ["evaluate", "simple_evaluate"]
 _KNOWN_TYPES = ("loglikelihood", "generate_until", "generate_until_multi_round")
 
 
-def _multihost_gather_objects(objs: list, rank: int, world_size: int) -> list:
-    """Allgather python objects; every rank receives the concatenated list."""
+def _multihost_gather_objects(objs: list, rank: int, world_size: int, group=None) -> list:
+    """Allgather python objects over ``group`` (None: the default group);
+    every rank receives the concatenated list."""
     if world_size <= 1:
         return list(objs)
     gathered: list = [None] * world_size
-    torch.distributed.all_gather_object(gathered, list(objs))
+    torch.distributed.all_gather_object(gathered, list(objs), group=group)
     return [obj for part in gathered for obj in part]
 
 
-def _sync_processes(world_size: int) -> None:
+def _sync_processes(world_size: int, group=None) -> None:
     if world_size > 1:
-        torch.distributed.barrier()
+        torch.distributed.barrier(group=group)
 
 
-def _allgather_ints(values: list[int], world_size: int) -> np.ndarray:
+def _allgather_ints(values: list[int], world_size: int, group=None) -> np.ndarray:
     """[world_size, len(values)] of every rank's ``values`` (CPU tensors: gloo or nccl)."""
     local = torch.tensor(values, dtype=torch.int64)
-    if torch.distributed.get_backend() == "nccl":
+    if torch.distributed.get_backend(group) == "nccl":
         local = local.cuda()
     parts = [torch.empty_like(local) for _ in range(world_size)]
-    torch.distributed.all_gather(parts, local)
+    torch.distributed.all_gather(parts, local, group=group)
     return torch.stack(parts).cpu().numpy()
 
 
@@ -103,6 +107,7 @@ def evaluate(
 
     RANK = model.rank
     WORLD_SIZE = model.world_size
+    GROUP = getattr(model, "data_group", None)
     # Per-phase wall-clock (SURVEY 5: the reference records only total time;
     # we break out request build / model inference / scoring for observability).
     phase_timings: dict = {"build_requests": 0.0, "inference": {}, "scoring": 0.0}
@@ -174,7 +179,7 @@ def evaluate(
 
         if WORLD_SIZE > 1:
             # Pad request counts so every rank runs the same number of batches.
-            gathered = _allgather_ints([len(task.instances)], WORLD_SIZE).reshape(-1)
+            gathered = _allgather_ints([len(task.instances)], WORLD_SIZE, GROUP).reshape(-1)
             req_type = (
                 "loglikelihood" if task.OUTPUT_TYPE == "multiple_choice" else task.OUTPUT_TYPE
             )
@@ -185,7 +190,7 @@ def evaluate(
         # of a type present elsewhere (world_size > doc count, small --limit) must
         # still enter that type's run loop, or the per-type _sync_processes barrier
         # counts diverge across ranks and the barrier deadlocks.
-        gathered_types = _allgather_ints([int(t in requests) for t in _KNOWN_TYPES], WORLD_SIZE)
+        gathered_types = _allgather_ints([int(t in requests) for t in _KNOWN_TYPES], WORLD_SIZE, GROUP)
         for i, t in enumerate(_KNOWN_TYPES):
             if gathered_types[:, i].any():
                 requests[t]  # defaultdict: materialize the (possibly empty) list
@@ -271,7 +276,7 @@ def evaluate(
                 elapsed,
                 len(cloned_reqs) / elapsed,
             )
-        _sync_processes(WORLD_SIZE)
+        _sync_processes(WORLD_SIZE, GROUP)
 
     if profiler is not None:
         profiler.stop()
@@ -285,6 +290,9 @@ def evaluate(
         for req in reqs:
             if len(req.resps) > req.repeats:
                 del req.resps[req.repeats :]
+
+    if getattr(model, "model_rank", 0) != 0:
+        return None  # the model group's rank 0 holds the same responses and reports them
 
     # ------------------------------------------------------------ score samples
     _t_score = time.perf_counter()
@@ -353,7 +361,7 @@ def evaluate(
         for task_output in eval_tasks:
             if log_samples:
                 gathered_samples = _multihost_gather_objects(
-                    task_output.logged_samples, RANK, WORLD_SIZE
+                    task_output.logged_samples, RANK, WORLD_SIZE, GROUP
                 )
                 if RANK == 0:
                     task_output.logged_samples = gathered_samples
@@ -363,22 +371,22 @@ def evaluate(
             all_keys = sorted(
                 set(
                     _multihost_gather_objects(
-                        sorted(task_output.sample_metrics.keys()), RANK, WORLD_SIZE
+                        sorted(task_output.sample_metrics.keys()), RANK, WORLD_SIZE, GROUP
                     )
                 )
             )
             for metric_key in all_keys:
                 gathered_metrics = _multihost_gather_objects(
-                    task_output.sample_metrics.get(metric_key, []), RANK, WORLD_SIZE
+                    task_output.sample_metrics.get(metric_key, []), RANK, WORLD_SIZE, GROUP
                 )
                 if RANK == 0:
                     task_output.sample_metrics[metric_key] = gathered_metrics
-        _sync_processes(WORLD_SIZE)
+        _sync_processes(WORLD_SIZE, GROUP)
 
     phase_timings["scoring"] = round(time.perf_counter() - _t_score, 3)
 
     if RANK != 0:
-        _sync_processes(WORLD_SIZE)
+        _sync_processes(WORLD_SIZE, GROUP)
         return None
 
     # ------------------------------------------------------------ aggregate
@@ -438,7 +446,7 @@ def evaluate(
     if log_samples:
         results_dict["samples"] = dict(samples)
 
-    _sync_processes(WORLD_SIZE)
+    _sync_processes(WORLD_SIZE, GROUP)
     return results_dict
 
 
@@ -570,7 +578,7 @@ def simple_evaluate(
         cli_args=cli_args,
     )
 
-    if model.rank == 0:
+    if results is not None:
         results["config"] = {
             "model": model_name,
             "model_args": model_args,

@@ -17,6 +17,7 @@ argument list, so the CLI runs in-process too.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import sys
@@ -207,19 +208,23 @@ def _maybe_init_distributed(model: str, model_args: str) -> None:
     card ``LOCAL_RANK``), gloo when it runs on the CPU (``device=cpu`` in
     ``--model_args``, or an adapter whose default device is the CPU, as the
     fake model's). ``MASTER_ADDR``/``MASTER_PORT`` (as ``torchrun`` sets them)
-    give the rendezvous.
+    give the rendezvous; ``LMMS_OWC_DIST_TIMEOUT`` (seconds) bounds every
+    collective's wait (torch's default otherwise).
     """
     world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if world_size <= 1 or torch.distributed.is_initialized():
         return
-    default = get_model_info(model).model_cls.default_device
+    # A registered factory function (every real adapter's) defaults to the card.
+    default = getattr(get_model_info(model).model_cls, "default_device", "cuda")
     device = str(utils.parse_string_args(model_args).get("device") or default)
     backend = "gloo" if device.startswith("cpu") else "nccl"
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0"))))
+    timeout = os.environ.get("LMMS_OWC_DIST_TIMEOUT")
     torch.distributed.init_process_group(
         backend=backend, init_method="env://", world_size=world_size,
         rank=int(os.environ["RANK"]),
+        **({"timeout": datetime.timedelta(seconds=float(timeout))} if timeout else {}),
     )
 
 

@@ -7,6 +7,14 @@ handlers (with the generic multi-round protocol and the loglikelihood request
 helpers), the chat template and the chunk pipeline. Each adapter's
 ``load_model`` applies the quantization flags. An adapter that sets
 ``time_phases`` times its phases with :meth:`Model._phase`.
+
+``model_parallel`` / ``use_mesh`` build the ("data", "model") mesh of
+:mod:`lmms_owc_tpu_torch.parallel.mesh` over the process group before the
+model loads: ``model_parallel`` consecutive ranks hold one model's shards
+(:attr:`Model.model_group`), and ``rank`` / ``world_size`` become the data
+coordinate and the data size, so the evaluator shards requests by data group.
+Only the adapters that set ``supports_mesh`` (Qwen2-VL, LLaVA, InternVL2, as
+in the JAX package) take them; the others raise.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from lmms_owc_tpu_torch._device import get_device
+from lmms_owc_tpu_torch.parallel.mesh import DATA_AXIS, local_mesh, model_group
 from lmms_owc_tpu_torch.utils import foreach_chunk_pipelined, pad_to_bucket
 
 __all__ = ["CacheHook", "Model"]
@@ -77,6 +86,7 @@ class Model(abc.ABC):
 
     default_device = "cuda"
     time_phases = False
+    supports_mesh = False
 
     def __init__(
         self,
@@ -88,6 +98,8 @@ class Model(abc.ABC):
         load_in_8bit: bool = False,
         load_in_4bit: bool = False,
         torch_random_seed: int = 1234,
+        model_parallel: int = 1,
+        use_mesh: bool = False,
         **kwargs,
     ) -> None:
         # Weight-only int8/int4 (the bitsandbytes load_in_8bit/load_in_4bit
@@ -104,6 +116,13 @@ class Model(abc.ABC):
         self.torch_dtype = _DTYPES[dtype]
         self.device = get_device(device or self.default_device)
         self.torch_random_seed = int(torch_random_seed)
+        self.model_parallel = int(model_parallel)
+        if (use_mesh or self.model_parallel > 1) and not self.supports_mesh:
+            raise ValueError(f"{type(self).__name__} has no tensor-parallel path: model_parallel and use_mesh "
+                             "are for the Qwen2-VL, LLaVA and InternVL2 adapters")
+        # Every rank builds the mesh together, before any weight exists.
+        self.mesh = local_mesh(self.model_parallel, self.device.type) if use_mesh or self.model_parallel > 1 else None
+        self.model_group = model_group(self.mesh)
         self._extra_kwargs = kwargs
         self.cache_hook = CacheHook(use_cache)
         self.task_dict: dict = {}
@@ -112,14 +131,41 @@ class Model(abc.ABC):
 
     @property
     def rank(self) -> int:
-        """Process rank from ``torch.distributed`` when it is initialised, else 0."""
+        """The data coordinate under a mesh; else the ``torch.distributed`` rank
+        when it is initialised, else 0."""
+        if self.mesh is not None:
+            return self.mesh.get_local_rank(DATA_AXIS)
         dist = torch.distributed
         return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
     @property
     def world_size(self) -> int:
+        """The data size under a mesh; else the ``torch.distributed`` world size, else 1."""
+        if self.mesh is not None:
+            return self.mesh.size(0)
         dist = torch.distributed
         return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+    @property
+    def data_group(self):
+        """The process group of the evaluator's collectives: this rank's data
+        group under a mesh, else None (the default group)."""
+        return None if self.mesh is None else self.mesh.get_group(DATA_AXIS)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's place in its model group (0 without tensor parallelism)."""
+        return 0 if self.model_group is None else self.model_group.rank
+
+    def _shard_hook(self, decoder, bits: int | None = None, prefix: str = ""):
+        """Under tensor parallelism, the shard hook of the module walks for
+        ``decoder`` (:class:`~lmms_owc_tpu_torch.parallel.sharding.Sharder`; its
+        path in the walked model is ``prefix``); else None."""
+        if self.model_group is None:
+            return None
+        from lmms_owc_tpu_torch.parallel.sharding import Sharder
+
+        return Sharder(decoder, self.model_group, int4=bits == 4, prefix=prefix)
 
     @abc.abstractmethod
     def load_model(self) -> None:
@@ -279,8 +325,12 @@ class Model(abc.ABC):
 
         ``prepare(chunk)`` does host preprocessing and the vision encode in a
         worker thread; ``run(chunk, prepared)`` decodes. See
-        :func:`lmms_owc_tpu_torch.utils.foreach_chunk_pipelined`.
+        :func:`lmms_owc_tpu_torch.utils.foreach_chunk_pipelined`. Under tensor
+        parallelism the chunks run one after another in this thread: the
+        model group's collectives must come in one sequence on every rank.
         """
+        if self.model_group is not None:
+            depth = 0
         return foreach_chunk_pipelined(chunks, prepare, run, depth=depth, finish=finish)
 
     def apply_chat_template(self, messages: list[dict]) -> str:

@@ -358,7 +358,7 @@ class Idefics2(Model):
             image_cursor += image_counts[row]
         dev = self.device
         return _assemble_embeds(
-            self.model.text.embed_tokens,
+            self.model.text,
             torch.from_numpy(input_ids).to(dev),
             vision_flat,
             torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,

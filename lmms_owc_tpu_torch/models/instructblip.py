@@ -291,7 +291,7 @@ class InstructBlip(Model):
 
     def _embed(self, input_ids: np.ndarray, index_map: np.ndarray, query_embeds: torch.Tensor) -> torch.Tensor:
         dev = self.device
-        return _assemble_embeds(self.model.text.embed_tokens, torch.from_numpy(input_ids).to(dev),
+        return _assemble_embeds(self.model.text, torch.from_numpy(input_ids).to(dev),
                                 query_embeds.reshape(-1, query_embeds.shape[-1]), torch.from_numpy(index_map).to(dev))
 
     def _prepare_chunk(self, chunk: list) -> tuple:

@@ -34,8 +34,9 @@ from lmms_owc_tpu_torch.nn import internvl as iv
 from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
 from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear
 from lmms_owc_tpu_torch.nn.llama import llama_positions
-from lmms_owc_tpu_torch.nn.loader import load_config_json, load_safetensors_state
+from lmms_owc_tpu_torch.nn.loader import load_config_json, load_hf_tensors, load_safetensors_state
 from lmms_owc_tpu_torch.ops import quant
+from lmms_owc_tpu_torch.parallel.sharding import shard_model
 from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
 
@@ -166,7 +167,11 @@ class _FallbackInternVLTokenizer:
 
 
 class InternVL2(Model):
-    """InternVL2 family on the PyTorch/CUDA stack."""
+    """InternVL2 family on the PyTorch/CUDA stack. With ``model_parallel`` > 1
+    the decoder is sharded over the model group, as in the JAX adapter (the
+    tower stays whole)."""
+
+    supports_mesh = True
 
     def __init__(
         self,
@@ -209,11 +214,14 @@ class InternVL2(Model):
             self.tokenizer = Tokenizer.from_pretrained(self.pretrained)
             self._check_vocabulary()
             state = load_safetensors_state(self.pretrained)
-            if bits is not None:  # the full-precision tree never exists on the device
-                meta = iv.InternVLModel(self.config, dtype, "meta", iv.has_final_ln(state))
-                self.model = quant.load_quantized_on_device(meta, state, bits=bits, dtype=dtype, device=dev)
+            # Modules are built on meta, then each weight is read (quantized
+            # and dropped), and under tensor parallelism sliced, in turn.
+            self.model = iv.InternVLModel(self.config, dtype, "meta", iv.has_final_ln(state))
+            shard = self._shard_hook(self.model.text, bits, "text.")
+            if bits is not None:
+                quant.load_quantized_on_device(self.model, state, bits=bits, dtype=dtype, device=dev, after=shard)
             else:
-                self.model = iv.convert_hf_internvl_weights(state, self.config, dtype, dev)
+                load_hf_tensors(self.model, state, dev, shard)
             del state
             log.info("loaded %s from %s (%s)", self.preset, self.pretrained, f"int{bits}" if bits else self.dtype)
         elif self._jax_params is not None:
@@ -222,14 +230,18 @@ class InternVL2(Model):
             quantized = any(isinstance(m, (Int8Linear, Int4Linear)) for m in self.model.modules())
             if bits is not None and not quantized:
                 (quant.quantize_params_int8 if bits == 8 else quant.quantize_params_int4)(self.model)
+            if self.model_group is not None:
+                shard_model(self.model.text, self.model_group)
             log.info("loaded %s from a JAX parameter tree", self.preset)
         else:
+            # Drawn one module at a time from meta, as a checkpoint is read.
             gen = torch.Generator(device=dev).manual_seed(self.torch_random_seed)
+            self.model = iv.InternVLModel(self.config, dtype, "meta")
             if bits is not None:
-                self.model = quant.init_quantized_on_device(
-                    iv.InternVLModel(self.config, dtype, "meta"), gen, bits=bits, dtype=dtype)
-            else:
-                self.model = iv.init_internvl_params(self.config, gen, dtype)
+                quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=dtype,
+                                               after=self._shard_hook(self.model.text, bits, "text."))
+            else:  # the decoder's walk is rooted at the decoder
+                iv.init_internvl_params(self.model, gen, self._shard_hook(self.model.text))
             log.warning("random-init %s on %s (no checkpoint)", self.preset, dev)
         if not checkpoint:
             self.tokenizer = _FallbackInternVLTokenizer(self.config.image_token_id)
@@ -326,7 +338,7 @@ class InternVL2(Model):
             index_map[row, positions] = tile_off * tokens_per_tile + np.arange(len(positions))
         dev = self.device
         return _assemble_embeds(
-            self.model.text.embed_tokens,
+            self.model.text,
             torch.from_numpy(input_ids).to(dev),
             vision_flat,
             torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,

@@ -34,9 +34,10 @@ from lmms_owc_tpu_torch.nn import llava as lv
 from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
 from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear
 from lmms_owc_tpu_torch.nn.llama import llama_positions
-from lmms_owc_tpu_torch.nn.loader import load_config_json, load_safetensors_state
+from lmms_owc_tpu_torch.nn.loader import load_config_json, load_hf_tensors, load_safetensors_state
 from lmms_owc_tpu_torch.ops import quant
 from lmms_owc_tpu_torch.ops.image import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+from lmms_owc_tpu_torch.parallel.sharding import shard_model
 from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
 
@@ -149,7 +150,11 @@ class _FallbackLlavaTokenizer:
 
 
 class LlavaHf(Model):
-    """LLaVA-1.5 / LLaVA-NeXT on the PyTorch/CUDA stack."""
+    """LLaVA-1.5 / LLaVA-NeXT on the PyTorch/CUDA stack. With ``model_parallel``
+    > 1 the decoder is sharded over the model group, as in the JAX adapter
+    (the tower stays whole)."""
+
+    supports_mesh = True
 
     def __init__(
         self,
@@ -194,13 +199,14 @@ class LlavaHf(Model):
             self.tokenizer = Tokenizer.from_pretrained(self.pretrained)
             self._check_vocabulary()
             state = load_safetensors_state(self.pretrained)
-            newline = self.is_next and lv.has_image_newline(state)
+            # Modules are built on meta, then each weight is read (quantized
+            # and dropped), and under tensor parallelism sliced, in turn.
+            self.model = lv.LlavaModel(self.config, dtype, "meta", self.is_next and lv.has_image_newline(state))
+            shard = self._shard_hook(self.model.text, bits, "text.")
             if bits is not None:
-                # The full-precision tree never exists on the device.
-                self.model = lv.LlavaModel(self.config, dtype, "meta", newline)
-                quant.load_quantized_on_device(self.model, state, bits=bits, dtype=dtype, device=dev)
+                quant.load_quantized_on_device(self.model, state, bits=bits, dtype=dtype, device=dev, after=shard)
             else:
-                self.model = lv.convert_hf_llava_weights(state, self.config, dtype, dev)
+                load_hf_tensors(self.model, state, dev, shard)
             del state
             log.info("loaded %s from %s (%s)", self.preset, self.pretrained, f"int{bits}" if bits else self.dtype)
         elif self._jax_params is not None:
@@ -209,16 +215,20 @@ class LlavaHf(Model):
             quantized = any(isinstance(m, (Int8Linear, Int4Linear)) for m in self.model.modules())
             if bits is not None and not quantized:  # a float tree, served quantized
                 (quant.quantize_params_int8 if bits == 8 else quant.quantize_params_int4)(self.model)
+            if self.model_group is not None:
+                shard_model(self.model.text, self.model_group)
             log.info("loaded %s from a JAX parameter tree", self.preset)
         else:
+            # Drawn one module at a time from meta, as a checkpoint is read.
             gen = torch.Generator(device=dev).manual_seed(self.torch_random_seed)
+            self.model = lv.LlavaModel(self.config, dtype, "meta", self.is_next)
+            shard = self._shard_hook(self.model.text, bits, "text.")
             if bits is not None:
-                self.model = lv.LlavaModel(self.config, dtype, "meta", self.is_next)
-                quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=dtype)
+                quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=dtype, after=shard)
                 if self.model.image_newline is not None:
                     self.model.image_newline.data.zero_()
             else:
-                self.model = lv.init_llava_params(self.config, gen, dtype, self.is_next)
+                lv.init_llava_params(self.model, gen, shard)
             log.warning("random-init %s on %s (no checkpoint)", self.preset, dev)
         if not checkpoint:
             self.tokenizer = _FallbackLlavaTokenizer(self.config.image_token_id)
@@ -335,7 +345,7 @@ class LlavaHf(Model):
         dev = self.device
         vision_flat = torch.cat(feature_rows) if feature_rows else None
         return _assemble_embeds(
-            self.model.text.embed_tokens,
+            self.model.text,
             torch.from_numpy(input_ids).to(dev),
             vision_flat,
             torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,

@@ -368,7 +368,7 @@ class LlavaOnevision(Model):
         dev = self.device
         vision_flat = torch.cat(flat).to(self.model.dtype) if flat else None
         return _assemble_embeds(
-            self.model.text.embed_tokens,
+            self.model.text,
             torch.from_numpy(input_ids).to(dev),
             vision_flat,
             torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,

@@ -19,9 +19,11 @@ Weights come from a ``pretrained`` checkpoint in the released layout (fused
 ``qkv_proj`` / ``gate_up_proj`` split at load, the tower under
 ``model.vision_embed_tokens.img_processor.``, read by the port's safetensors
 reader, with the port's ``byte_fallback`` BPE tokenizer), from a JAX
-parameter tree, or are drawn on the device from a seed. As in the JAX adapter
-there is no decode pool; the quantized loads of the JAX base class and its
-mesh path are not ported for this family.
+parameter tree, or are drawn on the device from a seed; ``load_in_8bit`` /
+``load_in_4bit`` quantize the linear layers that the JAX base class's generic
+path quantizes (``DEFAULT_EXCLUDE``; int4 skips an odd contraction axis), one
+layer at a time on the device as the other families do. As in the JAX adapter
+there is no decode pool and no mesh path.
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ from lmms_owc_tpu_torch.models.qwen2_vl import _assemble_embeds
 from lmms_owc_tpu_torch.nn import clip as nnclip
 from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
 from lmms_owc_tpu_torch.nn.clip import ClipVisionConfig, ClipVisionTower, vision_params_from_jax
-from lmms_owc_tpu_torch.nn.layers import LayerNorm, Linear, RMSNorm, gelu
+from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear, LayerNorm, Linear, RMSNorm, gelu
 from lmms_owc_tpu_torch.nn.llama import LlamaConfig, llama_config_from_hf, llama_positions
 from lmms_owc_tpu_torch.nn.llava import Projector
 from lmms_owc_tpu_torch.nn.loader import load_config_json, load_hf_tensors, load_safetensors_state
 from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLModel, _copy, _load_linear, params_from_jax
+from lmms_owc_tpu_torch.ops import quant
 from lmms_owc_tpu_torch.ops.image import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
@@ -274,8 +277,6 @@ class Phi3v(Model):
         ``pretrained``; an unknown preset draws ``phi3v``'s widths, as in the
         JAX adapter). ``time_phases`` sums the vision, prefill and decode
         phases' wall seconds into :attr:`phase_seconds`."""
-        if kwargs.get("load_in_8bit") or kwargs.get("load_in_4bit"):
-            raise NotImplementedError("phi3v: load_in_8bit / load_in_4bit are not ported for this family")
         self.pretrained = pretrained
         self.preset = preset
         self.num_crops = int(num_crops)
@@ -301,19 +302,34 @@ class Phi3v(Model):
         self.vision_config = clip_config(vis)
         self.decoder_config = self.text_config.to_decoder_config()
         dtype, dev = self.torch_dtype, self.device
+        bits = 4 if self.load_in_4bit else (8 if self.load_in_8bit else None)
         if checkpoint:
             self.tokenizer = Tokenizer.from_pretrained(self.pretrained)
             self._check_vocabulary()
             state = split_phi3_fused_weights(load_safetensors_state(self.pretrained))
-            self.model = load_hf_tensors(Phi3vModel(self.text_config, self.vision_config, dtype, dev), state)
+            if bits is not None:  # the full-precision tree never exists on the device
+                meta = Phi3vModel(self.text_config, self.vision_config, dtype, "meta")
+                self.model = quant.load_quantized_on_device(meta, state, bits=bits, dtype=dtype, device=dev)
+            else:
+                self.model = load_hf_tensors(Phi3vModel(self.text_config, self.vision_config, dtype, dev), state)
             del state
-            log.info("loaded %s from %s (%s)", self.preset, self.pretrained, self.dtype)
+            log.info("loaded %s from %s (%s)", self.preset, self.pretrained, f"int{bits}" if bits else self.dtype)
         else:
             if self._jax_params is not None:
                 self.model = phi3v_params_from_jax(self._jax_params, self.text_config, self.vision_config,
                                                    dtype, dev)
                 self._jax_params = None
+                quantized = any(isinstance(m, (Int8Linear, Int4Linear)) for m in self.model.modules())
+                if bits is not None and not quantized:  # a float tree, served quantized
+                    (quant.quantize_params_int8 if bits == 8 else quant.quantize_params_int4)(self.model)
                 log.info("loaded %s from a JAX parameter tree", self.preset)
+            elif bits is not None:
+                gen = torch.Generator(device=dev).manual_seed(self.torch_random_seed)
+                self.model = quant.init_quantized_on_device(
+                    Phi3vModel(self.text_config, self.vision_config, dtype, "meta"), gen, bits=bits, dtype=dtype)
+                self.model.sub_gn.zero_()
+                self.model.glb_gn.zero_()
+                log.warning("random-init int%d %s on %s (no checkpoint)", bits, self.preset, dev)
             else:
                 gen = torch.Generator(device=dev).manual_seed(self.torch_random_seed)
                 self.model = init_phi3v_params(self.text_config, self.vision_config, gen, dtype)
@@ -547,7 +563,7 @@ class Phi3v(Model):
         dev = self.device
         vision_flat = torch.cat(all_features) if all_features else None
         embeds = _assemble_embeds(
-            self.model.text.embed_tokens,
+            self.model.text,
             torch.from_numpy(input_ids).to(dev),
             vision_flat,
             torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,

@@ -41,6 +41,7 @@ from lmms_owc_tpu_torch.ops.image import (
     resize_host_batch,
     smart_resize,
 )
+from lmms_owc_tpu_torch.parallel.sharding import shard_model
 from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
 from lmms_owc_tpu_torch.utils._hostprof import hostprof, hostprof_dump, hostprof_reset
@@ -80,6 +81,19 @@ PRESET_CONFIGS = {
             depth=32, hidden_size=1280, num_heads=16, intermediate_size=3420,
             out_hidden_size=3584, window_size=112, fullatt_block_indexes=[7, 15, 23, 31],
         ),
+    ),
+    # Flagship-shaped dry-run config: every sharding-relevant width of the 7B
+    # (hidden 3584, 28/4 heads, 18944 intermediate, a 1280-wide tower) with
+    # the layer counts cut to 2 and a 19456-token vocabulary, for the
+    # tensor-parallel dry run (``python -m lmms_owc_tpu_torch.parallel.dryrun``).
+    # Not a serving preset.
+    "qwen2-vl-flagship-dryrun": dict(
+        vocab_size=19456, hidden_size=3584, num_hidden_layers=2, num_attention_heads=28,
+        num_key_value_heads=4, intermediate_size=18944, tie_word_embeddings=False,
+        image_token_id=5, video_token_id=6, vision_start_token_id=3,
+        eos_token_id=2, pad_token_id=0,
+        vision_config=dict(depth=2, embed_dim=1280, num_heads=16, mlp_ratio=4.0,
+                           hidden_size=3584),
     ),
     # CPU-testable miniature (same special-token space, tiny everything else).
     "qwen2-vl-tiny": dict(
@@ -185,13 +199,14 @@ def plan_decode_pools(
 
 
 def _assemble_embeds(
-    embed_table: torch.Tensor,
+    decoder: qvl.Qwen2VLModel,
     input_ids: torch.Tensor,
     vision_flat: torch.Tensor | None,
     index_map: torch.Tensor | None,
 ) -> torch.Tensor:
-    """Token embeddings with vision tokens gathered in where ``index_map >= 0``."""
-    tok = torch.nn.functional.embedding(input_ids, embed_table)
+    """The decoder's token embeddings (:func:`~lmms_owc_tpu_torch.nn.qwen2_vl.embed_tokens`,
+    so a sharded vocabulary too) with vision tokens gathered in where ``index_map >= 0``."""
+    tok = qvl.embed_tokens(decoder, input_ids)
     if vision_flat is None:
         return tok
     gathered = vision_flat[index_map.clamp(min=0)].to(tok.dtype)
@@ -258,6 +273,8 @@ class _FallbackTokenizer:
 class Qwen2VL(Model):
     """Qwen2-VL on the PyTorch/CUDA stack."""
 
+    supports_mesh = True
+
     def __init__(
         self,
         pretrained: str | None = None,
@@ -286,7 +303,11 @@ class Qwen2VL(Model):
         does. ``time_phases`` synchronizes the device around the vision,
         prefill and decode phases and sums their wall seconds into
         :attr:`phase_seconds` (with several chunks the next chunk's vision runs
-        beside the current decode, so the phases then overlap)."""
+        beside the current decode, so the phases then overlap). With
+        ``model_parallel`` > 1 (:class:`~lmms_owc_tpu_torch.models._base.Model`)
+        the decoder and the Qwen2-VL tower are sharded over the model group as
+        each module is drawn or loaded (:mod:`lmms_owc_tpu_torch.parallel.sharding`;
+        the Qwen2.5-VL tower stays whole)."""
         if preset not in PRESET_CONFIGS:
             raise ValueError(f"unknown preset {preset!r}; available: {sorted(PRESET_CONFIGS)}")
         self.preset = preset
@@ -323,14 +344,15 @@ class Qwen2VL(Model):
             self.tokenizer = Tokenizer.from_pretrained(self.pretrained)
             self._check_vocabulary()
             state = load_safetensors_state(self.pretrained)
+            # Modules are built on meta, then each weight is read (quantized
+            # and dropped), and under tensor parallelism sliced, in turn.
+            self.model = build("meta")
+            shard = self._shard_hook(self.model, bits)
             if bits is not None:
-                # The full-precision tree never exists on the device: modules
-                # are built on meta, then each weight is read, quantized and dropped.
-                self.model = build("meta")
-                quant.load_quantized_on_device(self.model, state, bits=bits, dtype=self.torch_dtype, device=self.device)
+                quant.load_quantized_on_device(self.model, state, bits=bits, dtype=self.torch_dtype, device=self.device,
+                                               after=shard)
             else:
-                self.model = build(self.device)
-                qvl.load_hf_weights(self.model, state)
+                qvl.load_hf_weights(self.model, state, self.device, shard)
             del state
             log.info("loaded %s from %s (%s)", self.preset, self.pretrained, f"int{bits}" if bits else self.dtype)
         elif self._jax_params is not None:
@@ -340,17 +362,21 @@ class Qwen2VL(Model):
             quantized = any(isinstance(m, (Int8Linear, Int4Linear)) for m in self.model.modules())
             if bits is not None and not quantized:  # a float tree, served quantized
                 (quant.quantize_params_int8 if bits == 8 else quant.quantize_params_int4)(self.model)
+            if self.model_group is not None:
+                shard_model(self.model, self.model_group)
             log.info("loaded %s from a JAX parameter tree", self.preset)
-        elif bits is not None:
-            # The full-precision tree never exists: modules are built on the
-            # meta device, then each weight is drawn and quantized in turn.
-            self.model = build("meta")
-            quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=self.torch_dtype)
-            log.warning("random-init int%d %s on %s (no checkpoint)", bits, self.preset, self.device)
         else:
-            self.model = build(self.device)
-            qvl.init_params(self.model, gen)
-            log.warning("random-init %s on %s (no checkpoint)", self.preset, self.device)
+            # The full-precision tree never exists: modules are built on the
+            # meta device, then each weight is drawn (and quantized), and under
+            # tensor parallelism sliced, in turn.
+            self.model = build("meta")
+            shard = self._shard_hook(self.model, bits)
+            if bits is not None:
+                quant.init_quantized_on_device(self.model, gen, bits=bits, dtype=self.torch_dtype, after=shard)
+            else:
+                qvl.init_params(self.model, gen, shard)
+            log.warning("random-init %s%s on %s (no checkpoint)", f"int{bits} " if bits else "", self.preset,
+                        self.device)
         if not checkpoint:
             self.tokenizer = _FallbackTokenizer(self.config)
         self.generator = torch.Generator(device=self.device).manual_seed(self.torch_random_seed)
@@ -609,7 +635,7 @@ class Qwen2VL(Model):
         position_ids, next_pos = qvl.get_rope_index(input_ids, attention_mask, all_grids, self.config)
         dev = self.device
         embeds = _assemble_embeds(
-            self.model.embed_tokens,
+            self.model,
             torch.from_numpy(input_ids).to(dev),
             vision_flat,
             torch.from_numpy(index_map).to(dev) if vision_flat is not None else None,

@@ -26,7 +26,7 @@ from torch import nn
 from lmms_owc_tpu_torch.nn.idefics2 import init_modules
 from lmms_owc_tpu_torch.nn.layers import LayerNorm, Linear, RMSNorm, gelu
 from lmms_owc_tpu_torch.nn.llama import LlamaConfig, llama_config_from_hf
-from lmms_owc_tpu_torch.nn.loader import find_tensor, load_hf_tensors
+from lmms_owc_tpu_torch.nn.loader import find_tensor
 from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLModel, _copy, _load_linear, _load_norm, init_params, params_from_jax
 from lmms_owc_tpu_torch.ops.attention import flash_attention
 
@@ -35,7 +35,6 @@ __all__ = [
     "InternVLModel",
     "InternVLVisionConfig",
     "InternViT",
-    "convert_hf_internvl_weights",
     "encode_tiles",
     "has_final_ln",
     "init_internvl_params",
@@ -245,8 +244,8 @@ class InternVLModel(nn.Module):
     projector: the JAX adapter's parameter tree as one module tree, so the
     port's quantizers reach the same linear layers. Parameters are
     uninitialised until :func:`init_internvl_params`,
-    :func:`convert_hf_internvl_weights` or :func:`internvl_params_from_jax`
-    fills them."""
+    :func:`~lmms_owc_tpu_torch.nn.loader.load_hf_tensors` or
+    :func:`internvl_params_from_jax` fills them."""
 
     def __init__(self, config: InternVLConfig, dtype=torch.bfloat16, device="cpu", final_ln: bool = True) -> None:
         super().__init__()
@@ -293,30 +292,26 @@ def encode_tiles(model: InternVLModel, pixel_values: torch.Tensor, config: Inter
 
 
 @torch.no_grad()
-def init_internvl_params(config: InternVLConfig, generator: torch.Generator, dtype=torch.bfloat16) -> InternVLModel:
-    """A random-init model on the generator's device, in the JAX
-    ``init_internvl_params`` distribution (the values differ): weights and the
-    position table ~ N(0, 1) * 0.02, biases and the CLS token zero, norm
-    scales one, layer scales 0.1."""
-    model = InternVLModel(config, dtype, generator.device)
-    init_params(model.text, generator)
-    init_modules(model.vision, generator)
-    init_modules(model.projector, generator)
+def init_internvl_params(model: InternVLModel, generator: torch.Generator, after=None) -> InternVLModel:
+    """Random-init ``model``, built on ``meta``, on the generator's device, in
+    the JAX ``init_internvl_params`` distribution (the values differ): weights
+    and the position table ~ N(0, 1) * 0.02, biases and the CLS token zero,
+    norm scales one, layer scales 0.1. The decoder is drawn first, one module
+    at a time (:func:`~lmms_owc_tpu_torch.nn.qwen2_vl.init_params`, whose
+    ``after`` is the shard hook of the walk over ``model.text``)."""
+    init_params(model.text, generator, after)
     tower = model.vision
+    for part in (tower, model.projector):
+        part.to_empty(device=generator.device)
+        init_modules(part, generator)
     tower.position_embeddings.copy_(
-        (torch.randn(tower.position_embeddings.shape, generator=generator, device=generator.device) * 0.02).to(dtype))
+        (torch.randn(tower.position_embeddings.shape, generator=generator, device=generator.device) * 0.02
+         ).to(model.dtype))
     tower.cls_token.zero_()
     for layer in tower.layers:
         layer.lambda_1.fill_(0.1)
         layer.lambda_2.fill_(0.1)
     return model
-
-
-def convert_hf_internvl_weights(state, config: InternVLConfig, dtype=torch.bfloat16, device="cpu") -> InternVLModel:
-    """A model filled from an HF InternVL ("-hf") checkpoint's tensors (``state``
-    from :func:`~lmms_owc_tpu_torch.nn.loader.load_safetensors_state`), cast to
-    ``dtype``; the tower's final LN only where the checkpoint has one."""
-    return load_hf_tensors(InternVLModel(config, dtype, device, has_final_ln(state)), state)
 
 
 @torch.no_grad()

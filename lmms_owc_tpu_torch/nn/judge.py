@@ -6,10 +6,15 @@ length buckets; each chunk prefills through the flash kernel (K2) and decodes
 through the decode kernel (K3, or its int8-cache form under
 ``LMMS_OWC_KV_INT8``) on the card. ``LMMS_OWC_JUDGE_DECODE_POOL`` = N > 1
 prefills each chunk at its own shape and decodes N chunks' rows as one batch.
-One device: the JAX package's data-parallel mesh over local devices is not
-ported. On the card every decode step's products run on blocks of
-``DECODE_ROWS`` rows, so a row's answer does not depend on the rows decoded
-beside it (pooled answers equal unpooled ones, as in the JAX package).
+On the card every decode step's products run on blocks of ``DECODE_ROWS``
+rows, so a row's answer does not depend on the rows decoded beside it (pooled
+answers equal unpooled ones, as in the JAX package). With ``data_parallel``
+and a process group of more than one rank, the judge is the JAX package's
+row-sharded data mesh in torch's form: every rank holds the whole model and
+calls the judge on the same prompts, each padded chunk's rows (padded to a
+multiple of the rank count with the last row, as in JAX) are split over the
+ranks, and an all-reduce gathers the answers; the decode pool is then off,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -95,13 +100,19 @@ def resolve_judge_weights() -> str | None:
 
 
 class JudgeModel:
-    """Batched greedy scorer over (prompt -> short verdict) pairs, on one device."""
+    """Batched greedy scorer over (prompt -> short verdict) pairs, on one device,
+    or data-parallel over the ranks of the default process group with
+    ``data_parallel``."""
 
-    def __init__(self, model: qvl.Qwen2VLModel, tokenizer, batch_size: int = 64) -> None:
+    def __init__(self, model: qvl.Qwen2VLModel, tokenizer, batch_size: int = 64, data_parallel: bool = False) -> None:
         self.model = model
         self.config = model.config  # the decoder view (Qwen2VLConfig)
         self.tokenizer = tokenizer
         self.batch_size = batch_size
+        dist = torch.distributed
+        # The row split's rank count and this rank's index (1 and 0 on one rank).
+        self.ranks = dist.get_world_size() if data_parallel and dist.is_available() and dist.is_initialized() else 1
+        self.rank = dist.get_rank() if self.ranks > 1 else 0
         # The CPU path keeps the JAX package's shapes, which its parity tests compare.
         self.decode_rows = DECODE_ROWS if model.device.type == "cuda" else None
 
@@ -111,12 +122,13 @@ class JudgeModel:
 
     @classmethod
     def from_pretrained(
-        cls, path: str, dtype=None, load_in_8bit: bool = False, device=None
+        cls, path: str, dtype=None, load_in_8bit: bool = False, device=None, data_parallel: bool = False
     ) -> "JudgeModel":
         """Load a judge checkpoint onto ``device`` (default: the card) in
         ``dtype`` (default bf16); ``load_in_8bit`` quantizes each linear
         weight on the device as it loads (the int8 leaves of the weight cast
-        to ``dtype``), so the full-precision tree never exists there."""
+        to ``dtype``), so the full-precision tree never exists there.
+        ``data_parallel`` is the constructor's."""
         device = get_device(device)
         dtype = dtype or torch.bfloat16
         config = llama_config_from_hf(load_config_json(path))
@@ -128,10 +140,11 @@ class JudgeModel:
             model = load_hf_tensors(build_llama(config, dtype, device), state)
         del state
         log.info("loaded judge model from %s on %s%s", path, device, " (int8)" if load_in_8bit else "")
-        return cls(model, Tokenizer.from_pretrained(path))
+        return cls(model, Tokenizer.from_pretrained(path), data_parallel=data_parallel)
 
     @classmethod
-    def random_init(cls, seed: int = 0, dtype=None, load_in_8bit: bool = False, device=None) -> "JudgeModel":
+    def random_init(cls, seed: int = 0, dtype=None, load_in_8bit: bool = False, device=None,
+                    data_parallel: bool = False) -> "JudgeModel":
         """Judge-architecture model with random weights drawn on ``device``
         (benchmarking without checkpoints: the real judge's FLOPs and memory
         traffic). int8 draws and quantizes one layer at a time."""
@@ -143,7 +156,7 @@ class JudgeModel:
             model = quant.init_quantized_on_device(build_llama(config, dtype, "meta"), gen, bits=8, dtype=dtype)
         else:
             model = init_llama_params(config, gen, dtype)
-        return cls(model, _FallbackJudgeTokenizer())
+        return cls(model, _FallbackJudgeTokenizer(), data_parallel=data_parallel)
 
     def _prepare_chunk(self, chunk: list[str]) -> tuple:
         """Host side of one scoring chunk: chat-template render, tokenize,
@@ -157,9 +170,12 @@ class JudgeModel:
         ]
         encoded = [self.tokenizer.encode(text, add_special_tokens=False) for text in rendered]
         bucket = pad_to_bucket(max(len(ids) for ids in encoded))
-        input_ids = np.full((len(chunk), bucket), self.config.pad_token_id, np.int64)
-        mask = np.zeros((len(chunk), bucket), np.int64)
-        for row, ids in enumerate(encoded):
+        n_rows = len(chunk)
+        n_rows += -n_rows % self.ranks  # a multiple of the ranks, the last row repeated
+        input_ids = np.full((n_rows, bucket), self.config.pad_token_id, np.int64)
+        mask = np.zeros((n_rows, bucket), np.int64)
+        for row in range(n_rows):
+            ids = encoded[min(row, len(chunk) - 1)]
             input_ids[row, bucket - len(ids) :] = ids
             mask[row, bucket - len(ids) :] = 1
         position_ids, next_pos = llama_positions(mask)
@@ -265,21 +281,41 @@ class JudgeModel:
     @torch.inference_mode()
     def _generate(self, prompts: list[str]) -> list[str]:
         pool_n = int(os.environ.get("LMMS_OWC_JUDGE_DECODE_POOL", "0") or 0)
-        if pool_n > 1:
+        if pool_n > 1 and self.ranks == 1:
             return self._generate_pooled(prompts, pool_n)
         eos_ids, stop = self._eos_and_stop()
 
         def run(chunk: list[str], prepared: tuple) -> list[str]:
+            if self.ranks > 1:
+                prepared = self._own_rows(prepared)
             embeds, position_ids, mask, next_pos = self._inputs(prepared)
             tokens = qvl.greedy_generate(
                 self.model, embeds, position_ids, mask, next_pos,
                 max_new_tokens=MAX_NEW_TOKENS, cache_len=prepared[0] + 64, eos_ids=self._eos_tensor(eos_ids),
                 decode_rows=self.decode_rows,
             )
+            if self.ranks > 1:
+                tokens = self._gather_rows(tokens)
             return self._decode_rows(tokens.cpu().numpy(), len(chunk), stop)
 
         chunks = [prompts[start : start + self.batch_size] for start in range(0, len(prompts), self.batch_size)]
         return foreach_chunk_pipelined(chunks, self._prepare_chunk, run)
+
+    def _own_rows(self, prepared: tuple) -> tuple:
+        """This rank's contiguous share of a padded chunk's rows (the bucket is the chunk's)."""
+        bucket, input_ids, position_ids, mask, next_pos = prepared
+        per = input_ids.shape[0] // self.ranks
+        rows = slice(self.rank * per, (self.rank + 1) * per)
+        return bucket, input_ids[rows], position_ids[:, rows], mask[rows], next_pos[rows]
+
+    def _gather_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Every rank's tokens in row order: each fills its rows of a zero
+        tensor and an all-reduce sums them."""
+        per = tokens.shape[0]
+        full = tokens.new_zeros(per * self.ranks, tokens.shape[1])
+        full[self.rank * per : (self.rank + 1) * per] = tokens
+        torch.distributed.all_reduce(full)
+        return full
 
     def score_pairs(self, prompts: list[str], predictions, references) -> list[str]:
         return self._generate(prompts)

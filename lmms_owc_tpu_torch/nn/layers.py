@@ -24,6 +24,7 @@ __all__ = [
     "LayerNorm",
     "Linear",
     "RMSNorm",
+    "RowParallel",
     "apply_rope",
     "dense",
     "dense_q4",
@@ -86,6 +87,18 @@ def _int8_mm(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, q.t())[:m, :n]
 
 
+def _quantize_tokens(x: torch.Tensor, reduce_amax=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """W8A8's per-token activation quantizer: (int8 values, f32 scales [..., 1])
+    with scale ``max(amax, 1e-6) / 127``. ``reduce_amax(amax)`` first reduces
+    the per-token amax in place (a row-parallel product sees a slice of K)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce_amax is not None:
+        reduce_amax(amax)
+    sx = torch.clamp(amax, min=1e-6) / 127.0
+    return torch.round(xf / sx).to(torch.int8), sx
+
+
 def dense_q8(
     x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -97,9 +110,7 @@ def dense_q8(
     ``(acc * sx) * scale`` in f32 is cast to ``x.dtype``, as the JAX package.
     """
     if _INT8_ACTIVATIONS:
-        xf = x.float()
-        sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
-        xq = torch.round(xf / sx).to(torch.int8)
+        xq, sx = _quantize_tokens(x)
         acc = _int8_mm(xq.reshape(-1, x.shape[-1]), q).reshape(*x.shape[:-1], q.shape[0])
         out = (acc.float() * sx * scale).to(x.dtype)
     else:
@@ -154,7 +165,9 @@ def row_invariant(lin: nn.Module, m_rows: int) -> bool:
     bits at any row count: W8A8's s8 x s8 -> s32 product is exact, and K4
     splits K by K and N only. cuBLAS's float products (a :class:`Linear`, and
     the float copy of a weight-only int8 matrix) pick their split of K by
-    the row count, as does the dequantized int4 product past K4's rows."""
+    the row count, as does the dequantized int4 product past K4's rows. A
+    :class:`RowParallel` product is its slice's."""
+    lin = getattr(lin, "inner", lin)
     if isinstance(lin, Int8Linear):
         return _INT8_ACTIVATIONS
     if isinstance(lin, Int4Linear):
@@ -376,3 +389,34 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.eps)
+
+
+class RowParallel(nn.Module):
+    """The row-parallel projection of tensor parallelism (``o``, ``down``, a
+    tower's ``proj`` and ``fc2``): ``inner`` (a bias-free :class:`Linear`,
+    :class:`Int8Linear` or :class:`Int4Linear`) holds this rank's slice of the
+    input columns, ``group`` (a :class:`~lmms_owc_tpu_torch.parallel.mesh.ModelGroup`)
+    sums the partial products of the model group, then the full ``bias`` is
+    added. The float partials are summed in f32 and cast back once. Under
+    W8A8 the per-token amax is all-reduced (MAX) before quantizing, and the
+    int32 partials are summed before ``* sx * scale``: the product the JAX
+    package's sharded ``einsum`` reduces, so it equals the unsharded one."""
+
+    def __init__(self, inner: nn.Module, bias: torch.Tensor | None, group) -> None:
+        super().__init__()
+        self.inner = inner
+        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inner = self.inner
+        if isinstance(inner, Int8Linear) and _INT8_ACTIVATIONS:
+            xq, sx = _quantize_tokens(x, lambda amax: self.group.all_reduce(amax, "max"))
+            acc = _int8_mm(xq.reshape(-1, x.shape[-1]), inner.q).contiguous()
+            acc = self.group.all_reduce(acc).reshape(*x.shape[:-1], inner.q.shape[0])
+            out = (acc.float() * sx * inner.scale).to(x.dtype)
+        else:
+            out = self.group.all_reduce(inner(x).float().contiguous()).to(x.dtype)
+        if self.bias is not None:
+            out = out + self.bias
+        return out

@@ -33,13 +33,13 @@ from lmms_owc_tpu_torch.nn.clip import (
 )
 from lmms_owc_tpu_torch.nn.layers import LayerNorm, Linear, RMSNorm, gelu
 from lmms_owc_tpu_torch.nn.llama import LlamaConfig, llama_config_from_hf
-from lmms_owc_tpu_torch.nn.loader import find_tensor, load_hf_tensors
+from lmms_owc_tpu_torch.nn.loader import find_tensor
 from lmms_owc_tpu_torch.nn.qwen2_vl import Qwen2VLModel, _copy, _load_linear, params_from_jax
+from lmms_owc_tpu_torch.ops.quant import materialize_on_device
 
 __all__ = [
     "LlavaConfig",
     "LlavaModel",
-    "convert_hf_llava_weights",
     "encode_images",
     "init_llava_params",
     "llava_config_from_hf",
@@ -105,7 +105,8 @@ class LlavaModel(nn.Module):
     :meth:`LlavaConfig.decoder_config`), the CLIP tower without its
     projection (``vision``), the projector and, with ``image_newline``,
     LLaVA-NeXT's newline embedding. Parameters are uninitialised until
-    :func:`init_llava_params`, :func:`convert_hf_llava_weights` or
+    :func:`init_llava_params`,
+    :func:`~lmms_owc_tpu_torch.nn.loader.load_hf_tensors` or
     :func:`llava_params_from_jax` fills them."""
 
     def __init__(self, config: LlavaConfig, dtype=torch.bfloat16, device="cpu", image_newline: bool = False):
@@ -147,39 +148,29 @@ def has_image_newline(state) -> bool:
 
 
 @torch.no_grad()
-def init_llava_params(
-    config: LlavaConfig, generator: torch.Generator, dtype=torch.bfloat16, image_newline: bool = False
-) -> LlavaModel:
-    """A random-init model on the generator's device: linear weights, token,
-    class and position embeddings ~ N(0, 1) * 0.02, biases zero, norm scales
-    one, the newline embedding zero (the JAX ``init_llava_params`` and
-    adapter's distribution; the values differ)."""
-    model = LlavaModel(config, dtype, generator.device, image_newline)
+def init_llava_params(model: LlavaModel, generator: torch.Generator, after=None) -> LlavaModel:
+    """Random-init ``model``, built on ``meta``, on the generator's device:
+    linear weights, token, class and position embeddings ~ N(0, 1) * 0.02,
+    biases zero, norm scales one, the newline embedding zero (the JAX
+    ``init_llava_params`` and adapter's distribution; the values differ).
+    It is drawn one module at a time, in module order; ``after`` (tensor
+    parallelism's shard hook, see
+    :func:`~lmms_owc_tpu_torch.ops.quant.materialize_on_device`) may keep a
+    slice of each module once drawn, so a sharded model holds the slices of
+    the unsharded one from the same seed."""
+    drawn = ("text.embed_tokens", "vision.class_embedding", "vision.position_embedding")
 
-    def draw(t):
-        t.copy_((torch.randn(t.shape, generator=generator, device=t.device) * 0.02).to(dtype))
-
-    for module in model.modules():
-        if isinstance(module, Linear):
-            draw(module.weight)
-            if module.bias is not None:
-                module.bias.zero_()
+    def fill(name, t, module):
+        if isinstance(module, (Linear, LayerNorm, RMSNorm)) and name.endswith("bias"):
+            t.zero_()
         elif isinstance(module, (LayerNorm, RMSNorm)):
-            module.weight.fill_(1.0)
-            if isinstance(module, LayerNorm):
-                module.bias.zero_()
-    for t in (model.text.embed_tokens, model.vision.class_embedding, model.vision.position_embedding):
-        draw(t)
-    if model.image_newline is not None:
-        model.image_newline.zero_()
-    return model
+            t.fill_(1.0)
+        elif isinstance(module, Linear) or name in drawn:
+            t.copy_((torch.randn(t.shape, generator=generator, device=t.device) * 0.02).to(t.dtype))
+        elif name == "image_newline":
+            t.zero_()
 
-
-def convert_hf_llava_weights(state, config: LlavaConfig, dtype=torch.bfloat16, device="cpu") -> LlavaModel:
-    """A model filled from an HF LLaVA checkpoint's tensors (``state`` from
-    :func:`~lmms_owc_tpu_torch.nn.loader.load_safetensors_state`), cast to
-    ``dtype``; with LLaVA-NeXT's ``image_newline`` when the checkpoint has it."""
-    return load_hf_tensors(LlavaModel(config, dtype, device, has_image_newline(state)), state)
+    return materialize_on_device(model, generator.device, fill, after)
 
 
 @torch.no_grad()

@@ -176,9 +176,15 @@ def copy_checkpoint_tensor(dst: torch.Tensor, src: torch.Tensor, name: str) -> N
 
 
 @torch.no_grad()
-def load_hf_tensors(module: nn.Module, state: Mapping) -> nn.Module:
+def load_hf_tensors(module: nn.Module, state: Mapping, device=None, after=None) -> nn.Module:
     """Fill every parameter of ``module`` from ``state`` through the module's
-    ``hf_tensor(state, name)``, cast to the parameter's dtype, in place."""
-    for name, param in module.named_parameters():
-        copy_checkpoint_tensor(param, module.hf_tensor(state, name), name)
-    return module
+    ``hf_tensor(state, name)``, cast to the parameter's dtype, in place. A
+    module built on ``meta`` comes to ``device`` one submodule at a time, and
+    ``after(name, submodule)`` (tensor parallelism's shard hook) runs on each
+    once it is filled (:func:`~lmms_owc_tpu_torch.ops.quant.materialize_on_device`)."""
+    from lmms_owc_tpu_torch.ops.quant import materialize_on_device
+
+    def fill(name, t, _mod):
+        copy_checkpoint_tensor(t, module.hf_tensor(state, name), name)
+
+    return materialize_on_device(module, device, fill, after)

@@ -53,6 +53,7 @@ from lmms_owc_tpu_torch.ops.attention import (
     packed_vision_attention,
     vision_qkv_attention,
 )
+from lmms_owc_tpu_torch.ops.quant import materialize_on_device
 
 __all__ = [
     "Qwen2VLConfig",
@@ -61,6 +62,7 @@ __all__ = [
     "VisionTower",
     "decode_pool",
     "decode_step",
+    "embed_tokens",
     "get_rope_index",
     "greedy_generate",
     "init_params",
@@ -179,12 +181,13 @@ def _vision_packed_enabled(qkv: nn.Module, device: torch.device) -> bool:
     """Packed-qkv vision attention gate (``LMMS_OWC_VISION_PACKED``), read on every call.
 
     ``force`` enables it anywhere (CPU parity tests), ``1`` on CUDA; an int4
-    qkv projection never packs (its nibble layout does not re-pad). Off by
+    qkv projection never packs (its nibble layout does not re-pad), nor does
+    a tensor-parallel tower (its proj is row-parallel). Off by
     default, as in the JAX package: padding head_dim 80 to 128 widens the qkv
     product by 60% and the output projection's contraction likewise.
     """
     mode = os.environ.get("LMMS_OWC_VISION_PACKED", "")
-    if isinstance(qkv, Int4Linear):
+    if isinstance(qkv, Int4Linear) or getattr(qkv, "tp_sharded", False):
         return False
     if mode == "force":
         return True
@@ -290,6 +293,7 @@ class VisionTower(nn.Module):
         self.patch_embed = Linear(v.patch_dim, v.embed_dim, False, dtype, device)
         self.blocks = nn.ModuleList(VisionBlock(v, dtype, device) for _ in range(v.depth))
         self.merger = PatchMerger(v, hidden_size, dtype, device)
+        self.heads = v.num_heads  # this rank's attention heads (fewer under tensor parallelism)
         self._packed: tuple[tuple, list] | None = None  # (source key, padded (qkv, proj) per block)
 
     def hf_tensor(self, state, name: str) -> torch.Tensor:
@@ -348,7 +352,7 @@ class VisionTower(nn.Module):
             # The kernel reads q/k/v in place from the qkv output and writes the
             # layout proj consumes; rope rides its q/k tile loads.
             attn = attend(
-                qkv(blk.norm1(x)), v.num_heads, v.head_dim,
+                qkv(blk.norm1(x)), self.heads, v.head_dim,
                 kv_mask=patch_mask, rope_cos=cos, rope_sin=sin,
             )
             x = x + proj(attn)
@@ -362,6 +366,8 @@ class DecoderLayer(nn.Module):
     def __init__(self, c: "Qwen2VLConfig", dtype, device, attn_bias: bool = True) -> None:
         super().__init__()
         h, hd = c.hidden_size, c.head_dim
+        # This rank's query and KV heads (fewer under tensor parallelism).
+        self.heads, self.kv_heads = c.num_heads, c.num_kv_heads
         self.input_ln = RMSNorm(h, c.rms_norm_eps, dtype, device)
         self.q = Linear(h, c.num_heads * hd, attn_bias, dtype, device)
         self.k = Linear(h, c.num_kv_heads * hd, attn_bias, dtype, device)
@@ -414,10 +420,20 @@ class Qwen2VLModel(nn.Module):
             self.vision = Vision25Tower(vision25, dtype, device)
         else:
             self.vision = VisionTower(c.vision, c.hidden_size, dtype, device)
+        # Tensor parallelism (:mod:`lmms_owc_tpu_torch.parallel.sharding`): the
+        # model group, and the first vocabulary row of this rank's slice of
+        # the embedding and head when the vocabulary is sharded.
+        self.tp = None
+        self.vocab_start: int | None = None
 
     @property
     def dtype(self) -> torch.dtype:
         return self.embed_tokens.dtype
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads of this rank's cache."""
+        return self.layers[0].kv_heads
 
     @property
     def device(self) -> torch.device:
@@ -441,25 +457,30 @@ class Qwen2VLModel(nn.Module):
 
 
 @torch.no_grad()
-def init_params(model: Qwen2VLModel, generator: torch.Generator) -> Qwen2VLModel:
-    """Random-init in place on the model's device: every linear weight and the
-    token embedding ~ N(0, 1) * 0.02, biases zero, norm scales one (the
-    distribution of the JAX ``init_params``; the values differ).
+def init_params(model: Qwen2VLModel, generator: torch.Generator, after=None) -> Qwen2VLModel:
+    """Random-init in place on the generator's device: the token embedding,
+    then every linear weight in module order ~ N(0, 1) * 0.02, biases zero,
+    norm scales one (the distribution of the JAX ``init_params``; the values
+    differ).
 
     ``generator`` must live on the model's device; a 7B model is then drawn on
-    the card in seconds instead of minutes on the host.
+    the card in seconds instead of minutes on the host. A model built on
+    ``meta`` comes to the device one module at a time, and ``after`` (tensor
+    parallelism's shard hook, see
+    :func:`~lmms_owc_tpu_torch.ops.quant.materialize_on_device`) may keep a
+    slice of each module once drawn: the same draws, so the same weights as
+    an unsharded model from the same seed.
     """
-    model.embed_tokens.normal_(0.0, 0.02, generator=generator)
-    for module in model.modules():
+
+    def fill(name, t, module):
         if isinstance(module, Linear):
-            module.weight.normal_(0.0, 0.02, generator=generator)
-            if module.bias is not None:
-                module.bias.zero_()
+            t.normal_(0.0, 0.02, generator=generator) if name.endswith("weight") else t.zero_()
         elif isinstance(module, (LayerNorm, RMSNorm)):
-            module.weight.fill_(1.0)
-            if isinstance(module, LayerNorm):
-                module.bias.zero_()
-    return model
+            t.fill_(1.0) if name.endswith("weight") else t.zero_()
+        elif module is model and name == "embed_tokens":
+            t.normal_(0.0, 0.02, generator=generator)
+
+    return materialize_on_device(model, generator.device, fill, after)
 
 
 def _copy(dst: torch.Tensor, src: np.ndarray) -> None:
@@ -568,15 +589,17 @@ def params_from_jax(model: Qwen2VLModel, tree: dict) -> Qwen2VLModel:
     return model
 
 
-def load_hf_weights(model: Qwen2VLModel, state) -> Qwen2VLModel:
+def load_hf_weights(model: Qwen2VLModel, state, device=None, after=None) -> Qwen2VLModel:
     """Fill a float model from an HF Qwen2-VL or Qwen2.5-VL checkpoint's tensors
     (``state`` from :func:`~lmms_owc_tpu_torch.nn.loader.load_safetensors_state`),
     cast to the model's dtype, in place: the counterpart of
     ``convert_hf_weights`` / ``convert_hf_decoder_weights`` plus
     ``convert_hf_vision25_weights``, by :meth:`Qwen2VLModel.hf_tensor`'s names.
     The port's ``[out, in]`` layout is the checkpoint's, so nothing is
-    transposed; a model with tied embeddings has no ``lm_head`` to fill."""
-    return load_hf_tensors(model, state)
+    transposed; a model with tied embeddings has no ``lm_head`` to fill. A
+    model built on ``meta`` comes to ``device`` one module at a time, each
+    passed to ``after`` (:func:`~lmms_owc_tpu_torch.nn.loader.load_hf_tensors`)."""
+    return load_hf_tensors(model, state, device, after)
 
 
 # ====================================================================== positions
@@ -701,10 +724,30 @@ def mrope_cos_sin(position_ids: torch.Tensor, config: Qwen2VLConfig) -> tuple[to
 # ======================================================================== decoder
 
 
+def embed_tokens(model: Qwen2VLModel, ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings [..., hidden] of ``ids``. With the vocabulary sharded
+    this rank's rows look up the ids in its slice, the others give zeros, and
+    the model group sums them (exact: one addend is nonzero). An id outside
+    the vocabulary embeds to zeros, sharded or not: a random-init preset's
+    pad id can lie past its vocabulary (the flagship dry run's 151643 of
+    19456; the JAX lookup reads NaN rows there). Other models take the plain
+    lookup."""
+    table = model.embed_tokens
+    if model.vocab_start is None and model.config.pad_token_id < model.config.vocab_size:
+        return embedding(table, ids)
+    local = ids - (model.vocab_start or 0)
+    inside = (local >= 0) & (local < table.shape[0])
+    out = torch.where(inside[..., None], embedding(table, local.clamp(0, table.shape[0] - 1)), 0.0)
+    if model.vocab_start is None:
+        return out.to(table.dtype)
+    return model.tp.all_reduce(out.float().contiguous()).to(table.dtype)
+
+
 def _qkv(layer: DecoderLayer, x: torch.Tensor, config: Qwen2VLConfig):
-    """Rotated-later q [B, H, L, D], k and v [B, KVH, L, D] as views of the projections."""
+    """Rotated-later q [B, H, L, D], k and v [B, KVH, L, D] as views of the
+    projections, with this rank's head counts."""
     b, l, _ = x.shape
-    nh, kvh, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    nh, kvh, hd = layer.heads, layer.kv_heads, config.head_dim
     q = layer.q(x).view(b, l, nh, hd).transpose(1, 2)
     k = layer.k(x).view(b, l, kvh, hd).transpose(1, 2)
     v = layer.v(x).view(b, l, kvh, hd).transpose(1, 2)
@@ -728,8 +771,23 @@ def _head_logits(model: Qwen2VLModel, x: torch.Tensor) -> torch.Tensor:
     head multiplies bf16 x by its values in bf16 (f32 accumulation), then by the
     channel scale; an int4 head is its ``dense`` on bf16 x (K4 at decode rows),
     as the JAX package. The int8 head's bf16 copy of the vocab matrix is made
-    on each call.
+    on each call. With the vocabulary sharded, each rank's logits fill their
+    columns of a zero [B, vocab] tensor and the model group sums them, so
+    every rank holds the full logits (exact: one addend is nonzero).
     """
+    return _gather_vocab(model, _local_head_logits(model, x))
+
+
+def _gather_vocab(model: Qwen2VLModel, logits: torch.Tensor) -> torch.Tensor:
+    """This rank's vocabulary columns of the logits -> the full logits on every rank."""
+    if getattr(model, "vocab_start", None) is None:
+        return logits
+    full = logits.new_zeros(*logits.shape[:-1], model.config.vocab_size)
+    full[..., model.vocab_start : model.vocab_start + logits.shape[-1]] = logits
+    return model.tp.all_reduce(full)
+
+
+def _local_head_logits(model: Qwen2VLModel, x: torch.Tensor) -> torch.Tensor:
     head = model.lm_head
     if isinstance(head, Int8Linear):
         return _mm_f32(x.to(torch.bfloat16), head.q.to(torch.bfloat16)) * head.scale
@@ -788,7 +846,7 @@ def prefill(
     """
     c = model.config
     b, l, _ = input_embeds.shape
-    shape = (c.num_layers, b, c.num_kv_heads, cache_len, c.head_dim)
+    shape = (c.num_layers, b, model.kv_heads, cache_len, c.head_dim)
     cache_k = torch.zeros(shape, dtype=input_embeds.dtype, device=input_embeds.device)
     cache_v = torch.zeros_like(cache_k)
 
@@ -969,7 +1027,7 @@ def decode_step(
         # An int8 head multiplies in bf16 (``_head_logits``) even under W8A8.
         if isinstance(head, Int4Linear) and row_invariant(head, b):
             head_rows = max(b, REDUCE_ROWS)
-    x = embedding(model.embed_tokens, token_ids)[:, None, :]
+    x = embed_tokens(model, token_ids)[:, None, :]
     cos, sin = mrope_cos_sin(position_ids, c)
     for i, layer in enumerate(model.layers):
         q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), layer_rows, x)
@@ -991,7 +1049,9 @@ def decode_step(
             return t + layer.mlp(t)
 
         x = _row_blocks(post, layer_rows, x, attn.reshape(b, 1, -1))
-    return _row_blocks(lambda t: _head_logits(model, model.final_norm(t)), head_rows, x[:, 0])
+    # The vocabulary gather takes the batch's rows only, not a row block's padding.
+    logits = _row_blocks(lambda t: _local_head_logits(model, model.final_norm(t)), head_rows, x[:, 0])
+    return _gather_vocab(model, logits)
 
 
 def _sample_token(

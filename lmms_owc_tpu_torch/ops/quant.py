@@ -33,6 +33,8 @@ __all__ = [
     "dequantize_int8",
     "init_quantized_on_device",
     "load_quantized_on_device",
+    "materialize_on_device",
+    "pack_int4",
     "quantize_int4",
     "quantize_int8",
     "quantize_params_int4",
@@ -66,11 +68,14 @@ def quantize_int4(w: torch.Tensor, group: int = 128) -> dict:
     wf = w.float().reshape(*lead, d_out, d_in // group, group)
     scale = torch.clamp(wf.abs().amax(dim=-1) / 7.0, min=1e-12)
     q = torch.clamp(torch.round(wf / scale[..., None]), -7, 7).to(torch.int8)
-    q = q.reshape(*lead, d_out, d_in)
-    half = d_in // 2
+    return {"q4": pack_int4(q.reshape(*lead, d_out, d_in)), "scale": scale}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-7, 7], [..., out, in] -> the halves layout [..., out, in/2]."""
+    half = q.shape[-1] // 2
     lo, hi = q[..., :half], q[..., half:]
-    packed = torch.bitwise_or(torch.bitwise_left_shift(hi, 4), torch.bitwise_and(lo, 0xF))
-    return {"q4": packed.to(torch.int8), "scale": scale}
+    return torch.bitwise_or(torch.bitwise_left_shift(hi, 4), torch.bitwise_and(lo, 0xF)).to(torch.int8)
 
 
 def unpack_int4(qp: dict) -> torch.Tensor:
@@ -128,7 +133,32 @@ def quantize_params_int4(
 
 
 @torch.no_grad()
-def _materialize_quantized(model: nn.Module, device, bits: int, exclude: tuple[str, ...], dtype, weight, fill):
+def materialize_on_device(model: nn.Module, device, fill, after=None, only_meta: bool = False) -> nn.Module:
+    """Bring ``model`` to ``device`` one module at a time, in module order. A
+    module with a tensor on ``meta`` has its own tensors allocated on
+    ``device``, each written by ``fill(name, tensor, module)``; any other
+    module has its own parameters written (none with ``only_meta``). Then
+    ``after(name, module)`` runs: tensor parallelism's shard hook, which may
+    replace the module by its slice. Names are qualified parameter and module
+    names. The walk holds no module it has passed, so a module that ``after``
+    replaces is freed at once."""
+    for mod_name, mod in model.named_modules(remove_duplicate=False):
+        own = list(chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)))
+        if any(t.is_meta for _, t in own):
+            mod.to_empty(device=device, recurse=False)
+            targets = list(chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)))
+        else:
+            targets = [] if only_meta else list(mod.named_parameters(recurse=False))
+        for name, t in targets:
+            fill(f"{mod_name}.{name}" if mod_name else name, t, mod)
+        if after is not None:
+            after(mod_name, mod)
+    return model
+
+
+@torch.no_grad()
+def _materialize_quantized(model: nn.Module, device, bits: int, exclude: tuple[str, ...], dtype, weight, fill,
+                           after=None):
     """The walk shared by :func:`init_quantized_on_device` and
     :func:`load_quantized_on_device`: ``model`` (built on ``meta``) comes to
     ``device`` one module at a time. Each eligible ``Linear`` (int4: even
@@ -136,7 +166,11 @@ def _materialize_quantized(model: nn.Module, device, bits: int, exclude: tuple[s
     ``weight(name, (out, in))``, a ``dtype`` tensor on ``device`` that is
     dropped once quantized; every other tensor is allocated on ``device`` and
     written by ``fill(name, tensor, module)``. Names are the model's
-    qualified parameter names."""
+    qualified parameter names. ``after(name, module)`` (tensor parallelism's
+    shard hook) runs on each quantized module once it is made, and on every
+    other module once its tensors are written (:func:`materialize_on_device`);
+    it returns the module or the slice that replaces it, and leaves the
+    modules it made alone."""
     from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear
 
     cls = Int8Linear if bits == 8 else Int4Linear
@@ -148,17 +182,10 @@ def _materialize_quantized(model: nn.Module, device, bits: int, exclude: tuple[s
         new = cls.from_weight(weight(f"{name}.weight", (d_out, d_in)), lin.bias is not None, dtype)
         if new.bias is not None:
             fill(f"{name}.bias", new.bias, new)
-        return new
+        return new if after is None else after(name, new)
 
     _replace_linears(model, make, exclude)
-    for mod_name, mod in model.named_modules():
-        own = list(chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)))
-        if not any(t.is_meta for _, t in own):
-            continue
-        mod.to_empty(device=device, recurse=False)
-        for name, t in chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)):
-            fill(f"{mod_name}.{name}" if mod_name else name, t, mod)
-    return model
+    return materialize_on_device(model, device, fill, after, only_meta=True)
 
 
 def init_quantized_on_device(
@@ -167,6 +194,7 @@ def init_quantized_on_device(
     bits: int = 8,
     exclude: tuple[str, ...] = DEFAULT_EXCLUDE,
     dtype=torch.bfloat16,
+    after=None,
 ) -> nn.Module:
     """Random-init ``model``, built on the ``meta`` device, on the generator's
     device with its eligible linear layers int8 or int4.
@@ -176,7 +204,9 @@ def init_quantized_on_device(
     tree never exists (a 7B model is about 16.6 GB in bf16, 8.8 GB in int8).
     The other tensors follow the JAX package's convention by name: biases
     zero, norm scales one, everything else ``N(0, 1) * 0.02``. Values differ
-    from the JAX stream; the distribution is the same.
+    from the JAX stream; the distribution is the same. ``after`` is
+    :func:`_materialize_quantized`'s shard hook: a sharded model draws the
+    full tensors in the same order and keeps its slices.
     """
     from lmms_owc_tpu_torch.nn.layers import LayerNorm, RMSNorm
 
@@ -193,7 +223,7 @@ def init_quantized_on_device(
         else:
             t.copy_(draw(name, t.shape))
 
-    return _materialize_quantized(model, device, bits, exclude, dtype, draw, fill)
+    return _materialize_quantized(model, device, bits, exclude, dtype, draw, fill, after)
 
 
 def load_quantized_on_device(
@@ -203,6 +233,7 @@ def load_quantized_on_device(
     exclude: tuple[str, ...] = DEFAULT_EXCLUDE,
     dtype=torch.bfloat16,
     device="cuda",
+    after=None,
 ) -> nn.Module:
     """Load ``model``, built on the ``meta`` device, from a checkpoint's lazy
     ``state`` onto ``device`` with its eligible linear layers int8 or int4.
@@ -214,7 +245,8 @@ def load_quantized_on_device(
     quantized model plus one weight in ``dtype`` and the quantizer's blocks.
     The int leaves are those of the JAX package's ``quantize_int8`` /
     ``quantize_int4`` applied to the weight cast to ``dtype``. Every other
-    tensor is copied in, cast to its module's dtype.
+    tensor is copied in, cast to its module's dtype. ``after`` is
+    :func:`_materialize_quantized`'s shard hook.
     """
     from lmms_owc_tpu_torch.nn.loader import copy_checkpoint_tensor
 
@@ -229,4 +261,4 @@ def load_quantized_on_device(
     def fill(name, t, _mod):
         copy_checkpoint_tensor(t, model.hf_tensor(state, name), name)
 
-    return _materialize_quantized(model, device, bits, exclude, dtype, weight, fill)
+    return _materialize_quantized(model, device, bits, exclude, dtype, weight, fill, after)

@@ -8,6 +8,7 @@ document iteration and prompt construction.
 from __future__ import annotations
 
 import os
+import tempfile
 from pathlib import Path
 
 import dill
@@ -45,10 +46,19 @@ def load_from_cache(file_name: str):
 
 
 def save_to_cache(file_name: str, obj) -> None:
+    """Write ``obj`` under ``file_name``. The ranks of one model group share
+    a key and may write it at once: each writes a file of its own and renames
+    it into place, so a reader never sees a torn file."""
     path = _path_for(file_name)
     path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "wb") as f:
-        dill.dump(obj, f)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=path.name, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            dill.dump(obj, f)
+        os.replace(tmp, path)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
     log.debug("saved request cache to %s", path)
 
 

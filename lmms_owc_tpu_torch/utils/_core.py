@@ -51,10 +51,16 @@ def foreach_chunk_pipelined(chunks: list, prepare, run, depth: int = 2, finish=N
     for chunk k runs after chunk k+1's dispatch and returns the outputs.
     Under ``LMMS_OWC_HOST_PROF`` the waits for a prepared chunk and the
     ``run`` and ``finish`` calls are timed (``prep_wait``, ``run_total``,
-    ``finish_total``; :mod:`lmms_owc_tpu_torch.utils._hostprof`).
+    ``finish_total``; :mod:`lmms_owc_tpu_torch.utils._hostprof`). ``depth`` 0
+    prepares each chunk in the calling thread just before its ``run``.
     """
     results: list = []
     if not chunks:
+        return results
+    if int(depth) == 0:
+        for chunk in chunks:
+            out = run(chunk, prepare(chunk))
+            results.extend(out if finish is None else finish(chunk, out))
         return results
     depth = max(1, int(depth))
     with ThreadPoolExecutor(max_workers=1) as pool:

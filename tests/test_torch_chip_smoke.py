@@ -540,7 +540,8 @@ def test_llava_checkpoint_writer_round_trip(tmp_path):
 
     cfg = dict(PRESET_CONFIGS["llava-tiny"], model_type="llava", pad_token_id=32001)
     cfg["text_config"] = dict(cfg["text_config"], tie_word_embeddings=False)
-    written = lv.init_llava_params(lv.llava_config_from_hf(cfg), torch.Generator().manual_seed(0), torch.float32)
+    written = lv.init_llava_params(lv.LlavaModel(lv.llava_config_from_hf(cfg), torch.float32, "meta"),
+                                   torch.Generator().manual_seed(0))
     chip_smoke.write_llava_checkpoint(written, cfg, tmp_path, "tiny")
     hf = LlavaForConditionalGeneration.from_pretrained(str(tmp_path))
     hf_state = hf.state_dict()
@@ -937,3 +938,75 @@ def test_phi3v_checkpoint_writer_round_trip(tmp_path, monkeypatch):
     ids = Tokenizer.from_file(str(ckpt / "tokenizer.json")).encode(prompt).ids
     assert loaded.tokenizer.encode(prompt) == ids
     assert {32010, 32044, 32007, 32001} <= set(ids) and ids[0] == 1
+
+
+def _tp_results(fault: str | None):
+    """Rank 0's phase-25 output as ``check_tp_results`` reads it, with one ``fault``."""
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(0)
+    steps, refs, logits, forms = 63, {}, {}, {}
+    for label, key in (("bf16", "bf16"), ("int8_w8a8_kv_int8", "int8_w8a8"), ("int4", "int4")):
+        base = torch.randn(8, 512, generator=gen)
+        tokens = np.arange(8 * 64).reshape(8, 64) % 97
+        refs[key] = {"logits": base, "tokens": tokens}
+        noise = torch.randn(8, 512, generator=gen)
+        if label == "int8_w8a8_kv_int8" and fault not in (f"logits {label}", "w8a8 last bits"):
+            noise.zero_()  # the row-parallel W8A8 product is the unsharded one
+        logits[label] = base + (1.0 if fault == f"logits {label}" else 1e-3) * noise
+        decode = "gqa_decode_attention_int8" if "kv_int8" in label else "gqa_decode_attention"
+        counts = {"vision_qkv_attention": 32, "flash_attention": 28, "gqa_decode_attention": 0,
+                  "gqa_decode_attention_int8": 0, "int4_matmul": 0}
+        counts[decode] = 28 * steps if fault != f"launches {label}" else 27
+        if label == "int4":
+            counts["int4_matmul"] = cs.MIN_LAUNCHES_PER_DECODE_STEP["int4_matmul"] * steps
+        got = tokens.copy()
+        if fault == f"tokens {label}":
+            got[3, 40] += 1
+        forms[label] = {"decode_steps": steps, "counts": counts, "tokens": got.tolist()}
+    refs["bf16"]["exact"] = refs["bf16"]["logits"]
+    flagship = ["tok1 tok2", "tok3", "", "tok4"]
+    answers = ["yes"] * 255 + ["no"]
+    out = {"forms": forms, "flagship": flagship[:3] + (["tok5"] if fault == "flagship" else flagship[3:]),
+           "judge": {"answers": answers[:-1] + (["yes"] if fault == "judge" else ["no"]), "ranks": 2}}
+    return out, logits, flagship, refs, answers
+
+
+@pytest.mark.parametrize("fault", [None, "logits bf16", "logits int8_w8a8_kv_int8", "logits int4",
+                                   "w8a8 last bits", "tokens int8_w8a8_kv_int8",
+                                   "launches bf16", "launches int8_w8a8_kv_int8", "flagship", "judge"])
+def test_tensor_parallel_phase_gates(fault):
+    """Phase 25's gates: the logits rule per form (bf16 against f32
+    attention, the quantized forms against their unsharded logits; W8A8
+    bit-equal to them, every token the same), each form's decode kernel (the
+    int8 cache's for W8A8) in every step, the flagship preset's rows and the
+    judge's answers."""
+    import chip_smoke as cs
+
+    args = _tp_results(fault)
+    if fault is None:
+        out = cs.check_tp_results(*args, plain_vs_exact=0.04)
+        assert out["flagship"] == {"rows": 4, "same_rows": 4} and out["judge"]["same_rows"] == 256
+        assert all(run["token_agreement"] == 1.0 for run in out["forms"].values())
+    else:
+        with pytest.raises(AssertionError):
+            cs.check_tp_results(*args, plain_vs_exact=0.04)
+
+
+def test_tensor_parallel_phase_shapes():
+    """Phase 2's sharded K4 shapes (K -> N) and head counts are those of one
+    rank of ``qwen2-vl-7b`` at tp = 2, read off the port's sharding of the
+    model built on ``meta``."""
+    import chip_smoke as cs
+    from lmms_owc_tpu_torch.models.qwen2_vl import PRESET_CONFIGS
+    from lmms_owc_tpu_torch.nn import qwen2_vl as qvl
+    from lmms_owc_tpu_torch.parallel.mesh import ModelGroup
+    from lmms_owc_tpu_torch.parallel.sharding import shard_model
+
+    model = qvl.Qwen2VLModel(qvl.Qwen2VLConfig.from_hf_dict(PRESET_CONFIGS["qwen2-vl-7b"]), torch.bfloat16, "meta")
+    shard_model(model, ModelGroup(None, 0, cs.TP_RANKS))
+    layer = model.layers[0]
+    want = {"q": layer.q, "o": layer.o.inner, "k/v": layer.k, "gate/up": layer.up, "down": layer.down.inner,
+            "lm_head": model.lm_head}
+    assert {name: tuple(lin.weight.shape[::-1]) for name, lin in want.items()} == cs.TP_INT4_SHAPES
+    assert (layer.heads, layer.kv_heads, model.vision.heads) == (14, 2, 8)

@@ -91,6 +91,24 @@ def test_port_module_imports_no_jax_package(path):
     assert _imports_of(path, OPTIONAL, optional_ok=True) == []
 
 
+def test_parallel_and_jpeg_modules_load_no_jax():
+    """The tensor-parallel modules and the JPEG binding are walked by the
+    static check above, and load neither ``jax`` nor ``lmms_owc_tpu``."""
+    walked = {str(p.relative_to(REPO_ROOT)) for p in PORT_FILES}
+    assert {"lmms_owc_tpu_torch/parallel/mesh.py", "lmms_owc_tpu_torch/parallel/sharding.py",
+            "lmms_owc_tpu_torch/parallel/dryrun.py", "lmms_owc_tpu_torch/native/__init__.py"} <= walked
+    code = (
+        "import sys\n"
+        "import lmms_owc_tpu_torch.parallel.dryrun, lmms_owc_tpu_torch.parallel.sharding\n"
+        "from lmms_owc_tpu_torch.native import NativeImageLoader, native_loader_available\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib') or k.startswith(('jax.', 'jaxlib.'))\n"
+        "             or (k.startswith('lmms_owc_tpu') and not k.startswith('lmms_owc_tpu_torch')))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_static_check_sees_absent_packages(tmp_path):
     src = tmp_path / "m.py"
     src.write_text(

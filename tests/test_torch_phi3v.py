@@ -360,9 +360,49 @@ def test_published_preset_widths():
 
 
 def test_quantized_loads_are_refused():
-    for flag in ("load_in_8bit", "load_in_4bit"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_model("phi3v-tiny", dtype="float32", device="cpu", **{flag: True})
+    """Kept under its name, now the other way round: ``load_in_8bit`` /
+    ``load_in_4bit`` are served (drawn and quantized one layer at a time),
+    the linear layers the JAX base class's generic path quantizes turned
+    int8/int4, ``patch_embed`` kept in full precision; the mesh flags, which
+    the JAX adapter ignores, are refused."""
+    from lmms_owc_tpu_torch.nn.layers import Int4Linear, Int8Linear, Linear
+
+    for flag, cls in (("load_in_8bit", Int8Linear), ("load_in_4bit", Int4Linear)):
+        model = get_model("phi3v-tiny", dtype="float32", device="cpu", **{flag: True})
+        kinds = {name: type(m) for name, m in model.model.named_modules() if isinstance(m, (Linear, cls))}
+        assert kinds.pop("vision.patch_embed", Linear) is Linear
+        assert kinds and set(kinds.values()) == {cls}
+        assert not model.model.sub_gn.any() and not model.model.glb_gn.any()
+    with pytest.raises(ValueError, match="no tensor-parallel path"):
+        get_model("phi3v-tiny", dtype="float32", device="cpu", model_parallel=2)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_checkpoint_matches_jax(checkpoint_pair, monkeypatch, bits):
+    """The released-layout checkpoint loaded with ``load_in_8bit`` /
+    ``load_in_4bit`` in both packages (JAX: the base class's generic path,
+    host build then ``stream_quantize_to_device``; the port: each layer read,
+    quantized on the device and dropped): the same int leaves and the same tokens."""
+    _, _, path = checkpoint_pair
+    flag = {f"load_in_{bits}bit": True}
+    jax_model = jax_adapter.Phi3v(pretrained=str(path), preset="phi3v-tiny", batch_size=4, dtype="float32",
+                                  num_crops=4, **flag)
+    port = adapter.Phi3v(pretrained=str(path), preset="phi3v-tiny", batch_size=4, dtype="float32", device="cpu",
+                         num_crops=4, **flag)
+    tree = jax.tree_util.tree_map(np.asarray, jax_model.params)
+    key, leaf = ("w_q8", "q") if bits == 8 else ("w_q4", "q4")
+    down = port.model.text.layers[1].down
+    np.testing.assert_array_equal(getattr(down, leaf).numpy(), tree["text"]["layers"]["mlp"]["down"][key][leaf][1].T)
+    np.testing.assert_array_equal(port.model.projector.fc1.scale.numpy().T if bits == 4 else
+                                  port.model.projector.fc1.scale.numpy(), tree["projector"]["fc1"][key]["scale"])
+    for m in (jax_model, port):
+        m.task_dict["smoke"] = _Task(_docs(3))
+    requests = [_Req((p, GEN, _visuals(n), i, "smoke", "test"))
+                for i, (p, n) in enumerate([("What is this?", 1), ("Describe it.", 0), ("Colour?", 1)])]
+    want, got, want_tokens, got_tokens = generate_both(monkeypatch, jax_model, port, requests)
+    assert got == want
+    for a, b in zip(got_tokens, want_tokens):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_entry_points_run_on_the_card_unless_asked():

@@ -7,7 +7,10 @@ for an unknown type, and, for ``model_type=llava`` on the tiny LLaVA
 checkpoint of ``tests/test_torch_llava.py`` (the one of
 ``tests/test_checkpoint_matrix.py`` has a pad id of 0, which the LLaVA
 adapters read as 32001, past its 512-token vocabulary: the port refuses it),
-the tokens of ``llava-tiny`` built from the same directory.
+the tokens of ``llava-tiny`` built from the same directory. Every family's
+``PRESET_CONFIGS`` holds the JAX adapter's presets, name for name and value
+for value (the port lacked ``qwen2-vl-flagship-dryrun`` until it took the
+tensor-parallel dry run).
 """
 
 import numpy as np
@@ -25,6 +28,17 @@ from tests.test_torch_onevision import _Req, _Task
 def test_port_registers_every_jax_name():
     assert sorted(set(jax_models.MODELS) - set(MODELS)) == []
     assert {"custom-model", "phi3v", "phi3v-tiny"} <= set(MODELS)
+
+
+@pytest.mark.parametrize("family", ["qwen2_vl", "llava_hf", "llava_onevision", "idefics2", "internvl2",
+                                    "instructblip", "phi3v"])
+def test_presets_match_jax(family):
+    import importlib
+
+    want = importlib.import_module(f"lmms_owc_tpu.models.{family}").PRESET_CONFIGS
+    got = importlib.import_module(f"lmms_owc_tpu_torch.models.{family}").PRESET_CONFIGS
+    assert sorted(got) == sorted(want)
+    assert {name: got[name] for name in want} == want
 
 
 def test_custom_model_families_match_jax():
