@@ -7,7 +7,10 @@ Run from the repository root with no arguments::
 
 ``python3 chip_smoke.py --decode-rows-probe`` builds the kernels and then
 only times phase 3 with the adapter's decode row blocks and without them
-(:func:`probe_decode_rows`).
+(:func:`probe_decode_rows`). ``python3 chip_smoke.py --flash-wg-probe``
+builds them and then only times the flash kernel's Hopper instance at 1, 2
+and 3 warpgroups per CTA at the head_dim-64 towers' shapes
+(:func:`probe_flash_warpgroups`).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -29,10 +32,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape, and K5's packed entry at the Qwen2-VL tower's shape. Each row
    carries its bound (flops or bytes over the H100 SXM peaks) and the time of
    one PyTorch call computing the same function; ptxas's registers and
-   spills are printed first. The kernels' f32 forms, and the bf16 Hopper
+   spills are printed first. Each flash row's kernel symbol is read from
+   the profiler's events and held to its label: the Hopper instance
+   (``sm90::flash_kernel``), the general bf16 one, or, in f32, the 3xTF32
+   one (``tf32::flash_kernel``, its bound taken at a third of the TF32
+   tensor-core rate). The kernels' f32 forms, and the bf16 Hopper
    instances, are checked at small ragged shapes. Phases 14-17's shapes
-   are held too: K2's general instance at head_dim 64 (the LLaVA tower in
-   bf16 over 577 keys; the CLIP scorer's towers in f32), its Hopper instance
+   are held too: K2's Hopper instance at head_dim 64 (the LLaVA tower in
+   bf16 over 577 keys), its 3xTF32 instance (the CLIP scorer's towers in
+   f32), its Hopper instance
    at G = 1 (the Vicuna prefill at buckets 640 and 3072), and K3 at G = 1
    (bf16 and int8 over 704 positions, bf16 over llava-next's 3136). Phases
    18-20's shapes: K2 at head_dim 72 (the SigLIP towers) in bf16 over
@@ -43,7 +51,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes: K2 at head_dim 88 (BLIP ViT-g, tiles 96 columns wide) in bf16 over
    [8, 16, 257, 88] through the Hopper instance (the fused qkv's views) and
    the general one (a 90-element row stride), and in f32 at a ragged shape;
-   K2's general instance at head_dim 64 over InternViT's [20, 16, 1025, 64];
+   K2's Hopper instance at head_dim 64 over InternViT's [20, 16, 1025, 64],
+   and its general one at 64 over views with a 66-element row stride;
    K2's Hopper instance at G = 6 (Qwen2-1.5B) over a 2048 bucket and at
    G = 1 over the Vicuna prefill's 128; K3 at G = 6 (Hopper over 352
    positions, the general kernel over 2112) and at G = 1 over 192.
@@ -529,8 +538,16 @@ LONG_CACHE_TOL = {"bf16": (2e-3, 1e-2), "f32": (1e-4, 1e-5), "int8": (2e-3, 2e-2
 # Published H100 SXM peaks (NVIDIA data sheet; dense bf16 tensor cores, HBM3),
 # at the full 700 W power limit: the bounds of phase 2.
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # outside the tensor cores (the f32 flash kernel's CUDA-core products)
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores (K3's f32 form)
+# The f32 flash kernel runs three TF32 tensor-core products per product
+# (3xTF32, f32 accuracy): a third of the 494.7 TFLOP/s TF32 rate.
+PEAK_TF32_FLOPS = 494.7e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+F32_FLASH = "the 3xTF32 instance; bound at 494.7 / 3 TFLOP/s"
 PEAK_BYTES_PER_S = 3.35e12
+# The entries whose rows run the flash kernel (csrc/flash_attn.cu).
+FLASH_KERNELS = ("vision_qkv_attention", "flash_attention", "fused_qkv_attention", "packed_vision_attention",
+                 "flash_attention_tensor_mask")
 # Keys of each kernel row on the kernels line (and of its "also"/"all" rows).
 # Phase 25: tensor parallelism on the one card, two processes over gloo.
 TP_RANKS = 2
@@ -586,9 +603,14 @@ def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, iters: int = 20) -> float | None:
+def _device_time_us(event) -> float:
+    return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0))
+
+
+def _device_ms(fn, iters: int = 20, symbols: list | None = None) -> float | None:
     """Device time per call, summed over the kernels ``torch.profiler`` records
-    (launch overhead excluded); None when the profiler sees no device time."""
+    (launch overhead excluded); None when the profiler sees no device time.
+    The names of the kernels that ran go to ``symbols`` when it is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -598,28 +620,75 @@ def _device_ms(fn, iters: int = 20) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        for e in prof.key_averages()
-    )
+    events = prof.key_averages()
+    total_us = sum(_device_time_us(e) for e in events)
+    if symbols is not None:
+        symbols.extend(e.key for e in events if _device_time_us(e) > 0)
     return total_us / 1000 / iters if total_us > 0 else None
 
 
-def _timings(kernel, plain, library=None) -> dict[str, float | None]:
-    """Kernel, plain-version and (when given) library-call times on the same operands."""
+def _timings(kernel, plain, library=None) -> dict:
+    """Kernel, plain-version and (when given) library-call times on the same
+    operands, and the names of the kernels the kernel's call ran."""
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    def flash_launches() -> int:
+        return sum(att.launch_counts[name] for name in FLASH_KERNELS)
+
+    symbols: list[str] = []
+    before = flash_launches()
+    device_ms = _device_ms(kernel, symbols=symbols)
+    flash = flash_launches() > before
+    for _ in range(2):  # the profiler can drop a window's events: read the call again
+        if symbols and (not flash or _flash_instances(symbols)):
+            break
+        symbols.clear()
+        device_ms = _device_ms(kernel, symbols=symbols)
     return dict(
         ms=_median_ms(kernel), plain_ms=_median_ms(plain),
-        device_ms=_device_ms(kernel), plain_device_ms=_device_ms(plain),
+        device_ms=device_ms, plain_device_ms=_device_ms(plain),
         library_ms=_median_ms(library) if library is not None else None,
         library_device_ms=_device_ms(library) if library is not None else None,
+        kernel_symbols=sorted(set(symbols)),
     )
 
 
+def _flash_instances(symbols) -> set[str]:
+    """The flash kernel's instances among kernel names (demangled or not):
+    ``sm90`` (the Hopper bf16 kernel), ``tf32`` (the 3xTF32 f32 kernel) or
+    ``general`` (the general bf16 kernel)."""
+    found = set()
+    for name in symbols:
+        if "flash_kernel" in name:
+            found.add("sm90" if "sm90::" in name or "4sm90" in name
+                      else "tf32" if "tf32::" in name or "4tf32" in name else "general")
+    return found
+
+
+def _check_instance(shape: str, symbols) -> str | None:
+    """The flash instance a row's timed call ran, held to its label: an f32
+    row runs the 3xTF32 instance, a row labelled "general instance" the
+    general one, every other bf16 flash row (labelled or not) the Hopper one.
+    None for a row that ran no flash kernel."""
+    ran = _flash_instances(symbols)
+    if not ran:
+        return None
+    want = "tf32" if " f32" in shape else "general" if "general instance" in shape else "sm90"
+    if ran != {want}:
+        raise AssertionError(f"{shape}: ran the flash kernel's {sorted(ran)} instance(s) ({symbols}), "
+                             f"labelled {want}")
+    return want
+
+
 def _row(shape: str, err: float, timings: dict, bound: dict, library: str) -> dict:
-    """One kernel row: parity, times, the bound and its share of the device time."""
+    """One kernel row: parity, times, the bound and its share of the device
+    time; for a flash row, the instance the profiler saw it run."""
     device = timings["device_ms"]
+    symbols = timings.pop("kernel_symbols", [])
+    instance = _check_instance(shape, symbols)
     return dict(shape=shape, max_abs_err=err, **timings, **bound, library=library,
-                bound_share=bound["bound_ms"] / device if device else None)
+                bound_share=bound["bound_ms"] / device if device else None,
+                **({"instance": instance} if instance else {}))
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -730,7 +799,7 @@ def check_kernels(dev) -> dict[str, dict]:
     vq, vk, vv = qkv.view(n, p, 3, h, d).permute(2, 0, 3, 1, 4)
     library = _sdpa(apply_rope(vq, cos, sin), apply_rope(vk, cos, sin), vv, vmask.bool()[:, None, None, :])
     results["vision_qkv_attention"] = _row(
-        f"qkv [{n}, {p}, {3 * h * d}] bf16, rope, mask (0, 768) on {n // 2} rows", err,
+        f"qkv [{n}, {p}, {3 * h * d}] bf16, rope, mask (0, 768) on {n // 2} rows (the Hopper instance)", err,
         _timings(lambda: att.vision_qkv_attention(qkv, h, d, **kw),
                  lambda: att.vision_qkv_attention_plain(qkv, h, d, **kw), library),
         _attention_bound(vmask, h, h, p, d, causal=False, extra_bytes=2 * 4 * n * p * d // 2 + 8 * n), SDPA,
@@ -749,7 +818,7 @@ def check_kernels(dev) -> dict[str, dict]:
     valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)  # rows with a key
     err = _compare("flash_attention", got, want, valid_rows)
     results["flash_attention"] = _row(
-        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded", err,
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded (the Hopper instance)", err,
         _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                  lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
         _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
@@ -829,7 +898,11 @@ def check_kernels(dev) -> dict[str, dict]:
                 f"library {row['library_ms']} ms; device time (profiler) kernel {row['device_ms']} ms, "
                 f"plain {row['plain_device_ms']} ms, library {row['library_device_ms']} ms; bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['bound_share']} of the device time; "
-                f"library call: {row['library']}")
+                f"library call: {row['library']}{'; flash instance ' + row['instance'] if 'instance' in row else ''}")
+    for name in FLASH_KERNELS:  # every flash row's instance was read from the profiler
+        for label, row in [(name, results[name])] + list(results[name].get("also", {}).items()):
+            if "instance" not in row:
+                raise AssertionError(f"parity {name} {label}: the profiler named no flash kernel for this row")
     # The gappy-mask prefill is K2's tensor-mask form through flash_attention.
     gappy = results.pop("flash_attention_tensor_mask")
     results["flash_attention"].setdefault("also", {})["tensor_mask"] = gappy
@@ -840,7 +913,7 @@ def check_kernels(dev) -> dict[str, dict]:
 
 
 def check_scoring_shapes(dev, gen) -> dict[str, dict]:
-    """Phase 2 at phase 13's shapes: K2's general f32 instance at MiniLM's
+    """Phase 2 at phase 13's shapes: K2's 3xTF32 f32 instance at MiniLM's
     (q [1024, 12, 32, 32], right-padded rows of 3 to 32 tokens), K2's Hopper
     instance at the judge's prefill (q [64, 24, 128, 128] over k/v
     [64, 8, 128, 128], causal, left-padded), and K3 in bf16 and with the int8
@@ -864,10 +937,10 @@ def check_scoring_shapes(dev, gen) -> dict[str, dict]:
     err = _compare("flash_attention sbert", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                    att.flash_attention_plain(q, k, v, **kw), atol=SBERT_TOL, rtol=SBERT_TOL)
     rows["flash_attention"]["sbert"] = _row(
-        f"q/k/v [{b}, {h}, {l}, {d}] f32, rows of 3 to {l} valid keys from 0 (MiniLM-L6)", err,
+        f"q/k/v [{b}, {h}, {l}, {d}] f32, rows of 3 to {l} valid keys from 0 (MiniLM-L6; {F32_FLASH})", err,
         _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                  lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, smask.bool()[:, None, None, :])),
-        _attention_bound(smask, h, h, l, d, causal=False, extra_bytes=8 * b, elt=4, peak_flops=PEAK_F32_FLOPS),
+        _attention_bound(smask, h, h, l, d, causal=False, extra_bytes=8 * b, elt=4, peak_flops=PEAK_3XTF32_FLOPS),
         SDPA,
     )
     del q, k, v
@@ -929,10 +1002,10 @@ def check_scoring_shapes(dev, gen) -> dict[str, dict]:
 
 def check_llava_shapes(dev, gen) -> dict[str, dict]:
     """Phase 2 at phases 14-17's shapes, each held to its plain version with
-    its bound and SDPA's time: K2's general instance at head_dim 64 in bf16
-    over 577 keys (the LLaVA tower, non-causal, no mask), in f32 at the CLIP
-    scorer's tower ([64, 16, 257, 64]) and text tower (causal, [16, 12, 16,
-    64]); K2's Hopper instance at G = 1 for the Vicuna prefill (32/32 heads
+    its bound and SDPA's time: K2's Hopper instance at head_dim 64 in bf16
+    over 577 keys (the LLaVA tower, non-causal, no mask), its 3xTF32 f32
+    instance at the CLIP scorer's tower ([64, 16, 257, 64]) and text tower
+    (causal, [16, 12, 16, 64]); K2's Hopper instance at G = 1 for the Vicuna prefill (32/32 heads
     of 128, causal, left-padded to phases 15 and 17's prompt lengths) at
     llava-1.5's bucket 640 and llava-next's 3072; K3 at G = 1 in bf16 and
     int8 against the llava-1.5 cache [32, 8, 32, 704, 128], and in bf16
@@ -960,13 +1033,14 @@ def check_llava_shapes(dev, gen) -> dict[str, dict]:
                        att.flash_attention_plain(q, k, v, causal=causal), **tol)
         keys = torch.ones((b, l), dtype=torch.int32, device=dev)
         rows["flash_attention"][label] = _row(
-            f"q/k/v [{b}, {h}, {l}, {d}] {'f32' if f32 else 'bf16'}, {'causal' if causal else 'non-causal'}, no mask",
+            f"q/k/v [{b}, {h}, {l}, {d}] {'f32' if f32 else 'bf16'}, {'causal' if causal else 'non-causal'}, no mask "
+            f"({F32_FLASH if f32 else 'the Hopper instance'})",
             err,
             _timings(lambda: att.flash_attention(q, k, v, causal=causal),
                      lambda: att.flash_attention_plain(q, k, v, causal=causal),
                      _sdpa(q, k, v, _causal_keep(keys, l) if causal else None)),
             _attention_bound(keys, h, h, l, d, causal=causal, elt=4 if f32 else 2,
-                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+                             peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
             SDPA,
         )
         del q, k, v
@@ -1055,7 +1129,7 @@ def idefics2_patch_mask(sizes=IDEFICS2_SIZES, longest: int = 980, patch: int = 1
 def check_siglip_shapes(dev, gen) -> dict[str, dict]:
     """Phase 2 at phases 18-20's shapes, each held to its plain version with
     its bound and SDPA's time: K2 at head_dim 72 (its tiles padded to 80
-    columns; the Hopper instance in bf16, the general one in f32), in bf16
+    columns in bf16; the Hopper instance in bf16, the 3xTF32 one in f32), in bf16
     over LLaVA-OneVision's anyres tiles ([5, 16, 729, 72], no mask: the
     contiguous form's full run) and over
     Idefics2's padded batch (the tensor-mask form, [4, 16, 1536, 72] with the
@@ -1096,13 +1170,14 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
         keys = mask if mask is not None else torch.ones((n, length), dtype=torch.int32, device=dev)
         form = "no mask" if mask is None else ("(start, end) runs" if contiguous else "gappy int32 tensor mask")
         rows["flash_attention"][label] = _row(
-            f"q/k/v [{n}, {h}, {length}, {d}] {'f32' if f32 else 'bf16'}, non-causal, {form} (SigLIP, D = 72)", err,
+            f"q/k/v [{n}, {h}, {length}, {d}] {'f32' if f32 else 'bf16'}, non-causal, {form} (SigLIP, D = 72; "
+            f"{F32_FLASH if f32 else 'the Hopper instance'})", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=contiguous, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw),
                      _sdpa(q, k, v, None if mask is None else keys.bool()[:, None, None, :])),
             _attention_bound(keys, h, h, length, d, causal=False, elt=4 if f32 else 2,
                              extra_bytes=0 if mask is None else 4 * keys.numel(),
-                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+                             peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
             SDPA,
         )
         del q, k, v
@@ -1123,7 +1198,7 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
                        att.flash_attention_plain(q, k, v, **kw), valid_rows)
         rows["flash_attention"][label] = _row(
             f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, G = {nh // kvh}, causal, left-padded "
-            f"({'Mistral-7B' if kvh == 8 else 'Qwen2-7B'})", err,
+            f"({'Mistral-7B' if kvh == 8 else 'Qwen2-7B'}; the Hopper instance)", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
             _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
@@ -1170,9 +1245,10 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
     instance (head-offset views of the fused qkv projection, as the tower
     passes them) and once through the general one (views with a 90-element
     row stride, which the Hopper instance does not take), and in f32 (the
-    general instance) at a ragged [2, 16, 200, 88] with (start, end) runs
-    (block_k < L); K2's general bf16 instance at head_dim 64 over InternViT's
-    [20, 16, 1025, 64] (phase 21's 20 tiles); K2's Hopper instance at G = 6
+    3xTF32 instance) at a ragged [2, 16, 200, 88] with (start, end) runs
+    (block_k < L); K2 at head_dim 64, the Hopper instance over InternViT's
+    [20, 16, 1025, 64] (phase 21's 20 tiles) and the general one over views
+    of [8, 16, 577, 64] with a 66-element row stride; K2's Hopper instance at G = 6
     (Qwen2-1.5B: 12/2 heads of 128) over phase 21's prompts in the 2048
     bucket and at G = 1 over the Vicuna prefill's bucket 128; K3 at G = 6,
     the Hopper instance over a 352-position cache (a chunk of 448x448 images)
@@ -1198,9 +1274,11 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
          "bf16, head-offset views of the fused qkv [8, 257, 3, 16, 88] (the Hopper instance)"),
         ("blip_tower_general", wide, None, "bf16, views with a 90-element row stride (the general instance)"),
         ("d88_ragged_f32", [randn(torch.float32, 2, h, 200, d) for _ in range(3)], cmask,
-         "f32, (start, end) runs (0, 200) and (37, 170) (the general instance)"),
+         f"f32, (start, end) runs (0, 200) and (37, 170) ({F32_FLASH})"),
         ("internvit_tower", [randn(torch.bfloat16, 20, 16, 1025, 64) for _ in range(3)], None,
-         "bf16, InternViT-300M's 20 tiles (the general instance at D = 64)"),
+         "bf16, InternViT-300M's 20 tiles (the Hopper instance at D = 64)"),
+        ("d64_general", [randn(torch.bfloat16, 8, 16, 577, 66)[..., :64] for _ in range(3)], None,
+         "bf16, views with a 66-element row stride (the general instance at D = 64)"),
     ):
         n, nh, length, dim = q.shape
         f32 = q.dtype == torch.float32
@@ -1219,7 +1297,7 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
                      _sdpa(q, k, v, None if mask is None else keys.bool()[:, None, None, :])),
             _attention_bound(keys, nh, nh, length, dim, causal=False, elt=4 if f32 else 2,
                              extra_bytes=0 if mask is None else 8 * n,
-                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+                             peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
             SDPA,
         )
         del q, k, v
@@ -1243,7 +1321,7 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
                        att.flash_attention_plain(q, k, v, **kw), valid_rows)
         rows["flash_attention"][label] = _row(
             f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, G = {nh // kvh}, causal, left-padded "
-            f"({model})", err,
+            f"({model}; the Hopper instance)", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
             _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
@@ -1289,10 +1367,10 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
     MHA) over phase 24's prompts, causal and left-padded in their bucket
     (:func:`phi3v_prompt_tokens`); K2's general instance at head_dim 96 in
     bf16 (views with a 98-element row stride, which the Hopper instance does
-    not take) and in f32 at a ragged [2, 32, 200, 96] with (start, end) runs
-    (block_k < L: the multi-block online softmax); K2's general bf16 instance
-    at head_dim 64 over the Phi-3 tower's [17, 16, 577, 64] (a 448x448 image's
-    global view and 16 crops); K3's general kernel at head_dim 96, G = 1, over
+    not take) and its 3xTF32 f32 instance at a ragged [2, 32, 200, 96] with
+    (start, end) runs (block_k < L: the multi-block online softmax); K2's
+    Hopper instance at head_dim 64 over the Phi-3 tower's [17, 16, 577, 64]
+    (a 448x448 image's global view and 16 crops); K3's general kernel at head_dim 96, G = 1, over
     phase 24's decode cache in bf16 and f32, held to ``LONG_CACHE_TOL``.
     Returns ``{kernel: {label: row}}``."""
     import torch
@@ -1345,9 +1423,9 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
     cmask = ((pos[None] >= runs[:, :1]) & (pos[None] < runs[:, 1:])).to(torch.int32)
     for label, (q, k, v), mask, form in (
         ("d96_ragged_f32", [randn(torch.float32, 2, nh, 200, hd) for _ in range(3)], cmask,
-         "f32, (start, end) runs (0, 200) and (37, 170) (the general instance)"),
+         f"f32, (start, end) runs (0, 200) and (37, 170) ({F32_FLASH})"),
         ("phi3_tower", [randn(torch.bfloat16, 17, 16, 577, 64) for _ in range(3)], None,
-         "bf16, a 448x448 image's global view and 16 crops through CLIP-L/336 (the general instance at D = 64)"),
+         "bf16, a 448x448 image's global view and 16 crops through CLIP-L/336 (the Hopper instance at D = 64)"),
     ):
         n, heads, length, dim = q.shape
         f32 = q.dtype == torch.float32
@@ -1366,7 +1444,7 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
                      _sdpa(q, k, v, None if mask is None else keys.bool()[:, None, None, :])),
             _attention_bound(keys, heads, heads, length, dim, causal=False, elt=4 if f32 else 2,
                              extra_bytes=0 if mask is None else 8 * n,
-                             peak_flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS),
+                             peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
             SDPA,
         )
         del q, k, v
@@ -1774,6 +1852,16 @@ def check_f32_kernels(dev, gen) -> None:
     kw = dict(kv_mask=fmask, rope_cos=cos[:, :100], rope_sin=sin[:, :100], token_major=True)
     errs.append((att.fused_qkv_attention(qkvh.view(2, 100, 6, 80), 2, 2, **kw)
                  - att.fused_qkv_attention_plain(qkvh.view(2, 100, 6, 80), 2, 2, **kw)).abs().max())
+    # The 3xTF32 instance's 4-byte copies (rows with a 65-element stride, not
+    # 16-byte aligned), causal over two key tiles, and head_dim 16 with runs.
+    q, k, v = (randn(2, 4, 130, 65)[..., :64] for _ in range(3))
+    errs.append((att.flash_attention(q, k, v, causal=True) - att.flash_attention_plain(q, k, v, causal=True)).abs().max())
+    q, k, v = (randn(3, 4, 40, 16) for _ in range(3))
+    rmask = torch.ones((3, 40), dtype=torch.int32, device=dev)
+    rmask[1, 33:] = 0
+    rmask[2, :9] = 0
+    got = att.flash_attention(q, k, v, kv_mask=rmask, kv_mask_contiguous=True)
+    errs.append((got - att.flash_attention_plain(q, k, v, kv_mask=rmask)).abs().max())
     qd, ck, cv = randn(2, 8, 64), randn(3, 2, 2, 100, 64), randn(3, 2, 2, 100, 64)
     dmask = torch.ones((2, 100), dtype=torch.int32, device=dev)
     dmask[0, :30] = 0
@@ -1787,7 +1875,8 @@ def check_f32_kernels(dev, gen) -> None:
         errs.append((i4.int4_matmul(x, qp["q4"], qp["scale"]) - i4.int4_matmul_plain(x, qp["q4"], qp["scale"])).abs().max())
     errs = [float(e) for e in errs]
     log(f"f32 forms (vision D=80, prefill D=64 L=130, the same with a gappy mask, combined qkv D=80 "
-        f"L=100 with a gappy mask, decode D=64 with an f32 and an int8 cache, "
+        f"L=100 with a gappy mask, D=64 L=130 causal on a 65-element row stride, D=16 L=40 with runs, "
+        f"decode D=64 with an f32 and an int8 cache, "
         f"int4 M=5 K=512 N=256 in groups of 128, 64, 8): max abs errs {errs}")
     if not all(e <= tol for e in errs):
         raise AssertionError(f"f32 kernel forms disagree with their plain versions beyond {tol}: {errs}")
@@ -4630,6 +4719,52 @@ def _pool_divergence(model) -> dict:
     return out
 
 
+# The head_dim-64 towers' attention: the LLaVA tower (CLIP-L/336, batch 8),
+# the Phi-3 tower (a global view and 16 crops), InternViT-300M (20 tiles).
+FLASH_WG_SHAPES = {"llava_tower": (8, 16, 577, 64), "phi3_tower": (17, 16, 577, 64),
+                   "internvit_tower": (20, 16, 1025, 64)}
+
+
+def probe_flash_warpgroups(dev) -> dict:
+    """The flash kernel's Hopper instance at 1, 2 and 3 warpgroups per CTA
+    (64 query rows each) and at its own choice (0), at ``FLASH_WG_SHAPES`` in
+    bf16, non-causal, no mask: each form held to the plain version within
+    ``TOL``, then its device ms (profiler, mean of 20) read in the order 0, 1,
+    2, 3, 3, 2, 1, 0 and averaged per form, beside SDPA's. A diagnostic of the
+    rule in ``sm90::warpgroups``; the smoke run does not call it."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    forms = (0, 1, 2, 3)
+    out = {}
+    for label, (b, h, l, d) in FLASH_WG_SHAPES.items():
+        q, k, v = (torch.randn((b, h, l, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+        want = att.flash_attention_plain(q, k, v)
+        result = torch.empty_like(q)
+
+        def run(wg):
+            att._launch_flash("flash_attention", q, k, v, result, causal=False, kv_mask=None,
+                              kv_mask_contiguous=False, scale=d ** -0.5, rope_cos=None, rope_sin=None, warpgroups=wg)
+            return result
+
+        row: dict = {"shape": [b, h, l, d], "max_abs_err": {}, "device_ms": {wg: [] for wg in forms}}
+        for wg in forms:
+            row["max_abs_err"][wg] = _compare(f"flash_attention {label} warpgroups={wg}", run(wg), want)
+        for wg in forms + forms[::-1]:
+            symbols: list[str] = []
+            row["device_ms"][wg].append(_device_ms(lambda: run(wg), symbols=symbols))
+            if _flash_instances(symbols) != {"sm90"}:
+                raise AssertionError(f"{label} warpgroups={wg}: ran {symbols}")
+        row["device_ms"] = {wg: sum(t) / len(t) for wg, t in row["device_ms"].items()}
+        row["sdpa_device_ms"] = _device_ms(_sdpa(q, k, v, None))
+        out[label] = row
+        del q, k, v, want, result
+        torch.cuda.empty_cache()
+    return out
+
+
 def probe_decode_rows(dev) -> dict:
     """Phase 3's bf16 model and requests served with the adapter's decode row
     blocks (``DECODE_ROWS``) and without them (None), timed alternately
@@ -5046,8 +5181,13 @@ def main(argv: list[str] | None = None) -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
     for line in _ptxas_summary(_build.ptxas_report(lib_path)):
         log(f"ptxas: {line}")
-    if "--decode-rows-probe" in (sys.argv[1:] if argv is None else argv):
+    args = sys.argv[1:] if argv is None else argv
+    if "--decode-rows-probe" in args:
         log(f"decode rows probe: {json.dumps(probe_decode_rows(dev))}")
+        print(smi)
+        return 0
+    if "--flash-wg-probe" in args:
+        log(f"flash warpgroups probe ({smi}): {json.dumps(probe_flash_warpgroups(dev))}")
         print(smi)
         return 0
 
@@ -5182,7 +5322,7 @@ def main(argv: list[str] | None = None) -> int:
     also["flash_attention"]["phi3_tower"]["launches"] = k2(phi3v, "clip_vision_forward")
     also["flash_attention"]["phi3_prefill"]["launches"] = k2(phi3v, "prefill")
     for label in ("d72_contiguous_f32", "d72_tensor_f32", "blip_tower_general", "d88_ragged_f32", "d96_general",
-                  "d96_ragged_f32"):
+                  "d96_ragged_f32", "d64_general"):
         also["flash_attention"][label]["launches"] = 0  # parity forms no phase serves
     also["gqa_decode_attention"]["phi3_decode"]["launches"] = phi3v["counts"]["gqa_decode_attention"]
     also["gqa_decode_attention"]["phi3_decode_f32"]["launches"] = 0
@@ -5201,7 +5341,8 @@ def main(argv: list[str] | None = None) -> int:
         dict(
             name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
             launches=launches[name],
-            **{k: parity[name][k] for k in ROW_KEYS}, **{k: parity[name][k] for k in ("also", "all", "decode_step_m8") if k in parity[name]},
+            **{k: parity[name][k] for k in ROW_KEYS},
+            **{k: parity[name][k] for k in ("also", "all", "decode_step_m8", "instance") if k in parity[name]},
         )
         for name in KERNELS
     ]

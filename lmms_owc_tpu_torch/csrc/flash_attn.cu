@@ -23,37 +23,40 @@
 // elements of K and V (the ViT at L=1024, D=80; the prefill at L~320, D=128),
 // far above the card's ~295 flop/byte balance point.
 //
-// Two designs. The bf16 instances at head_dim 72 and 88 (without rope), 80,
-// 96 and 128 (every main-path shape, the SigLIP towers of LLaVA-OneVision
-// and Idefics2, BLIP ViT-g of InstructBLIP, Phi-3-mini's prefill) are the
-// Hopper kernel of namespace sm90 below: a cp.async ring of K/V stages,
-// wgmma for both products, rope once per token. The general kernel serves
-// f32, head_dims 16/32/64 (and 72 and 88 with rope) and views whose rows are
-// not 16-byte aligned, at every head_dim: the two products run on mma.sync
-// m16n8k16 bf16 tiles (f32: CUDA cores) with f32 accumulation, synchronous
-// loads, rope per tile. Both lay a head_dim of 72
+// Three designs. The bf16 instances at head_dim 64, 72 and 88 (without
+// rope), 80, 96 and 128 (every bf16 main-path shape: the CLIP-L towers of
+// LLaVA and Phi-3, InternViT-300M, the SigLIP towers of LLaVA-OneVision and
+// Idefics2, BLIP ViT-g of InstructBLIP, the decoders' prefill) are the Hopper
+// kernel of namespace sm90 below: a cp.async ring of K/V stages, wgmma for
+// both products, rope once per token. Every f32 call runs the kernel of
+// namespace tf32: both products on mma.sync m16n8k8 tf32 tiles with each
+// operand split in two (3xTF32, f32 accuracy), cp.async double buffering,
+// 16 to 64 query rows per CTA as the query needs. The general kernel serves
+// the rest of bf16: head_dims 16 and 32, 72 and 88 with rope, and views whose
+// rows are not 16-byte aligned, at every head_dim: the two products run on
+// mma.sync m16n8k16 bf16 tiles with f32 accumulation, synchronous loads, rope
+// per tile. The bf16 kernels lay a head_dim of 72
 // out as 80 columns in shared memory (tile_cols), and 88 as 96, the columns
 // past head_dim zero, so the QK product steps 16 columns at a time over them;
-// the output keeps its 72 or 88 columns. In both, the
+// the output keeps its 72 or 88 columns. In all three, the
 // score tile never leaves registers (its accumulator fragments are re-packed
 // as the A operand of the PV product); blocks that the causal diagonal or the
-// (start, end) key range exclude are skipped, and with a tensor mask (its own
-// template instance) tiles with no valid key are skipped before their loads.
+// (start, end) key range exclude are skipped, and with a tensor mask the bf16
+// kernels (each its own template instance) skip tiles with no valid key
+// before their loads.
 // Left for later work: TMA, warp specialisation, overlapping one tile's
 // softmax with the next tile's products.
 //
 // Numerics: scores in f32, scaled by scale*log2(e) in f32, online softmax in
-// base 2. p is rounded to the input type for the PV product (as the TPU kernel
-// does); the running sum uses the f32 p. Rope rotates in f32 and rounds once to
-// the input type. A query row with no valid key writes zeros. f32 inputs run
-// the same tiling with CUDA-core dot products in place of the bf16 MMAs.
+// base 2. In bf16, p is rounded to the input type for the PV product (as the
+// TPU kernel does); the running sum uses the f32 p. Rope rotates in f32 and
+// rounds once to the input type. A query row with no valid key writes zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 // Mirrors FlashArgs in lmms_owc_tpu_torch/ops/_build.py (ctypes.Structure).
 struct FlashArgs {
@@ -73,6 +76,7 @@ struct FlashArgs {
   int batch, heads, kv_heads, lq, lk, head_dim, causal, dtype;  // dtype: 0 f32, 1 bf16
   float scale_log2;    // softmax scale * log2(e)
   void* k_rot;         // bf16 scratch [B, KVH, Lk, D] for the rotated keys (rope), or null
+  int warpgroups;      // the Hopper instances' warpgroups per CTA; 0: chosen by the query length
 };
 
 namespace {
@@ -90,17 +94,7 @@ constexpr int kPad = 8;        // shared-memory row padding (elements): no bank 
 // keep their layout.
 __host__ __device__ constexpr int tile_cols(int d) { return (d + 15) / 16 * 16; }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -131,15 +125,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
 // Copies token rows [row0, row0 + kRows) of one head into shared memory
 // [kRows][tile_cols(D) + kPad], zero-filling rows at or past `nrows`. With `cos` set, the
 // pair (i, i + D/2) of each row is rotated by the rope table in f32.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride, int row0,
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride, int row0,
                                           int nrows, const float* cos, const float* sin) {
   constexpr int kHalf = D / 2;
   constexpr int kLd = tile_cols(D) + kPad;
   if constexpr (tile_cols(D) != D) {  // zero the columns past head_dim (QK reads them)
     constexpr int kTail = tile_cols(D) - D;
     for (int idx = threadIdx.x; idx < kRows * kTail; idx += kThreads)
-      dst[(idx / kTail) * kLd + D + idx % kTail] = from_f<T>(0.f);
+      dst[(idx / kTail) * kLd + D + idx % kTail] = __float2bfloat16(0.f);
   }
   for (int idx = threadIdx.x; idx < kRows * kHalf; idx += kThreads) {
     const int r = idx / kHalf;
@@ -147,9 +141,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
     const int row = row0 + r;
     float x1 = 0.f, x2 = 0.f;
     if (row < nrows) {
-      const T* p = src + row * row_stride;
-      x1 = to_f(p[i]);
-      x2 = to_f(p[i + kHalf]);
+      const bf16* p = src + row * row_stride;
+      x1 = __bfloat162float(p[i]);
+      x2 = __bfloat162float(p[i + kHalf]);
       if (cos != nullptr) {
         const long long t = (long long)row * kHalf + i;
         const float c = cos[t], s = sin[t];
@@ -159,8 +153,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
         x2 = y2;
       }
     }
-    dst[r * kLd + i] = from_f<T>(x1);
-    dst[r * kLd + i + kHalf] = from_f<T>(x2);
+    dst[r * kLd + i] = __float2bfloat16(x1);
+    dst[r * kLd + i + kHalf] = __float2bfloat16(x2);
   }
 }
 
@@ -168,7 +162,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
 // m16n8 accumulator layout: row g (+8 for c >= 2), key j*8 + 2*tig + (c & 1).
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const __nv_bfloat16* qs,
-                                   const __nv_bfloat16* ks, int r_lo, int g, int tig, float*) {
+                                   const __nv_bfloat16* ks, int r_lo, int g, int tig) {
   constexpr int kLd = tile_cols(D) + kPad;
 #pragma unroll
   for (int kc = 0; kc < tile_cols(D) / 16; ++kc) {
@@ -185,30 +179,11 @@ __device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const __nv_bfloat16* 
   }
 }
 
-template <int D>
-__device__ __forceinline__ void qk(float (&s)[kBK / 8][4], const float* qs, const float* ks,
-                                   int r_lo, int g, int tig, float*) {
-  constexpr int kLd = tile_cols(D) + kPad;
-#pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float* qr = qs + (r_lo + (c >> 1) * 8) * kLd;
-      const float* kr = ks + (j * 8 + tig * 2 + (c & 1)) * kLd;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      s[j][c] += acc;
-    }
-  }
-}
-
 // o[n][c] += p @ V for this warp's 16 rows: row g (+8 for c >= 2), dim
-// n*8 + 2*tig + (c & 1). The bf16 form re-packs the score accumulators as the
-// A operand; the f32 form stages p through this warp's shared scratch.
+// n*8 + 2*tig + (c & 1), with the score accumulators re-packed as the A operand.
 template <int D>
 __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 8][4],
-                                   const __nv_bfloat16* vs, int g, int tig, float*) {
+                                   const __nv_bfloat16* vs, int g, int tig) {
   constexpr int kLd = tile_cols(D) + kPad;
 #pragma unroll
   for (int kc = 0; kc < kBK / 16; ++kc) {
@@ -227,39 +202,13 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 
   }
 }
 
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[kBK / 8][4],
-                                   const float* vs, int g, int tig, float* ps) {
-  constexpr int kLd = tile_cols(D) + kPad;
-#pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) ps[(g + (c >> 1) * 8) * kBK + j * 8 + tig * 2 + (c & 1)] = p[j][c];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float* pr = ps + (g + (c >> 1) * 8) * kBK;
-      const int col = n * 8 + tig * 2 + (c & 1);
-      float acc = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) acc = fmaf(pr[kk], vs[kk * kLd + col], acc);
-      o[n][c] += acc;
-    }
-  }
-  __syncwarp();
-}
-
-template <typename T, int D, bool kTensorMask>
+template <int D, bool kTensorMask>
 __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   constexpr int kLd = tile_cols(D) + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kBQ * kLd;
-  T* vs = ks + kBK * kLd;
-  float* ps = reinterpret_cast<float*>(vs + kBK * kLd);  // f32 form only: [4 warps][16][kBK]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kBQ * kLd;
+  bf16* vs = ks + kBK * kLd;
   __shared__ int mask_tile[kBK];  // the k tile's entries of a tensor mask
 
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -268,10 +217,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   const int g = lane >> 2, tig = lane & 3;
   const int q0 = qb * kBQ;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  bf16* op = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
   const float* cs = a.cos != nullptr ? a.cos + b * a.rope_sb : nullptr;
   const float* sn = a.sin != nullptr ? a.sin + b * a.rope_sb : nullptr;
   const int* mrow = kTensorMask ? a.mask + static_cast<long long>(b) * a.lk : nullptr;
@@ -286,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   const int offset = a.lk - a.lq;
   if (a.causal) k_hi = min(k_hi, min(q0 + kBQ, a.lq) + offset);
 
-  load_tile<T, D, kBQ>(qs, qp, a.q_sl, q0, a.lq, cs, sn);
+  load_tile<D, kBQ>(qs, qp, a.q_sl, q0, a.lq, cs, sn);
 
   float o[D / 8][4];
 #pragma unroll
@@ -307,14 +256,14 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
       }
       if (!__syncthreads_or(any)) continue;  // no valid key in this tile (uniform branch)
     }
-    load_tile<T, D, kBK>(ks, kp, a.k_sl, kb0, a.lk, cs, sn);
-    load_tile<T, D, kBK>(vs, vp, a.v_sl, kb0, a.lk, nullptr, nullptr);
+    load_tile<D, kBK>(ks, kp, a.k_sl, kb0, a.lk, cs, sn);
+    load_tile<D, kBK>(vs, vp, a.v_sl, kb0, a.lk, nullptr, nullptr);
     __syncthreads();
 
     float s[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    qk<D>(s, qs, ks, r_lo, g, tig, ps);
+    qk<D>(s, qs, ks, r_lo, g, tig);
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -360,58 +309,56 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[n][c] *= corr[c >> 1];
     }
-    pv<D>(o, s, vs, g, tig, ps + warp * 16 * kBK);
+    pv<D>(o, s, vs, g, tig);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qi[r] >= a.lq) continue;
     const float inv = l_row[r] > 0.f ? 1.f / l_row[r] : 0.f;
-    T* orow = op + qi[r] * a.o_sl;
+    bf16* orow = op + qi[r] * a.o_sl;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      orow[n * 8 + tig * 2] = from_f<T>(o[n][2 * r] * inv);
-      orow[n * 8 + tig * 2 + 1] = from_f<T>(o[n][2 * r + 1] * inv);
+      orow[n * 8 + tig * 2] = __float2bfloat16(o[n][2 * r] * inv);
+      orow[n * 8 + tig * 2 + 1] = __float2bfloat16(o[n][2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int D, bool kTensorMask>
+template <int D, bool kTensorMask>
 cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (tile_cols(D) + kPad) * sizeof(T) +
-                          (std::is_same<T, float>::value ? 4 * 16 * kBK * sizeof(float) : 0);
+  constexpr size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (tile_cols(D) + kPad) * sizeof(bf16);
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance
-      flash_kernel<T, D, kTensorMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_kernel<D, kTensorMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.lq + kBQ - 1) / kBQ, a.heads, a.batch);
-  flash_kernel<T, D, kTensorMask><<<grid, kThreads, smem, stream>>>(a);
+  flash_kernel<D, kTensorMask><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  return a.mask != nullptr ? launch_masked<T, D, true>(a, stream)
-                           : launch_masked<T, D, false>(a, stream);
+  return a.mask != nullptr ? launch_masked<D, true>(a, stream) : launch_masked<D, false>(a, stream);
 }
 
-template <typename T>
+// The general bf16 kernel at every head_dim the wrapper takes.
 cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
   switch (a.head_dim) {
-    case 16: return launch<T, 16>(a, stream);
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 72: return launch<T, 72>(a, stream);
-    case 80: return launch<T, 80>(a, stream);
-    case 88: return launch<T, 88>(a, stream);
-    case 96: return launch<T, 96>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 16: return launch<16>(a, stream);
+    case 32: return launch<32>(a, stream);
+    case 64: return launch<64>(a, stream);
+    case 72: return launch<72>(a, stream);
+    case 80: return launch<80>(a, stream);
+    case 88: return launch<88>(a, stream);
+    case 96: return launch<96>(a, stream);
+    case 128: return launch<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 
 // ============================================================================
-// The Hopper design of the bf16 instances at head_dim 72, 80, 88, 96 and 128.
+// The Hopper design of the bf16 instances at head_dim 64, 72, 80, 88, 96 and 128.
 //
 // Head_dim 72 runs as 80: its q, k and v rows are nine 16-byte chunks, the
 // tenth chunk of each tile row is zero-filled (cp.async with no source
@@ -422,10 +369,14 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 // (72 / 2 and 88 / 2 are not whole numbers of 16-byte chunks). Head_dim 96
 // (Phi-3-mini's decoder) fills its twelve chunks: QK takes 6 k-steps, PV the
 // m64n96 product with every column stored, and rope runs as at 80 and 128.
+// Head_dim 64 (the CLIP-L towers, InternViT-300M) fills eight chunks: QK
+// takes 4 k-steps, PV the m64n64 product (32 accumulators a thread), and rope
+// runs on its 32-column halves, four chunks each, as at 80 and 128.
 //
 // A CTA of kWG warpgroups owns 64 * kWG query rows of one head: three
 // warpgroups (192 rows) share each K/V tile when the query is longer than 64
-// rows (the vision towers' 1024, the prefill), one takes a 64-row window.
+// rows (the vision towers' 1024, the prefill), one takes a 64-row window; at
+// head_dim 64 the count that pads the query least (warpgroups() below).
 //   * Copies: K and V tiles of 64 keys stream through a ring of kStages = 3
 //     shared-memory stages with 16-byte cp.async (zero-filled past the end),
 //     issued two tiles ahead, so the next tiles load while the current one is
@@ -434,8 +385,9 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 //     shared memory as K-major operands (head_dim/16 steps: 5 at D = 80);
 //     O += P V runs m64nDk16 with P re-packed from the S accumulators into
 //     bf16 A fragments in registers and V read as an MN-major operand
-//     (N = D = 80, 96 or 128, a multiple of 8). Tiles are stored as 8x8 core
-//     matrices (no swizzle: 160-byte rows do not fit the 128-byte pattern), so
+//     (N = D = 64, 80, 96 or 128, a multiple of 8). Tiles are stored as 8x8
+//     core matrices (no swizzle: 160-byte rows do not fit the 128-byte
+//     pattern; at head_dim 64, whose rows are 128 bytes, the same layout), so
 //     the same layout is K-major for Q and K and MN-major for V.
 //   * Rope, once per token: the q tile is rotated in f32 as it is read (once
 //     per CTA, that is once per query token and head); the keys are rotated
@@ -519,6 +471,15 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (m64n64) += A(64x16, bf16 fragments in registers) * B(16x64), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (m64n80) += A(64x16, bf16 fragments in registers) * B(16x80), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -548,6 +509,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_rs_n64(o, a, desc_b, 1);
+}
 template <>
 __device__ __forceinline__ void wgmma_pv<80>(float (&o)[40], const uint32_t (&a)[4], uint64_t desc_b) {
   wgmma_rs_n80(o, a, desc_b, 1);
@@ -941,12 +906,13 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
 }
 
 // Whether the Hopper instances take this call: bf16 at head_dim 72 or 88 (no
-// rope), 80, 96 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits shared
-// memory, and the keys' scratch when rope is on. Anything else runs the
-// general kernel above.
+// rope), 64, 80, 96 or 128, 16-byte aligned q/k/v rows, a tensor mask that fits
+// shared memory, and the keys' scratch when rope is on. Anything else in bf16
+// runs the general kernel above. Mirrored by flash_takes_hopper in
+// lmms_owc_tpu_torch/ops/attention.py.
 bool takes(const FlashArgs& a) {
-  if (a.dtype != 1 || (a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 88 && a.head_dim != 96 &&
-                       a.head_dim != 128))
+  if (a.dtype != 1 || (a.head_dim != 64 && a.head_dim != 72 && a.head_dim != 80 && a.head_dim != 88 &&
+                       a.head_dim != 96 && a.head_dim != 128))
     return false;
   if (tile_cols(a.head_dim) != a.head_dim && a.cos != nullptr) return false;
   if (a.mask != nullptr && a.lk > kMaxKeys) return false;
@@ -968,14 +934,365 @@ cudaError_t launch_wg(const FlashArgs& a, cudaStream_t stream) {
   return a.mask != nullptr ? launch_masked<D, true, kWG>(a, stream) : launch_masked<D, false, kWG>(a, stream);
 }
 
-// Three warpgroups (192 query rows) share each K/V tile when the query is
-// long enough to fill them; a 64-row query (the 2.5 window layers) takes one.
+// Warpgroups per CTA (64 query rows each) for a query of lq rows. A 64-row
+// query (the 2.5 window layers) takes one. Otherwise three warpgroups (192
+// rows) share each K/V tile, except at head_dim 64, where two take the query
+// when they pad it to fewer 64-row tiles than three: 577 rows (CLIP-L/336)
+// run as five CTAs of 128 rows, where three warpgroups would leave a fourth
+// CTA with one row; 1025 (InternViT) pad alike and take three. One
+// warpgroup per CTA measured slowest at both (chip_smoke.py --flash-wg-probe).
+int warpgroups(int head_dim, int lq) {
+  if (lq <= kBK) return 1;
+  const auto padded = [lq](int wg) { return (lq + kBK * wg - 1) / (kBK * wg) * wg; };
+  return head_dim == 64 && padded(2) < padded(3) ? 2 : 3;
+}
+
+// a.warpgroups, when set, overrides the choice (chip_smoke.py's probe); two
+// warpgroups are built at head_dim 64 only.
 template <int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  return a.lq > kBK ? launch_wg<D, 3>(a, stream) : launch_wg<D, 1>(a, stream);
+  switch (a.warpgroups > 0 ? a.warpgroups : warpgroups(D, a.lq)) {
+    case 1: return launch_wg<D, 1>(a, stream);
+    case 2:
+      if constexpr (D == 64) return launch_wg<D, 2>(a, stream);
+      return cudaErrorInvalidValue;
+    case 3: return launch_wg<D, 3>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sm90
+
+// ============================================================================
+// The f32 instances: both products on the tensor cores at f32 accuracy
+// (3xTF32), for every f32 call: MiniLM, the CLIP scorer's towers, rope (K1's
+// f32 form), (start, end) runs, the tensor mask, causal, head_dim 16 to 128.
+//
+//   * Products: mma.sync m16n8k8 tf32 with f32 accumulation. Each operand x
+//     splits as hi = tf32(x) (cvt.rna's rounding: half away from zero to 10
+//     mantissa bits) and lo = tf32(x - hi); a product is lo*hi + hi*lo +
+//     hi*hi, the small terms first, which leaves out lo*lo only (about 2^-22
+//     of it, where plain TF32 would keep 2^-11). Operands split as they are
+//     read from shared memory (q, k, v) or registers (p).
+//   * P from registers: the score accumulator holds columns 2*tig and
+//     2*tig + 1 of each 8-key block, the A fragment wants columns tig and
+//     tig + 4. The PV product numbers the block's keys in the order 0, 2, 4,
+//     6, 1, 3, 5, 7 for both operands (a sum does not care), so a thread's
+//     accumulators are its A fragment as they stand and B reads v rows 2*tig
+//     and 2*tig + 1: no shuffles, no shared-memory round trip.
+//   * Rows: one warp per 16 query rows, 1 to 4 warps per CTA as the query
+//     needs (MiniLM's 32 rows take two, CLIP's text tower's 16 one); a warp
+//     whose rows all lie past the query skips the products.
+//   * Keys: 32-key tiles, double-buffered with 16-byte cp.async (4-byte
+//     copies when a view's rows are not 16-byte aligned), past Lk zero-filled;
+//     a warp runs only the 8-key blocks that hold a key inside its (start,
+//     end) run and causal diagonal, and rows no warp reads are not loaded.
+//   * Layout: rows of head_dim + 4 floats, so the fragments' reads (8 rows x
+//     4 columns, or 4 row pairs x 8 columns) hit 32 distinct banks.
+//   * Rope: q is rotated once per CTA in shared memory, each key tile as it
+//     lands, in f32.
+//   * Softmax in f32 and base 2 as in the bf16 kernels; p stays f32.
+// What bounds it: operations, at a third of the TF32 tensor-core rate.
+
+namespace tf32 {
+
+constexpr int kBK = 32;        // keys per tile
+constexpr int kMaxWarps = 4;   // 16 query rows each
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// cvt.rna.tf32.f32's rounding on the bits: round half away from zero to 10
+// mantissa bits (add half a tf32 ulp to the magnitude), the low 13 bits
+// cleared, so the result is exactly the float it stands for. Two integer
+// operations, where the cvt instruction ran slower.
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// hi = tf32(x), lo = tf32(x - hi).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a(16x8, row-major) * b(8x8, col-major), tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment a, split once for the products it takes part in.
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+
+// d += a * b, b split here (3xTF32): lo*hi + hi*lo + hi*hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const SplitA& a, float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, a.lo, bh0, bh1);
+  mma(d, a.hi, bl0, bl1);
+  mma(d, a.hi, bh0, bh1);
+}
+
+template <int D>
+constexpr size_t smem_bytes(int warps, bool tensor_mask) {
+  return (static_cast<size_t>(4 * kBK + 16 * warps) * (D + 4) + (tensor_mask ? 2 * kBK : 0)) * sizeof(float);
+}
+
+template <int D, bool kTensorMask>
+__global__ void __launch_bounds__(32 * kMaxWarps) flash_kernel(const FlashArgs a, int vec16) {
+  constexpr int kLd = D + 4;       // floats per row in shared memory
+  constexpr int kChunks = D / 4;   // 16-byte chunks per row
+  constexpr int kHalf = D / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);  // [2][kBK][kLd]
+  float* vs = ks + 2 * kBK * kLd;                  // [2][kBK][kLd]
+  float* qs = vs + 2 * kBK * kLd;                  // [16 * warps][kLd]
+  const int nthreads = blockDim.x, rows = nthreads / 2;  // 16 query rows per 32-thread warp
+  int* mt = reinterpret_cast<int*>(qs + rows * kLd);  // [2][kBK], tensor mask only
+
+  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.heads / a.kv_heads);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int q0 = qb * rows;
+
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* cs = a.cos != nullptr ? a.cos + b * a.rope_sb : nullptr;
+  const float* sn = a.sin != nullptr ? a.sin + b * a.rope_sb : nullptr;
+  const int* mrow = kTensorMask ? a.mask + static_cast<long long>(b) * a.lk : nullptr;
+
+  // Valid keys of the CTA, and of this warp: the row's (start, end) run,
+  // clipped by the causal diagonal (aligned to the sequence end) of the last
+  // query row of the CTA and of the warp.
+  int k_lo = 0, k_hi = a.lk;
+  if (a.mask_se != nullptr) {
+    k_lo = max(a.mask_se[2 * b], 0);
+    k_hi = min(a.mask_se[2 * b + 1], a.lk);
+  }
+  const int offset = a.lk - a.lq;
+  const int w0 = q0 + warp * 16;
+  int w_hi = k_hi;
+  if (a.causal) {
+    k_hi = min(k_hi, min(q0 + rows, a.lq) + offset);
+    w_hi = min(w_hi, min(w0 + 16, a.lq) + offset);
+  }
+  const bool warp_rows = w0 < a.lq;
+  const int r_lo = warp * 16 + g;  // tile rows r_lo and r_lo + 8
+  const int qi[2] = {q0 + r_lo, q0 + r_lo + 8};
+
+  // Rows [r0, r1) of a [*][kLd] tile from rows row0 + r of src (zero past
+  // `limit`), one 16-byte chunk per thread and step; one commit group is the caller's.
+  auto copy_rows = [&](float* dst, const float* src, long long stride, int row0, int r0, int r1, int limit) {
+    for (int idx = tid; idx < (r1 - r0) * kChunks; idx += nthreads) {
+      const int r = r0 + idx / kChunks, c = idx % kChunks;
+      const bool valid = row0 + r < limit;
+      const float* from = valid ? src + static_cast<long long>(row0 + r) * stride + c * 4 : src;
+      const uint32_t to = sm90::smem_addr(dst + r * kLd + c * 4);
+      if (vec16) {
+        sm90::cp_async16(to, from, valid);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async4(to + 4 * e, valid ? from + e : from, valid);
+      }
+    }
+  };
+  // The K/V tile at key kb0 into stage st: the rows some warp reads, those
+  // of the 8-key blocks that meet [k_lo, k_hi).
+  const int t_first = (k_lo / kBK) * kBK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - t_first + kBK - 1) / kBK : 0;
+  auto load_kv = [&](int kb0, int st) {
+    const int r0 = max(k_lo - kb0, 0) & ~7, r1 = min(k_hi - kb0 + 7, kBK) & ~7;
+    copy_rows(ks + st * kBK * kLd, kp, a.k_sl, kb0, r0, r1, a.lk);
+    copy_rows(vs + st * kBK * kLd, vp, a.v_sl, kb0, r0, r1, a.lk);
+    if (kTensorMask) {
+      for (int i = tid; i < kBK; i += nthreads)
+        cp_async4(sm90::smem_addr(mt + st * kBK + i), kb0 + i < a.lk ? mrow + kb0 + i : mrow, kb0 + i < a.lk);
+    }
+    sm90::cp_async_commit();
+  };
+  // Rope on rows [r0, r1) of a tile whose row r holds position pos0 + r (< limit).
+  auto rope_rows = [&](float* t, int pos0, int r0, int r1, int limit) {
+    for (int idx = tid; idx < (r1 - r0) * kHalf; idx += nthreads) {
+      const int r = r0 + idx / kHalf, i = idx % kHalf;
+      if (pos0 + r >= limit) continue;
+      const long long at = static_cast<long long>(pos0 + r) * kHalf + i;
+      const float c = cs[at], s = sn[at];
+      const float x1 = t[r * kLd + i], x2 = t[r * kLd + i + kHalf];
+      t[r * kLd + i] = x1 * c - x2 * s;
+      t[r * kLd + i + kHalf] = x2 * c + x1 * s;
+    }
+  };
+
+  copy_rows(qs, qp, a.q_sl, q0, 0, rows, a.lq);
+  sm90::cp_async_commit();
+  if (n_tiles > 0) load_kv(t_first, 0);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};
+  float l_row[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int kb0 = t_first + i * kBK, st = i & 1;
+    if (i + 1 < n_tiles) {
+      load_kv(kb0 + kBK, st ^ 1);  // the stage tile i - 1 used; every warp is done with it
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + st * kBK * kLd;
+    const float* vt = vs + st * kBK * kLd;
+    if (cs != nullptr) {
+      if (i == 0) rope_rows(qs, q0, 0, rows, a.lq);
+      rope_rows(ks + st * kBK * kLd, kb0, max(k_lo - kb0, 0) & ~7, min(k_hi - kb0 + 7, kBK) & ~7, a.lk);
+      __syncthreads();
+    }
+    // This warp's 8-key blocks [j_lo, j_hi): those that meet [k_lo, w_hi).
+    const int j_lo = max(k_lo - kb0, 0) / 8;
+    const int j_hi = warp_rows ? (min(max(w_hi - kb0, 0), kBK) + 7) / 8 : 0;
+    if (j_lo < j_hi) {
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc) {
+        const float* q_lo = qs + r_lo * kLd + kc * 8 + tig;
+        const SplitA qa(q_lo[0], q_lo[8 * kLd], q_lo[4], q_lo[8 * kLd + 4]);
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          if (j < j_lo || j >= j_hi) continue;
+          const float* kr = kt + (j * 8 + g) * kLd + kc * 8 + tig;
+          mma3(s[j], qa, kr[0], kr[4]);
+        }
+      }
+
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kk = kb0 + j * 8 + tig * 2 + (c & 1);
+          const bool ok = j >= j_lo && j < j_hi && kk >= k_lo && kk < k_hi &&
+                          (!a.causal || kk <= qi[c >> 1] + offset) &&
+                          (!kTensorMask || mt[st * kBK + kk - kb0] != 0);
+          const float x = ok ? s[j][c] * a.scale_log2 : -INFINITY;
+          s[j][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_row[r], mx[r]);
+        corr[r] = m_new == -INFINITY ? 1.f : exp2f(m_row[r] - m_new);
+        m_row[r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = c >> 1;
+          const float p = m_row[r] == -INFINITY ? 0.f : exp2f(s[j][c] - m_row[r]);
+          s[j][c] = p;
+          rs[r] += p;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l_row[r] = l_row[r] * corr[r] + rs[r];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[n][c] *= corr[c >> 1];
+      }
+      // O += P V, the block's keys in the order 0, 2, 4, 6, 1, 3, 5, 7.
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        if (j < j_lo || j >= j_hi) continue;
+        const SplitA pa(s[j][0], s[j][2], s[j][1], s[j][3]);
+        const float* v0 = vt + (j * 8 + 2 * tig) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) mma3(o[n], pa, v0[n * 8], v0[kLd + n * 8]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before tile i + 2 lands there
+  }
+  sm90::cp_async_wait<0>();  // nothing in flight at exit (no tile: the q rows' group)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= a.lq) continue;
+    const float inv = l_row[r] > 0.f ? 1.f / l_row[r] : 0.f;
+    float* orow = op + qi[r] * a.o_sl;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      orow[n * 8 + tig * 2] = o[n][2 * r] * inv;
+      orow[n * 8 + tig * 2 + 1] = o[n][2 * r + 1] * inv;
+    }
+  }
+}
+
+template <int D, bool kTensorMask>
+cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance: the largest CTA
+      flash_kernel<D, kTensorMask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<D>(kMaxWarps, kTensorMask)));
+  if (attr != cudaSuccess) return attr;
+  const int warps = a.lq < 16 * kMaxWarps ? (a.lq + 15) / 16 : kMaxWarps;
+  const dim3 grid((a.lq + 16 * warps - 1) / (16 * warps), a.heads, a.batch);
+  // 16-byte copies when every row of q, k and v starts 16-byte aligned.
+  const long long strides[] = {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl, a.v_sb, a.v_sh, a.v_sl};
+  const uintptr_t ptrs[] = {reinterpret_cast<uintptr_t>(a.q), reinterpret_cast<uintptr_t>(a.k),
+                            reinterpret_cast<uintptr_t>(a.v)};
+  int vec16 = 1;
+  for (long long st : strides) vec16 &= st % 4 == 0;
+  for (uintptr_t p : ptrs) vec16 &= p % 16 == 0;
+  flash_kernel<D, kTensorMask><<<grid, 32 * warps, smem_bytes<D>(warps, kTensorMask), stream>>>(a, vec16);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
+#define OWC_TF32_CASE(d)                                                                      \
+  case d:                                                                                      \
+    return a.mask != nullptr ? launch_masked<d, true>(a, stream) : launch_masked<d, false>(a, stream);
+  switch (a.head_dim) {
+    OWC_TF32_CASE(16)
+    OWC_TF32_CASE(32)
+    OWC_TF32_CASE(64)
+    OWC_TF32_CASE(72)
+    OWC_TF32_CASE(80)
+    OWC_TF32_CASE(88)
+    OWC_TF32_CASE(96)
+    OWC_TF32_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef OWC_TF32_CASE
+}
+
+}  // namespace tf32
 
 }  // namespace
 
@@ -988,6 +1305,7 @@ extern "C" int owc_flash_attention(const FlashArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sm90::takes(a)) {
     switch (a.head_dim) {
+      case 64: return sm90::launch<64>(a, s);
       case 72: return sm90::launch<72>(a, s);
       case 80: return sm90::launch<80>(a, s);
       case 88: return sm90::launch<88>(a, s);
@@ -995,7 +1313,7 @@ extern "C" int owc_flash_attention(const FlashArgs* args, void* stream) {
       default: return sm90::launch<128>(a, s);
     }
   }
-  if (a.dtype == 1) return dispatch_head_dim<__nv_bfloat16>(a, s);
-  if (a.dtype == 0) return dispatch_head_dim<float>(a, s);
+  if (a.dtype == 1) return dispatch_head_dim(a, s);
+  if (a.dtype == 0) return tf32::launch(a, s);
   return cudaErrorInvalidValue;
 }

@@ -14,7 +14,9 @@
   - ``LMMS_OWC_PROFILE_DIR`` traces the model phase with ``torch.profiler``
     (CPU and CUDA activities) and writes a Chrome trace there.
   - seeding covers python/numpy/torch: the third seed is ``torch_random_seed``,
-    which the adapter's ``torch.Generator`` takes.
+    which the adapter's ``torch.Generator`` takes; ``--model_args`` may name
+    the adapter's seed ``torch_random_seed`` or, as for the JAX adapters,
+    ``jax_random_seed``, and either wins over the third seed.
   - ``check_integrity`` runs the port's task tests for the selected tasks in a
     subprocess (:mod:`lmms_owc_tpu_torch.engine._integrity`), before the model loads.
 """
@@ -522,7 +524,8 @@ def simple_evaluate(
         model_kwargs.setdefault("use_cache", use_cache)
     if batch_size is not None:
         model_kwargs.setdefault("batch_size", batch_size)
-    model_kwargs.setdefault("torch_random_seed", torch_random_seed)
+    if "jax_random_seed" not in model_kwargs:  # the JAX spelling in --model_args wins, as its setdefault does
+        model_kwargs.setdefault("torch_random_seed", torch_random_seed)
     model = get_model(model_name, **model_kwargs)
 
     def _adjust_config(task_dict: dict) -> dict:

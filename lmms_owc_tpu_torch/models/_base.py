@@ -72,6 +72,17 @@ class CacheHook:
                 f.write(json.dumps({"key": key, "value": value}, ensure_ascii=False) + "\n")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DEFAULT_SEED = 1234
+
+
+def _seed(torch_random_seed: int | None, jax_random_seed: int | None) -> int:
+    """The adapter's seed from either spelling of it (the port's
+    ``torch_random_seed``, the JAX package's ``jax_random_seed``)."""
+    if None not in (torch_random_seed, jax_random_seed) and int(torch_random_seed) != int(jax_random_seed):
+        raise ValueError(f"torch_random_seed={torch_random_seed} and jax_random_seed={jax_random_seed} "
+                         "name one seed: give one of them, or the same value")
+    seed = jax_random_seed if torch_random_seed is None else torch_random_seed
+    return DEFAULT_SEED if seed is None else int(seed)
 
 
 class Model(abc.ABC):
@@ -82,6 +93,9 @@ class Model(abc.ABC):
     versions of the kernels.
     ``torch_random_seed`` seeds the adapter's ``torch.Generator`` (random
     weights and sampling; the CLI's third ``--seed`` value).
+    ``jax_random_seed``, the JAX adapters' name for it, is the same seed under
+    that spelling (a keyword only: nothing of JAX runs); both names with
+    different values raise ``ValueError``. Neither given: 1234.
     """
 
     default_device = "cuda"
@@ -97,7 +111,8 @@ class Model(abc.ABC):
         use_cache: str | None = None,
         load_in_8bit: bool = False,
         load_in_4bit: bool = False,
-        torch_random_seed: int = 1234,
+        torch_random_seed: int | None = None,
+        jax_random_seed: int | None = None,
         model_parallel: int = 1,
         use_mesh: bool = False,
         **kwargs,
@@ -115,7 +130,7 @@ class Model(abc.ABC):
         self.dtype = dtype
         self.torch_dtype = _DTYPES[dtype]
         self.device = get_device(device or self.default_device)
-        self.torch_random_seed = int(torch_random_seed)
+        self.torch_random_seed = _seed(torch_random_seed, jax_random_seed)
         self.model_parallel = int(model_parallel)
         if (use_mesh or self.model_parallel > 1) and not self.supports_mesh:
             raise ValueError(f"{type(self).__name__} has no tensor-parallel path: model_parallel and use_mesh "

@@ -70,6 +70,7 @@ class FlashArgs(ctypes.Structure):
         ("causal", ctypes.c_int), ("dtype", ctypes.c_int),
         ("scale_log2", ctypes.c_float),
         ("k_rot", ctypes.c_void_p),
+        ("warpgroups", ctypes.c_int),
     ]
 
 

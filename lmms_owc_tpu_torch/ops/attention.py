@@ -22,6 +22,10 @@ Qwen2-VL and Qwen2.5-VL paths:
     rows go to a device-memory workspace where shared memory cannot hold them
     (:func:`decode_needs_workspace`).
 
+The first four share ``csrc/flash_attn.cu``: bf16 launches run its Hopper
+(wgmma) instance where :func:`flash_takes_hopper` says so and its general
+kernel otherwise, and f32 launches its 3xTF32 tensor-core instance.
+
 Each wrapper takes its plain version (``*_plain`` or
 :func:`packed_attention_reference`, built on :func:`attention_reference` and
 :func:`gqa_attention_reference`) only when the tensors lie on the CPU. For a
@@ -48,6 +52,7 @@ __all__ = [
     "decode_split_plan",
     "flash_attention",
     "flash_attention_plain",
+    "flash_takes_hopper",
     "fused_qkv_attention",
     "fused_qkv_attention_plain",
     "gqa_attention_reference",
@@ -65,6 +70,11 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_HEAD_DIMS = (16, 32, 64, 72, 80, 88, 96, 128)
+# The flash kernel's Hopper instances (``sm90::takes`` in csrc/flash_attn.cu):
+# bf16 at these head dims; 72 and 88 run as 80 and 96 columns and take no rope;
+# a tensor mask of at most this many keys.
+_FLASH_HOPPER_HEAD_DIMS = (64, 72, 80, 88, 96, 128)
+_FLASH_HOPPER_MAX_MASK_KEYS = 16384
 # The decode kernel's limits (csrc/decode_attn.cu): the Hopper instances take a
 # bf16 query at these head dims, groups up to 8 and a split plan of at most 8
 # splits (the portable thread-block cluster size) of at most 256 keys; the
@@ -324,9 +334,12 @@ def _launch_flash(
     scale: float,
     rope_cos: torch.Tensor | None,
     rope_sin: torch.Tensor | None,
+    warpgroups: int = 0,
 ) -> None:
     """Launch the flash kernel and count it under ``name``. A contiguous mask
-    goes to the kernel as (start, end) per row, any other as an int32 tensor."""
+    goes to the kernel as (start, end) per row, any other as an int32 tensor.
+    ``warpgroups`` (1 to 3) overrides the Hopper instances' rows per CTA,
+    which the kernel otherwise chooses by the query length."""
     lib = _build.load_library()
     dtype = _check_operands({"q": q, "k": k, "v": v, "out": out})
     b, h, lq, d = q.shape
@@ -372,12 +385,43 @@ def _launch_flash(
         b, h, kvh, lq, lk, d, int(causal), _DTYPE_CODES[dtype],
         scale * _LOG2E,
         k_rot.data_ptr() if k_rot is not None else None,
+        warpgroups,
     )
     code = lib.owc_flash_attention(ctypes.byref(args), _stream_handle(q.device))
     _raise_on_error(code, name)
     launch_counts[name] += 1
     if mask is not None:
         launch_counts["flash_attention_tensor_mask"] += 1
+
+
+def flash_takes_hopper(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    rope: bool,
+    *,
+    tensor_mask: bool = False,
+) -> bool:
+    """Whether the flash kernel's Hopper instances take this launch, restated
+    from ``sm90::takes`` in csrc/flash_attn.cu for the views the wrappers pass
+    (q [B, H, Lq, D], k/v [B, KVH, Lk, D], out [B, H, Lq, D]): bf16 at a head
+    dim they are built for (72 and 88 without rope), every q/k/v stride a
+    multiple of 8 elements and every base 16-byte aligned (rows read as
+    16-byte chunks), out's strides even and its base 4-byte aligned, and a
+    tensor mask of at most 16384 keys. With rope the wrapper always passes the
+    keys' rotation scratch, which a fresh allocation aligns. Anything else runs
+    the general bf16 kernel or, in f32, the 3xTF32 one."""
+    d, lk = q.shape[-1], k.shape[2]
+    if q.dtype != torch.bfloat16 or d not in _FLASH_HOPPER_HEAD_DIMS:
+        return False
+    if rope and d % 16:  # 72 and 88: half a row is not whole 16-byte chunks
+        return False
+    if tensor_mask and lk > _FLASH_HOPPER_MAX_MASK_KEYS:
+        return False
+    if any(s % 8 for t in (q, k, v) for s in t.stride()[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
+        return False
+    return all(s % 2 == 0 for s in out.stride()[:3]) and out.data_ptr() % 4 == 0
 
 
 def _launch_combined(

@@ -780,3 +780,73 @@ def test_flash_launch_at_head_dim_96(fake_flash, dtype):
     assert call["head_dim"] == 96 and call["causal"] == 1 and call["mask_se"] and not call["mask"]
     assert bool(call["k_rot"]) == (dtype == torch.bfloat16)
     assert tatt.launch_counts["flash_attention"] == 1
+
+
+def _flash_kernel_takes_hopper(a: dict) -> bool:
+    """Whether ``sm90::takes`` in csrc/flash_attn.cu takes these FlashArgs,
+    restated from the source: bf16 at head_dim 64, 72, 80, 88, 96 or 128 (72
+    and 88 without rope), a tensor mask of at most 16384 keys, the keys'
+    scratch with rope, q/k/v strides in multiples of 8 and 16-byte aligned
+    bases, out's strides even and its base 4-byte aligned."""
+    d = a["head_dim"]
+    if a["dtype"] != 1 or d not in (64, 72, 80, 88, 96, 128):
+        return False
+    if d % 16 and a["cos"]:
+        return False
+    if a["mask"] and a["lk"] > 16384:
+        return False
+    if a["cos"] and not a["k_rot"]:
+        return False
+    if any(a[f"{r}_s{x}"] % 8 for r in "qkv" for x in "bhl"):
+        return False
+    if any((a[p] or 0) % 16 for p in ("q", "k", "v", "k_rot")):
+        return False
+    return all(a[f"o_s{x}"] % 2 == 0 for x in "bhl") and a["o"] % 4 == 0
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_launch_at_head_dim_64(fake_flash, dtype, rope):
+    """The CLIP-L and InternViT towers' launch at head_dim 64: q, k and v as
+    [B, L, 16, 64] views of their projections, non-causal. A bf16 call is the
+    Hopper instance's (``sm90::takes``, restated here, and
+    ``flash_takes_hopper`` agree), with rope carrying the keys' rotation
+    scratch (32 columns are four 16-byte chunks); an f32 call runs the 3xTF32
+    instance, with no scratch. The kernel chooses its warpgroups."""
+    b, h, l, d = 2, 16, 577, 64
+    q, k, v = (torch.randn(b, l, h * d).to(dtype).view(b, l, h, d).transpose(1, 2) for _ in range(3))
+    out = torch.empty(q.shape, dtype=dtype)
+    cos, sin = (torch.ones(b, l, d // 2), torch.zeros(b, l, d // 2)) if rope else (None, None)
+    tatt._launch_flash("flash_attention", q, k, v, out, causal=False, kv_mask=None, kv_mask_contiguous=False,
+                       scale=d ** -0.5, rope_cos=cos, rope_sin=sin)
+    (call,) = fake_flash.calls
+    assert call["head_dim"] == 64 and (call["heads"], call["lq"], call["lk"]) == (h, l, l)
+    assert (call["q_sb"], call["q_sh"], call["q_sl"]) == (l * h * d, d, h * d) and call["warpgroups"] == 0
+    assert bool(call["k_rot"]) == (rope and dtype == torch.bfloat16) and bool(call["cos"]) == rope
+    hopper = dtype == torch.bfloat16
+    assert _flash_kernel_takes_hopper(call) == tatt.flash_takes_hopper(q, k, v, out, rope) == hopper
+    assert tatt.launch_counts["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 72, 80, 88, 96, 128])
+def test_flash_takes_hopper_mirrors_the_kernel(fake_flash, d):
+    """``flash_takes_hopper`` against ``sm90::takes`` restated over the
+    FlashArgs of bf16 and f32 launches, with and without rope, on contiguous
+    rows, on rows with a stride of head_dim + 2 elements, and with a gappy
+    tensor mask."""
+    b, h, l = 2, 4, 40
+    for dtype in (torch.bfloat16, torch.float32):
+        for wide in (0, 2):
+            for rope in (False, True):
+                for gappy in (False, True):
+                    q, k, v = (torch.randn(b, h, l, d + wide).to(dtype)[..., :d] for _ in range(3))
+                    out = torch.empty(b, h, l, d, dtype=dtype)
+                    mask = torch.ones(b, l, dtype=torch.int32)
+                    mask[:, 3] = 0
+                    cos, sin = (torch.ones(b, l, d // 2), torch.zeros(b, l, d // 2)) if rope else (None, None)
+                    tatt._launch_flash("flash_attention", q, k, v, out, causal=False, kv_mask=mask if gappy else None,
+                                       kv_mask_contiguous=False, scale=0.1, rope_cos=cos, rope_sin=sin)
+                    call = fake_flash.calls[-1]
+                    want = dtype == torch.bfloat16 and d >= 64 and not wide and not (rope and d % 16)
+                    assert _flash_kernel_takes_hopper(call) == want
+                    assert tatt.flash_takes_hopper(q, k, v, out, rope, tensor_mask=gappy) == want
