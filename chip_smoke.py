@@ -10,7 +10,10 @@ only times phase 3 with the adapter's decode row blocks and without them
 (:func:`probe_decode_rows`). ``python3 chip_smoke.py --flash-wg-probe``
 builds them and then only times the flash kernel's Hopper instance at 1, 2
 and 3 warpgroups per CTA at the head_dim-64 towers' shapes
-(:func:`probe_flash_warpgroups`).
+(:func:`probe_flash_warpgroups`). ``python3 chip_smoke.py
+--decode-split-probe`` builds them and then only times K3 at its main-path
+shapes under split plans of at most 8 and 16 CTAs a cluster
+(:func:`probe_decode_splits`; ``--decode-split-probe=8`` the plan alone).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -42,20 +45,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 over 577 keys), its 3xTF32 instance (the CLIP scorer's towers in
    f32), its Hopper instance
    at G = 1 (the Vicuna prefill at buckets 640 and 3072), and K3 at G = 1
-   (bf16 and int8 over 704 positions, bf16 over llava-next's 3136). Phases
+   (bf16 and int8 over 704 positions and over llava-next's 3136). Phases
    18-20's shapes: K2 at head_dim 72 (the SigLIP towers) in bf16 over
    onevision's tiles with no mask and over Idefics2's padded batch in the
    tensor-mask form, and in f32 in both mask forms; K2's Hopper instance at
    Mistral's G = 4 and over onevision's 4096-token bucket; K3 at G = 4 and
-   at onevision's 4160-position cache (the general kernel). Phases 21-23's
+   at onevision's 4160-position cache (bf16 and int8). Phases 21-23's
    shapes: K2 at head_dim 88 (BLIP ViT-g, tiles 96 columns wide) in bf16 over
    [8, 16, 257, 88] through the Hopper instance (the fused qkv's views) and
    the general one (a 90-element row stride), and in f32 at a ragged shape;
    K2's Hopper instance at head_dim 64 over InternViT's [20, 16, 1025, 64],
    and its general one at 64 over views with a 66-element row stride;
    K2's Hopper instance at G = 6 (Qwen2-1.5B) over a 2048 bucket and at
-   G = 1 over the Vicuna prefill's 128; K3 at G = 6 (Hopper over 352
-   positions, the general kernel over 2112) and at G = 1 over 192.
+   G = 1 over the Vicuna prefill's 128; K3 at G = 6 (over 352 positions,
+   and in bf16 and int8 over 2112) and at G = 1 over 192. Every K3 row with
+   a bf16 query must run the Hopper instance (``sm90::decode_kernel``), every
+   f32 one the general kernel: the profiler's kernel symbol says which.
 3. Main path, bf16: the ``qwen2-vl-7b`` adapter with random bf16 weights drawn
    on the card answers 8 image requests (64 greedy tokens) through
    ``generate_until``; the launch counts show every kernel ran.
@@ -181,14 +186,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     with responses equal to the in-process ones.
 17. LLaVA-NeXT-vicuna-7B: one 672x672 and one 1008x336 image (anyres, about
     2,950 and 2,330 prompt tokens, bucket 3072): K3 on a 3136-position
-    cache (the general kernel past 2048); launches printed and checked; the
+    cache (the Hopper instance past 2048); launches printed and checked; the
     chunk's prefill logits by phase 4's rule. ``summary llava`` holds
     phases 15-17.
 18. LLaVA-OneVision-Qwen2-7B with random bf16 weights: phase 3's 8 requests
     in one chunk through anyres (36 SigLIP tiles; prompts of 3712 and 1741
     tokens, bucket 4096, decode cache 4160): 8 tower calls of 26 K2
     launches at head_dim 72, 28 prefill launches, 28 K3 per step (the
-    general kernel past 2048 positions), each read around its call; prefill
+    Hopper instance past 2048 positions), each read around its call; prefill
     logits by phase 4's rule; ``loglikelihood`` by phase 10's at batch 2.
 7b. Qwen2.5-VL quantized (run after phase 7's checkpoint round trip):
    ``qwen2.5-vl-7b`` with weights drawn and quantized on the card, on phase
@@ -210,7 +215,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     phases 18-20.
 21. InternVL2-2B with random bf16 weights: phase 3's 8 requests in one chunk
     (20 tiles; prompts of 279 and 1815 tokens, bucket 2048, decode cache
-    2112: K3's general kernel at G = 6): one tower call of 24 K2 launches
+    2112: K3's Hopper instance at G = 6): one tower call of 24 K2 launches
     at head_dim 64, 28 prefill launches, 28 K3 per step, each read around
     its call; prefill logits by phase 4's rule; ``loglikelihood`` by
     phase 10's.
@@ -233,7 +238,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     3's 8 requests in one chunk at 16 crops (a 448x448 image is 4x4 crops and
     the global view, a 336x448 one 3x4; bucket 3072, decode cache 3136),
     64 greedy tokens: 8 tower calls of 23 K2 launches at head_dim 64, 32
-    prefill launches at head_dim 96, 32 K3 per step (the general kernel),
+    prefill launches at head_dim 96, 32 K3 per step (the Hopper instance at 96),
     each read around its call; the port's host stage timers on for the
     measured run, their table logged; prefill logits by phase 4's rule and
     ``loglikelihood`` by phase 10's. ``summary phi3v``. Phase 2 holds K2 at
@@ -277,6 +282,7 @@ import copy
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -430,7 +436,7 @@ CLIP_HF_PREFIXES = ("vision_model.", "text_model.", "visual_projection.", "text_
 # 7B: SigLIP-SO400M at 384 px (26 layers, 16 heads of 72, 729 patches a tile)
 # over Qwen2-7B (28 layers, 28/4 heads of 128); phase 3's requests: a 448x448
 # image takes 5 anyres tiles and a 3712-token prompt, a 336x448 one 3 tiles
-# and 1741 tokens (prompt bucket 4096, decode cache 4160: K3's general kernel).
+# and 1741 tokens (prompt bucket 4096, decode cache 4160 positions).
 ONEVISION_PRESET = "llava-onevision-qwen2-7b-ov"
 ONEVISION_TOWER_LAUNCHES = 26
 ONEVISION_LAYERS = 28
@@ -462,7 +468,7 @@ V25_QUANT_BATCH = 4
 # layers, 12/2 heads of 128: G = 6). Phase 3's requests: a 448x448 image is one
 # tile (a 279-token prompt), a 336x448 one 6 tiles and a thumbnail (1815
 # tokens): 20 tiles in one tower call, prompt bucket 2048, decode cache 2112
-# (K3's general kernel past 2048 positions).
+# (K3 past 2048 positions).
 INTERNVL_PRESET = "internvl2-2b"
 INTERNVL_TOWER_LAUNCHES = 24
 INTERNVL_LAYERS = 28
@@ -545,9 +551,10 @@ PEAK_TF32_FLOPS = 494.7e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 F32_FLASH = "the 3xTF32 instance; bound at 494.7 / 3 TFLOP/s"
 PEAK_BYTES_PER_S = 3.35e12
-# The entries whose rows run the flash kernel (csrc/flash_attn.cu).
+# The entries whose rows run the flash kernel (csrc/flash_attn.cu), and the decode kernel (csrc/decode_attn.cu).
 FLASH_KERNELS = ("vision_qkv_attention", "flash_attention", "fused_qkv_attention", "packed_vision_attention",
                  "flash_attention_tensor_mask")
+DECODE_KERNELS = ("gqa_decode_attention", "gqa_decode_attention_int8")
 # Keys of each kernel row on the kernels line (and of its "also"/"all" rows).
 # Phase 25: tensor parallelism on the one card, two processes over gloo.
 TP_RANKS = 2
@@ -632,15 +639,15 @@ def _timings(kernel, plain, library=None) -> dict:
     operands, and the names of the kernels the kernel's call ran."""
     from lmms_owc_tpu_torch.ops import attention as att
 
-    def flash_launches() -> int:
-        return sum(att.launch_counts[name] for name in FLASH_KERNELS)
+    def launches() -> int:
+        return sum(att.launch_counts[name] for name in FLASH_KERNELS + DECODE_KERNELS)
 
     symbols: list[str] = []
-    before = flash_launches()
+    before = launches()
     device_ms = _device_ms(kernel, symbols=symbols)
-    flash = flash_launches() > before
+    launched = launches() > before
     for _ in range(2):  # the profiler can drop a window's events: read the call again
-        if symbols and (not flash or _flash_instances(symbols)):
+        if symbols and (not launched or _flash_instances(symbols) or _decode_instances(symbols)):
             break
         symbols.clear()
         device_ms = _device_ms(kernel, symbols=symbols)
@@ -665,17 +672,29 @@ def _flash_instances(symbols) -> set[str]:
     return found
 
 
+def _decode_instances(symbols) -> set[str]:
+    """The decode kernel's instances among kernel names (demangled or not):
+    ``sm90`` (the Hopper kernel) or ``general`` (the general kernel)."""
+    return {"sm90" if "sm90::" in name or "4sm90" in name else "general"
+            for name in symbols if "decode_kernel" in name}
+
+
 def _check_instance(shape: str, symbols) -> str | None:
-    """The flash instance a row's timed call ran, held to its label: an f32
-    row runs the 3xTF32 instance, a row labelled "general instance" the
-    general one, every other bf16 flash row (labelled or not) the Hopper one.
-    None for a row that ran no flash kernel."""
-    ran = _flash_instances(symbols)
-    if not ran:
-        return None
-    want = "tf32" if " f32" in shape else "general" if "general instance" in shape else "sm90"
+    """The flash or decode instance a row's timed call ran, held to its
+    label. Flash: an f32 row runs the 3xTF32 instance, a row labelled
+    "general instance" the general one, every other bf16 row the Hopper one.
+    Decode: a row with an f32 query (``q [...] f32``) runs the general kernel,
+    every bf16 query the Hopper one. None for a row that ran neither."""
+    ran, kernel = _flash_instances(symbols), "flash"
+    if ran:
+        want = "tf32" if " f32" in shape else "general" if "general instance" in shape else "sm90"
+    else:
+        ran, kernel = _decode_instances(symbols), "decode"
+        if not ran:
+            return None
+        want = "general" if re.match(r"q \[[^]]*\] f32", shape) else "sm90"
     if ran != {want}:
-        raise AssertionError(f"{shape}: ran the flash kernel's {sorted(ran)} instance(s) ({symbols}), "
+        raise AssertionError(f"{shape}: ran the {kernel} kernel's {sorted(ran)} instance(s) ({symbols}), "
                              f"labelled {want}")
     return want
 
@@ -765,6 +784,80 @@ def _compare(name: str, got, want, rows=None, atol: float = TOL, rtol: float = T
             f"max abs err {float(err.max()):.3e}; relative L2 {rel:.3e} (bound {rel_l2})"
         )
     return float(err.max())
+
+INT8_LIBRARY = "none: no single PyTorch call attends over an int8 cache with per-position scales"
+
+
+def _decode_rows(dev, gen, rows: dict, label: str, shape: tuple, lengths, forms=("bf16",), model: str = "") -> None:
+    """K3 at one decoder's decode shape in each of ``forms``, each held to its
+    plain version with its bound and (bf16, f32) SDPA's time, into
+    ``rows[kernel][label]`` (``label + "_f32"`` for f32): q [B, H, D] against a
+    [L, B, KVH, S, D] cache, ``shape`` = (L, B, H, KVH, D, prompt bucket, S),
+    whose rows hold the bucket's keys from each row's start (``prompt -
+    lengths``), then 5 generated, at layers 0 and L - 1. "int8" quantizes the
+    bf16 cache with per-position scales (``gqa_decode_attention_int8``). Past
+    2048 positions a bf16 or f32 row is held to ``LONG_CACHE_TOL``; an int8
+    row to ``TOL`` element-wise with ``LONG_CACHE_TOL``'s relative L2 (the
+    bound that catches dropped keys): the plain version rounds the dequantized
+    cache to bf16 where the kernel folds the scales into f32 rows (as the TPU
+    kernel does), and where few keys are valid (InternVL2's 279-token
+    prompts) outputs near 1 differ by a bf16 ulp, 3.9e-3 to 7.8e-3, past
+    ``LONG_CACHE_TOL``'s 2e-3 (the general kernel gave the Hopper instance's
+    1.95e-3 at that shape). The instance each row ran is read from the
+    profiler (``_row``)."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    layers, b, nh, kvh, hd, prompt, s = shape
+    last = layers - 1
+    spos = torch.arange(s, device=dev)
+    dstarts = prompt - torch.tensor(lengths, device=dev)
+    dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
+    valid = int(dmask.sum())
+
+    def randn(dtype, *dims):
+        return torch.randn(dims, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    tensors: dict = {}
+    for form in forms:
+        dtype = torch.float32 if form == "f32" else torch.bfloat16
+        if dtype not in tensors:
+            tensors.clear()
+            torch.cuda.empty_cache()
+            tensors[dtype] = (randn(dtype, b, nh, hd), *(randn(dtype, layers, b, kvh, s, hd) for _ in range(2)))
+        qd, ck, cv = tensors[dtype]
+        int8 = form == "int8"
+        cache = quantize_kv_cache(ck, cv) if int8 else (ck, cv)
+        name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
+        tol = {}
+        if s > 2048:  # an int8 row: TOL element-wise, as below 2048, and the long-cache relative L2 (see above)
+            tol = dict(rel_l2=LONG_CACHE_TOL[form][1],
+                       **(dict(atol=TOL, rtol=TOL) if int8 else dict(atol=LONG_CACHE_TOL[form][0], rtol=0.0)))
+        errs = [_compare(f"{name} {label} {form}[layer {layer}]",
+                         att.gqa_decode_attention(qd, cache[0], cache[1], layer, dmask, *cache[2:]),
+                         att.gqa_decode_attention_plain(qd, cache[0], cache[1], layer, dmask, *cache[2:]), **tol)
+                for layer in (0, last)]
+        qtype = "f32" if form == "f32" else "bf16"
+        if int8:  # q and the output in bf16, each valid key's int8 k and v rows and two f32 scales, the mask
+            nbytes = 2 * 2 * b * nh * hd + kvh * valid * (2 * hd + 2 * 4) + 4 * b * s
+            library, lib_label, ctype = None, INT8_LIBRARY, "int8 + f32 scales"
+        else:
+            elt = ck.element_size()
+            nbytes = elt * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s
+            library, lib_label, ctype = _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :]), SDPA, qtype
+        rows.setdefault(name, {})[label + ("_f32" if form == "f32" else "")] = _row(
+            f"q [{b}, {nh}, {hd}] {qtype}, cache [{layers}, {b}, {kvh}, {s}, {hd}] {ctype}, G = {nh // kvh}, "
+            f"layers 0 and {last} ({model})", max(errs),
+            _timings(lambda: att.gqa_decode_attention(qd, cache[0], cache[1], last, dmask, *cache[2:]),
+                     lambda: att.gqa_decode_attention_plain(qd, cache[0], cache[1], last, dmask, *cache[2:]),
+                     library),
+            _bound(4.0 * hd * nh * valid, nbytes, PEAK_F32_FLOPS if form == "f32" else PEAK_BF16_FLOPS), lib_label,
+        )
+        del cache, library
+    del tensors
+    torch.cuda.empty_cache()
 
 
 def check_kernels(dev) -> dict[str, dict]:
@@ -898,11 +991,11 @@ def check_kernels(dev) -> dict[str, dict]:
                 f"library {row['library_ms']} ms; device time (profiler) kernel {row['device_ms']} ms, "
                 f"plain {row['plain_device_ms']} ms, library {row['library_device_ms']} ms; bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['bound_share']} of the device time; "
-                f"library call: {row['library']}{'; flash instance ' + row['instance'] if 'instance' in row else ''}")
-    for name in FLASH_KERNELS:  # every flash row's instance was read from the profiler
+                f"library call: {row['library']}{'; instance ' + row['instance'] if 'instance' in row else ''}")
+    for name in FLASH_KERNELS + DECODE_KERNELS:  # every attention row's instance was read from the profiler
         for label, row in [(name, results[name])] + list(results[name].get("also", {}).items()):
             if "instance" not in row:
-                raise AssertionError(f"parity {name} {label}: the profiler named no flash kernel for this row")
+                raise AssertionError(f"parity {name} {label}: the profiler named no attention kernel for this row")
     # The gappy-mask prefill is K2's tensor-mask form through flash_attention.
     gappy = results.pop("flash_attention_tensor_mask")
     results["flash_attention"].setdefault("also", {})["tensor_mask"] = gappy
@@ -1008,9 +1101,8 @@ def check_llava_shapes(dev, gen) -> dict[str, dict]:
     (causal, [16, 12, 16, 64]); K2's Hopper instance at G = 1 for the Vicuna prefill (32/32 heads
     of 128, causal, left-padded to phases 15 and 17's prompt lengths) at
     llava-1.5's bucket 640 and llava-next's 3072; K3 at G = 1 in bf16 and
-    int8 against the llava-1.5 cache [32, 8, 32, 704, 128], and in bf16
-    against llava-next's [32, 2, 32, 3136, 128] (past 2048 positions: the
-    general kernel with its workspace). Returns ``{kernel: {label: row}}``."""
+    int8 against the llava-1.5 cache [32, 8, 32, 704, 128] and llava-next's
+    [32, 2, 32, 3136, 128] (:func:`_decode_rows`). Returns ``{kernel: {label: row}}``."""
     import torch
 
     from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
@@ -1066,46 +1158,10 @@ def check_llava_shapes(dev, gen) -> dict[str, dict]:
         del q, k, v
 
     # The Vicuna decode: G = 1, prompt bucket + 64, layers 0 and 31.
-    last = LLAVA_LAYERS - 1
-    for label, b, prompt, s, forms, lengths in (
-        ("llava_decode", 8, 640, 704, ("bf16", "int8"), [LLAVA_PROMPT_TOKENS] * 8),
-        ("llava_next_decode", 2, 3072, 3136, ("bf16",), list(LLAVA_NEXT_PROMPT_TOKENS)),
-    ):
-        qd = randn(torch.bfloat16, b, nh, hd)
-        ck, cv = (randn(torch.bfloat16, LLAVA_LAYERS, b, nh, s, hd) for _ in range(2))
-        spos = torch.arange(s, device=dev)
-        dstarts = prompt - torch.tensor(lengths, device=dev)  # left-padded prompts, then 5 generated
-        dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
-        valid = int(dmask.sum())
-        for form in forms:
-            int8 = form == "int8"
-            cache = quantize_kv_cache(ck, cv) if int8 else (ck, cv)
-            name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
-            # Past 2048 positions: phase 2's long-cache bounds (max abs and relative L2).
-            tol = dict(atol=LONG_CACHE_TOL[form][0], rtol=0.0, rel_l2=LONG_CACHE_TOL[form][1]) if s > 2048 else {}
-            errs = [_compare(f"{name} {label}[layer {layer}]",
-                             att.gqa_decode_attention(qd, cache[0], cache[1], layer, dmask, *cache[2:]),
-                             att.gqa_decode_attention_plain(qd, cache[0], cache[1], layer, dmask, *cache[2:]), **tol)
-                    for layer in (0, last)]
-            if int8:
-                nbytes = 2 * 2 * b * nh * hd + nh * valid * (2 * hd + 2 * 4) + 4 * b * s
-                library, lib_label = None, "none: no single PyTorch call attends over an int8 cache with per-position scales"
-            else:
-                nbytes = 2 * (2 * b * nh * hd + 2 * nh * hd * valid) + 4 * b * s
-                library, lib_label = _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :]), SDPA
-            kernel_kind = "general kernel with the score workspace" if s > 2048 else "Hopper instance"
-            rows[name][label] = _row(
-                f"q [{b}, {nh}, {hd}] bf16, cache [{LLAVA_LAYERS}, {b}, {nh}, {s}, {hd}] "
-                f"{'int8 + f32 scales' if int8 else 'bf16'}, G = 1, layers 0 and {last} (Vicuna-7B, {kernel_kind})",
-                max(errs),
-                _timings(lambda: att.gqa_decode_attention(qd, cache[0], cache[1], last, dmask, *cache[2:]),
-                         lambda: att.gqa_decode_attention_plain(qd, cache[0], cache[1], last, dmask, *cache[2:]),
-                         library),
-                _bound(4.0 * hd * nh * valid, nbytes), lib_label,
-            )
-            del cache, library
-        del qd, ck, cv
-        torch.cuda.empty_cache()
+    for label, b, prompt, s, lengths in (("llava_decode", 8, 640, 704, [LLAVA_PROMPT_TOKENS] * 8),
+                                         ("llava_next_decode", 2, 3072, 3136, list(LLAVA_NEXT_PROMPT_TOKENS))):
+        _decode_rows(dev, gen, rows, label, (LLAVA_LAYERS, b, nh, nh, hd, prompt, s), lengths, ("bf16", "int8"),
+                     "Vicuna-7B")
     return rows
 
 
@@ -1136,8 +1192,8 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
     adapter's patch masks), and in f32 in both mask forms; K2's Hopper
     instance at Mistral's G = 4 (q [4, 32, 128, 128] over 8 KV heads, 78-token
     prompts) and at Qwen2-7B's G = 7 over onevision's 4096-position bucket;
-    K3's Hopper instance at G = 4 ([32, 4, 8, 192, 128]) and its general
-    kernel at onevision's 4160-position cache. Returns ``{kernel: {label: row}}``."""
+    K3 at G = 4 ([32, 4, 8, 192, 128]) and at onevision's 4160-position cache
+    in bf16 and int8 (:func:`_decode_rows`). Returns ``{kernel: {label: row}}``."""
     import torch
 
     from lmms_owc_tpu_torch.ops import attention as att
@@ -1207,34 +1263,14 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
         torch.cuda.empty_cache()
 
     # The decoders' decode: the prompt bucket's keys from each row's start, then 5 generated.
-    for label, (layers, b, nh, kvh, prompt, s), lengths in (
-        ("mistral_decode", (IDEFICS2_LAYERS, 4, 32, 8, 128, 192), [IDEFICS2_PROMPT_TOKENS] * 4),
+    for label, (layers, b, nh, kvh, prompt, s), lengths, forms, model in (
+        ("mistral_decode", (IDEFICS2_LAYERS, 4, 32, 8, 128, 192), [IDEFICS2_PROMPT_TOKENS] * 4, ("bf16",),
+         "Mistral-7B"),
         ("onevision_decode", (ONEVISION_LAYERS, 8, 28, 4, 4096, 4160),
-         [ONEVISION_PROMPT_TOKENS[(448, 448)]] * 6 + [ONEVISION_PROMPT_TOKENS[(336, 448)]] * 2),
+         [ONEVISION_PROMPT_TOKENS[(448, 448)]] * 6 + [ONEVISION_PROMPT_TOKENS[(336, 448)]] * 2, ("bf16", "int8"),
+         "Qwen2-7B"),
     ):
-        qd = randn(torch.bfloat16, b, nh, hd)
-        ck, cv = (randn(torch.bfloat16, layers, b, kvh, s, hd) for _ in range(2))
-        spos = torch.arange(s, device=dev)
-        dstarts = prompt - torch.tensor(lengths, device=dev)
-        dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
-        valid = int(dmask.sum())
-        last = layers - 1
-        tol = dict(atol=LONG_CACHE_TOL["bf16"][0], rtol=0.0, rel_l2=LONG_CACHE_TOL["bf16"][1]) if s > 2048 else {}
-        errs = [_compare(f"gqa_decode_attention {label}[layer {layer}]",
-                         att.gqa_decode_attention(qd, ck, cv, layer, dmask),
-                         att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask), **tol)
-                for layer in (0, last)]
-        kernel_kind = "general kernel with the score workspace" if s > 2048 else "Hopper instance"
-        rows["gqa_decode_attention"][label] = _row(
-            f"q [{b}, {nh}, {hd}] bf16, cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16, G = {nh // kvh}, "
-            f"layers 0 and {last} ({kernel_kind})", max(errs),
-            _timings(lambda: att.gqa_decode_attention(qd, ck, cv, last, dmask),
-                     lambda: att.gqa_decode_attention_plain(qd, ck, cv, last, dmask),
-                     _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :])),
-            _bound(4.0 * hd * nh * valid, 2 * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s), SDPA,
-        )
-        del qd, ck, cv
-        torch.cuda.empty_cache()
+        _decode_rows(dev, gen, rows, label, (layers, b, nh, kvh, hd, prompt, s), lengths, forms, model)
     return rows
 
 
@@ -1250,10 +1286,10 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
     [20, 16, 1025, 64] (phase 21's 20 tiles) and the general one over views
     of [8, 16, 577, 64] with a 66-element row stride; K2's Hopper instance at G = 6
     (Qwen2-1.5B: 12/2 heads of 128) over phase 21's prompts in the 2048
-    bucket and at G = 1 over the Vicuna prefill's bucket 128; K3 at G = 6,
-    the Hopper instance over a 352-position cache (a chunk of 448x448 images)
-    and the general kernel over phase 21's 2112 positions, and at G = 1 over
-    phase 22's 192. Returns ``{kernel: {label: row}}``."""
+    bucket and at G = 1 over the Vicuna prefill's bucket 128; K3 at G = 6
+    over a 352-position cache (a chunk of 448x448 images) and over phase 21's
+    2112 positions in bf16 and int8, and at G = 1 over phase 22's 192
+    (:func:`_decode_rows`). Returns ``{kernel: {label: row}}``."""
     import torch
 
     from lmms_owc_tpu_torch.ops import attention as att
@@ -1330,34 +1366,14 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
         torch.cuda.empty_cache()
 
     # The decoders' decode: the prompt bucket's keys from each row's start, then 5 generated.
-    for label, (layers, b, nh, kvh, prompt, s), lengths in (
-        ("internvl_decode_short", (INTERNVL_LAYERS, 8, 12, 2, 288, 352), [INTERNVL_PROMPT_TOKENS[(448, 448)]] * 8),
-        ("internvl_decode", (INTERNVL_LAYERS, 8, 12, 2, 2048, 2112), internvl_lengths),
-        ("blip_decode", (BLIP_LAYERS, 8, 32, 32, 128, 192), [BLIP_PROMPT_TOKENS] * 8),
+    for label, (layers, b, nh, kvh, prompt, s), lengths, forms, model in (
+        ("internvl_decode_short", (INTERNVL_LAYERS, 8, 12, 2, 288, 352), [INTERNVL_PROMPT_TOKENS[(448, 448)]] * 8,
+         ("bf16",), "Qwen2-1.5B"),
+        ("internvl_decode", (INTERNVL_LAYERS, 8, 12, 2, 2048, 2112), internvl_lengths, ("bf16", "int8"),
+         "Qwen2-1.5B"),
+        ("blip_decode", (BLIP_LAYERS, 8, 32, 32, 128, 192), [BLIP_PROMPT_TOKENS] * 8, ("bf16",), "Vicuna-7B"),
     ):
-        qd = randn(torch.bfloat16, b, nh, hd)
-        ck, cv = (randn(torch.bfloat16, layers, b, kvh, s, hd) for _ in range(2))
-        spos = torch.arange(s, device=dev)
-        dstarts = prompt - torch.tensor(lengths, device=dev)
-        dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
-        valid = int(dmask.sum())
-        last = layers - 1
-        tol = dict(atol=LONG_CACHE_TOL["bf16"][0], rtol=0.0, rel_l2=LONG_CACHE_TOL["bf16"][1]) if s > 2048 else {}
-        errs = [_compare(f"gqa_decode_attention {label}[layer {layer}]",
-                         att.gqa_decode_attention(qd, ck, cv, layer, dmask),
-                         att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask), **tol)
-                for layer in (0, last)]
-        kernel_kind = "general kernel with the score workspace" if s > 2048 else "Hopper instance"
-        rows["gqa_decode_attention"][label] = _row(
-            f"q [{b}, {nh}, {hd}] bf16, cache [{layers}, {b}, {kvh}, {s}, {hd}] bf16, G = {nh // kvh}, "
-            f"layers 0 and {last} ({kernel_kind})", max(errs),
-            _timings(lambda: att.gqa_decode_attention(qd, ck, cv, last, dmask),
-                     lambda: att.gqa_decode_attention_plain(qd, ck, cv, last, dmask),
-                     _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :])),
-            _bound(4.0 * hd * nh * valid, 2 * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s), SDPA,
-        )
-        del qd, ck, cv
-        torch.cuda.empty_cache()
+        _decode_rows(dev, gen, rows, label, (layers, b, nh, kvh, hd, prompt, s), lengths, forms, model)
     return rows
 
 
@@ -1370,8 +1386,9 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
     not take) and its 3xTF32 f32 instance at a ragged [2, 32, 200, 96] with
     (start, end) runs (block_k < L: the multi-block online softmax); K2's
     Hopper instance at head_dim 64 over the Phi-3 tower's [17, 16, 577, 64]
-    (a 448x448 image's global view and 16 crops); K3's general kernel at head_dim 96, G = 1, over
-    phase 24's decode cache in bf16 and f32, held to ``LONG_CACHE_TOL``.
+    (a 448x448 image's global view and 16 crops); K3 at head_dim 96, G = 1,
+    over phase 24's decode cache in bf16, int8 and f32, held to ``LONG_CACHE_TOL``
+    (:func:`_decode_rows`).
     Returns ``{kernel: {label: row}}``."""
     import torch
 
@@ -1451,31 +1468,8 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
         torch.cuda.empty_cache()
 
     # The decode: the prompt bucket's keys from each row's start, then 5 generated.
-    b, last = 8, PHI3V_LAYERS - 1
-    spos = torch.arange(cache_len, device=dev)
-    dstarts = bucket - torch.tensor(lengths, device=dev)
-    dmask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < bucket + 5)).to(torch.int32)
-    valid = int(dmask.sum())
-    for label, dtype, key in (("phi3_decode", torch.bfloat16, "bf16"), ("phi3_decode_f32", torch.float32, "f32")):
-        qd = randn(dtype, b, nh, hd)
-        ck, cv = (randn(dtype, PHI3V_LAYERS, b, nh, cache_len, hd) for _ in range(2))
-        atol, rel_l2 = LONG_CACHE_TOL[key]
-        errs = [_compare(f"gqa_decode_attention {label}[layer {layer}]",
-                         att.gqa_decode_attention(qd, ck, cv, layer, dmask),
-                         att.gqa_decode_attention_plain(qd, ck, cv, layer, dmask), atol=atol, rtol=0.0, rel_l2=rel_l2)
-                for layer in (0, last)]
-        elt = 2 if dtype == torch.bfloat16 else 4
-        rows["gqa_decode_attention"][label] = _row(
-            f"q [{b}, {nh}, {hd}] {key}, cache [{PHI3V_LAYERS}, {b}, {nh}, {cache_len}, {hd}] {key}, G = 1, "
-            f"layers 0 and {last} (the general kernel; Phi-3-mini)", max(errs),
-            _timings(lambda: att.gqa_decode_attention(qd, ck, cv, last, dmask),
-                     lambda: att.gqa_decode_attention_plain(qd, ck, cv, last, dmask),
-                     _sdpa(qd[:, :, None], ck[last], cv[last], dmask.bool()[:, None, None, :])),
-            _bound(4.0 * hd * nh * valid, elt * (2 * b * nh * hd + 2 * nh * hd * valid) + 4 * b * cache_len,
-                   PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS), SDPA,
-        )
-        del qd, ck, cv
-        torch.cuda.empty_cache()
+    _decode_rows(dev, gen, rows, "phi3_decode", (PHI3V_LAYERS, 8, nh, nh, hd, bucket, cache_len), lengths,
+                 ("bf16", "int8", "f32"), "Phi-3-mini")
     return rows
 
 
@@ -1600,8 +1594,10 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
 def check_long_decode(dev, gen) -> dict[str, dict]:
     """K3 at the longest cache the adapter builds (prompt bucket 8192 + generation
     bucket 512): q [8, 28, 128] against two layers of [8, 4, 8704, 128] in bf16,
-    f32 and int8 with scales. The general kernel serves these with its score
-    rows in a device-memory workspace. Rows keyed by kernel name, then label."""
+    f32 and int8 with scales. The Hopper instance serves bf16 and int8 (1088
+    keys a split, streamed through its ring), the general kernel f32 with its
+    score rows in a device-memory workspace; ``_row`` reads which from the
+    profiler. Rows keyed by kernel name, then label."""
     import torch
 
     from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
@@ -1633,15 +1629,14 @@ def check_long_decode(dev, gen) -> dict[str, dict]:
         if label == "int8":
             valid = int(mask.sum())
             bound = _bound(4.0 * hd * nh * valid, 2 * 2 * b * nh * hd + kvh * valid * (2 * hd + 2 * 4) + 4 * b * s)
-            library, call = "none: SDPA needs the cache dequantized", None
+            library, call = INT8_LIBRARY, None
             shape += " + f32 scales"
         else:
             elt = cache[0].element_size()
             bound = _attention_bound(mask, nh, kvh, 1, hd, causal=False, extra_bytes=4 * b * s, elt=elt)
             library, call = SDPA, _sdpa(q[:, :, None], cache[0][1], cache[1][1], mask.bool()[:, None, None, :])
         rows[name][f"S={s} {label}"] = dict(
-            _row(shape + ", general kernel with the score workspace", err, _timings(kernel, plain, call), bound,
-                 library),
+            _row(shape, err, _timings(kernel, plain, call), bound, library),
             rel_l2=rel, atol=atol, rel_l2_bound=rel_bound,
         )
         del q, cache, call
@@ -1741,8 +1736,8 @@ def _int4_library(qp: dict):
 def check_ragged_bf16(dev, gen) -> None:
     """The Hopper instances at ragged bf16 shapes the main paths also reach
     (prompt buckets such as 288 are not multiples of the 64-key tile; the
-    decode cache splits unevenly; head_dim 72 padded to 80 columns), within
-    TOL of the plain versions."""
+    decode cache splits unevenly; head_dim 72 padded to 80 columns), and K3's
+    at head_dim 64 in bf16 and int8, within TOL of the plain versions."""
     import torch
 
     from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
@@ -1806,12 +1801,13 @@ def check_ragged_bf16(dev, gen) -> None:
         label = f"D={d} L={length}{' gappy' if masked else ''}{' rope' if rope else ''}"
         errs[label] = _compare(f"flash_attention[{label}]", att.flash_attention(q, k, v, **kw),
                                att.flash_attention_plain(q, k, v, **kw))
-    # Decode with uneven splits: S = 100 (2 x 64) in bf16, S = 520 (7 x 80) with an int8 cache.
-    for s, int8 in ((100, False), (520, True)):
-        qd, ck, cv = randn(5, 28, 128), randn(2, 5, 4, s, 128), randn(2, 5, 4, s, 128)
+    # Decode with uneven splits: S = 100 (2 x 64) in bf16, S = 520 (7 x 80) with an int8 cache, and
+    # head_dim 64 (no main path decodes at 64) at 520 and at 2112 (8 x 272: five tiles a split).
+    for s, int8, d in ((100, False, 128), (520, True, 128), (520, False, 64), (2112, True, 64)):
+        qd, ck, cv = randn(5, 28, d), randn(2, 5, 4, s, d), randn(2, 5, 4, s, d)
         dmask = (torch.rand((5, s), generator=gen, device=dev) > 0.2).to(torch.int32)
         cache = quantize_kv_cache(ck, cv) if int8 else (ck, cv)
-        errs[f"decode S={s}{' int8' if int8 else ''}"] = _compare(
+        errs[f"decode D={d} S={s}{' int8' if int8 else ''}"] = _compare(
             f"gqa_decode_attention[S={s}]", att.gqa_decode_attention(qd, *cache[:2], 1, dmask, *cache[2:]),
             att.gqa_decode_attention_plain(qd, *cache[:2], 1, dmask, *cache[2:]))
     log(f"ragged bf16 shapes (decode splits {att.decode_split_plan(100)} and {att.decode_split_plan(520)}): "
@@ -3538,7 +3534,7 @@ def run_llava_checkpoint(dev) -> dict:
 def run_llava_next(dev) -> dict:
     """Phase 17: llava-next-vicuna-7b with random bf16 weights answers one
     672x672 and one 1008-wide image (anyres: 5 and 4 tiles, prompt bucket
-    3072, a decode cache of 3136 positions: K3's general kernel past 2048) in
+    3072, a decode cache of 3136 positions: K3's Hopper instance past 2048) in
     one chunk; two tower calls (46 K2 launches), 32 prefill launches and 32
     K3 launches per step; the chunk's prefill logits by phase 4's rule."""
     from lmms_owc_tpu_torch.utils import pad_to_bucket
@@ -3594,7 +3590,7 @@ def run_onevision(dev) -> dict:
     """Phase 18: llava-onevision-qwen2-7b-ov with random bf16 weights drawn on
     the card answers phase 3's 8 requests in one chunk (anyres: 5 tiles for a
     448x448 image, 3 for a 336x448 one, prompts of 3712 and 1741 tokens,
-    bucket 4096, decode cache 4160: K3's general kernel), 64 greedy tokens:
+    bucket 4096, decode cache 4160: K3's Hopper instance), 64 greedy tokens:
     one tower call per image (26 K2 launches at head_dim 72), 28 prefill
     launches and 28 K3 launches per step, read around each call; the prefill
     logits of a chunk of one image of each size by phase 4's rule;
@@ -3811,7 +3807,7 @@ def run_internvl(dev) -> dict:
     """Phase 21: internvl2-2b with random bf16 weights drawn on the card
     answers phase 3's 8 requests in one chunk (a 448x448 image is one tile, a
     336x448 one 6 tiles and a thumbnail: 20 tiles, prompts of 279 and 1815
-    tokens, bucket 2048, decode cache 2112: K3's general kernel at G = 6),
+    tokens, bucket 2048, decode cache 2112: K3's Hopper instance at G = 6),
     64 greedy tokens: one tower call of 24 K2 launches (head_dim 64), 28
     prefill launches and 28 K3 per decode step, read around each call; the
     chunk's prefill logits by phase 4's rule; ``loglikelihood`` by phase 10's."""
@@ -4032,7 +4028,7 @@ def run_phi3v(dev) -> tuple[dict, object]:
     weights drawn on the card answers phase 3's 8 requests in one chunk at 16
     crops (4x4 crops for a 448x448 image, 3x4 for a 336x448 one, each with its
     global view; the prompt lengths of :func:`phi3v_prompt_tokens`, bucket
-    3072, decode cache 3136: K3's general kernel at head_dim 96), 64 greedy
+    3072, decode cache 3136: K3's Hopper instance at head_dim 96), 64 greedy
     tokens, with the port's host stage timers on: one tower call per image of
     23 K2 launches (head_dim 64), 32 prefill launches (head_dim 96) and 32 K3
     per decode step, read around each call; the prefill logits of a chunk of
@@ -4565,7 +4561,6 @@ def _phase_summary(phase: dict) -> dict:
 def _ptxas_summary(report: str) -> list[str]:
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s report: registers,
     shared memory, spills (names demangled when ``c++filt`` is there)."""
-    import re
 
     rows, name = [], None
     for line in report.splitlines():
@@ -4761,6 +4756,99 @@ def probe_flash_warpgroups(dev) -> dict:
         row["sdpa_device_ms"] = _device_ms(_sdpa(q, k, v, None))
         out[label] = row
         del q, k, v, want, result
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_probe_shapes() -> dict:
+    """K3's main-path decode shapes (2 layers each) for
+    :func:`probe_decode_splits`: label -> ((L, B, H, KVH, D, prompt bucket,
+    S), prompt lengths, cache forms). Phase 3's and phase 5's caches at 384
+    positions, the judge's at 160, and the caches past 2048 positions of
+    phases 17, 18, 21 and 24 and of the longest bucket (8192 + 512)."""
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    starts = [0, 3, 17, 40, 64, 100, 191, 250]
+    phi3 = phi3v_prompt_tokens()
+    phi3_bucket = pad_to_bucket(max(phi3))
+    return {
+        "qwen2_vl_384": ((2, 8, 28, 4, 128, 320, 384), [320 - x for x in starts], ("bf16",)),
+        "qwen2_vl_384_pool": ((2, POOL_BATCH * 2, 28, 4, 128, 320, 384),
+                              [320 - i % 64 for i in range(POOL_BATCH * 2)], ("int8",)),
+        "judge_160": ((2, JUDGE_POOL * JUDGE_BATCH, 24, 8, 128, 128, 160),
+                      [128 - (7 * i) % 40 for i in range(JUDGE_POOL * JUDGE_BATCH)], ("bf16",)),
+        "llava_next_3136": ((2, 2, 32, 32, 128, 3072, 3136), list(LLAVA_NEXT_PROMPT_TOKENS), ("bf16", "int8")),
+        "internvl_2112": ((2, 8, 12, 2, 128, 2048, 2112),
+                          [INTERNVL_PROMPT_TOKENS[(448, 448)]] * 6 + [INTERNVL_PROMPT_TOKENS[(336, 448)]] * 2,
+                          ("bf16", "int8")),
+        "onevision_4160": ((2, 8, 28, 4, 128, 4096, 4160),
+                           [ONEVISION_PROMPT_TOKENS[(448, 448)]] * 6 + [ONEVISION_PROMPT_TOKENS[(336, 448)]] * 2,
+                           ("bf16", "int8")),
+        "phi3_3136": ((2, 8, 32, 32, 96, phi3_bucket, phi3_bucket + MAX_NEW_TOKENS), phi3, ("bf16", "int8")),
+        "long_8704": ((2, 8, 28, 4, 128, LONG_CACHE - 305, LONG_CACHE), [LONG_CACHE - 305 - x for x in starts],
+                      ("bf16", "int8")),
+    }
+
+
+def probe_decode_splits(dev, splits=(8, 16)) -> dict:
+    """K3 at :func:`decode_probe_shapes` under the split plans of at most
+    ``splits`` CTAs a cluster (8, the plan's own, through the public
+    wrapper; 16, a non-portable cluster, through ``_launch_decode``): each
+    plan held to the plain version (``LONG_CACHE_TOL`` past 2048 positions,
+    else ``TOL``), then its device ms (profiler, mean of 20) read in the order
+    8, 16, 16, 8 and averaged per plan, beside SDPA's (bf16) and the bound,
+    with the kernel symbols the profiler saw. A diagnostic of the plan; the
+    smoke run does not call it. With ``splits=(8,)`` it uses only the public
+    wrappers, so an older checkout's package can be timed by the same code."""
+    import torch
+
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for label, ((layers, b, nh, kvh, hd, prompt, s), lengths, forms) in decode_probe_shapes().items():
+        spos = torch.arange(s, device=dev)
+        dstarts = prompt - torch.tensor(lengths, device=dev)
+        mask = ((spos[None, :] >= dstarts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
+        valid = int(mask.sum())
+        q, ck, cv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                     for shape in ((b, nh, hd), (layers, b, kvh, s, hd), (layers, b, kvh, s, hd)))
+        for form in forms:
+            cache = quantize_kv_cache(ck, cv) if form == "int8" else (ck, cv)
+            plans = {n: att.decode_split_plan(s, n) if n != 8 else att.decode_split_plan(s) for n in splits}
+            runs = {}
+            for n in splits:
+                if n == 8:
+                    runs[n] = lambda: att.gqa_decode_attention(q, cache[0], cache[1], 1, mask, *cache[2:])
+                elif plans[n] != plans[8]:
+                    runs[n] = (lambda n=n: att._launch_decode(q, cache[0], cache[1], 1, mask, *(cache[2:] or (None, None)),
+                                                              1.0 / hd ** 0.5, splits=n))
+            want = att.gqa_decode_attention_plain(q, cache[0], cache[1], 1, mask, *cache[2:])
+            tol = dict(atol=LONG_CACHE_TOL[form][0], rtol=0.0, rel_l2=LONG_CACHE_TOL[form][1]) if s > 2048 else {}
+            row: dict = {"shape": [layers, b, nh, kvh, s, hd], "form": form, "plans": {n: plans[n] for n in runs},
+                         "max_abs_err": {}, "device_ms": {n: [] for n in runs}, "symbols": {}}
+            for n, run in runs.items():
+                row["max_abs_err"][n] = _compare(f"decode {label} {form} splits<={n}", run(), want, **tol)
+            for n in list(runs) + list(runs)[::-1]:
+                symbols: list[str] = []
+                for _ in range(3):  # the profiler can drop a window's events: read the call again
+                    ms = _device_ms(runs[n], symbols=symbols)
+                    if ms is not None:
+                        row["device_ms"][n].append(ms)
+                        break
+                row["symbols"][n] = sorted(set(symbols))
+            row["device_ms"] = {n: sum(t) / len(t) if t else None for n, t in row["device_ms"].items()}
+            if form == "int8":
+                nbytes = 2 * 2 * b * nh * hd + kvh * valid * (2 * hd + 2 * 4) + 4 * b * s
+            else:
+                nbytes = 2 * (2 * b * nh * hd + 2 * kvh * hd * valid) + 4 * b * s
+                row["sdpa_device_ms"] = _device_ms(_sdpa(q[:, :, None], ck[1], cv[1], mask.bool()[:, None, None, :]))
+            row.update(_bound(4.0 * hd * nh * valid, nbytes))
+            out[f"{label} {form}"] = row
+            log(f"decode split probe {label} {form}: {json.dumps(row)}")
+            del cache, want
+        del q, ck, cv
         torch.cuda.empty_cache()
     return out
 
@@ -5184,6 +5272,12 @@ def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if "--decode-rows-probe" in args:
         log(f"decode rows probe: {json.dumps(probe_decode_rows(dev))}")
+        print(smi)
+        return 0
+    probe = [a for a in args if a.startswith("--decode-split-probe")]
+    if probe:
+        splits = tuple(int(n) for n in probe[0].partition("=")[2].split(",") if n) or (8, 16)
+        log(f"decode split probe ({smi}): {json.dumps(probe_decode_splits(dev, splits))}")
         print(smi)
         return 0
     if "--flash-wg-probe" in args:

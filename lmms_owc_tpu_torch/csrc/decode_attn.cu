@@ -13,24 +13,25 @@
 // at Qwen2-VL-7B), far below the card's ~295 flop/byte balance point. The int8
 // cache halves those bytes; its scales add 8 bytes per position.
 //
-// Two designs. The bf16-query instances at head_dim 64 and 128 with a cache
-// length the split plan covers (every main-path shape) are the Hopper kernel
-// of namespace sm90 below: the key axis split across a thread block cluster
-// so a small batch fills the card, coalesced 16-byte cp.async of whole rows,
-// both products on the tensor cores with the query group packed into M. The
-// general kernel serves f32 and everything else: one CTA per (batch row, KV
-// head) computes all G query heads of the group, each thread owning whole key
-// rows for the scores and one column chunk of a strided set of value rows for
-// PV, whose row groups' partial sums are added in a fixed order. The general
-// kernel keeps the group's f32 score rows in shared memory up to the card's
+// Two designs. Every bf16-query call at head_dim 64, 96 or 128 with a group
+// of at most 8 (every cache the adapters build, up to 8192 + 512 positions,
+// bf16 or int8) runs the Hopper kernel of namespace sm90 below: the key axis
+// split across a thread block cluster so a small batch fills the card, each
+// split's K and then V tiles streamed through a ring of 16-byte cp.async
+// stages, both products on the tensor cores with the query group packed into
+// M. The general kernel serves f32 and any other head_dim: one CTA per
+// (batch row, KV head) computes all G query heads of the group, each thread
+// owning whole key rows for the scores and one column chunk of a strided set
+// of value rows for PV, whose row groups' partial sums are added in a fixed
+// order. It keeps the group's f32 score rows in shared memory up to the card's
 // 227 KB (S <= 8045 at G = 7, D = 128); past that the wrapper passes an f32
 // workspace [B, KVH, G, S] in device memory and the rows live there, with the
-// same arithmetic in the same order (S = 8704 at the longest bucket). Both read
-// every K and V element from device memory once, fold the scales into rows
-// they already hold (k_scale[s] into the f32 score of key s, v_scale[s] into
-// the normalised weight before PV), take the layer as a pointer offset into
-// the stacked cache, and give bits that depend neither on the run nor on the
-// batch size (greedy tokens stay reproducible). `layer` arrives as a host
+// same arithmetic in the same order (f32 at S = 8256 and 8704). Both read
+// every K and V element from device memory at most once, fold the scales into
+// rows they already hold (k_scale[s] into the f32 score of key s, v_scale[s]
+// into the normalised weight before PV), take the layer as a pointer offset
+// into the stacked cache, and give bits that depend neither on the run nor on
+// the batch size (greedy tokens stay reproducible). `layer` arrives as a host
 // int; capturing the decode step in a CUDA graph will need it as a device
 // scalar.
 //
@@ -264,43 +265,81 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
 
 
 // ============================================================================
-// The Hopper design of the bf16-query instances (bf16 or int8 cache).
+// The Hopper design of the bf16-query instances (bf16 or int8 cache, head_dim
+// 64, 96 or 128, any cache length the adapters build).
 //
 // The key axis of each (row, KV head) is split across the CTAs of one thread
 // block cluster, by a plan (splits, keys per split) that the wrapper computes
 // from S alone (decode_split_plan), so a pooled and an unpooled batch split
 // alike and give the same bits. At S = 384 that is 6 CTAs of 64 keys: 288 CTAs
-// at B = 8 where the general kernel had 32. Each CTA:
-//   * copies its K and V rows into shared memory with 16-byte cp.async, all in
-//     flight at once (V lands while the scores are computed);
-//   * computes the scores of all G <= 8 query heads (the rows of an m16 tile
-//     past G are zero registers, never stored) against its keys
-//     on the tensor cores, mma.sync m16n8k16 with int8 values converted to
-//     bf16 in registers (exact: |x| <= 127), k_scale folded into the f32 score;
+// at B = 8 where a CTA per (row, KV head) would be 32; at S = 8704, 8 of 1088.
+// Each CTA walks its keys in tiles of 64, double-buffered with cp.async, in
+// one sequence: its K tiles, then its V tiles, the next tile in flight while
+// one is read, so K and V are each read from device memory once and the first
+// V tile lands while the softmax is exchanged. What bounds the kernel is how
+// many CTAs an SM holds (each one's exchange and start leave its copies idle;
+// other CTAs fill them), so shared memory is sized to the call (q and the
+// score rows of its G heads, the partials of its splits; bf16 cache rows
+// swizzled, not padded) and registers are capped at 64: 3- and 4-slot rings
+// ran slower at every main-path shape.
+// Each CTA:
+//   * issues its first K tile, then reads the mask: a later tile whose keys
+//     are all masked is not read (its scores are -1e30, the value any masked
+//     score takes, and its softmax weights are exactly 0 once the row has a
+//     valid key), which changes no bit of the result;
+//   * computes the scores of its G <= 8 query heads against each K tile on
+//     the tensor cores, mma.sync m16n8k16 with 16 keys in M and the heads in
+//     N (columns past G are not stored), bf16 fragments read with ldmatrix
+//     and int8 values converted to bf16 in registers (exact: |x| <= 127),
+//     k_scale folded into the f32 score, and keeps the f32 scores [G][keys]
+//     in shared memory (30 KB at G = 7 and 1088 keys);
 //   * pushes its per-head max and sum of exponentials into the shared memory
 //     of every CTA of the cluster (remote stores, no round trips), once;
-//   * normalises in f32, multiplies by v_scale, rounds to bf16, computes its
-//     PV partial on the tensor cores and pushes each slice of it to the CTA
-//     that owns that slice of the output;
+//   * normalises in f32, multiplies by v_scale, rounds to bf16, accumulates
+//     its PV partial over its V tiles on the tensor cores in registers (16
+//     output columns in M, V read transposed by ldmatrix), and pushes each
+//     slice of it to the CTA that owns that slice of the output;
 //   * and adds the partials of its own slice in rank order and writes it.
 // That keeps the TPU kernel's numerics (normalise before the cast) in one
-// launch, with no atomics. The shared-memory attribute is set once per
-// template instance; nothing varies per call but the arguments.
+// launch, with no atomics. The attributes (shared memory, cluster size) are
+// set once per template instance; nothing varies per call but the arguments.
 
 namespace sm90 {
 
-constexpr int kThreads = 128;     // 4 warps
-constexpr int kMaxSplits = 8;     // portable cluster size
-constexpr int kMaxSplitKeys = 256;
-constexpr int kRows = 8;          // the query group (mma M is 16: rows 8-15 are zeros, never stored)
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kMaxSplits = 16;     // a non-portable cluster; decode_split_plan takes at most 8
+constexpr int kMaxSplitKeys = 1536;
+constexpr int kTile = 64;          // keys per tile, double-buffered: one in flight while one is read
+constexpr int kRows = 8;           // the query group: the mma's N
+constexpr int kMinBlocks = 8;      // CTAs an SM must hold: at most 64 registers a thread
+static_assert(kMaxSplitKeys / kTile <= 32, "a split's live tiles are the bits of one word");
+static_assert(kTile == 16 * (kThreads / 32), "each warp scores 16 keys of a tile");
 
 template <typename C, int D>
 struct Layout {
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(C)) + 16;  // padded: no bank conflicts
-  static constexpr int kQLd = D + 8;                                      // bf16 elements
-  static size_t bytes(int keys) {
-    return 2 * static_cast<size_t>(keys) * kRowBytes + kRows * kQLd * 2 + kRows * keys * 4 +
-           (kRows * D + kMaxSplits) * 4 + 2 * keys * 4 + keys * 4 + (2 * kMaxSplits + 2) * kRows * 4;
+  static constexpr bool kInt8 = std::is_same<C, int8_t>::value;
+  // A tile's cache rows: bf16 rows of whole 128-byte lines are stored with
+  // each 16-byte chunk's index XORed with the row's index mod 8, so the same
+  // chunk of 8 consecutive rows falls in 8 distinct bank groups (ldmatrix);
+  // no padding leaves more CTAs room on an SM (the judge's: 6 instead of 5).
+  // Other rows are padded by 16 bytes to the same end: the int8 fragments'
+  // byte loads ran slower behind the swizzle's address arithmetic.
+  static constexpr int kRowData = D * static_cast<int>(sizeof(C));
+  static constexpr bool kSwizzle = !kInt8 && kRowData % 128 == 0;
+  static constexpr int kRowBytes = kRowData + (kSwizzle ? 0 : 16);
+  static constexpr int kQLd = D + 8;  // bf16 elements
+  // Byte offset of byte x of row r in a tile.
+  __device__ static int at(int r, int x) {
+    return r * kRowBytes + (kSwizzle ? ((((x >> 4) ^ (r & 7)) << 4) | (x & 15)) : x);
+  }
+  // Score rows are keys + 8 floats apart: the weight fragments' 8-byte reads
+  // of a half warp then fall in distinct banks.
+  __host__ __device__ static int score_ld(int keys) { return keys + 8; }
+  // Shared memory of a plan of `splits` splits of `keys` keys at a group of
+  // G, every part sized to the call: the more CTAs an SM holds, the faster.
+  __host__ __device__ static int bytes(int keys, int G, int splits) {
+    return 2 * kTile * kRowBytes + G * kQLd * 2 + G * score_ld(keys) * 4 + (G * D + splits) * 4 +
+           (kInt8 ? 2 * keys * 4 : 0) + 2 * (splits + 1) * kRows * 4 + 4 * 4 + keys;
   }
 };
 
@@ -311,140 +350,241 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ uint32_t pair_bits(const __nv_bfloat16* p) {  // two bf16 values
   return *reinterpret_cast<const uint32_t*>(p);
 }
-__device__ __forceinline__ uint32_t pair_bits(const int8_t* p) {  // two int8 values as bf16
-  __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(p[0]), static_cast<float>(p[1]));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pair_bits(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t x) { return __float2bfloat16(static_cast<float>(x)); }
+// Two int8 values (the low bytes of lo and hi) as two bf16, exact (|x| <= 127):
+// x + 128 in the low mantissa bits of 2^23, less 2^23 + 128, with no I2F.
+__device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi) {
+  const uint32_t u = __byte_perm(lo, hi, 0x0040) ^ 0x8080u;  // bytes: lo, hi, 0, 0
+  return pack_pair(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f,
+                   __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f);
+}
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// The A fragment (m16 x k16) of keys [key0, key0 + 16) by head dims [d0, d0 + 16)
+// of a tile of cache rows laid out by L: K as stored (scores).
+template <typename L>
+__device__ __forceinline__ void key_frag(uint32_t (&a)[4], const unsigned char* tile, int key0, int d0,
+                                         const __nv_bfloat16*) {
+  const int lane = threadIdx.x % 32;
+  const int key = key0 + lane % 8 + 8 * ((lane / 8) % 2), d = d0 + 8 * (lane / 16);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(tile + L::at(key, d * 2))));
+}
+template <typename L>
+__device__ __forceinline__ void key_frag(uint32_t (&a)[4], const unsigned char* tile, int key0, int d0,
+                                         const int8_t*) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // rows g, g + 8; columns 2 tig, 2 tig + 8
+    const uchar2 v = *reinterpret_cast<const uchar2*>(tile + L::at(key0 + g + 8 * (i % 2), d0 + 2 * tig + 8 * (i / 2)));
+    a[i] = int8_pair(v.x, v.y);
+  }
+}
+// The A fragment (m16 x k16) of output columns [c0, c0 + 16) by keys
+// [key0, key0 + 16): V transposed (PV).
+template <typename L>
+__device__ __forceinline__ void value_frag(uint32_t (&a)[4], const unsigned char* tile, int key0, int c0,
+                                           const __nv_bfloat16*) {
+  const int lane = threadIdx.x % 32;
+  const int key = key0 + lane % 8 + 8 * (lane / 16), c = c0 + 8 * ((lane / 8) % 2);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(tile + L::at(key, c * 2))));
+}
+template <typename L>
+__device__ __forceinline__ void value_frag(uint32_t (&a)[4], const unsigned char* tile, int key0, int c0,
+                                           const int8_t*) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // columns g, g + 8; keys 2 tig, 2 tig + 8
+    const int key = key0 + 2 * tig + 8 * (i / 2), c = c0 + g + 8 * (i % 2);
+    a[i] = int8_pair(tile[L::at(key, c)], tile[L::at(key + 1, c)]);
+  }
 }
 
 template <typename C, int D>
-__global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) decode_kernel(const DecodeArgs a) {
   using L = Layout<C, D>;
-  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
+  constexpr bool kInt8 = L::kInt8;
   constexpr int kChunks = D * static_cast<int>(sizeof(C)) / 16;  // 16-byte chunks per cache row
+  constexpr int kColTiles = D / 16;                              // PV: m16 tiles of output columns
+  constexpr int kColTilesPerWarp = (kColTiles + 3) / 4;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int splits = a.splits, chunk = a.split_keys;
+  const int splits = a.splits, chunk = a.split_keys, ld = L::score_ld(chunk);
   const int G = a.heads / a.kv_heads, S = a.seq;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
   const int s0 = rank * chunk, n = max(0, min(S, s0 + chunk) - s0);
   const int n16 = (n + 15) / 16 * 16;
+  const int tiles = (n + kTile - 1) / kTile;
   // Arrive now, wait before the first store into another CTA's shared memory:
   // every CTA of the cluster has started by then.
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* kbuf = smem;
-  unsigned char* vbuf = kbuf + chunk * L::kRowBytes;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(vbuf + chunk * L::kRowBytes);
-  float* w = reinterpret_cast<float*>(qs + kRows * L::kQLd);  // [8][chunk] scores, then weights
-  float* part = w + kRows * chunk;  // [splits][per]: every CTA's partial of this CTA's output slice
-  float* kscale = part + kRows * D + kMaxSplits;
-  float* vscale = kscale + chunk;
-  int* valid = reinterpret_cast<int*>(vscale + chunk);
-  float* red_max = reinterpret_cast<float*>(valid + chunk);  // [splits][8] every CTA's max
-  float* red_sum = red_max + kMaxSplits * kRows;             // and sum of exponentials
-  float* gmax = red_sum + kMaxSplits * kRows;                // [8] the cluster's max
-  float* total = gmax + kRows;                               // [8] and 1 / sum, per head
+  unsigned char* ring = smem;  // [2][kTile] padded cache rows
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(ring + 2 * kTile * L::kRowBytes);  // [G]
+  float* w = reinterpret_cast<float*>(qs + G * L::kQLd);  // [G][ld] scores, then weights
+  float* part = w + G * ld;  // [splits][per]: every CTA's partial of this CTA's output slice
+  float* kscale = part + G * D + splits;
+  float* vscale = kscale + (kInt8 ? chunk : 0);
+  float* red_max = vscale + (kInt8 ? chunk : 0);  // [splits][8] every CTA's max
+  float* red_sum = red_max + splits * kRows;      // and sum of exponentials
+  float* gmax = red_sum + splits * kRows;         // [8] the cluster's max
+  float* total = gmax + kRows;                    // [8] and 1 / sum, per head
+  unsigned* live_words = reinterpret_cast<unsigned*>(total + kRows);   // [4] each warp's live tiles
+  unsigned char* valid = reinterpret_cast<unsigned char*>(live_words + 4);  // [keys]
 
   const long long head = ((static_cast<long long>(a.layer) * a.batch + b) * a.kv_heads + kvh);
-  const C* kc = static_cast<const C*>(a.k_cache) + head * S * D + static_cast<long long>(s0) * D;
-  const C* vc = static_cast<const C*>(a.v_cache) + head * S * D + static_cast<long long>(s0) * D;
+  const unsigned char* kc =
+      reinterpret_cast<const unsigned char*>(static_cast<const C*>(a.k_cache) + (head * S + s0) * D);
+  const unsigned char* vc =
+      reinterpret_cast<const unsigned char*>(static_cast<const C*>(a.v_cache) + (head * S + s0) * D);
 
-  // K and V rows [s0, s0 + n16) of this split (zero past S), as one group.
-  for (int idx = tid; idx < n16 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx - r * kChunks;
-    const bool ok = r < n;
-    const int bytes = ok ? 16 : 0;
-    const long long off = static_cast<long long>(ok ? r : 0) * D * sizeof(C) + c * 16;
-    const uint32_t dst = r * L::kRowBytes + c * 16;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(kbuf + dst)),
-                 "l"(reinterpret_cast<const unsigned char*>(kc) + off), "r"(bytes));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(vbuf + dst)),
-                 "l"(reinterpret_cast<const unsigned char*>(vc) + off), "r"(bytes));
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // Entry e of a sequence is K tile e for e < tiles, else V tile e - tiles;
+  // its rows [t * 64, t * 64 + rows) land in slot i % 2 (rows past n, up to a
+  // multiple of 16, zero).
+  auto issue = [&](int e, int i) {
+    const bool is_v = e >= tiles;
+    const int t = is_v ? e - tiles : e;
+    const int rows = min(kTile, n - t * kTile), rows16 = (rows + 15) / 16 * 16;
+    const unsigned char* src = (is_v ? vc : kc) + static_cast<long long>(t) * kTile * D * sizeof(C);
+    unsigned char* dst = ring + (i % 2) * kTile * L::kRowBytes;
+    for (int idx = tid; idx < rows16 * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx - r * kChunks;
+      const bool ok = r < rows;
+      const long long off = static_cast<long long>(ok ? r : 0) * D * sizeof(C) + c * 16;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst + L::at(r, c * 16))),
+                   "l"(src + off), "r"(ok ? 16 : 0));
+    }
+  };
 
-  // q rows of the group (zero past G), the mask and the scales of the split.
+  // K tile 0, before the mask is known. (Issuing a split of one tile's K and V
+  // at once ran slower at the many-CTA shapes: the judge's 3072 CTAs, the
+  // pooled int8 2304.)
+  issue(0, 0);
+  commit();
+
+  // q rows of the group; when a K tile may go unread, every score -1e30
+  // until computed (the value of a masked key: the tiles that are not read
+  // keep it); the mask, the tiles with a valid key, and the scales of the split.
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + (static_cast<long long>(b) * a.heads + kvh * G) * D;
-  for (int i = tid; i < kRows * D; i += kThreads) {
+  for (int i = tid; i < G * D; i += kThreads) {
     const int r = i / D, c = i - r * D;
-    qs[r * L::kQLd + c] = r < G ? q[r * D + c] : __float2bfloat16(0.f);
+    qs[r * L::kQLd + c] = q[i];
   }
-  for (int i = tid; i < n; i += kThreads) {
-    valid[i] = a.mask[static_cast<long long>(b) * S + s0 + i] != 0;
-    if (kInt8) {
+  if (tiles > 1) {
+    for (int h = warp; h < G; h += kThreads / 32)
+      for (int k = lane; k < n; k += 32) w[h * ld + k] = -1e30f;
+  }
+  const int* mask = a.mask + static_cast<long long>(b) * S + s0;
+  unsigned live_bits = 0;
+  for (int k = tid; k < n; k += kThreads) {
+    const bool v = mask[k] != 0;
+    valid[k] = v;
+    if (v) live_bits |= 1u << (k / kTile);
+  }
+  live_bits = __reduce_or_sync(0xffffffffu, live_bits);
+  if (lane == 0) live_words[warp] = live_bits;
+  if (kInt8) {
+    for (int i = tid; i < n; i += kThreads) {
       kscale[i] = a.k_scale[head * S + s0 + i];
       vscale[i] = a.v_scale[head * S + s0 + i];
     }
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
 
-  // Scores: warp w takes key tiles of 8 (w, w + 4, ...): S[16 x 8] = Q K^T,
-  // with the q fragments held in registers.
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc16 = 0; kc16 < D / 16; ++kc16) {
-    const int c = kc16 * 16 + tig * 2;
-    qa[kc16][0] = pair_bits(qs + g * L::kQLd + c);
-    qa[kc16][1] = 0u;  // rows 8-15
-    qa[kc16][2] = pair_bits(qs + g * L::kQLd + c + 8);
-    qa[kc16][3] = 0u;
-  }
-  for (int t = warp; t * 8 < n; t += 4) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const C* krow = reinterpret_cast<const C*>(kbuf + (t * 8 + g) * L::kRowBytes);
-#pragma unroll
-    for (int kc16 = 0; kc16 < D / 16; ++kc16) {
-      const int c = kc16 * 16 + tig * 2;
-      mma_bf16(acc, qa[kc16][0], qa[kc16][1], qa[kc16][2], qa[kc16][3], pair_bits(krow + c),
-               pair_bits(krow + c + 8));
+  // Wait for entry i (the one copy in flight) and free the slot entry i - 1
+  // was read from; the first wait's barrier also publishes everything above.
+  auto wait_entry = [&]() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  };
+  wait_entry();
+  // The sequence: K tile 0, then the live K tiles past it, then the live V
+  // tiles. A split with no valid key reads no V tile; should the whole row be
+  // masked, its V tiles are read after the exchange.
+  const unsigned live = live_words[0] | live_words[1] | live_words[2] | live_words[3];
+  const unsigned k_rest = live & ~1u;
+  const int k_len = 1 + __popc(k_rest), len = k_len + __popc(live);
+  auto entry = [&](int i) {
+    if (i == 0) return 0;
+    const bool is_v = i >= k_len;
+    unsigned bits = is_v ? live : k_rest;
+    for (int j = is_v ? i - k_len : i - 1; j > 0; --j) bits &= bits - 1u;  // drop the lower ones
+    return (is_v ? tiles : 0) + __ffs(bits) - 1;
+  };
+  // Issue entry i + 1 into the slot the wait for entry i freed.
+  auto issue_next = [&](int i) {
+    if (i + 1 < len) {
+      issue(entry(i + 1), i + 1);
+      commit();
     }
+  };
+
+  // Scores: S^T[16 keys x 8 heads] = K Q^T on the tensor cores, warp w taking
+  // keys [16 w, 16 w + 16) of each K tile, the q fragments read from shared
+  // memory (registers are what bounds the CTAs an SM holds); heads past G
+  // take column g = 0's q, and their scores are not stored.
+  const __nv_bfloat16* qrow = qs + (g < G ? g : 0) * L::kQLd + tig * 2;
+  int i = 0;
+  for (; i < k_len; ++i) {
+    if (i > 0) wait_entry();
+    issue_next(i);
+    const int r0 = entry(i) * kTile, key0 = 16 * warp;
+    if (key0 < n - r0) {
+      const unsigned char* kb = ring + (i % 2) * kTile * L::kRowBytes;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {  // row g; regs 2, 3 hold the zero rows
-      const int row = g, key = t * 8 + tig * 2 + c;
-      if (key < n) {
-        const float score = kInt8 ? acc[c] * a.scale * kscale[key] : acc[c] * a.scale;
-        w[row * chunk + key] = valid[key] ? score : -1e30f;
+      for (int kc16 = 0; kc16 < D / 16; ++kc16) {
+        uint32_t af[4];
+        key_frag<L>(af, kb, key0, kc16 * 16, static_cast<const C*>(nullptr));
+        mma_bf16(acc, af, pair_bits(qrow + kc16 * 16), pair_bits(qrow + kc16 * 16 + 8));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // keys g, g + 8; heads 2 tig, 2 tig + 1
+        const int key = r0 + key0 + g + 8 * r;
+        if (key < n) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int h = 2 * tig + c;
+            if (h < G) {
+              const float score = kInt8 ? acc[2 * r + c] * a.scale * kscale[key] : acc[2 * r + c] * a.scale;
+              w[h * ld + key] = valid[key] ? score : -1e30f;
+            }
+          }
+        }
       }
     }
   }
   __syncthreads();
 
   // Softmax across the cluster: each CTA's max and sum of exponentials per
-  // head, exchanged once; every CTA combines them in rank order alike.
+  // head (warp w owns heads w, w + 4), exchanged once; every CTA combines them
+  // in rank order alike.
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int h = warp; h < kRows; h += 4) {
     float m = -INFINITY, sum = 0.f;
     if (h < G) {
-      for (int i = lane; i < n; i += 32) m = fmaxf(m, w[h * chunk + i]);
+      for (int k = lane; k < n; k += 32) m = fmaxf(m, w[h * ld + k]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      for (int i = lane; i < n; i += 32) sum += expf(w[h * chunk + i] - m);
+      for (int k = lane; k < n; k += 32) sum += expf(w[h * ld + k] - m);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     }
@@ -462,48 +602,70 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
     total[tid] = 1.f / sum;
   }
   __syncthreads();
+  // Whether the row has a valid key: then a masked key weighs exactly 0
+  // (exp(-1e30 - max) underflows), which is not computed.
+  const bool row_live = gmax[0] > -1e30f;
   // Normalise in f32 (times v_scale), round to bf16; keys past n weigh 0.
-  for (int i = tid; i < kRows * n16; i += kThreads) {
-    const int h = i / n16, key = i - h * n16;
-    float p = 0.f;
-    if (h < G && key < n) {
-      p = expf(w[h * chunk + key] - gmax[h]) * total[h];
-      if (kInt8) p *= vscale[key];
+  for (int h = warp; h < G; h += 4) {
+    for (int k = lane; k < n16; k += 32) {
+      float p = 0.f;
+      if (k < n && (valid[k] || !row_live)) {
+        p = expf(w[h * ld + k] - gmax[h]) * total[h];
+        if (kInt8) p *= vscale[k];
+      }
+      w[h * ld + k] = __bfloat162float(__float2bfloat16(p));
     }
-    w[h * chunk + key] = __bfloat162float(__float2bfloat16(p));
   }
-  __syncthreads();
 
-  // PV partial: warp w takes the output's n8 column tiles w, w + 4, ...; the
-  // A fragments (weights) of a k-step are read once for all of them.
-  constexpr int kNT = D / 32;  // column tiles per warp
-  const int per = (G * D + splits - 1) / splits;  // output elements each CTA adds
-  float acc[kNT][4];
+  // PV partial over the V tiles: O^T[16 columns x 8 heads] = V^T P^T, warp w
+  // taking the output's m16 column tiles w, w + 4, ...; the weights' B
+  // fragment of a k-step is read once for all of them (heads past G: zeros).
+  float acc[kColTilesPerWarp][4];
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int k0 = 0; k0 < n16; k0 += 16) {
-    const int kk = k0 + tig * 2;
-    const float* w0 = w + g * chunk + kk;
-    const uint32_t a0 = pack_pair(w0[0], w0[1]), a1 = 0u, a2 = pack_pair(w0[8], w0[9]), a3 = 0u;
-    const unsigned char* r0 = vbuf + kk * L::kRowBytes;
-    const unsigned char* r8 = vbuf + (kk + 8) * L::kRowBytes;
+  for (int j = 0; j < kColTilesPerWarp; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  auto pv = [&](int t, const unsigned char* vb) {
+    const int r0 = t * kTile, rows16 = (min(kTile, n - r0) + 15) / 16 * 16;
+    for (int k0 = 0; k0 < rows16; k0 += 16) {
+      const float2 zero = make_float2(0.f, 0.f);
+      const float2 lo = g < G ? *reinterpret_cast<const float2*>(w + g * ld + r0 + k0 + 2 * tig) : zero;
+      const float2 hi = g < G ? *reinterpret_cast<const float2*>(w + g * ld + r0 + k0 + 2 * tig + 8) : zero;
+      const uint32_t b0 = pack_pair(lo.x, lo.y), b1 = pack_pair(hi.x, hi.y);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = (warp + 4 * j) * 8 + g;
-      const C* v0 = reinterpret_cast<const C*>(r0) + col;
-      const C* v1 = reinterpret_cast<const C*>(r0 + L::kRowBytes) + col;
-      const C* v8 = reinterpret_cast<const C*>(r8) + col;
-      const C* v9 = reinterpret_cast<const C*>(r8 + L::kRowBytes) + col;
-      mma_bf16(acc[j], a0, a1, a2, a3, pair_bits(to_bf16(*v0), to_bf16(*v1)), pair_bits(to_bf16(*v8), to_bf16(*v9)));
+      for (int j = 0; j < kColTilesPerWarp; ++j) {
+        if (warp + 4 * j < kColTiles) {
+          uint32_t af[4];
+          value_frag<L>(af, vb, k0, (warp + 4 * j) * 16, static_cast<const C*>(nullptr));
+          mma_bf16(acc[j], af, b0, b1);
+        }
+      }
+    }
+  };
+  for (; i < len; ++i) {
+    wait_entry();  // its barrier also orders the weights above before their first read
+    issue_next(i);
+    pv(entry(i) - tiles, ring + (i % 2) * kTile * L::kRowBytes);
+  }
+  if (live == 0 && !row_live) {  // a masked row: uniform weights over every V tile
+    for (int t = 0; t < tiles; ++t) {
+      __syncthreads();
+      issue(tiles + t, 0);
+      commit();
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      pv(t, ring);
     }
   }
+  const int per = (G * D + splits - 1) / splits;  // output elements each CTA adds
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
+  for (int j = 0; j < kColTilesPerWarp; ++j) {
+    if (warp + 4 * j < kColTiles) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (g < G) {  // pushed to the CTA that adds this output element
-        const int i = g * D + (warp + 4 * j) * 8 + tig * 2 + c, owner = i / per;
-        cluster.map_shared_rank(part, owner)[rank * per + i - owner * per] = acc[j][c];
+      for (int r = 0; r < 4; ++r) {  // columns g, g + 8; heads 2 tig, 2 tig + 1
+        const int h = 2 * tig + r % 2;
+        if (h < G) {  // pushed to the CTA that adds this output element
+          const int o = h * D + (warp + 4 * j) * 16 + g + 8 * (r / 2), owner = o / per;
+          cluster.map_shared_rank(part, owner)[rank * per + o - owner * per] = acc[j][r];
+        }
       }
     }
   }
@@ -511,23 +673,29 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
 
   // Each CTA adds its slice of the output over the partials in rank order and writes it.
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + (static_cast<long long>(b) * a.heads + kvh * G) * D;
-  for (int i = rank * per + tid; i < min(G * D, (rank + 1) * per); i += kThreads) {
+  for (int o = rank * per + tid; o < min(G * D, (rank + 1) * per); o += kThreads) {
     float sum = 0.f;
-    for (int r = 0; r < splits; ++r) sum += part[r * per + i - rank * per];
-    out[i] = __float2bfloat16(sum);
+    for (int r = 0; r < splits; ++r) sum += part[r * per + o - rank * per];
+    out[o] = __float2bfloat16(sum);
   }
 }
 
 template <typename C, int D>
+cudaError_t set_attributes() {
+  const cudaError_t e = cudaFuncSetAttribute(decode_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             Layout<C, D>::bytes(kMaxSplitKeys, kRows, kMaxSplits));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(decode_kernel<C, D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+template <typename C, int D>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance
-      decode_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Layout<C, D>::bytes(kMaxSplitKeys)));
+  static const cudaError_t attr = set_attributes<C, D>();  // once per instance
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.splits, a.kv_heads, a.batch);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Layout<C, D>::bytes(a.split_keys);
+  cfg.dynamicSmemBytes = Layout<C, D>::bytes(a.split_keys, a.heads / a.kv_heads, a.splits);
   cfg.stream = stream;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -539,20 +707,23 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, decode_kernel<C, D>, a);
 }
 
-// Whether these instances take the call: a bf16 query, head_dim 64 or 128,
-// groups up to 8, and a split plan with at most 8 splits of at most 256 keys
-// (a multiple of 16) that covers S. Anything else runs the general kernel.
+// Whether these instances take the call: a bf16 query, head_dim 64, 96 or 128,
+// groups up to 8, and a split plan of at most 16 splits of at most 1536 keys
+// (a multiple of 16) that covers S with no split empty. Anything else runs the
+// general kernel.
 bool takes(const DecodeArgs& a) {
   const int G = a.heads / a.kv_heads;
-  return a.dtype == 1 && (a.head_dim == 64 || a.head_dim == 128) && G <= kRows && a.splits >= 1 &&
-         a.splits <= kMaxSplits && a.split_keys % 16 == 0 && a.split_keys <= kMaxSplitKeys &&
-         static_cast<long long>(a.splits) * a.split_keys >= a.seq &&
+  return a.dtype == 1 && (a.head_dim == 64 || a.head_dim == 96 || a.head_dim == 128) && G <= kRows &&
+         a.splits >= 1 && a.splits <= kMaxSplits && a.split_keys % 16 == 0 && a.split_keys > 0 &&
+         a.split_keys <= kMaxSplitKeys && static_cast<long long>(a.splits) * a.split_keys >= a.seq &&
          static_cast<long long>(a.splits - 1) * a.split_keys < a.seq;
 }
 
 template <typename C>
 cudaError_t dispatch(const DecodeArgs& a, cudaStream_t stream) {
-  return a.head_dim == 64 ? launch<C, 64>(a, stream) : launch<C, 128>(a, stream);
+  if (a.head_dim == 64) return launch<C, 64>(a, stream);
+  if (a.head_dim == 96) return launch<C, 96>(a, stream);
+  return launch<C, 128>(a, stream);
 }
 
 }  // namespace sm90

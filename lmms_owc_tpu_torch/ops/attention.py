@@ -16,11 +16,13 @@ Qwen2-VL and Qwen2.5-VL paths:
     kernel, reading the padded heads in place.
   - :func:`gqa_decode_attention` — decode (port of ``_decode_kernel``, K3) against
     one layer of the stacked KV cache, bf16/f32 or int8 with per-position
-    scales, ``csrc/decode_attn.cu``; the key axis is split across a cluster
-    of CTAs by :func:`decode_split_plan`, a function of the cache length only,
-    up to 2048 positions; longer caches run a general kernel whose f32 score
-    rows go to a device-memory workspace where shared memory cannot hold them
-    (:func:`decode_needs_workspace`).
+    scales, ``csrc/decode_attn.cu``; a bf16 query at head_dim 64, 96 or 128
+    runs the Hopper instance, whose key axis is split across a cluster of CTAs
+    by :func:`decode_split_plan`, a function of the cache length only, each
+    split streaming its K and V tiles through a ``cp.async`` ring, at every
+    cache length the adapters build; an f32 query runs a general kernel whose
+    f32 score rows go to a device-memory workspace where shared memory cannot
+    hold them (:func:`decode_needs_workspace`).
 
 The first four share ``csrc/flash_attn.cu``: bf16 launches run its Hopper
 (wgmma) instance where :func:`flash_takes_hopper` says so and its general
@@ -50,6 +52,7 @@ __all__ = [
     "attention_reference",
     "decode_needs_workspace",
     "decode_split_plan",
+    "decode_takes_hopper",
     "flash_attention",
     "flash_attention_plain",
     "flash_takes_hopper",
@@ -76,13 +79,15 @@ _FLASH_HEAD_DIMS = (16, 32, 64, 72, 80, 88, 96, 128)
 _FLASH_HOPPER_HEAD_DIMS = (64, 72, 80, 88, 96, 128)
 _FLASH_HOPPER_MAX_MASK_KEYS = 16384
 # The decode kernel's limits (csrc/decode_attn.cu): the Hopper instances take a
-# bf16 query at these head dims, groups up to 8 and a split plan of at most 8
-# splits (the portable thread-block cluster size) of at most 256 keys; the
-# general kernel keeps the group's f32 score rows in at most this much shared
-# memory and otherwise in a workspace.
-_DECODE_MAX_SPLITS = 8
-_DECODE_MAX_SPLIT_KEYS = 256
-_DECODE_HOPPER_HEAD_DIMS = (64, 128)
+# bf16 query at these head dims, groups up to 8 and a split plan of at most 16
+# splits (a non-portable thread-block cluster) of at most 1536 keys; the plan
+# uses at most 8 splits (the portable cluster size); the general kernel keeps
+# the group's f32 score rows in at most this much shared memory and otherwise
+# in a workspace.
+_DECODE_PLAN_SPLITS = 8
+_DECODE_MAX_SPLITS = 16
+_DECODE_MAX_SPLIT_KEYS = 1536
+_DECODE_HOPPER_HEAD_DIMS = (64, 96, 128)
 _DECODE_MAX_GROUP = 8
 _DECODE_MAX_SMEM = 232448
 
@@ -449,9 +454,12 @@ def _launch_decode(
     k_scale: torch.Tensor | None,
     v_scale: torch.Tensor | None,
     scale: float,
+    splits: int = _DECODE_PLAN_SPLITS,
 ) -> torch.Tensor:
     """Check the operands, launch the decode kernel with the split plan of the
-    cache length, and count it (the int8 cache under ``gqa_decode_attention_int8``)."""
+    cache length, and count it (the int8 cache under ``gqa_decode_attention_int8``).
+    ``splits`` (up to 16) overrides the plan's most splits for a measurement;
+    the wrappers keep the plan's 8."""
     b, h, d = q.shape
     int8 = cache_k.dtype == torch.int8
     lib = _build.load_library()
@@ -489,14 +497,15 @@ def _launch_decode(
         raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {s}]")
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    plan = decode_split_plan(s, splits)
     workspace = None
-    if decode_needs_workspace(dtype == torch.bfloat16, d, h // kvh, s):
+    if decode_needs_workspace(dtype == torch.bfloat16, d, h // kvh, s, plan):
         workspace = torch.empty((b, kvh, h // kvh, s), dtype=torch.float32, device=q.device)
     args = _build.DecodeArgs(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(), out.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         layers, b, h, kvh, s, d, int(layer_idx), _DTYPE_CODES[dtype], int(int8), scale,
-        *decode_split_plan(s),
+        *plan,
         workspace.data_ptr() if workspace is not None else None,
     )
     code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
@@ -667,27 +676,38 @@ def vision_qkv_attention(
     )
 
 
-def decode_split_plan(seq: int) -> tuple[int, int]:
+def decode_split_plan(seq: int, max_splits: int = _DECODE_PLAN_SPLITS) -> tuple[int, int]:
     """(splits, keys per split) of the decode kernel's key axis for a cache of
-    ``seq`` positions: one CTA per 64 positions, at most 8, keys a multiple of 16.
-    A function of the cache length alone, never of the batch, so a pooled and
-    an unpooled batch split alike and give the same bits."""
-    splits = max(1, min(_DECODE_MAX_SPLITS, -(-seq // 64)))
+    ``seq`` positions: one CTA per 64 positions, at most ``max_splits`` (8, the
+    portable cluster), keys a multiple of 16 and as many as the cache needs (a
+    split streams its keys in tiles of 64: 1088 each at 8704 positions). A
+    function of the cache length alone, never of the batch, so a pooled and an
+    unpooled batch split alike and give the same bits."""
+    splits = max(1, min(max_splits, -(-seq // 64)))
     keys = -(-(-(-seq // splits)) // 16) * 16  # ceil(seq / splits), rounded up to 16
     return -(-seq // keys), keys  # rounding can leave the last split empty: drop it
 
 
-def decode_needs_workspace(bf16: bool, head_dim: int, group: int, seq: int) -> bool:
+def decode_takes_hopper(bf16: bool, head_dim: int, group: int, plan: tuple[int, int]) -> bool:
+    """Whether the decode kernel's Hopper instances take a launch, restated from
+    ``sm90::takes`` in csrc/decode_attn.cu: a bf16 query, a head dim they are
+    built for (64, 96, 128), a group that fits their 8 rows, and a split plan
+    of at most 16 splits of at most 1536 keys, a multiple of 16 (every plan of
+    :func:`decode_split_plan` up to 8 x 1536 positions)."""
+    splits, keys = plan
+    return (bf16 and head_dim in _DECODE_HOPPER_HEAD_DIMS and group <= _DECODE_MAX_GROUP
+            and 1 <= splits <= _DECODE_MAX_SPLITS and keys % 16 == 0 and 0 < keys <= _DECODE_MAX_SPLIT_KEYS)
+
+
+def decode_needs_workspace(bf16: bool, head_dim: int, group: int, seq: int,
+                           plan: tuple[int, int] | None = None) -> bool:
     """Whether a decode launch needs the f32 score workspace [B, KVH, G, S]:
-    the Hopper instances do not take it (``sm90::takes`` in
-    csrc/decode_attn.cu: a bf16 query, a head dim they are built for, a group
-    that fits their 8 rows, and a split plan of ``seq`` they hold, i.e.
-    ``seq`` <= 2048), so the general kernel runs, and its shared memory, q and
-    the output accumulator [G, D] plus the score rows [G, S] in f32, would
-    exceed the card's limit."""
-    splits, keys = decode_split_plan(seq)
-    hopper = (bf16 and head_dim in _DECODE_HOPPER_HEAD_DIMS and group <= _DECODE_MAX_GROUP
-              and splits <= _DECODE_MAX_SPLITS and keys <= _DECODE_MAX_SPLIT_KEYS)
+    the Hopper instances do not take it (:func:`decode_takes_hopper`, with the
+    plan of ``seq`` unless given), so the general kernel runs (an f32 query,
+    another head dim), and its shared memory, q and the output accumulator
+    [G, D] plus the score rows [G, S] in f32, would exceed the card's limit
+    (f32 at G = 7, D = 128 past 8045 positions)."""
+    hopper = decode_takes_hopper(bf16, head_dim, group, plan or decode_split_plan(seq))
     return not hopper and 4 * (2 * group * head_dim + group * seq) > _DECODE_MAX_SMEM
 
 

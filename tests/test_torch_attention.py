@@ -451,16 +451,26 @@ def fake_decode(monkeypatch):
     tatt.reset_launch_counts()
 
 
-@pytest.mark.parametrize("seq", [1, 17, 63, 64, 65, 100, 129, 320, 384, 448, 520, 1000, 2048, 2049, 8192])
+@pytest.mark.parametrize("seq", [1, 17, 63, 64, 65, 100, 129, 320, 384, 448, 520, 1000, 2048, 2049, 2112, 3136,
+                                 4160, 8192, 8704])
 def test_decode_split_plan_covers_the_cache(seq):
     """Up to 8 splits (one per 64 positions), keys a multiple of 16, that
-    cover the cache with none empty; 384 positions split as 6 x 64."""
+    cover the cache with none empty; 384 positions split as 6 x 64. Up to
+    2048 positions a split holds at most 256 keys (the plan the cap of 256
+    gave); past them 8 splits hold more, streamed in tiles of 64, and never
+    more than the Hopper instance's 1536 (8704 positions: 8 x 1088), so the
+    Hopper instance takes every plan of the adapters' cache lengths."""
     splits, keys = tatt.decode_split_plan(seq)
     assert 1 <= splits <= 8 and keys % 16 == 0
     assert splits * keys >= seq and (splits - 1) * keys < seq
     assert splits <= -(-seq // 64)
+    assert (keys <= 256) == (seq <= 2048) and keys <= tatt._DECODE_MAX_SPLIT_KEYS
+    assert seq <= 2048 or splits == 8
+    assert tatt.decode_takes_hopper(True, 128, 7, (splits, keys))
     if seq == 384:
         assert (splits, keys) == (6, 64)
+    if seq == 8704:
+        assert (splits, keys) == (8, 1088)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -484,16 +494,46 @@ def test_decode_split_depends_on_cache_length_only(fake_decode, int8):
     assert tatt.launch_counts[name] == 2
 
 
+@pytest.mark.parametrize("seq", [2112, 3136, 4160, 8704])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_split_past_2048_is_the_same_pooled_and_unpooled(fake_decode, seq, int8):
+    """Past 2048 positions a pooled batch (B = 8) and an unpooled one (B = 4)
+    reach the kernel with the same split plan, one the Hopper instance takes
+    (no score workspace), so they give the same bits."""
+    layers, h, kvh, d = 1, 14, 2, 64
+    for b in (8, 4):
+        q = torch.zeros(b, h, d, dtype=torch.bfloat16)
+        cache = torch.zeros(layers, b, kvh, seq, d, dtype=torch.int8 if int8 else torch.bfloat16)
+        scales = (torch.ones(layers, b, kvh, seq), torch.ones(layers, b, kvh, seq)) if int8 else (None, None)
+        tatt._launch_decode(q, cache, cache, 0, torch.ones(b, seq, dtype=torch.int32), *scales, 0.1)
+    pooled, unpooled = fake_decode.calls
+    assert (pooled["batch"], unpooled["batch"]) == (8, 4)
+    plan = (pooled["splits"], pooled["split_keys"])
+    assert plan == (unpooled["splits"], unpooled["split_keys"]) == tatt.decode_split_plan(seq)
+    for call in (pooled, unpooled):
+        taken, needs = _decode_kernel_takes(call)
+        assert taken and _decode_takes_hopper(call) and not needs and not call["workspace"]
+
+
+def _decode_takes_hopper(a: dict) -> bool:
+    """Whether ``sm90::takes`` in csrc/decode_attn.cu takes these DecodeArgs,
+    restated from the source: a bf16 query, head_dim 64, 96 or 128, a group of
+    at most 8, and a plan of at most 16 splits of at most 1536 keys (a
+    multiple of 16) that covers S with no split empty."""
+    g, d, s = a["heads"] // a["kv_heads"], a["head_dim"], a["seq"]
+    return (a["dtype"] == 1 and d in (64, 96, 128) and g <= 8 and 1 <= a["splits"] <= 16
+            and a["split_keys"] % 16 == 0 and 0 < a["split_keys"] <= 1536
+            and a["splits"] * a["split_keys"] >= s and (a["splits"] - 1) * a["split_keys"] < s)
+
+
 def _decode_kernel_takes(a: dict) -> tuple[bool, bool]:
     """(whether a kernel of csrc/decode_attn.cu takes these DecodeArgs, whether
     the general kernel would need the score workspace), restated from the
-    source: the Hopper instances (``sm90::takes``), else the general kernel,
-    whose q, output accumulator and, without a workspace, score rows must fit
-    in 232448 bytes of shared memory."""
+    source: the Hopper instances (:func:`_decode_takes_hopper`), else the
+    general kernel, whose q, output accumulator and, without a workspace,
+    score rows must fit in 232448 bytes of shared memory."""
     g, d, s = a["heads"] // a["kv_heads"], a["head_dim"], a["seq"]
-    hopper = (a["dtype"] == 1 and d in (64, 128) and g <= 8 and 1 <= a["splits"] <= 8
-              and a["split_keys"] % 16 == 0 and a["split_keys"] <= 256
-              and a["splits"] * a["split_keys"] >= s and (a["splits"] - 1) * a["split_keys"] < s)
+    hopper = _decode_takes_hopper(a)
     needs = not hopper and 4 * (2 * g * d + g * s) > 232448
     smem = 4 * (2 * g * d + (0 if a["workspace"] else g * s))
     return hopper or smem <= 232448, needs
@@ -509,9 +549,10 @@ def test_decode_launch_is_taken_at_every_adapter_cache_length(fake_decode, seq):
     """Every cache length the adapter builds (prompt bucket + generation
     bucket, up to 8192 + 512) reaches a kernel that takes it, for a bf16, an
     f32 and an int8 cache at the 7B's group of 7 and head dim 128: the Hopper
-    instances up to S = 2048, else the general kernel, with the f32 score
-    workspace exactly where its score rows would not fit in shared memory
-    (S = 8256 and 8704 get one, S = 384 none)."""
+    instance for the bf16 query (bf16 and int8 caches) at every length, the
+    general kernel for the f32 one, with the f32 score workspace exactly
+    where its score rows would not fit in shared memory (S = 8256 and 8704
+    get one, S = 384 none)."""
     b, kvh, h, d = 1, 1, 7, 128
     for q_dtype, c_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
                              (torch.bfloat16, torch.int8)):
@@ -523,9 +564,10 @@ def test_decode_launch_is_taken_at_every_adapter_cache_length(fake_decode, seq):
         taken, needs = _decode_kernel_takes(a)
         assert taken, (seq, q_dtype, c_dtype)
         assert bool(a["workspace"]) == needs
-        if seq in (8256, 8704):
+        assert _decode_takes_hopper(a) == (q_dtype == torch.bfloat16)
+        if q_dtype == torch.float32 and seq in (8256, 8704):
             assert a["workspace"]
-        if seq == 384:
+        if q_dtype == torch.bfloat16 or seq == 384:
             assert not a["workspace"]
     assert len(fake_decode.calls) == 3
 
@@ -632,32 +674,69 @@ def test_flash_wrapper_checks_raise(fake_flash, case):
     assert fake_flash.calls == [] and tatt.launch_counts["flash_attention"] == 0
 
 
-def _split_decode_emulation(q, k, v, mask, scale, splits, keys):
-    """The cluster kernel's order in numpy (f32): per split, scores, max and sum
-    of exponentials; combined in rank order; weights normalised in f32 and
-    rounded to the value type (here f32), per-split PV partials added in rank order."""
+# The Hopper decode kernel's tiles of keys (csrc/decode_attn.cu, sm90::kTile).
+_RING_TILE = 64
+
+
+def _split_decode_emulation(q, k, v, mask, scale, splits, keys, k_scale=None, v_scale=None, skip=True):
+    """The Hopper decode kernel's order in numpy (f32). Per split, its K tiles
+    of 64 keys as the double buffer reads them: the first K tile
+    unconditionally (it is issued before the mask is read), a later K tile
+    and a V tile only when it holds a valid key (with ``skip``; every tile
+    without); a key of a tile not read keeps the masked score -1e30. The
+    split's max and sum of exponentials, combined across splits in rank
+    order; weights normalised in f32 (times
+    v_scale), a masked key weighing 0 once the row has a valid key, rounded to
+    the value type (here f32); each split's PV over the V tiles it reads, in
+    tile order (a split with no valid key reads them all only when the whole
+    row is masked), the splits' partials added in rank order. With an int8
+    cache, ``k``/``v`` hold its values and ``k_scale``/``v_scale`` [B, KVH, S]
+    fold into the scores and the weights."""
     b, h, d = q.shape
     kvh, s = k.shape[1], k.shape[2]
     g = h // kvh
+    neg = np.float32(-1e30)
     out = np.zeros((b, h, d), np.float32)
     for bi in range(b):
+        row_live = bool(mask[bi].any())
         for kh in range(kvh):
             qg = q[bi, kh * g : (kh + 1) * g]
-            parts, stats = [], []
+            stats, spans = [], []
             for r in range(splits):
-                lo, hi_ = r * keys, min(s, (r + 1) * keys)
-                sc = (qg @ k[bi, kh, lo:hi_].T) * scale
-                sc = np.where(mask[bi, lo:hi_][None] != 0, sc, np.float32(-1e30))
+                lo, n = r * keys, min(s, (r + 1) * keys) - r * keys
+                tiles = -(-n // _RING_TILE)
+                bounds = [(t * _RING_TILE, min(n, (t + 1) * _RING_TILE)) for t in range(tiles)]
+                live = [bool(mask[bi, lo + a : lo + e].any()) for a, e in bounds]
+                sc = np.full((g, n), neg, np.float32)
+                for t, (a, e) in enumerate(bounds):
+                    if t == 0 or live[t] or not skip:  # K tile 0 is issued before the mask is read
+                        st = (qg @ k[bi, kh, lo + a : lo + e].T) * scale
+                        if k_scale is not None:
+                            st = st * k_scale[bi, kh, lo + a : lo + e]
+                        sc[:, a:e] = np.where(mask[bi, lo + a : lo + e][None] != 0, st, neg)
                 m = sc.max(axis=1)
-                stats.append((m, np.exp(sc - m[:, None]).sum(axis=1), sc, lo, hi_))
-            gm = np.max([st[0] for st in stats], axis=0)
+                stats.append((m, np.exp(sc - m[:, None]).sum(axis=1)))
+                spans.append((lo, n, bounds, live, sc))
+            gm = stats[0][0]
+            for m, _ in stats[1:]:
+                gm = np.maximum(gm, m)
             total = np.zeros_like(gm)
-            for m, l_, *_ in stats:
+            for m, l_ in stats:
                 total += l_ * np.exp(m - gm)
-            for _, _, sc, lo, hi_ in stats:
-                w = np.exp(sc - gm[:, None]) / total[:, None]
-                parts.append(w @ v[bi, kh, lo:hi_])
-            out[bi, kh * g : (kh + 1) * g] = np.sum(parts, axis=0)
+            inv = np.float32(1) / total
+            acc = np.zeros((g, d), np.float32)
+            for lo, n, bounds, live, sc in spans:
+                valid = mask[bi, lo : lo + n] != 0
+                w = np.where(valid[None] | (not row_live), np.exp(sc - gm[:, None]) * inv[:, None], np.float32(0))
+                if v_scale is not None:
+                    w = w * v_scale[bi, kh, lo : lo + n]
+                part = np.zeros((g, d), np.float32)
+                for t, (a, e) in enumerate(bounds):
+                    read = live[t] or not (skip and (any(live) or row_live))
+                    if read:
+                        part += w[:, a:e] @ v[bi, kh, lo + a : lo + e]
+                acc += part
+            out[bi, kh * g : (kh + 1) * g] = acc
     return out
 
 
@@ -679,6 +758,61 @@ def test_split_decode_order_matches_jax_reference(seq):
         jnp.asarray(q[:, :, None]), jnp.asarray(k), jnp.asarray(v), kv_mask=jnp.asarray(mask), scale=scale
     )
     np.testing.assert_allclose(got, np.asarray(ref)[:, :, 0], atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("seq,h,kvh,d", [(2112, 2, 2, 96), (3136, 2, 2, 96), (2112, 7, 1, 128), (3136, 7, 1, 128)])
+def test_ring_decode_order_matches_jax_past_2048(seq, h, kvh, d, int8):
+    """Past 2048 positions, the Hopper kernel's ring order emulated in f32
+    (:func:`_split_decode_emulation`: 8 splits of 272 or 400 keys, tiles of
+    64, the tiles with no valid key past the first K tile not read)
+    against the JAX ``gqa_attention_reference`` and the Pallas K3 in
+    interpret mode, at G = 1 (D = 96, Phi-3-mini's decode) and G = 7 (D = 128,
+    the 7B's), with a bf16-range or an int8 cache with per-position scales.
+    Rows: left-padded prompts whose padding covers whole splits, a full row
+    and a row with no valid key (uniform weights; the kernel then reads every
+    V tile). Tolerance ``atol = rtol = 1e-4`` (summation order); skipping the
+    dead tiles changes no bit of the emulation."""
+    rng = np.random.RandomState(seq + d + int8)
+    b, layers = 4, 2
+    q = rng.randn(b, h, d).astype(np.float32)
+    ks = vs = None
+    if int8:
+        ck = rng.randint(-127, 128, (layers, b, kvh, seq, d)).astype(np.int8)
+        cv = rng.randint(-127, 128, (layers, b, kvh, seq, d)).astype(np.int8)
+        ks, vs = (rng.uniform(0.005, 0.02, (layers, b, kvh, seq)).astype(np.float32) for _ in range(2))
+    else:
+        ck = rng.randn(layers, b, kvh, seq, d).astype(np.float32)
+        cv = rng.randn(layers, b, kvh, seq, d).astype(np.float32)
+    mask = np.zeros((b, seq), np.int32)
+    prompt = seq - 64
+    for row, length in enumerate((prompt, prompt - 900, 279, 0)):  # left-padded, then 5 generated
+        if length:
+            mask[row, prompt - length : prompt + 5] = 1
+    layer, scale = 1, np.float32(1.0 / np.sqrt(d))
+    splits, keys = tatt.decode_split_plan(seq)
+    assert splits == 8 and keys > 256
+    args = (q, ck[layer].astype(np.float32), cv[layer].astype(np.float32), mask, scale, splits, keys)
+    scales = (ks[layer], vs[layer]) if int8 else (None, None)
+    got = _split_decode_emulation(*args, *scales)
+    np.testing.assert_array_equal(got, _split_decode_emulation(*args, *scales, skip=False))
+    if int8:
+        kref = ck[layer].astype(np.float32) * ks[layer][..., None]
+        vref = cv[layer].astype(np.float32) * vs[layer][..., None]
+        pallas_scales = dict(k_scale=jnp.asarray(np.repeat(ks[:, :, :, None], 8, axis=3)),
+                             v_scale=jnp.asarray(np.repeat(vs[:, :, :, None], 8, axis=3)))
+    else:
+        kref, vref, pallas_scales = ck[layer], cv[layer], {}
+    reference = jatt.gqa_attention_reference(
+        jnp.asarray(q[:, :, None]), jnp.asarray(kref), jnp.asarray(vref), kv_mask=jnp.asarray(mask),
+        scale=float(scale),
+    )
+    kernel = jatt.gqa_decode_attention(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(layer, jnp.int32), jnp.asarray(mask),
+        use_pallas=True, interpret=True, **pallas_scales,
+    )
+    for want in (np.asarray(reference)[:, :, 0], np.asarray(kernel)):
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
 
 
 # ------------------------------------------------- head_dim 96 (Phi-3-mini's decoder)
@@ -745,23 +879,26 @@ def test_gqa_decode_attention_head_dim_96_matches_pallas_k3():
 
 
 @pytest.mark.parametrize("seq", _ADAPTER_CACHE_LENGTHS)
-def test_decode_launch_at_head_dim_96_takes_the_general_kernel(fake_decode, seq):
+def test_decode_launch_at_head_dim_96_takes_the_hopper_instance(fake_decode, seq):
     """Phi-3-mini's decode (32 heads of 96, G = 1) at every cache length the
-    adapter builds: the Hopper instances are built for head_dim 64 and 128
-    only, so the general kernel takes it, in bf16 and f32, with no score
-    workspace (one f32 score row of at most 8704 positions fits in shared
-    memory)."""
+    adapter builds: a bf16 query, with a bf16 or an int8 cache, runs the
+    Hopper instance at head_dim 96; an f32 one the general kernel, with no
+    score workspace (one f32 score row of at most 8704 positions fits in
+    shared memory)."""
     b, kvh, h, d = 1, 32, 32, 96
-    for dtype in (torch.bfloat16, torch.float32):
-        cache = torch.zeros(1, b, kvh, seq, d, dtype=dtype)
-        tatt._launch_decode(torch.zeros(b, h, d, dtype=dtype), cache, cache, 0,
-                            torch.ones(b, seq, dtype=torch.int32), None, None, 0.1)
+    for q_dtype, c_dtype in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+                             (torch.float32, torch.float32)):
+        cache = torch.zeros(1, b, kvh, seq, d, dtype=c_dtype)
+        scales = (torch.ones(1, b, kvh, seq), torch.ones(1, b, kvh, seq)) if c_dtype == torch.int8 else (None, None)
+        tatt._launch_decode(torch.zeros(b, h, d, dtype=q_dtype), cache, cache, 0,
+                            torch.ones(b, seq, dtype=torch.int32), *scales, 0.1)
         a = fake_decode.calls[-1]
         taken, needs = _decode_kernel_takes(a)
-        hopper = a["dtype"] == 1 and a["head_dim"] in (64, 128)
-        assert taken and not hopper and not needs and not a["workspace"]
-        assert not tatt.decode_needs_workspace(dtype == torch.bfloat16, d, 1, seq)
-    assert len(fake_decode.calls) == 2
+        hopper = q_dtype == torch.bfloat16
+        assert taken and _decode_takes_hopper(a) == hopper and not needs and not a["workspace"]
+        assert tatt.decode_takes_hopper(hopper, d, 1, (a["splits"], a["split_keys"])) == hopper
+        assert not tatt.decode_needs_workspace(hopper, d, 1, seq)
+    assert len(fake_decode.calls) == 3
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

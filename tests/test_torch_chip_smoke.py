@@ -169,6 +169,55 @@ def test_long_cache_tolerance_rejects_dropped_keys(monkeypatch, label):
     assert chip_smoke._rel_l2(got.float(), want.float()) > 5 * rel_l2
 
 
+def test_decode_row_instance_is_read_from_the_profiler():
+    """A K3 row's instance comes from the kernel names the profiler saw: a
+    bf16 query must have run the Hopper instance (``sm90::decode_kernel``,
+    demangled or not), an f32 query the general kernel; any other pairing
+    fails the row, and a row that ran no attention kernel names none."""
+    import chip_smoke
+
+    hopper = "void (anonymous namespace)::sm90::decode_kernel<signed char, 96>(DecodeArgs)"
+    mangled = "_ZN12_GLOBAL__N_14sm9013decode_kernelI13__nv_bfloat16Li128EEEv10DecodeArgs"
+    general = "void (anonymous namespace)::decode_kernel<float, float>(DecodeArgs)"
+    bf16_row = "q [8, 32, 96] bf16, cache [32, 8, 32, 3136, 96] int8 + f32 scales, G = 1"
+    f32_row = "q [8, 28, 128] f32, cache [2, 8, 4, 8704, 128] f32"
+    assert chip_smoke._check_instance(bf16_row, [hopper, "elementwise_kernel"]) == "sm90"
+    assert chip_smoke._check_instance(bf16_row, [mangled]) == "sm90"
+    assert chip_smoke._check_instance(f32_row, [general]) == "general"
+    assert chip_smoke._check_instance(bf16_row, ["elementwise_kernel"]) is None
+    for shape, symbols in ((bf16_row, [general]), (f32_row, [hopper]), (bf16_row, [hopper, general])):
+        with pytest.raises(AssertionError, match="decode kernel"):
+            chip_smoke._check_instance(shape, symbols)
+
+
+def test_int8_long_rows_reject_dropped_keys(monkeypatch):
+    """The int8 rows past 2048 positions (``_decode_rows``: ``TOL`` element-wise
+    with ``LONG_CACHE_TOL``'s relative L2) fail a decode that leaves out one
+    64-key tile of valid keys, at InternVL2's G = 6 over 2112 positions with
+    its 279- and 1815-token prompts."""
+    import chip_smoke
+    from lmms_owc_tpu_torch.nn.qwen2_vl import quantize_kv_cache
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    b, nh, kvh, hd, prompt, s = 2, 12, 2, 128, 2048, 2112
+    rng = np.random.default_rng(1)
+    q, ck, cv = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+                 for shape in ((b, nh, hd), (1, b, kvh, s, hd), (1, b, kvh, s, hd)))
+    cache = quantize_kv_cache(ck, cv)
+    spos = torch.arange(s)
+    starts = prompt - torch.tensor([279, 1815])
+    mask = ((spos[None, :] >= starts[:, None]) & (spos[None, :] < prompt + 5)).to(torch.int32)
+    dropped = mask.clone()
+    dropped[:, 1984:2048] = 0
+    want = att.gqa_decode_attention_plain(q, *cache[:2], 0, mask, *cache[2:])
+    got = att.gqa_decode_attention_plain(q, *cache[:2], 0, dropped, *cache[2:])
+    with pytest.raises(AssertionError, match="relative L2"):
+        chip_smoke._compare("int8", got, want, atol=chip_smoke.TOL, rtol=chip_smoke.TOL,
+                            rel_l2=chip_smoke.LONG_CACHE_TOL["int8"][1])
+    assert chip_smoke._rel_l2(got.float(), want.float()) > 5 * chip_smoke.LONG_CACHE_TOL["int8"][1]
+
+
 def test_int4_step_sums_one_decode_step():
     """The per-step K4 sum weighs each product by its calls in one decode step:
     q, o, k, v, gate, up and down in each of 28 layers, then the head."""
