@@ -8,9 +8,11 @@ Run from the repository root with no arguments::
 ``python3 chip_smoke.py --decode-rows-probe`` builds the kernels and then
 only times phase 3 with the adapter's decode row blocks and without them
 (:func:`probe_decode_rows`). ``python3 chip_smoke.py --flash-wg-probe``
-builds them and then only times the flash kernel's Hopper instance at 1, 2
-and 3 warpgroups per CTA at the head_dim-64 towers' shapes
-(:func:`probe_flash_warpgroups`). ``python3 chip_smoke.py
+builds them and then only times the flash kernel's Hopper instance at its
+own plan and at 1, 2 and 3 warpgroups per CTA at K2's Hopper rows
+(:func:`probe_flash_warpgroups`; ``--flash-wg-probe=0`` the plan alone).
+``python3 chip_smoke.py --kernel-rows`` runs phases 1 and 2 alone and logs
+the flash rows' device times on one line. ``python3 chip_smoke.py
 --decode-split-probe`` builds them and then only times K3 at its main-path
 shapes under split plans of at most 8 and 16 CTAs a cluster
 (:func:`probe_decode_splits`; ``--decode-split-probe=8`` the plan alone).
@@ -19,7 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: needs CUDA; prints the card's name and power limit; turns TF32
    off; builds the hand-written kernels (``lmms_owc_tpu_torch/csrc/*.cu``,
-   one ``nvcc`` per source, side by side) into ``build/kernels/``.
+   one ``nvcc`` per source, side by side) into ``build/kernels/``; fails if
+   ptxas reports a serialized wgmma pipeline in any kernel.
 2. Kernel parity: each kernel against its plain PyTorch version on the card,
    in bf16 at the main paths' shapes, within ``atol = rtol = 2e-2``, with the
    kernel's and the plain version's times: the median per call between CUDA
@@ -39,7 +42,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the profiler's events and held to its label: the Hopper instance
    (``sm90::flash_kernel``), the general bf16 one, or, in f32, the 3xTF32
    one (``tf32::flash_kernel``, its bound taken at a third of the TF32
-   tensor-core rate). The kernels' f32 forms, and the bf16 Hopper
+   tensor-core rate). Each Hopper row carries the plan it ran (warpgroups
+   per CTA, CTAs per KV head; ``flash_plan`` held to the library's
+   ``owc_flash_plan``), and each GQA row (the judge, Mistral, Qwen2-7B at
+   320 and at onevision's 4096, Qwen2-1.5B at 2048, tp = 2) must equal
+   per-head launches of the same kernel bit for bit (``_per_head_equal``).
+   The kernels' f32 forms, and the bf16 Hopper
    instances, are checked at small ragged shapes. Phases 14-17's shapes
    are held too: K2's Hopper instance at head_dim 64 (the LLaVA tower in
    bf16 over 577 keys), its 3xTF32 instance (the CLIP scorer's towers in
@@ -614,6 +622,21 @@ def _device_time_us(event) -> float:
     return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0))
 
 
+def _device_kernels_ms(fn, iters: int = 20) -> dict[str, float]:
+    """Device ms per call of each kernel ``fn`` runs (profiler, mean of
+    ``iters``), by kernel name cut to 60 characters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: _device_time_us(e) / 1000 / iters for e in prof.key_averages() if _device_time_us(e) > 0}
+
+
 def _device_ms(fn, iters: int = 20, symbols: list | None = None) -> float | None:
     """Device time per call, summed over the kernels ``torch.profiler`` records
     (launch overhead excluded); None when the profiler sees no device time.
@@ -699,15 +722,61 @@ def _check_instance(shape: str, symbols) -> str | None:
     return want
 
 
-def _row(shape: str, err: float, timings: dict, bound: dict, library: str) -> dict:
+def _flash_plan(heads: int, kv_heads: int, lq: int, d: int) -> list[int] | None:
+    """[warpgroups per CTA, CTAs per (batch row, KV head)] of the flash
+    kernel's Hopper instance at a launch, from ``flash_plan``, held to the
+    CUDA library's own plan (``owc_flash_plan``); None in a checkout that has
+    neither (this file copied into an older one to time its kernels)."""
+    import ctypes
+
+    from lmms_owc_tpu_torch.ops import _build
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    lib = _build.load_library()
+    if not hasattr(att, "flash_plan"):
+        return None
+    plan = att.flash_plan(heads, kv_heads, lq, d)
+    out = (ctypes.c_int * 2)()
+    lib.owc_flash_plan(heads, kv_heads, lq, d, out)
+    if tuple(out) != plan:
+        raise AssertionError(f"flash plan at heads {heads}/{kv_heads}, lq {lq}, D = {d}: flash_plan {plan}, "
+                             f"the CUDA plan {tuple(out)}")
+    return list(plan)
+
+
+def _row(shape: str, err: float, timings: dict, bound: dict, library: str,
+         plan: tuple[int, int, int, int] | None = None) -> dict:
     """One kernel row: parity, times, the bound and its share of the device
-    time; for a flash row, the instance the profiler saw it run."""
+    time; for a flash row, the instance the profiler saw it run and, on the
+    Hopper instance, its plan (:func:`_flash_plan` of ``plan`` = (heads,
+    KV heads, Lq, head_dim))."""
     device = timings["device_ms"]
     symbols = timings.pop("kernel_symbols", [])
     instance = _check_instance(shape, symbols)
-    return dict(shape=shape, max_abs_err=err, **timings, **bound, library=library,
-                bound_share=bound["bound_ms"] / device if device else None,
-                **({"instance": instance} if instance else {}))
+    row = dict(shape=shape, max_abs_err=err, **timings, **bound, library=library,
+               bound_share=bound["bound_ms"] / device if device else None,
+               **({"instance": instance} if instance else {}))
+    if plan is not None and instance == "sm90" and (found := _flash_plan(*plan)) is not None:
+        row["plan"] = found
+    return row
+
+
+def _per_head_equal(label: str, q, k, v, got, **kw) -> None:
+    """Holds a GQA flash row's output bit for bit to per-head launches of the
+    same kernel: ``q[:, h:h+1]`` against its KV head's k and v, each launch at
+    G = 1, so no CTA folds two heads."""
+    import torch
+
+    from lmms_owc_tpu_torch.ops import attention as att
+
+    heads, group = q.shape[1], q.shape[1] // k.shape[1]
+    for h in range(heads):
+        kv = slice(h // group, h // group + 1)
+        one = att.flash_attention(q[:, h:h + 1], k[:, kv], v[:, kv], kv_mask_contiguous=True, **kw)
+        if not torch.equal(one, got[:, h:h + 1]):
+            bad = int((one != got[:, h:h + 1]).sum())
+            raise AssertionError(f"flash_attention {label}: head {h} (G = {group}) differs from its per-head "
+                                 f"launch in {bad} elements")
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -896,6 +965,7 @@ def check_kernels(dev) -> dict[str, dict]:
         _timings(lambda: att.vision_qkv_attention(qkv, h, d, **kw),
                  lambda: att.vision_qkv_attention_plain(qkv, h, d, **kw), library),
         _attention_bound(vmask, h, h, p, d, causal=False, extra_bytes=2 * 4 * n * p * d // 2 + 8 * n), SDPA,
+        plan=(h, h, p, d),
     )
     del library
 
@@ -910,11 +980,13 @@ def check_kernels(dev) -> dict[str, dict]:
     want = att.flash_attention_plain(q, k, v, **kw)
     valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)  # rows with a key
     err = _compare("flash_attention", got, want, valid_rows)
+    _per_head_equal("prefill", q, k, v, got, **kw)
     results["flash_attention"] = _row(
-        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded (the Hopper instance)", err,
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded (the Hopper instance; "
+        "equal to per-head launches)", err,
         _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                  lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, kvh, l, hd),
     )
 
     # Decode (K3): q [8, 28, 128] against cache [28, 8, 4, 384, 128] at two layers.
@@ -991,7 +1063,8 @@ def check_kernels(dev) -> dict[str, dict]:
                 f"library {row['library_ms']} ms; device time (profiler) kernel {row['device_ms']} ms, "
                 f"plain {row['plain_device_ms']} ms, library {row['library_device_ms']} ms; bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {row['bound_share']} of the device time; "
-                f"library call: {row['library']}{'; instance ' + row['instance'] if 'instance' in row else ''}")
+                f"library call: {row['library']}{'; instance ' + row['instance'] if 'instance' in row else ''}"
+                f"{'; plan %d warpgroups x %d CTAs per KV head' % tuple(row['plan']) if 'plan' in row else ''}")
     for name in FLASH_KERNELS + DECODE_KERNELS:  # every attention row's instance was read from the profiler
         for label, row in [(name, results[name])] + list(results[name].get("also", {}).items()):
             if "instance" not in row:
@@ -1049,13 +1122,15 @@ def check_scoring_shapes(dev, gen) -> dict[str, dict]:
     pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
     kw = dict(causal=True, kv_mask=pmask)
     valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
-    err = _compare("flash_attention judge prefill", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
-                   att.flash_attention_plain(q, k, v, **kw), valid_rows)
+    got = att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw)
+    err = _compare("flash_attention judge prefill", got, att.flash_attention_plain(q, k, v, **kw), valid_rows)
+    _per_head_equal("judge prefill", q, k, v, got, **kw)
     rows["flash_attention"]["judge_prefill"] = _row(
-        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded (Llama-3.2-3B)", err,
+        f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, causal, left-padded (Llama-3.2-3B; equal to "
+        "per-head launches)", err,
         _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                  lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, kvh, l, hd),
     )
     del q, k, v
 
@@ -1133,7 +1208,7 @@ def check_llava_shapes(dev, gen) -> dict[str, dict]:
                      _sdpa(q, k, v, _causal_keep(keys, l) if causal else None)),
             _attention_bound(keys, h, h, l, d, causal=causal, elt=4 if f32 else 2,
                              peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
-            SDPA,
+            SDPA, plan=(h, h, l, d),
         )
         del q, k, v
 
@@ -1153,7 +1228,7 @@ def check_llava_shapes(dev, gen) -> dict[str, dict]:
             f"q/k/v [{b}, {nh}, {l}, {hd}] bf16, G = 1, causal, left-padded (Vicuna-7B)", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-            _attention_bound(pmask, nh, nh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+            _attention_bound(pmask, nh, nh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, nh, l, hd),
         )
         del q, k, v
 
@@ -1234,7 +1309,7 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
             _attention_bound(keys, h, h, length, d, causal=False, elt=4 if f32 else 2,
                              extra_bytes=0 if mask is None else 4 * keys.numel(),
                              peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
-            SDPA,
+            SDPA, plan=(h, h, length, d),
         )
         del q, k, v
 
@@ -1250,14 +1325,15 @@ def check_siglip_shapes(dev, gen) -> dict[str, dict]:
         pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
         kw = dict(causal=True, kv_mask=pmask)
         valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
-        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
-                       att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        got = att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw)
+        err = _compare(f"flash_attention {label}", got, att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        _per_head_equal(label, q, k, v, got, **kw)
         rows["flash_attention"][label] = _row(
             f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, G = {nh // kvh}, causal, left-padded "
-            f"({'Mistral-7B' if kvh == 8 else 'Qwen2-7B'}; the Hopper instance)", err,
+            f"({'Mistral-7B' if kvh == 8 else 'Qwen2-7B'}; the Hopper instance; equal to per-head launches)", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-            _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+            _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, kvh, l, hd),
         )
         del q, k, v
         torch.cuda.empty_cache()
@@ -1334,7 +1410,7 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
             _attention_bound(keys, nh, nh, length, dim, causal=False, elt=4 if f32 else 2,
                              extra_bytes=0 if mask is None else 8 * n,
                              peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
-            SDPA,
+            SDPA, plan=(nh, nh, length, dim),
         )
         del q, k, v
     del qkv, wide
@@ -1353,14 +1429,16 @@ def check_internvl_blip_shapes(dev, gen) -> dict[str, dict]:
         pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
         kw = dict(causal=True, kv_mask=pmask)
         valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
-        err = _compare(f"flash_attention {label}", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
-                       att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        got = att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw)
+        err = _compare(f"flash_attention {label}", got, att.flash_attention_plain(q, k, v, **kw), valid_rows)
+        if nh != kvh:
+            _per_head_equal(label, q, k, v, got, **kw)
         rows["flash_attention"][label] = _row(
             f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16, G = {nh // kvh}, causal, left-padded "
-            f"({model}; the Hopper instance)", err,
+            f"({model}; the Hopper instance{'; equal to per-head launches' if nh != kvh else ''})", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-            _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+            _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, kvh, l, hd),
         )
         del q, k, v
         torch.cuda.empty_cache()
@@ -1429,7 +1507,7 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
             f"q/k/v [{b}, {nh}, {l}, {hd}] {form}, MHA, causal, left-padded (Phi-3-mini)", err,
             _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                      lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-            _attention_bound(pmask, nh, nh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+            _attention_bound(pmask, nh, nh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, nh, l, hd),
         )
         del q, k, v
         torch.cuda.empty_cache()
@@ -1462,7 +1540,7 @@ def check_phi3v_shapes(dev, gen) -> dict[str, dict]:
             _attention_bound(keys, heads, heads, length, dim, causal=False, elt=4 if f32 else 2,
                              extra_bytes=0 if mask is None else 8 * n,
                              peak_flops=PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS),
-            SDPA,
+            SDPA, plan=(heads, heads, length, dim),
         )
         del q, k, v
         torch.cuda.empty_cache()
@@ -1532,7 +1610,7 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
             _timings(lambda: att.fused_qkv_attention(x, h, h, **kw),
                      lambda: att.fused_qkv_attention_plain(x, h, h, **kw), library),
             _attention_bound(keys, h, h, length, d, causal=False,
-                             extra_bytes=4 * b * length * d + 4 * b * length), SDPA,
+                             extra_bytes=4 * b * length * d + 4 * b * length), SDPA, plan=(h, h, length, d),
         )
         del library
     # The head-major [B, H + 2*KVH, L, D] form of the same entry, parity only.
@@ -1559,7 +1637,7 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
         f"({int(gmask.sum())} of {b * l} keys valid)", err,
         _timings(lambda: att.flash_attention(q, k, v, **kw), lambda: att.flash_attention_plain(q, k, v, **kw),
                  _sdpa(q, k, v, _causal_keep(gmask, l))),
-        _attention_bound(gmask, nh, kvh, l, hd, causal=True, extra_bytes=4 * b * l), SDPA,
+        _attention_bound(gmask, nh, kvh, l, hd, causal=True, extra_bytes=4 * b * l), SDPA, plan=(nh, kvh, l, hd),
     )
     del q, k, v
 
@@ -1585,7 +1663,7 @@ def check_tower_entries(dev, gen) -> dict[str, dict]:
         f"qkv [{n}, {p}, 3*{h}*{hp}] bf16 (head_dim {d} padded to {hp}), freqs, mask (0, 768) on every row", err,
         _timings(lambda: att.packed_vision_attention(packed, h, d, **kw),
                  lambda: att.packed_attention_reference(packed, h, d, **kw), library),
-        bound, SDPA,
+        bound, SDPA, plan=(h, h, p, d),
     )
     del library
     return results
@@ -4714,47 +4792,86 @@ def _pool_divergence(model) -> dict:
     return out
 
 
-# The head_dim-64 towers' attention: the LLaVA tower (CLIP-L/336, batch 8),
-# the Phi-3 tower (a global view and 16 crops), InternViT-300M (20 tiles).
-FLASH_WG_SHAPES = {"llava_tower": (8, 16, 577, 64), "phi3_tower": (17, 16, 577, 64),
-                   "internvit_tower": (20, 16, 1025, 64)}
+def flash_probe_shapes() -> dict:
+    """K2's Hopper rows for :func:`probe_flash_warpgroups`: label -> ((B, H,
+    KVH, L, D), prompt lengths or None). With lengths the row is causal and
+    left-padded to them in its bucket (the decoders' prefill); without, it is
+    non-causal with no mask (the towers). The head_dim-64 towers (the LLaVA
+    and Phi-3 towers, InternViT-300M), the short prompts (the judge, Mistral,
+    Vicuna at bucket 128), the SigLIP and BLIP towers at D = 72 and 88, the
+    K1 tower shape at D = 80, and the longer prefills (Qwen2-7B at 320 and at
+    onevision's 4096, Qwen2-1.5B at 2048, Vicuna at 640 and 3072, Phi-3 at
+    3072)."""
+    from lmms_owc_tpu_torch.utils import pad_to_bucket
+
+    phi3 = phi3v_prompt_tokens()
+    internvl = [INTERNVL_PROMPT_TOKENS[(448, 448)]] * 6 + [INTERNVL_PROMPT_TOKENS[(336, 448)]] * 2
+    return {
+        "llava_tower": ((8, 16, 16, 577, 64), None),
+        "phi3_tower": ((17, 16, 16, 577, 64), None),
+        "internvit_tower": ((20, 16, 16, 1025, 64), None),
+        "judge_prefill": ((JUDGE_BATCH, 24, 8, 128, 128), [128 - (7 * i) % 40 for i in range(JUDGE_BATCH)]),
+        "mistral_prefill": ((4, 32, 8, 128, 128), [IDEFICS2_PROMPT_TOKENS] * 4),
+        "blip_prefill": ((8, 32, 32, 128, 128), [BLIP_PROMPT_TOKENS] * 8),
+        "onevision_tower": ((5, 16, 16, 729, 72), None),
+        "blip_tower": ((8, 16, 16, 257, 88), None),
+        "vision_d80": ((8, 16, 16, 1024, 80), None),
+        "prefill": ((8, 28, 4, 320, 128), [320 - x for x in (0, 3, 17, 40, 64, 100, 191, 250)]),
+        "tp_prefill": ((8, 14, 2, 320, 128), [320 - x for x in (0, 3, 17, 40, 64, 100, 191, 250)]),
+        "llava_prefill": ((8, 32, 32, 640, 128), [LLAVA_PROMPT_TOKENS] * 8),
+        "internvl_prefill": ((8, 12, 2, 2048, 128), internvl),
+        "llava_next_prefill": ((2, 32, 32, 3072, 128), list(LLAVA_NEXT_PROMPT_TOKENS)),
+        "onevision_prefill": ((2, 28, 4, 4096, 128), list(ONEVISION_PROMPT_TOKENS.values())),
+        "phi3_prefill": ((8, 32, 32, pad_to_bucket(max(phi3)), 96), phi3),
+    }
 
 
-def probe_flash_warpgroups(dev) -> dict:
-    """The flash kernel's Hopper instance at 1, 2 and 3 warpgroups per CTA
-    (64 query rows each) and at its own choice (0), at ``FLASH_WG_SHAPES`` in
-    bf16, non-causal, no mask: each form held to the plain version within
-    ``TOL``, then its device ms (profiler, mean of 20) read in the order 0, 1,
-    2, 3, 3, 2, 1, 0 and averaged per form, beside SDPA's. A diagnostic of the
-    rule in ``sm90::warpgroups``; the smoke run does not call it."""
+def probe_flash_warpgroups(dev, forms: tuple[int, ...] = (0, 1, 2, 3)) -> dict:
+    """The flash kernel's Hopper instance at its own plan (form 0) and at 1, 2
+    and 3 warpgroups per CTA (the launch's ``warpgroups`` override) at
+    :func:`flash_probe_shapes` in bf16: each form held to the plain version
+    within ``TOL`` (on the rows that have a valid key), then its device ms
+    (profiler, mean of 20) read in the order of ``forms`` and back, averaged
+    per form, beside SDPA's, with the plan :func:`_flash_plan` gives. A
+    diagnostic of ``sm90::warpgroups``; the smoke run does not call it.
+    ``--flash-wg-probe=0`` times the plan alone, so the same file copied into
+    an older checkout times that checkout's kernel."""
     import torch
 
     from lmms_owc_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    forms = (0, 1, 2, 3)
     out = {}
-    for label, (b, h, l, d) in FLASH_WG_SHAPES.items():
-        q, k, v = (torch.randn((b, h, l, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
-        want = att.flash_attention_plain(q, k, v)
+    for label, ((b, h, kvh, l, d), lengths) in flash_probe_shapes().items():
+        q = torch.randn((b, h, l, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, kvh, l, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        causal, mask, rows, keep = False, None, None, None
+        if lengths is not None:
+            pos = torch.arange(l, device=dev)
+            mask = (pos[None, :] >= l - torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+            causal, rows, keep = True, mask.bool()[:, None, :].expand(b, h, l), _causal_keep(mask, l)
+        want = att.flash_attention_plain(q, k, v, causal=causal, kv_mask=mask)
         result = torch.empty_like(q)
 
         def run(wg):
-            att._launch_flash("flash_attention", q, k, v, result, causal=False, kv_mask=None,
-                              kv_mask_contiguous=False, scale=d ** -0.5, rope_cos=None, rope_sin=None, warpgroups=wg)
+            att._launch_flash("flash_attention", q, k, v, result, causal=causal, kv_mask=mask,
+                              kv_mask_contiguous=True, scale=d ** -0.5, rope_cos=None, rope_sin=None, warpgroups=wg)
             return result
 
-        row: dict = {"shape": [b, h, l, d], "max_abs_err": {}, "device_ms": {wg: [] for wg in forms}}
+        row: dict = {"shape": [b, h, kvh, l, d], "causal": causal, "plan": _flash_plan(h, kvh, l, d),
+                     "max_abs_err": {}, "device_ms": {wg: [] for wg in forms}}
         for wg in forms:
-            row["max_abs_err"][wg] = _compare(f"flash_attention {label} warpgroups={wg}", run(wg), want)
+            row["max_abs_err"][wg] = _compare(f"flash_attention {label} warpgroups={wg}", run(wg), want, rows)
         for wg in forms + forms[::-1]:
             symbols: list[str] = []
             row["device_ms"][wg].append(_device_ms(lambda: run(wg), symbols=symbols))
             if _flash_instances(symbols) != {"sm90"}:
                 raise AssertionError(f"{label} warpgroups={wg}: ran {symbols}")
         row["device_ms"] = {wg: sum(t) / len(t) for wg, t in row["device_ms"].items()}
-        row["sdpa_device_ms"] = _device_ms(_sdpa(q, k, v, None))
+        row["kernels_ms"] = _device_kernels_ms(lambda: run(forms[0]))
+        row["sdpa_device_ms"] = _device_ms(_sdpa(q, k, v, keep))
         out[label] = row
+        log(f"flash probe {label}: {json.dumps(row)}")
         del q, k, v, want, result
         torch.cuda.empty_cache()
     return out
@@ -4955,6 +5072,7 @@ def check_tp_shapes(dev, gen) -> dict[str, dict]:
                  lambda: att.vision_qkv_attention_plain(qkv, h, d, **kw),
                  _sdpa(apply_rope(vq, cos, sin), apply_rope(vk, cos, sin), vv, vmask.bool()[:, None, None, :])),
         _attention_bound(vmask, h, h, p, d, causal=False, extra_bytes=2 * 4 * n * p * d // 2 + 8 * n), SDPA,
+        plan=(h, h, p, d),
     )
     del qkv
 
@@ -4965,14 +5083,15 @@ def check_tp_shapes(dev, gen) -> dict[str, dict]:
     pmask = (pos[None, :] >= starts[:, None]).to(torch.int32)
     kw = dict(causal=True, kv_mask=pmask)
     valid_rows = (pos[None, :] >= starts[:, None])[:, None, :].expand(b, nh, l)
-    err = _compare("flash_attention[tp]", att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
-                   att.flash_attention_plain(q, k, v, **kw), valid_rows)
+    got = att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw)
+    err = _compare("flash_attention[tp]", got, att.flash_attention_plain(q, k, v, **kw), valid_rows)
+    _per_head_equal("tp prefill", q, k, v, got, **kw)
     rows["flash_attention"]["tp_prefill"] = _row(
         f"q [{b}, {nh}, {l}, {hd}], k/v [{b}, {kvh}, {l}, {hd}] bf16 (tp = {TP_RANKS}: G = {nh // kvh}), causal, "
-        "left-padded", err,
+        "left-padded (equal to per-head launches)", err,
         _timings(lambda: att.flash_attention(q, k, v, kv_mask_contiguous=True, **kw),
                  lambda: att.flash_attention_plain(q, k, v, **kw), _sdpa(q, k, v, _causal_keep(pmask, l))),
-        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA,
+        _attention_bound(pmask, nh, kvh, l, hd, causal=True, extra_bytes=8 * b), SDPA, plan=(nh, kvh, l, hd),
     )
     del q, k, v
 
@@ -5245,6 +5364,10 @@ def check_tp_results(out: dict, logits: dict, flagship, refs: dict, judge_answer
     return out
 
 
+# The flags that run phases 1 and 2 or a probe alone (see the module docstring).
+DIAGNOSTIC_MODES = ("--decode-rows-probe", "--decode-split-probe", "--flash-wg-probe", "--kernel-rows")
+
+
 def main(argv: list[str] | None = None) -> int:
     import torch
 
@@ -5267,9 +5390,16 @@ def main(argv: list[str] | None = None) -> int:
     lib_path = _build.build()
     _build.load_library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
-    for line in _ptxas_summary(_build.ptxas_report(lib_path)):
+    ptxas = _ptxas_summary(_build.ptxas_report(lib_path))
+    for line in ptxas:
         log(f"ptxas: {line}")
     args = sys.argv[1:] if argv is None else argv
+    # A serialized wgmma pipeline fails phase 1; the diagnostic modes only
+    # print it, so this file can time an older checkout's kernels.
+    serialized = [line for line in ptxas if "serialized" in line]
+    if serialized and not any(a.startswith(DIAGNOSTIC_MODES) for a in args):
+        raise AssertionError(f"phase 1: ptxas serialized the wgmmas of {len(serialized)} kernel(s), e.g. "
+                             f"{serialized[0]}")
     if "--decode-rows-probe" in args:
         log(f"decode rows probe: {json.dumps(probe_decode_rows(dev))}")
         print(smi)
@@ -5280,8 +5410,19 @@ def main(argv: list[str] | None = None) -> int:
         log(f"decode split probe ({smi}): {json.dumps(probe_decode_splits(dev, splits))}")
         print(smi)
         return 0
-    if "--flash-wg-probe" in args:
-        log(f"flash warpgroups probe ({smi}): {json.dumps(probe_flash_warpgroups(dev))}")
+    probe = [a for a in args if a.startswith("--flash-wg-probe")]
+    if probe:
+        forms = tuple(int(n) for n in probe[0].partition("=")[2].split(",") if n) or (0, 1, 2, 3)
+        log(f"flash warpgroups probe ({smi}): {json.dumps(probe_flash_warpgroups(dev, forms))}")
+        print(smi)
+        return 0
+
+    if "--kernel-rows" in args:
+        rows = check_kernels(dev)
+        flash = {name: {label: [row["device_ms"], row["library_device_ms"], row.get("plan")]
+                        for label, row in [(name, rows[name])] + list(rows[name].get("also", {}).items())}
+                 for name in FLASH_KERNELS if name in rows}
+        log(f"kernel rows ({smi}; device ms, library device ms, plan): {json.dumps(flash)}")
         print(smi)
         return 0
 

@@ -68,8 +68,8 @@ struct FlashArgs {
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
-  const int* mask_se;  // [B, 2] int32 (start, end) of each row's valid keys, or null
-  const int* mask;     // [B, Lk] int32 contiguous, nonzero = attend, or null (exclusive with mask_se)
+  const int* mask_run;  // [B, Lk] int32 contiguous, nonzero = attend, one contiguous run per row, or null
+  const int* mask;      // [B, Lk] int32 contiguous, nonzero = attend, any pattern, or null (exclusive with mask_run)
   const float* cos;    // [B or 1, L, D/2] f32 contiguous, or null (no rope)
   const float* sin;
   long long rope_sb;   // batch stride of cos/sin in elements (0 broadcasts one table)
@@ -120,6 +120,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The (start, end) run of valid keys of one row of a [B, Lk] int32 mask that
+// holds one contiguous run of nonzero entries: its first nonzero index, and
+// that plus the count of nonzero entries; (0, 0) for a row with none. Every
+// thread of the CTA calls it (two barriers); each reads Lk / blockDim
+// entries, kLoads at a time, so a caller's mask needs no pass of its own
+// before the launch. The general kernel takes one load at a time: the
+// batched loads, inlined, changed that kernel's code and made its calls a
+// third slower on the card.
+template <int kLoads>
+__device__ __forceinline__ int2 row_run(const int* mrow, int lk) {
+  __shared__ int red[2];  // the first nonzero index, the count
+  if (threadIdx.x == 0) {
+    red[0] = lk;
+    red[1] = 0;
+  }
+  __syncthreads();
+  int first = lk, count = 0;
+  for (int base = threadIdx.x; base < lk; base += kLoads * blockDim.x) {
+    int m[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) m[j] = base + j * blockDim.x < lk ? mrow[base + j * blockDim.x] : 0;
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (m[j] != 0) {
+        first = min(first, base + j * static_cast<int>(blockDim.x));
+        ++count;
+      }
+    }
+  }
+  first = __reduce_min_sync(0xffffffffu, first);
+  count = __reduce_add_sync(0xffffffffu, count);
+  if (threadIdx.x % 32 == 0) {
+    atomicMin(&red[0], first);
+    atomicAdd(&red[1], count);
+  }
+  __syncthreads();
+  const int start = red[1] > 0 ? red[0] : 0;
+  return make_int2(start, start + red[1]);
 }
 
 // Copies token rows [row0, row0 + kRows) of one head into shared memory
@@ -228,9 +268,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const FlashArgs a) {
   // Valid keys of this CTA: the row's (start, end) run, clipped by the causal
   // diagonal (aligned to the sequence end) of the block's last query row.
   int k_lo = 0, k_hi = a.lk;
-  if (a.mask_se != nullptr) {
-    k_lo = max(a.mask_se[2 * b], 0);
-    k_hi = min(a.mask_se[2 * b + 1], a.lk);
+  if (a.mask_run != nullptr) {
+    const int2 run = row_run<1>(a.mask_run + static_cast<long long>(b) * a.lk, a.lk);
+    k_lo = run.x;
+    k_hi = run.y;
   }
   const int offset = a.lk - a.lq;
   if (a.causal) k_hi = min(k_hi, min(q0 + kBQ, a.lq) + offset);
@@ -360,12 +401,12 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 // ============================================================================
 // The Hopper design of the bf16 instances at head_dim 64, 72, 80, 88, 96 and 128.
 //
-// Head_dim 72 runs as 80: its q, k and v rows are nine 16-byte chunks, the
-// tenth chunk of each tile row is zero-filled (cp.async with no source
-// bytes), QK takes 5 k-steps and PV the m64n80 product, whose last 8 output
-// columns are zero and not stored. Head_dim 88 runs as 96 the same way:
-// eleven chunks and a zero-filled twelfth, QK in 6 k-steps, PV the m64n96
-// product with its last 8 columns not stored. takes() sends neither rope
+// Head_dim 72: its q, k and v rows are nine 16-byte chunks; the q and k
+// tiles are 80 columns wide, their tenth chunk zero-filled (cp.async with no
+// source bytes), so QK takes 5 k-steps of 16; V keeps its nine chunks and PV
+// runs m64n72 (N only has to be a multiple of 8), 36 accumulators a thread,
+// none dead. Head_dim 88 the same way: eleven chunks, q and k 96 wide with a
+// zero-filled twelfth, QK in 6 k-steps, PV m64n88. takes() sends neither rope
 // (72 / 2 and 88 / 2 are not whole numbers of 16-byte chunks). Head_dim 96
 // (Phi-3-mini's decoder) fills its twelve chunks: QK takes 6 k-steps, PV the
 // m64n96 product with every column stored, and rope runs as at 80 and 128.
@@ -373,28 +414,35 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 // takes 4 k-steps, PV the m64n64 product (32 accumulators a thread), and rope
 // runs on its 32-column halves, four chunks each, as at 80 and 128.
 //
-// A CTA of kWG warpgroups owns 64 * kWG query rows of one head: three
-// warpgroups (192 rows) share each K/V tile when the query is longer than 64
-// rows (the vision towers' 1024, the prefill), one takes a 64-row window; at
-// head_dim 64 the count that pads the query least (warpgroups() below).
+// The query group is folded into the CTA's rows, as the TPU kernel's grid
+// (batch, kv head, group, q block) revisits each K/V block across the group.
+// A slot is one (64-row q tile, head of the group) pair, numbered
+// q-tile-major (slot = qt * G + gi); a CTA of kWG warpgroups takes kWG
+// consecutive slots of one (batch row, KV head), one per warpgroup, so its
+// warpgroups are, as a rule, the G heads at the same query rows: they share
+// one causal range, and each K/V tile the CTA loads serves all of them. The
+// grid is (ceil(ceil(Lq / 64) * G / kWG), KV heads, batch); kWG is 1 for a
+// single slot, else 2 or 3, whichever leaves fewer empty slots
+// (warpgroups() below). At G = 1 a CTA owns 64 * kWG consecutive rows of one
+// head.
 //   * Copies: K and V tiles of 64 keys stream through a ring of kStages = 3
 //     shared-memory stages with 16-byte cp.async (zero-filled past the end),
 //     issued two tiles ahead, so the next tiles load while the current one is
-//     multiplied. The q tile is read once per CTA.
+//     multiplied. Each warpgroup reads its own q rows once.
 //   * Products: wgmma. S = Q K^T runs m64n64k16 with Q and K both read from
 //     shared memory as K-major operands (head_dim/16 steps: 5 at D = 80);
 //     O += P V runs m64nDk16 with P re-packed from the S accumulators into
 //     bf16 A fragments in registers and V read as an MN-major operand
-//     (N = D = 64, 80, 96 or 128, a multiple of 8). Tiles are stored as 8x8
+//     (N = D = 64, 72, 80, 88, 96 or 128, a multiple of 8). Tiles are stored as 8x8
 //     core matrices (no swizzle: 160-byte rows do not fit the 128-byte
 //     pattern; at head_dim 64, whose rows are 128 bytes, the same layout), so
 //     the same layout is K-major for Q and K and MN-major for V.
-//   * Rope, once per token: the q tile is rotated in f32 as it is read (once
-//     per CTA, that is once per query token and head); the keys are rotated
-//     by a pre-pass kernel (rope_keys_kernel) into a scratch [B, KVH, Lk, D]
-//     the wrapper allocates, once per key token and KV head, instead of once
-//     per query block; with a single q block per head (the 2.5 window layers)
-//     the kernel rotates each key tile in shared memory as it lands instead,
+//   * Rope, once per token: the q rows are rotated in f32 as they are read
+//     (once per query token and head); the keys by a pre-pass
+//     kernel (rope_keys_kernel) into a scratch [B, KVH, Lk, D] the wrapper
+//     allocates, once per key token and KV head, instead of once per CTA;
+//     with one CTA per (batch row, KV head) (the 2.5 window layers) the
+//     kernel rotates each key tile in shared memory as it lands instead,
 //     which saves the pre-pass's extra pass over K. Both round to bf16 once,
 //     as the TPU kernel does.
 //   * Schedule: each iteration issues QK of tile i + 1 and PV of tile i back
@@ -406,10 +454,15 @@ cudaError_t dispatch_head_dim(const FlashArgs& a, cudaStream_t stream) {
 //   * Softmax: scores stay unscaled; p = 2^(s * scale*log2(e) - m) is one fma
 //     and one ex2. Masks are branch-free selects, skipped on tiles whose keys
 //     are all valid.
-//   * Masks: the causal diagonal and the (start, end) run clip the CTA's tile
-//     range; the [B, Lk] tensor mask is copied to shared memory once per CTA
-//     as bytes, only its tiles with a valid key enter the pipeline, and those
-//     with every key valid skip the per-score mask.
+//   * Masks: the (start, end) run and the causal diagonal of the CTA's last
+//     q tile clip the CTA's tile range, the union of its warpgroups' ranges;
+//     a warpgroup skips QK, softmax and PV of the tiles past its own
+//     diagonal (its products run in a loop of its own, the barriers of the
+//     tiles it skips in a second one), which is exact: a wholly masked tile
+//     would leave m, l and o as they are. A contiguous mask comes as its
+//     [B, Lk] rows, each CTA reducing its row to the (start, end) run. The [B, Lk] tensor mask is copied to shared memory once
+//     per CTA as bytes, only its tiles with a valid key enter the pipeline,
+//     and those with every key valid skip the per-score mask.
 // The shared-memory attribute is set once per template instance.
 
 namespace sm90 {
@@ -419,6 +472,14 @@ constexpr int kStages = 3;     // K/V ring depth (deeper rings measured no faste
 constexpr int kMaxKeys = 16384;  // tensor-mask rows staged in shared memory
 constexpr int kMaxTiles = kMaxKeys / kBK;
 constexpr int kFullTile = 1 << 30;  // tensor-mask tile list: every key of the tile is valid
+
+// K/V ring stages a launch allocates: kStages, or as many as the keys have
+// tiles when that is fewer (a short prompt's CTA then takes less shared
+// memory, and more CTAs share an SM). No CTA meets more tiles than that, so
+// tile i always lands in stage i % kStages < the allocated count.
+__host__ __device__ constexpr int ring_stages(int lk) {
+  return lk <= kBK ? 1 : lk <= 2 * kBK ? 2 : kStages;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -456,6 +517,10 @@ __device__ __forceinline__ float fast_exp2(float x) {  // 2^x; 2^-inf = 0
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+// A CTA-wide barrier that warps may reach at different instructions (the
+// warpgroups of the flash kernel meet the barriers of the tiles they skip in
+// a loop of their own); __syncthreads() is the aligned form, which may not be.
+__device__ __forceinline__ void cta_barrier() { asm volatile("barrier.sync 0;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
@@ -480,12 +545,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (m64n72) += A(64x16, bf16 fragments in registers) * B(16x72), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35}, {%36,%37,%38,%39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (m64n80) += A(64x16, bf16 fragments in registers) * B(16x80), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39}, {%40,%41,%42,%43}, %44, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (m64n88) += A(64x16, bf16 fragments in registers) * B(16x88), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n88(float (&d)[44], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43}, {%44,%45,%46,%47}, %48, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
@@ -514,8 +597,16 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)
   wgmma_rs_n64(o, a, desc_b, 1);
 }
 template <>
+__device__ __forceinline__ void wgmma_pv<72>(float (&o)[36], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_rs_n72(o, a, desc_b, 1);
+}
+template <>
 __device__ __forceinline__ void wgmma_pv<80>(float (&o)[40], const uint32_t (&a)[4], uint64_t desc_b) {
   wgmma_rs_n80(o, a, desc_b, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<88>(float (&o)[44], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_rs_n88(o, a, desc_b, 1);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<96>(float (&o)[48], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -570,39 +661,56 @@ template <int D, bool kTensorMask, int kWG>
 __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   constexpr int kThreads = 128 * kWG;  // kWG warpgroups share each K/V tile
   constexpr int kBQ = kBK * kWG;       // query rows per CTA, 64 per warpgroup
-  constexpr int kCols = tile_cols(D);  // columns in shared memory: 72 -> 80 and 88 -> 96, the last 8 zero
+  constexpr int kCols = tile_cols(D);  // q and k columns in shared memory: 72 -> 80 and 88 -> 96, the last 8 zero
   constexpr int kTile = kBK * kCols * 2;  // bytes of one k or v tile, or of a warpgroup's q rows
-  constexpr int kChunks = kCols / 8;  // 16-byte chunks per row in shared memory
-  constexpr int kDataChunks = D / 8;  // of which hold data (the rest are zero-filled)
+  constexpr int kChunks = kCols / 8;  // 16-byte chunks per q or k row in shared memory
+  constexpr int kDataChunks = D / 8;  // of which hold data (the rest are zero-filled); every v chunk
   constexpr int kHalfChunks = D / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* qs = smem;
+  // Ring stage s holds its K tile at ks + 2 * s * kTile and its V tile right
+  // after (vs = ks + kTile), at fixed offsets however many stages a launch
+  // allocates (ring_stages).
   unsigned char* ks = smem + kWG * kTile;
-  unsigned char* vs = ks + kStages * kTile;
-  int* tiles = reinterpret_cast<int*>(vs + kStages * kTile);                   // tensor mask only
+  unsigned char* vs = ks + kTile;
+  int* tiles = reinterpret_cast<int*>(ks + 2 * ring_stages(a.lk) * kTile);     // tensor mask only
   unsigned char* mk = reinterpret_cast<unsigned char*>(tiles + kMaxTiles);     // tensor mask only
   __shared__ int n_tiles_shared;
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.heads / a.kv_heads);
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const int q0 = qb * kBQ;
+  const int wg = warp / 4, wtid = tid % 128;  // this thread's warpgroup, and its index there
+  // This warpgroup's slot: (64-row q tile qt, head gi of the group), numbered
+  // q-tile-major; the CTA takes kWG consecutive slots of one (b, kv head).
+  const int group = a.heads / a.kv_heads;
+  const int n_slots = (a.lq + kBK - 1) / kBK * group;
+  const int slot = blockIdx.x * kWG + wg;
+  const bool wg_live = slot < n_slots;  // the last CTA's trailing warpgroups may have no slot
+  const int h = kvh * group + slot % group;
+  const int q0 = slot / group * kBK;  // this warpgroup's first query row
 
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
 
+  // Valid keys: the row's (start, end) run; per warpgroup (wg_hi), clipped by
+  // the causal diagonal (aligned to the sequence end) of its last query row,
+  // and for the CTA (cta_hi), the union: the last live slot's, whose q tile
+  // is the CTA's last.
   int k_lo = 0, k_hi = a.lk;
-  if (a.mask_se != nullptr) {
-    k_lo = max(a.mask_se[2 * b], 0);
-    k_hi = min(a.mask_se[2 * b + 1], a.lk);
+  if (a.mask_run != nullptr) {
+    const int2 run = row_run<8>(a.mask_run + static_cast<long long>(b) * a.lk, a.lk);
+    k_lo = run.x;
+    k_hi = run.y;
   }
   const int offset = a.lk - a.lq;
-  if (a.causal) k_hi = min(k_hi, min(q0 + kBQ, a.lq) + offset);
+  const int last_q0 = (min(static_cast<int>(blockIdx.x) * kWG + kWG, n_slots) - 1) / group * kBK;
+  const int wg_hi = a.causal ? min(k_hi, min(q0 + kBK, a.lq) + offset) : k_hi;
+  const int cta_hi = a.causal ? min(k_hi, min(last_q0 + kBK, a.lq) + offset) : k_hi;
   const int t0 = k_lo / kBK;
-  const int t_end = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t0;
+  const int t_end = cta_hi > k_lo ? (cta_hi + kBK - 1) / kBK : t0;
 
   // The tensor mask's row as bytes (zero past Lk), and the list of its tiles
   // in [t0, t_end) that hold a valid key, built by warp 0 with ballots.
@@ -634,20 +742,27 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
     __syncthreads();
     n_tiles = n_tiles_shared;
   }
+  auto tile_kb0 = [&](int i) { return (kTensorMask ? tiles[i] & ~kFullTile : t0 + i) * kBK; };
+  // This warpgroup's tiles: a prefix of the CTA's list, those that start
+  // before its valid keys end (the rest lie past its causal diagonal). A
+  // warpgroup skips the products and the softmax of every later tile: with
+  // every key masked they would leave m, l and o as they are.
+  int n_wg = wg_live && wg_hi > k_lo ? n_tiles : 0;
+  while (n_wg > 0 && tile_kb0(n_wg - 1) >= wg_hi) --n_wg;
 
   // K/V tile i of the CTA's list into ring stage `stage` (16-byte cp.async,
   // rows at or past Lk zero-filled), as one commit group.
   auto load_kv = [&](int i, int stage) {
     if (i < n_tiles) {
-      const int kb0 = (kTensorMask ? tiles[i] & ~kFullTile : t0 + i) * kBK;
-      const uint32_t kd = smem_addr(ks + stage * kTile), vd = smem_addr(vs + stage * kTile);
+      const int kb0 = tile_kb0(i);
+      const uint32_t kd = smem_addr(ks + 2 * stage * kTile), vd = smem_addr(vs + 2 * stage * kTile);
       for (int idx = tid; idx < kBK * kChunks; idx += kThreads) {
         const int r = idx / kChunks, c = idx - r * kChunks;
         const bool valid = kb0 + r < a.lk && c < kDataChunks;
         const long long row = valid ? kb0 + r : 0;
         const int col = valid ? c * 8 : 0;
         cp_async16(kd + core_offset<kBK>(r, c), kp + row * a.k_sl + col, valid);
-        cp_async16(vd + core_offset<kBK>(r, c), vp + row * a.v_sl + col, valid);
+        if (c < kDataChunks) cp_async16(vd + core_offset<kBK>(r, c), vp + row * a.v_sl + col, valid);
       }
     }
     cp_async_commit();
@@ -655,47 +770,51 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) load_kv(s, s);
 
-  // The q tile, rotated as it is read when a rope table is given.
+  // This warpgroup's q rows, rotated as they are read when a rope table is
+  // given; the rows of a warpgroup with no slot are zero.
   const float* cs = a.cos != nullptr ? a.cos + b * a.rope_sb : nullptr;
   const float* sn = a.sin != nullptr ? a.sin + b * a.rope_sb : nullptr;
+  unsigned char* qw = qs + wg * (kBK / 8) * 128;  // row 0 of this warpgroup's 64 in the [kBQ] tile
   if constexpr (kCols == D) {
-    for (int idx = tid; idx < kBQ * kHalfChunks; idx += kThreads) {
+#pragma unroll
+    for (int idx = wtid; idx < kBK * kHalfChunks; idx += 128) {
       const int r = idx / kHalfChunks, c = idx - r * kHalfChunks;
       const int row = q0 + r;
       uint4 x1 = make_uint4(0, 0, 0, 0), x2 = x1;
-      if (row < a.lq) {
+      if (wg_live && row < a.lq) {
         const __nv_bfloat16* p = qp + row * a.q_sl;
         x1 = *reinterpret_cast<const uint4*>(p + c * 8);
         x2 = *reinterpret_cast<const uint4*>(p + D / 2 + c * 8);
         if (cs != nullptr) rotate8(x1, x2, cs + row * (D / 2) + c * 8, sn + row * (D / 2) + c * 8);
       }
-      *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c)) = x1;
-      *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c + kHalfChunks)) = x2;
+      *reinterpret_cast<uint4*>(qw + core_offset<kBQ>(r, c)) = x1;
+      *reinterpret_cast<uint4*>(qw + core_offset<kBQ>(r, c + kHalfChunks)) = x2;
     }
   } else {  // padded columns (takes() sends no rope here): chunks past head_dim are zero
-    for (int idx = tid; idx < kBQ * kChunks; idx += kThreads) {
+#pragma unroll
+    for (int idx = wtid; idx < kBK * kChunks; idx += 128) {
       const int r = idx / kChunks, c = idx - r * kChunks;
       const int row = q0 + r;
       uint4 x = make_uint4(0, 0, 0, 0);
-      if (row < a.lq && c < kDataChunks) x = *reinterpret_cast<const uint4*>(qp + row * a.q_sl + c * 8);
-      *reinterpret_cast<uint4*>(qs + core_offset<kBQ>(r, c)) = x;
+      if (wg_live && row < a.lq && c < kDataChunks) x = *reinterpret_cast<const uint4*>(qp + row * a.q_sl + c * 8);
+      *reinterpret_cast<uint4*>(qw + core_offset<kBQ>(r, c)) = x;
     }
   }
 
-  float o[kCols / 2];
+  float o[D / 2];  // PV's accumulator at the true width: no dead columns at 72 and 88
 #pragma unroll
-  for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_row[2] = {-INFINITY, -INFINITY};
   float l_row[2] = {0.f, 0.f};
-  const int r_lo = warp * 16 + g;  // this thread's rows r_lo and r_lo + 8 (warpgroup warp / 4)
+  const int r_lo = (warp % 4) * 16 + g;  // this thread's rows r_lo and r_lo + 8 of its warpgroup's 64
   const int qi[2] = {q0 + r_lo, q0 + r_lo + 8};
-  const uint32_t q_addr = smem_addr(qs) + (warp / 4) * (kBK / 8) * 128;  // this warpgroup's rows
+  const uint32_t q_addr = smem_addr(qw);  // this warpgroup's rows
 
   // S = Q K^T of tile i into s: head_dim/16 k-steps; a k-step spans two
   // column chunks. Issued and committed; the caller waits.
   float s[32];
   auto issue_qk = [&](int i) {
-    const uint32_t k_addr = smem_addr(ks + (i % kStages) * kTile);
+    const uint32_t k_addr = smem_addr(ks + 2 * (i % kStages) * kTile);
 #pragma unroll
     for (int kc = 0; kc < kCols / 16; ++kc) {
       wgmma_ss_n64(s, make_desc(q_addr + kc * 2 * kBQ * 16, kBQ * 16, 128),
@@ -707,17 +826,17 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   auto tile_ready = [&]() {
     cp_async_wait<kStages - 3>();
     fence_async_smem();
-    __syncthreads();
+    cta_barrier();
   };
-  // With a single q block and no head sharing a KV head, each key tile meets
-  // one CTA, so the keys are rotated here, in shared memory, as each tile
-  // lands (still once per token); otherwise the pre-pass has rotated them
-  // (a.k_rot is then set).
+  // With one CTA per (batch row, KV head), each key tile meets one CTA, so
+  // the keys are rotated here, in shared memory, as each tile lands (still
+  // once per token); otherwise the pre-pass has rotated them (a.k_rot is
+  // then set).
   const bool rope_k = kCols == D && cs != nullptr && a.k_rot == nullptr;
   auto rope_tile = [&](int i) {
     if (!rope_k) return;
-    const int kb0 = (kTensorMask ? tiles[i] & ~kFullTile : t0 + i) * kBK;
-    unsigned char* kt = ks + (i % kStages) * kTile;
+    const int kb0 = tile_kb0(i);
+    unsigned char* kt = ks + 2 * (i % kStages) * kTile;
     for (int idx = tid; idx < kBK * kHalfChunks; idx += kThreads) {
       const int r = idx / kHalfChunks, c = idx - r * kHalfChunks;
       if (kb0 + r >= a.lk) continue;
@@ -730,7 +849,7 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
       *p2 = x2;
     }
     fence_async_smem();
-    __syncthreads();
+    cta_barrier();
   };
 
   // Mask and online softmax (base 2) of the scores of tile i in s, on this
@@ -742,7 +861,7 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) hi[r] = a.causal ? min(k_hi, qi[r] + offset + 1) : k_hi;
   auto softmax = [&](int i) {
-    const int kb0 = (kTensorMask ? tiles[i] & ~kFullTile : t0 + i) * kBK;
+    const int kb0 = tile_kb0(i);
     const bool mask_full = !kTensorMask || (tiles[i] & kFullTile) != 0;
     float mx[2] = {-INFINITY, -INFINITY};
     if (mask_full && kb0 >= k_lo && kb0 + kBK <= min(hi[0], hi[1])) {  // every key valid
@@ -808,34 +927,43 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
   // Each iteration issues QK of tile i + 1 and PV of tile i back to back and
   // waits for both in it, so nothing is in flight across iterations; the
   // softmax of tile i + 1 runs on the CUDA cores while PV of tile i runs.
+  // Every thread meets each barrier (tile_ready, rope_tile), in the same
+  // order; n_wg, which sets where, is the same for a whole warpgroup.
   if (n_tiles > 0) {
-    tile_ready();
+    cp_async_wait<1>();  // tile 0 has landed (tile 1 may still be in flight); the q tile is written
+    fence_async_smem();
+    __syncthreads();
     rope_tile(0);
-    wgmma_fence();
-    issue_qk(0);
-    wgmma_wait<0>();
-    fence_regs(s);
-    softmax(0);
-    pack_p();
+    if (n_wg > 0) {
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(0);
+      pack_p();
+    }
   }
   // PV of tile i: rescale o by the softmax's factors, then O += P V.
   auto issue_pv = [&](int i) {
-    const uint32_t v_addr = smem_addr(vs + (i % kStages) * kTile);
+    const uint32_t v_addr = smem_addr(vs + 2 * (i % kStages) * kTile);
 #pragma unroll
     for (int kc = 0; kc < kBK / 16; ++kc) {
-      wgmma_pv<kCols>(o, pa[kc], make_desc(v_addr + kc * 2 * 128, 128, kBK * 16));
+      wgmma_pv<D>(o, pa[kc], make_desc(v_addr + kc * 2 * 128, 128, kBK * 16));
     }
   };
   auto rescale_o = [&]() {
 #pragma unroll
-    for (int n = 0; n < kCols / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[n * 4 + c] *= corr[c >> 1];
     }
     fence_regs(o);  // the rescale stays before the wgmmas are issued
   };
-  // The last tile is peeled off, so every wgmma is issued unconditionally.
-  for (int i = 0; i + 1 < n_tiles; ++i) {
+  // This warpgroup's tiles: QK of tile i + 1 with PV of tile i, then PV of
+  // its last tile alone; then only the CTA's barriers and loads for the
+  // tiles it skips (the same sequence of them in every warpgroup).
+  int i = 0;
+  for (; i + 1 < n_wg; ++i) {
     rescale_o();
     tile_ready();  // tile i + 1 in place; the ring stage of tile i - 1 takes tile i + kStages - 1
     load_kv(i + kStages - 1, (i + kStages - 1) % kStages);
@@ -851,16 +979,22 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
     fence_regs(o);
     pack_p();
   }
-  if (n_tiles > 0) {
+  if (n_wg > 0) {
     rescale_o();
     wgmma_fence();
-    issue_pv(n_tiles - 1);
+    issue_pv(n_wg - 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
   }
+  for (; i + 1 < n_tiles; ++i) {
+    tile_ready();
+    load_kv(i + kStages - 1, (i + kStages - 1) % kStages);
+    rope_tile(i + 1);
+  }
   cp_async_wait<0>();
 
+  if (!wg_live) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qi[r] >= a.lq) continue;
@@ -874,8 +1008,8 @@ __global__ void __launch_bounds__(128 * kWG) flash_kernel(const FlashArgs a) {
 }
 
 template <int D, bool kTensorMask, int kWG>
-constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kWG + 2 * kStages) * kBK * tile_cols(D) * 2 +
+constexpr size_t smem_bytes(int ring = kStages) {
+  return static_cast<size_t>(kWG + 2 * ring) * kBK * tile_cols(D) * 2 +
          (kTensorMask ? kMaxTiles * sizeof(int) + kMaxKeys : 0);
 }
 
@@ -886,10 +1020,12 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
       flash_kernel<D, kTensorMask, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<D, kTensorMask, kWG>()));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.lq + kBK * kWG - 1) / (kBK * kWG), a.heads, a.batch);
+  // kWG consecutive (q tile, head of the group) slots per CTA, per (b, kv head).
+  const int slots = (a.lq + kBK - 1) / kBK * (a.heads / a.kv_heads);
+  const dim3 grid((slots + kWG - 1) / kWG, a.kv_heads, a.batch);
   FlashArgs args = a;
   args.k_rot = nullptr;  // the kernel rotates the keys itself: one CTA meets each key tile
-  if (tile_cols(D) == D && a.cos != nullptr && (grid.x > 1 || a.heads != a.kv_heads)) {  // rotate the keys once into the scratch, then read them from there
+  if (tile_cols(D) == D && a.cos != nullptr && grid.x > 1) {  // rotate the keys once into the scratch, then read them from there
     const long long threads = static_cast<long long>(a.batch) * a.kv_heads * a.lk * (D / 16);
     rope_keys_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
         a, static_cast<__nv_bfloat16*>(a.k_rot));
@@ -899,7 +1035,7 @@ cudaError_t launch_masked(const FlashArgs& a, cudaStream_t stream) {
     args.k_sb = args.k_sh * a.kv_heads;
   }
   // Launch with what this call needs: the tensor mask's bytes up to the last tile.
-  const size_t smem = smem_bytes<D, false, kWG>() +
+  const size_t smem = smem_bytes<D, false, kWG>(ring_stages(a.lk)) +
                       (kTensorMask ? kMaxTiles * sizeof(int) + (a.lk + kBK - 1) / kBK * kBK : 0);
   flash_kernel<D, kTensorMask, kWG><<<grid, 128 * kWG, smem, stream>>>(args);
   return cudaGetLastError();
@@ -934,28 +1070,33 @@ cudaError_t launch_wg(const FlashArgs& a, cudaStream_t stream) {
   return a.mask != nullptr ? launch_masked<D, true, kWG>(a, stream) : launch_masked<D, false, kWG>(a, stream);
 }
 
-// Warpgroups per CTA (64 query rows each) for a query of lq rows. A 64-row
-// query (the 2.5 window layers) takes one. Otherwise three warpgroups (192
-// rows) share each K/V tile, except at head_dim 64, where two take the query
-// when they pad it to fewer 64-row tiles than three: 577 rows (CLIP-L/336)
-// run as five CTAs of 128 rows, where three warpgroups would leave a fourth
-// CTA with one row; 1025 (InternViT) pad alike and take three. One
-// warpgroup per CTA measured slowest at both (chip_smoke.py --flash-wg-probe).
-int warpgroups(int head_dim, int lq) {
-  if (lq <= kBK) return 1;
-  const auto padded = [lq](int wg) { return (lq + kBK * wg - 1) / (kBK * wg) * wg; };
-  return head_dim == 64 && padded(2) < padded(3) ? 2 : 3;
+// Warpgroups per CTA (64 query rows each) for a launch with `group` query
+// heads per KV head, over slots = ceil(lq / 64) * group (q tile, head) pairs
+// per KV head. A single slot (the 2.5 window layers, a 64-row query per head)
+// takes one warpgroup. Otherwise two or three, by the slots each pads to
+// (ceil(slots / wg) * wg): up to head_dim 88, whichever pads fewer, three on
+// a tie (577 rows at G = 1, CLIP-L/336, run as five CTAs of two where three
+// would leave a fourth CTA with one row; 1025, 729 and 257 rows take three);
+// at 96 and 128, where either count runs one CTA an SM (registers) and two
+// measured 1.2-1.3 times three's time a slot at 320 to 4096 rows
+// (chip_smoke.py --flash-wg-probe), two only where they pad to less than
+// four fifths of three's slots (Vicuna's 128-row prompts: one CTA of two;
+// the judge, Mistral and every longer prefill take three). One warpgroup per
+// CTA measured slowest. Mirrored by flash_plan in
+// lmms_owc_tpu_torch/ops/attention.py.
+int warpgroups(int head_dim, int group, int lq) {
+  const int slots = (lq + kBK - 1) / kBK * group;
+  if (slots <= 1) return 1;
+  const auto padded = [slots](int wg) { return (slots + wg - 1) / wg * wg; };
+  return (head_dim >= 96 ? 5 * padded(2) < 4 * padded(3) : padded(2) < padded(3)) ? 2 : 3;
 }
 
-// a.warpgroups, when set, overrides the choice (chip_smoke.py's probe); two
-// warpgroups are built at head_dim 64 only.
+// a.warpgroups, when set, overrides the choice (chip_smoke.py's probe).
 template <int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  switch (a.warpgroups > 0 ? a.warpgroups : warpgroups(D, a.lq)) {
+  switch (a.warpgroups > 0 ? a.warpgroups : warpgroups(D, a.heads / a.kv_heads, a.lq)) {
     case 1: return launch_wg<D, 1>(a, stream);
-    case 2:
-      if constexpr (D == 64) return launch_wg<D, 2>(a, stream);
-      return cudaErrorInvalidValue;
+    case 2: return launch_wg<D, 2>(a, stream);
     case 3: return launch_wg<D, 3>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1080,9 +1221,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_kernel(const FlashArgs a
   // clipped by the causal diagonal (aligned to the sequence end) of the last
   // query row of the CTA and of the warp.
   int k_lo = 0, k_hi = a.lk;
-  if (a.mask_se != nullptr) {
-    k_lo = max(a.mask_se[2 * b], 0);
-    k_hi = min(a.mask_se[2 * b + 1], a.lk);
+  if (a.mask_run != nullptr) {
+    const int2 run = row_run<8>(a.mask_run + static_cast<long long>(b) * a.lk, a.lk);
+    k_lo = run.x;
+    k_hi = run.y;
   }
   const int offset = a.lk - a.lq;
   const int w0 = q0 + warp * 16;
@@ -1295,6 +1437,15 @@ cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
 }  // namespace tf32
 
 }  // namespace
+
+// The Hopper instance's plan for a launch: out[0] warpgroups per CTA, out[1]
+// CTAs per (batch row, KV head). chip_smoke.py holds flash_plan in
+// lmms_owc_tpu_torch/ops/attention.py to it.
+extern "C" void owc_flash_plan(int heads, int kv_heads, int lq, int head_dim, int* out) {
+  const int group = heads / kv_heads;
+  out[0] = sm90::warpgroups(head_dim, group, lq);
+  out[1] = ((lq + sm90::kBK - 1) / sm90::kBK * group + out[0] - 1) / out[0];
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Shapes,
 // strides and types are validated by the Python wrapper.

@@ -11,6 +11,8 @@ fallback.
 
 Each C entry takes a pointer to an argument struct (mirrored below as a
 ``ctypes.Structure``) and the CUDA stream, and returns ``cudaGetLastError()``.
+``owc_flash_plan(heads, kv_heads, lq, head_dim, int out[2])`` writes the flash kernel's
+Hopper plan (warpgroups per CTA, CTAs per KV head) and launches nothing.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class FlashArgs(ctypes.Structure):
         ("k_sb", ctypes.c_longlong), ("k_sh", ctypes.c_longlong), ("k_sl", ctypes.c_longlong),
         ("v_sb", ctypes.c_longlong), ("v_sh", ctypes.c_longlong), ("v_sl", ctypes.c_longlong),
         ("o_sb", ctypes.c_longlong), ("o_sh", ctypes.c_longlong), ("o_sl", ctypes.c_longlong),
-        ("mask_se", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+        ("mask_run", ctypes.c_void_p), ("mask", ctypes.c_void_p),
         ("cos", ctypes.c_void_p), ("sin", ctypes.c_void_p),
         ("rope_sb", ctypes.c_longlong),
         ("batch", ctypes.c_int), ("heads", ctypes.c_int), ("kv_heads", ctypes.c_int),
@@ -188,5 +190,7 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.owc_flash_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.owc_flash_plan.restype = None
         _LIBRARY = lib
         return _LIBRARY

@@ -26,7 +26,10 @@ Qwen2-VL and Qwen2.5-VL paths:
 
 The first four share ``csrc/flash_attn.cu``: bf16 launches run its Hopper
 (wgmma) instance where :func:`flash_takes_hopper` says so and its general
-kernel otherwise, and f32 launches its 3xTF32 tensor-core instance.
+kernel otherwise, and f32 launches its 3xTF32 tensor-core instance. The
+Hopper instance folds the query heads that share a KV head into one CTA's
+rows, so each K/V tile it loads serves the whole group
+(:func:`flash_plan`).
 
 Each wrapper takes its plain version (``*_plain`` or
 :func:`packed_attention_reference`, built on :func:`attention_reference` and
@@ -55,6 +58,7 @@ __all__ = [
     "decode_takes_hopper",
     "flash_attention",
     "flash_attention_plain",
+    "flash_plan",
     "flash_takes_hopper",
     "fused_qkv_attention",
     "fused_qkv_attention_plain",
@@ -309,14 +313,6 @@ def _raise_on_error(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
 
 
-def _mask_start_end(kv_mask: torch.Tensor) -> torch.Tensor:
-    """[B, L] mask with one contiguous run of ones per row -> [B, 2] int32 (start, end)."""
-    m = kv_mask.to(torch.int32)
-    first = torch.argmax(m, dim=1).to(torch.int32)
-    count = m.sum(dim=1, dtype=torch.int32)
-    return torch.stack([first, first + count], dim=1).contiguous()
-
-
 def _rope_table(table: torch.Tensor, batch: int, length: int, half: int) -> torch.Tensor:
     table = table.to(torch.float32).contiguous()
     if table.dim() == 2:
@@ -341,10 +337,12 @@ def _launch_flash(
     rope_sin: torch.Tensor | None,
     warpgroups: int = 0,
 ) -> None:
-    """Launch the flash kernel and count it under ``name``. A contiguous mask
-    goes to the kernel as (start, end) per row, any other as an int32 tensor.
-    ``warpgroups`` (1 to 3) overrides the Hopper instances' rows per CTA,
-    which the kernel otherwise chooses by the query length."""
+    """Launch the flash kernel and count it under ``name``. The mask goes to
+    the kernel as an int32 [B, Lk] tensor: a contiguous one as ``mask_run``,
+    whose (start, end) run each CTA reads from its row (no pass over the mask
+    before the launch), any other as ``mask``.
+    ``warpgroups`` (1 to 3) overrides the Hopper instances' warpgroups per
+    CTA, which the kernel otherwise chooses as :func:`flash_plan` does."""
     lib = _build.load_library()
     dtype = _check_operands({"q": q, "k": k, "v": v, "out": out})
     b, h, lq, d = q.shape
@@ -363,14 +361,15 @@ def _launch_flash(
             # Tiles are read from shared memory as bf16 pairs: keep rows 4-byte aligned.
             if t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:-1]):
                 raise ValueError(f"{role}: bf16 rows must be 4-byte aligned, strides {t.stride()}")
-    mask_se = mask = cos = sin = None
+    mask_run = mask = cos = sin = None
     if kv_mask is not None:
         if kv_mask.shape != (b, lk):
             raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {lk}]")
+        rows = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
         if kv_mask_contiguous:
-            mask_se = _mask_start_end(kv_mask.to(q.device))
+            mask_run = rows
         else:
-            mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+            mask = rows
     k_rot = None
     if rope_cos is not None:
         if lq != lk:
@@ -382,7 +381,7 @@ def _launch_flash(
     args = _build.FlashArgs(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        mask_se.data_ptr() if mask_se is not None else None,
+        mask_run.data_ptr() if mask_run is not None else None,
         mask.data_ptr() if mask is not None else None,
         cos.data_ptr() if cos is not None else None,
         sin.data_ptr() if sin is not None else None,
@@ -534,8 +533,8 @@ def flash_attention(
 
     ``causal`` aligns the diagonal to the sequence end. ``kv_mask`` [B, Lk] marks
     valid keys (nonzero = attend); ``kv_mask_contiguous`` promises one
-    contiguous run per row, which the CUDA kernel then reads as (start, end)
-    scalars; any other mask goes to the kernel as an int32 tensor.
+    contiguous run per row, which each CTA of the CUDA kernel reduces to its
+    (start, end); any other mask is applied key by key (the tensor-mask form).
     ``rope_cos``/``rope_sin`` [B or 1, L, D/2] rotate q and k (self-attention).
     Inputs may be strided views with a unit stride along D; the result is a new
     contiguous [B, H, Lq, D]. Query rows with no valid key are zeros on the
@@ -674,6 +673,28 @@ def vision_qkv_attention(
         causal=False, kv_mask=kv_mask, kv_mask_contiguous=True, scale=scale,
         rope_cos=rope_cos, rope_sin=rope_sin,
     )
+
+
+def flash_plan(heads: int, kv_heads: int, lq: int, head_dim: int) -> tuple[int, int]:
+    """(warpgroups per CTA, CTAs per (batch row, KV head)) of the flash
+    kernel's Hopper instance, restated from ``sm90::warpgroups`` in
+    csrc/flash_attn.cu. The query group is folded into a CTA's rows: a slot is
+    one (64-row q tile, head of the group) pair, ``ceil(lq / 64) * G`` of them
+    per KV head, numbered q-tile-major, and a CTA's warpgroups take
+    consecutive slots, one each. A single slot takes one warpgroup; otherwise
+    two or three by the slots each pads to: up to head_dim 88 whichever pads
+    fewer, three on a tie; at 96 and 128 two only where they pad to less than
+    four fifths of three's (two measured 1.2-1.3 times three's time a slot
+    there). A head dim the instance is not built for raises."""
+    if head_dim not in _FLASH_HOPPER_HEAD_DIMS or heads % kv_heads or lq < 1:
+        raise ValueError(f"no Hopper flash plan for heads {heads}/{kv_heads}, lq {lq}, head_dim {head_dim}")
+    slots = -(-lq // 64) * (heads // kv_heads)
+    if slots == 1:
+        return 1, 1
+    padded = {wg: -(-slots // wg) * wg for wg in (2, 3)}
+    two = 5 * padded[2] < 4 * padded[3] if head_dim >= 96 else padded[2] < padded[3]
+    wg = 2 if two else 3
+    return wg, padded[wg] // wg
 
 
 def decode_split_plan(seq: int, max_splits: int = _DECODE_PLAN_SPLITS) -> tuple[int, int]:

@@ -392,9 +392,9 @@ class _FakeLibrary:
 
 def test_launch_marshals_masks_and_strides(monkeypatch):
     """What the wrappers hand the kernel, checked on host tensors with the
-    library faked: a gappy mask goes as an int32 [B, Lk] pointer (no (start,
-    end) table) and counts as a tensor-mask launch; a contiguous one as (start,
-    end); the token-major combined view passes (batch, head, token) strides of
+    library faked: a gappy mask goes as an int32 [B, Lk] pointer (``mask``)
+    and counts as a tensor-mask launch; a contiguous one as the int32 rows the
+    kernel reduces to each row's (start, end) run (``mask_run``); the token-major combined view passes (batch, head, token) strides of
     the [B, L, H + 2*KVH, D] array; the packed entry reads 80 of each 128 columns."""
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load_library", lambda: lib)
@@ -410,7 +410,7 @@ def test_launch_marshals_masks_and_strides(monkeypatch):
     tatt._launch_flash("fused_qkv_attention", q, k, v, out.view(b, l, h, d).permute(0, 2, 1, 3),
                        kv_mask=gappy, kv_mask_contiguous=False, **kw)
     a = lib.calls[-1]
-    assert a["mask"] and not a["mask_se"]
+    assert a["mask"] and not a["mask_run"]
     row = h + 2 * kvh
     assert (a["q_sb"], a["q_sh"], a["q_sl"]) == (l * row * d, d, row * d)
     assert a["k"] == qkvh.data_ptr() + h * d * 4 and a["v"] == qkvh.data_ptr() + (h + kvh) * d * 4
@@ -419,7 +419,7 @@ def test_launch_marshals_masks_and_strides(monkeypatch):
     contiguous = torch.tensor([[1] * 8, [0, 0, 1, 1, 1, 0, 0, 0]])
     tatt._launch_flash("flash_attention", q, k, v, torch.empty(b, h, l, d),
                        kv_mask=contiguous, kv_mask_contiguous=True, **kw)
-    assert lib.calls[-1]["mask_se"] and not lib.calls[-1]["mask"]
+    assert lib.calls[-1]["mask_run"] and not lib.calls[-1]["mask"]
     assert tatt.launch_counts["fused_qkv_attention"] == 1 and tatt.launch_counts["flash_attention"] == 1
     assert tatt.launch_counts["flash_attention_tensor_mask"] == 1
     tatt.reset_launch_counts()
@@ -914,7 +914,7 @@ def test_flash_launch_at_head_dim_96(fake_flash, dtype):
     tatt._launch_flash("flash_attention", q, k, k, torch.empty(q.shape, dtype=dtype), causal=True, kv_mask=mask,
                        kv_mask_contiguous=True, scale=d ** -0.5, rope_cos=cos, rope_sin=sin)
     (call,) = fake_flash.calls
-    assert call["head_dim"] == 96 and call["causal"] == 1 and call["mask_se"] and not call["mask"]
+    assert call["head_dim"] == 96 and call["causal"] == 1 and call["mask_run"] and not call["mask"]
     assert bool(call["k_rot"]) == (dtype == torch.bfloat16)
     assert tatt.launch_counts["flash_attention"] == 1
 

@@ -204,8 +204,9 @@ def test_flash_attention_d72_matches_jax(form):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("form", ["contiguous", "tensor"])
 def test_d72_launch_hands_the_kernel_its_mask(monkeypatch, dtype, form):
-    """A D = 72 launch is built (no head-dim refusal) and carries the (start,
-    end) table or the int32 mask; a tensor-mask launch is counted as such."""
+    """A D = 72 launch is built (no head-dim refusal) and carries its int32
+    mask as a contiguous run (``mask_run``) or a tensor mask (``mask``); a
+    tensor-mask launch is counted as such."""
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(tatt, "_check_operands", lambda tensors: next(iter(tensors.values())).dtype)
@@ -221,7 +222,7 @@ def test_d72_launch_hands_the_kernel_its_mask(monkeypatch, dtype, form):
     (call,) = lib.calls
     assert call["head_dim"] == 72 and call["heads"] == call["kv_heads"] == 16
     assert call["dtype"] == (1 if dtype == torch.bfloat16 else 0)
-    assert bool(call["mask_se"]) == (form == "contiguous") and bool(call["mask"]) == (form == "tensor")
+    assert bool(call["mask_run"]) == (form == "contiguous") and bool(call["mask"]) == (form == "tensor")
     assert tatt.launch_counts["flash_attention"] == 1
     assert tatt.launch_counts["flash_attention_tensor_mask"] == (form == "tensor")
     tatt.reset_launch_counts()
