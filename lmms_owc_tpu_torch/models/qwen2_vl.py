@@ -44,6 +44,7 @@ from lmms_owc_tpu_torch.ops.image import (
 from lmms_owc_tpu_torch.parallel.sharding import shard_model
 from lmms_owc_tpu_torch.tokenizer import Tokenizer
 from lmms_owc_tpu_torch.utils import Collator, get_logger, pad_to_bucket
+from lmms_owc_tpu_torch.utils import _hostprof
 from lmms_owc_tpu_torch.utils._hostprof import hostprof, hostprof_dump, hostprof_reset
 
 log = get_logger(__name__)
@@ -817,7 +818,10 @@ class Qwen2VL(Model):
         its KV into one preallocated pool cache (front-padded to the pool's
         longest prompt bucket, int8 before the write when the int8 cache is on,
         so a bf16 pool never exists), then decode every row together. Peak
-        memory is the pool plus one chunk. Returns the texts in chunk order."""
+        memory is the pool plus one chunk. Returns the texts in chunk order.
+        With the host timers on, each chunk counts ``prefill_tokens`` (its
+        prompts' tokens, text and merged image tokens) and ``prefill_slots``
+        (its rows times its bucket)."""
         max_new_tokens = int(gen_kwargs.get("max_new_tokens", DEFAULT_MAX_NEW_TOKENS))
         dev = self.device
         bucket_lens = [pad_to_bucket(max(len(ids) for ids, _, _ in rows)) for rows, _ in prepared_list]
@@ -830,6 +834,9 @@ class Qwen2VL(Model):
         logits_all, next_all = [], []
         row_offset = 0
         for (rows, vision_flat), bucket_len in zip(prepared_list, bucket_lens):
+            if _hostprof.ENABLED:
+                _hostprof.count("prefill_tokens", sum(len(ids) for ids, _, _ in rows))
+                _hostprof.count("prefill_slots", len(rows) * bucket_len)
             with self._phase("prefill"):
                 with hostprof("build_inputs"):
                     embeds, position_ids, attention_mask, next_pos, _ = self._build_batch_inputs(rows, vision_flat)

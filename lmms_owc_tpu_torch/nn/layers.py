@@ -11,12 +11,16 @@ through the K4 kernel at decode row counts on the card), held by the
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from lmms_owc_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_supported
 from lmms_owc_tpu_torch.ops.quant import quantize_int4, quantize_int8, unpack_int4
+from lmms_owc_tpu_torch.utils import _hostprof
 
 __all__ = [
     "Int4Linear",
@@ -87,10 +91,34 @@ def _int8_mm(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, q.t())[:m, :n]
 
 
+# The input of this thread's last activation quantization, for the host
+# timers' count of repeated ones (:func:`_count_quantize`).
+_last_quantized = threading.local()
+
+
+def _count_quantize(x: torch.Tensor) -> None:
+    """Count one activation quantization (``w8a8_quantize``) and, where ``x``
+    is the tensor this thread quantized last, a repeat (``w8a8_requantize``):
+    that tensor is still alive (so its memory was not reused), and ``x`` has
+    its address, shape, strides, dtype and version (where torch tracks one:
+    inference tensors have none). Only the count reads what is kept; no
+    quantized values are."""
+    version = None if x.is_inference() else x._version
+    key = (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, version)
+    last = getattr(_last_quantized, "value", None)
+    _hostprof.count("w8a8_quantize")
+    if last is not None and last[0]() is not None and last[1] == key:
+        _hostprof.count("w8a8_requantize")
+    _last_quantized.value = (weakref.ref(x), key)
+
+
 def _quantize_tokens(x: torch.Tensor, reduce_amax=None) -> tuple[torch.Tensor, torch.Tensor]:
     """W8A8's per-token activation quantizer: (int8 values, f32 scales [..., 1])
     with scale ``max(amax, 1e-6) / 127``. ``reduce_amax(amax)`` first reduces
-    the per-token amax in place (a row-parallel product sees a slice of K)."""
+    the per-token amax in place (a row-parallel product sees a slice of K).
+    With the host timers on, each call is counted (:func:`_count_quantize`)."""
+    if _hostprof.ENABLED:
+        _count_quantize(x)
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
     if reduce_amax is not None:

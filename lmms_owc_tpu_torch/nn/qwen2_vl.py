@@ -54,6 +54,8 @@ from lmms_owc_tpu_torch.ops.attention import (
     vision_qkv_attention,
 )
 from lmms_owc_tpu_torch.ops.quant import materialize_on_device
+from lmms_owc_tpu_torch.utils import _hostprof
+from lmms_owc_tpu_torch.utils._hostprof import hostprof
 
 __all__ = [
     "Qwen2VLConfig",
@@ -1014,6 +1016,11 @@ def decode_step(
     (:func:`_row_blocks`) where their products' bits depend on the row count
     (:func:`row_invariant`), and otherwise (W8A8, K4) on at least
     ``REDUCE_ROWS`` rows, for the norms' reductions.
+
+    With the host timers on (:mod:`~lmms_owc_tpu_torch.utils._hostprof`) it
+    counts ``decode_rows``, the batch's rows, and ``decode_rows_computed``, the
+    rows the decoder layers' products run on after the row blocks' padding;
+    the head's rows are not counted.
     """
     c = model.config
     cache_k, cache_v, *scales = cache
@@ -1027,6 +1034,9 @@ def decode_step(
         # An int8 head multiplies in bf16 (``_head_logits``) even under W8A8.
         if isinstance(head, Int4Linear) and row_invariant(head, b):
             head_rows = max(b, REDUCE_ROWS)
+    if _hostprof.ENABLED:
+        _hostprof.count("decode_rows", b)
+        _hostprof.count("decode_rows_computed", b if layer_rows is None else -(-b // layer_rows) * layer_rows)
     x = embed_tokens(model, token_ids)[:, None, :]
     cos, sin = mrope_cos_sin(position_ids, c)
     for i, layer in enumerate(model.layers):
@@ -1096,22 +1106,37 @@ def _decode_loop(
     after a row's EOS are ``pad_token_id``. Returns [B, max_new_tokens] int64.
     The loop stops early once every row is done; the JAX loop then runs one more
     step whose output it discards, so the tokens are the same.
+
+    Host timers (:mod:`~lmms_owc_tpu_torch.utils._hostprof`): each step's
+    ``decode_issue`` span holds the host queueing the step (the
+    :func:`decode_step` call, the sampling and the token bookkeeping), its
+    ``decode_stop_check`` span the host blocked on ``done.all()`` until the
+    device has caught up, and ``decode_steps`` counts the steps.
     """
     c = model.config
     b = logits.shape[0]
     tokens = torch.full((b, max_new_tokens), c.pad_token_id, dtype=torch.long, device=logits.device)
     done = torch.zeros(b, dtype=torch.bool, device=logits.device)
-    token = _sample_token(logits, generator, temperature, top_p, do_sample)
-    for step in range(max_new_tokens):
+
+    def keep(step, logits, done):
+        token = _sample_token(logits, generator, temperature, top_p, do_sample)
         token = torch.where(done, torch.full_like(token, c.pad_token_id), token)
         tokens[:, step] = token
-        done = done | torch.isin(token, eos_ids)
-        if step + 1 == max_new_tokens or bool(done.all()):
+        return token, done | torch.isin(token, eos_ids)
+
+    token, done = keep(0, logits, done)
+    for step in range(max_new_tokens - 1):
+        with hostprof("decode_stop_check"):
+            stop = bool(done.all())
+        if stop:
             break
-        pos = (next_positions + step)[None, :, None].expand(3, b, 1)
-        kv_mask[:, prompt_len + step] = 1
-        logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask, decode_rows)
-        token = _sample_token(logits, generator, temperature, top_p, do_sample)
+        with hostprof("decode_issue"):
+            if _hostprof.ENABLED:
+                _hostprof.count("decode_steps")
+            pos = (next_positions + step)[None, :, None].expand(3, b, 1)
+            kv_mask[:, prompt_len + step] = 1
+            logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask, decode_rows)
+            token, done = keep(step + 1, logits, done)
     return tokens
 
 

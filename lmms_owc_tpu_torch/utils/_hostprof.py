@@ -10,16 +10,29 @@ the time to queue the work, and the wait for the device lands in the first
 span that reads a result back (``fetch``). No span synchronizes the device.
 Zero overhead unless ``LMMS_OWC_HOST_PROF`` is set (checked once at import).
 
+Beside the spans, a store of event counters (``counters``, added to by
+:func:`count` while ``ENABLED``): decode steps and their rows, prompt tokens
+against prefill slots, W8A8 activation quantizations. ``hostprof_reset``
+leaves the counters alone (``counters_reset`` clears them), so a caller that
+resets the spans after every call and enables the timers for a window only
+reads that window's counts. Call sites in hot loops test ``ENABLED`` first.
+(``launch_counts`` in ``ops/attention.py`` and ``ops/int4_matmul.py`` is
+not tracing: always on, it tells the tests and the smoke which kernels a path
+launched.)
+
 Usage::
 
     with hostprof("detok"):
         ...
     hostprof_reset(); ...; hostprof_dump("label")
+    if ENABLED:
+        count("decode_steps")
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager, nullcontext
@@ -60,3 +73,21 @@ def hostprof_dump(label: str = "") -> None:
     print(f"[hostprof {label}] total attributed {total * 1e3:.0f} ms")
     for name, secs in rows:
         print(f"  {name:<18} {secs * 1e3:>8.0f} ms  x{_counts[name]}")
+
+
+counters: dict[str, int] = defaultdict(int)
+_counter_lock = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``; no-op when disabled. The adapters'
+    prep worker counts beside the main thread, so the add holds a lock."""
+    if not ENABLED:
+        return
+    with _counter_lock:
+        counters[name] += n
+
+
+def counters_reset() -> None:
+    with _counter_lock:
+        counters.clear()
