@@ -16,6 +16,13 @@ the flash rows' device times on one line. ``python3 chip_smoke.py
 --decode-split-probe`` builds them and then only times K3 at its main-path
 shapes under split plans of at most 8 and 16 CTAs a cluster
 (:func:`probe_decode_splits`; ``--decode-split-probe=8`` the plan alone).
+``python3 chip_smoke.py --decode-graph-probe`` builds them and then only
+times the 28-layer 7B decoder's decode steps (W8A8 and bf16, 96 rows): each
+step's host issue and wall time, run directly and replayed from CUDA graphs,
+alone and beside a thread busy in Python, and whole decode pools that stop
+after 1 to 16 steps (:func:`probe_decode_graphs`; through public functions
+where a checkout has no graphs, so the file copied into an older checkout
+times that checkout's decode).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -299,7 +306,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
-from contextlib import ExitStack, contextmanager
+from contextlib import ExitStack, contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -4907,6 +4914,135 @@ def decode_probe_shapes() -> dict:
     }
 
 
+def probe_decode_graphs(dev, rows: int = 96, prompt: int = 128) -> dict:
+    """The decode step of the 28-layer 7B decoder (W8A8 with the int8 cache,
+    and bf16), ``rows`` rows after a ``prompt``-position prefill, row blocks
+    of 128 (the adapter's):
+
+    - ``steps``: 24 steps, each issued onto an idle device (synchronized
+      before) and synchronized after: the median and first three of the
+      host's issue ms (the ``decode_step`` call) and the step's wall ms,
+      called directly, and inside a decode pool's graphs where the checkout
+      has them (``_pool_graphs``), alone and beside a thread that runs
+      Python meanwhile (as the adapters' prep worker does);
+    - ``pools``: the wall ms of whole ``decode_pool`` calls (median of 5,
+      after one untimed) whose rows all stop after ``n`` decode steps, by
+      EOS within a budget of 63 steps (``eos``) and by a budget of ``n``
+      steps (``budget``);
+    - the device memory reserved after all of it.
+
+    A diagnostic; the smoke run does not call it."""
+    import threading
+
+    import torch
+
+    from lmms_owc_tpu_torch.models.qwen2_vl import PRESET_CONFIGS
+    from lmms_owc_tpu_torch.nn import layers as tl
+    from lmms_owc_tpu_torch.nn import qwen2_vl as tq
+    from lmms_owc_tpu_torch.ops.quant import quantize_params_int8
+
+    def busy(stop):
+        while not stop.is_set():
+            sum(i * i for i in range(20000))
+
+    graphs = getattr(tq, "_pool_graphs", None)
+    out = {}
+    for case in ("w8a8", "bf16"):
+        w8a8 = case == "w8a8"
+        config = tq.Qwen2VLConfig.from_hf_dict(PRESET_CONFIGS["qwen2-vl-7b"])
+        model = tq.Qwen2VLModel(config, torch.bfloat16, dev, text_only=True)
+        tq.init_params(model, torch.Generator(dev).manual_seed(0))
+        if w8a8:
+            quantize_params_int8(model)
+        tl.set_int8_activations(w8a8)
+        g = torch.Generator(dev).manual_seed(1)
+        pads = torch.randint(0, prompt // 2, (rows,), generator=g, device=dev)
+        mask = (torch.arange(prompt, device=dev)[None] >= pads[:, None]).to(torch.int32)
+        embeds = (torch.randn(rows, prompt, config.hidden_size, generator=g, device=dev) * 0.5).to(model.dtype)
+        positions = (torch.cumsum(mask, 1) - 1).clamp(min=0)[None].expand(3, rows, prompt).contiguous()
+        new = 64
+        logits0, cache0 = tq.prefill(model, embeds, positions, mask, prompt + new)
+        if w8a8:
+            cache0 = tq.quantize_kv_cache(*cache0)
+        mask0 = torch.zeros(rows, prompt + new, dtype=torch.int32, device=dev)
+        mask0[:, :prompt] = mask
+        next_positions = mask.sum(1).long()
+
+        def fresh():
+            return tuple(t.clone() for t in cache0), mask0.clone()
+
+        row: dict = {"steps": {}, "pools": {}}
+        forms = ["direct"] + (["graphs", "graphs-beside-python"] if graphs else [])
+        for form in forms:
+            cache, kv_mask = fresh()
+            token = logits0.argmax(-1)
+            issue, wall = [], []
+            stop = threading.Event()
+            thread = threading.Thread(target=busy, args=(stop,)) if form.endswith("python") else None
+            context = graphs(model, dev) if form.startswith("graphs") else nullcontext()
+            if thread:
+                thread.start()
+            try:
+                with context:
+                    for s in range(24):
+                        pos = (next_positions + s)[None, :, None].expand(3, rows, 1)
+                        kv_mask[:, prompt + s] = 1
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        logits = tq.decode_step(model, token, pos, cache, prompt + s, kv_mask, 128)
+                        t1 = time.perf_counter()
+                        token = logits.argmax(-1)
+                        torch.cuda.synchronize()
+                        issue.append((t1 - t0) * 1e3)
+                        wall.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                stop.set()
+                if thread:
+                    thread.join(timeout=60)
+            row["steps"][form] = {"issue_ms_median": round(statistics.median(issue), 3),
+                                  "step_ms_median": round(statistics.median(wall), 3),
+                                  "first_three_issue_ms": [round(t, 2) for t in issue[:3]],
+                                  "first_three_step_ms": [round(t, 2) for t in wall[:3]]}
+            log(f"decode graph probe {case} {form}: {json.dumps(row['steps'][form])}")
+
+        eos = config.eos_token_id
+        eos_ids = torch.tensor([eos], device=dev)
+        real_sample = tq._sample_token
+        for n in (1, 2, 3, 4, 5, 6, 8, 16):
+            for stop_by in ("eos", "budget"):
+                times = []
+                for _ in range(6):
+                    cache, kv_mask = fresh()
+                    calls = [0]
+
+                    def sample(*a, calls=calls, n=n, stop_by=stop_by):
+                        calls[0] += 1
+                        token = real_sample(*a)
+                        return torch.full_like(token, eos) if stop_by == "eos" and calls[0] > n else token
+
+                    tq._sample_token = sample
+                    try:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        tq.decode_pool(model, cache, logits0, kv_mask, next_positions,
+                                       new if stop_by == "eos" else n + 1, prompt, eos_ids, decode_rows=128)
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        tq._sample_token = real_sample
+                    if calls[0] != n + 1:
+                        raise AssertionError(f"decode graph probe: a pool of {n} steps sampled {calls[0]} times")
+                row["pools"][f"{n} {stop_by}"] = round(statistics.median(times[1:]), 3)
+        log(f"decode graph probe {case} pools (ms by steps and stop): {json.dumps(row['pools'])}")
+        torch.cuda.synchronize()
+        row["memory_reserved_gb"] = round(torch.cuda.memory_reserved() / 1e9, 3)
+        out[case] = row
+        tl.set_int8_activations(False)
+        del model, cache0, logits0, cache, kv_mask
+        _free()
+    return out
+
+
 def probe_decode_splits(dev, splits=(8, 16)) -> dict:
     """K3 at :func:`decode_probe_shapes` under the split plans of at most
     ``splits`` CTAs a cluster (8, the plan's own, through the public
@@ -5365,7 +5501,8 @@ def check_tp_results(out: dict, logits: dict, flagship, refs: dict, judge_answer
 
 
 # The flags that run phases 1 and 2 or a probe alone (see the module docstring).
-DIAGNOSTIC_MODES = ("--decode-rows-probe", "--decode-split-probe", "--flash-wg-probe", "--kernel-rows")
+DIAGNOSTIC_MODES = ("--decode-graph-probe", "--decode-rows-probe", "--decode-split-probe", "--flash-wg-probe",
+                    "--kernel-rows")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -5400,6 +5537,10 @@ def main(argv: list[str] | None = None) -> int:
     if serialized and not any(a.startswith(DIAGNOSTIC_MODES) for a in args):
         raise AssertionError(f"phase 1: ptxas serialized the wgmmas of {len(serialized)} kernel(s), e.g. "
                              f"{serialized[0]}")
+    if "--decode-graph-probe" in args:
+        log(f"decode graph probe ({smi}): {json.dumps(probe_decode_graphs(dev))}")
+        print(smi)
+        return 0
     if "--decode-rows-probe" in args:
         log(f"decode rows probe: {json.dumps(probe_decode_rows(dev))}")
         print(smi)

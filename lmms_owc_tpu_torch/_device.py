@@ -2,9 +2,23 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
-__all__ = ["get_device", "no_tf32"]
+__all__ = ["capture_lock", "get_device", "no_tf32", "synchronize"]
+
+# Held while a stream of this process captures a CUDA graph (the decode step's
+# segments, ``nn/qwen2_vl.py StepGraphs``): synchronizing the device while a
+# stream captures is invalid and ends the capture, so :func:`synchronize`
+# waits for the capture to end. Another thread's kernels may run meanwhile.
+capture_lock = threading.Lock()
+
+
+def synchronize(device: torch.device) -> None:
+    """``torch.cuda.synchronize(device)``, never during a graph capture."""
+    with capture_lock:
+        torch.cuda.synchronize(device)
 
 
 def get_device(device: str | torch.device | None = None) -> torch.device:

@@ -30,7 +30,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from lmms_owc_tpu_torch._device import get_device
+from lmms_owc_tpu_torch._device import get_device, synchronize
 from lmms_owc_tpu_torch.parallel.mesh import DATA_AXIS, local_mesh, model_group
 from lmms_owc_tpu_torch.utils import foreach_chunk_pipelined, pad_to_bucket
 
@@ -296,13 +296,13 @@ class Model(abc.ABC):
             yield
             return
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            synchronize(self.device)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                synchronize(self.device)
             self.phase_seconds[name] += time.perf_counter() - t0
 
     @property

@@ -21,7 +21,8 @@ one ``[L, B, KVH, S]`` f32 scale tensor per role.
 from __future__ import annotations
 
 import os
-from contextlib import nullcontext
+import threading
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from itertools import chain
 
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from lmms_owc_tpu_torch._device import capture_lock
+from lmms_owc_tpu_torch.nn import layers as _layers
 from lmms_owc_tpu_torch.nn.layers import (
     Int4Linear,
     Int8Linear,
@@ -61,6 +64,7 @@ __all__ = [
     "Qwen2VLConfig",
     "Qwen2VLModel",
     "Qwen2VLVisionConfig",
+    "StepGraphs",
     "VisionTower",
     "decode_pool",
     "decode_step",
@@ -75,6 +79,7 @@ __all__ = [
     "prefill",
     "prefill_logits",
     "quantize_kv_cache",
+    "rope_inv_freq",
     "score_continuation",
     "vision_rope_cos_sin",
     "write_pool_chunk",
@@ -698,27 +703,38 @@ def _llama3_scale_inv_freq(inv_freq: torch.Tensor, scaling: tuple) -> torch.Tens
     return torch.where(is_medium, smoothed, scaled)
 
 
-def mrope_cos_sin(position_ids: torch.Tensor, config: Qwen2VLConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Combine t/h/w rotary tables into [B, L, head_dim/2] cos/sin (f32).
-
-    ``position_ids`` [3, B, L]; the result lives on its device. A config with
-    ``rope_llama3`` scales the frequencies first; one with ``rope_longrope``
-    divides them by its factors and multiplies cos and sin by its attention
-    factor, so the factor reaches q and k in the prefill and every decode step.
-    """
+def rope_inv_freq(config: Qwen2VLConfig, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies [head_dim/2] (f32) on ``device``: ``rope_llama3``
+    scales them, ``rope_longrope`` divides them by its factors (a copy from
+    the host, so a captured decode step takes them as an input)."""
     hd2 = config.head_dim // 2
-    exponent = torch.arange(0, hd2, dtype=torch.float32, device=position_ids.device) / hd2
+    exponent = torch.arange(0, hd2, dtype=torch.float32, device=device) / hd2
     inv_freq = 1.0 / (config.rope_theta ** exponent)
     if config.rope_llama3 is not None:
         inv_freq = _llama3_scale_inv_freq(inv_freq, config.rope_llama3)
     if config.rope_longrope is not None:
-        attention_factor, ext_factors = config.rope_longrope
-        inv_freq = inv_freq / torch.tensor(ext_factors, dtype=torch.float32, device=inv_freq.device)
+        inv_freq = inv_freq / torch.tensor(config.rope_longrope[1], dtype=torch.float32, device=device)
+    return inv_freq
+
+
+def mrope_cos_sin(
+    position_ids: torch.Tensor, config: Qwen2VLConfig, inv_freq: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Combine t/h/w rotary tables into [B, L, head_dim/2] cos/sin (f32).
+
+    ``position_ids`` [3, B, L]; the result lives on its device. ``inv_freq``
+    is :func:`rope_inv_freq` (computed here where None). A config with
+    ``rope_longrope`` multiplies cos and sin by its attention factor, so the
+    factor reaches q and k in the prefill and every decode step.
+    """
+    if inv_freq is None:
+        inv_freq = rope_inv_freq(config, position_ids.device)
     freqs = position_ids[..., None].float() * inv_freq  # [3, B, L, hd/2]
     chunks = torch.split(freqs, list(config.mrope_section), dim=-1)
     combined = torch.cat([chunk[i % 3] for i, chunk in enumerate(chunks)], dim=-1)
     cos, sin = torch.cos(combined), torch.sin(combined)
     if config.rope_longrope is not None:  # no extra launches in the other families' decode steps
+        attention_factor = config.rope_longrope[0]
         cos, sin = cos * attention_factor, sin * attention_factor
     return cos, sin
 
@@ -993,6 +1009,266 @@ def _row_blocks(fn, rows: int | None, *xs: torch.Tensor):
     return (outs[0] if len(outs) == 1 else torch.cat(outs))[:b]
 
 
+def _step_segments(model: Qwen2VLModel, cache: tuple, layer_rows: int | None, head_rows: int | None) -> list:
+    """A decode step's work between its K3 launches, as ``L + 1`` functions of
+    tensors that return tuples of tensors. Segment 0 takes (token ids [B],
+    positions [3, B, 1], cache position) to (x, cos, sin, layer 0's query);
+    segment ``i`` (``0 < i < L``) takes (x, cos, sin, cache position, layer
+    ``i - 1``'s attention) to (x, layer ``i``'s query): layer ``i - 1``'s
+    o-projection, residual and MLP, then layer ``i``'s norm, q/k/v and rope;
+    segment ``L`` takes (x, the last layer's attention) to (this rank's
+    logits,). Each layer's new K and V (quantized per vector for an int8
+    cache, with their scales) are written IN PLACE at the cache position, a
+    one-element device tensor, so one capture of a segment serves every step.
+    ``layer_rows`` and ``head_rows`` are :func:`_row_blocks`' for the layers'
+    products and for the head."""
+    c = model.config
+    cache_k, cache_v, *scales = cache
+    inv_freq = rope_inv_freq(c, cache_k.device)
+
+    def query(i, x, cos, sin, pos):
+        layer = model.layers[i]
+        q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), layer_rows, x)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        writes = [(cache_k, k), (cache_v, v)]
+        if scales:
+            (kq, k_sc), (vq, v_sc) = _quantize_kv(k), _quantize_kv(v)
+            writes = [(cache_k, kq), (cache_v, vq), (scales[0], k_sc), (scales[1], v_sc)]
+        for dst, src in writes:
+            dst[i].index_copy_(2, pos, src.to(dst.dtype))
+        return q[:, :, 0]
+
+    def residual(i, x, attn):
+        layer = model.layers[i]
+
+        def post(t, a):
+            t = t + layer.o(a)
+            return t + layer.mlp(t)
+
+        return _row_blocks(post, layer_rows, x, attn.reshape(x.shape[0], 1, -1))
+
+    def first(ids, positions, pos):
+        x = embed_tokens(model, ids)[:, None, :]
+        cos, sin = mrope_cos_sin(positions, c, inv_freq)
+        return x, cos, sin, query(0, x, cos, sin, pos)
+
+    def middle(i):
+        def segment(x, cos, sin, pos, attn):
+            x = residual(i - 1, x, attn)
+            return x, query(i, x, cos, sin, pos)
+
+        return segment
+
+    def last(x, attn):
+        x = residual(len(model.layers) - 1, x, attn)
+        # The vocabulary gather takes the batch's rows only, not a row block's padding.
+        return (_row_blocks(lambda t: _local_head_logits(model, model.final_norm(t)), head_rows, x[:, 0]),)
+
+    return [first, *(middle(i) for i in range(1, len(model.layers))), last]
+
+
+def _run_segments(run, attend, layers: int, ids, positions, pos) -> torch.Tensor:
+    """One step's logits: ``run(k, *inputs)`` gives segment ``k``'s outputs
+    (:func:`_step_segments`), ``attend(i, q)`` layer ``i``'s attention."""
+    x, cos, sin, q = run(0, ids, positions, pos)
+    for i in range(1, layers):
+        x, q = run(i, x, cos, sin, pos, attend(i - 1, q))
+    (logits,) = run(layers, x, attend(layers - 1, q))
+    return logits
+
+
+def _run_direct(segments: list, attend, ids, positions, cache_pos: int) -> torch.Tensor:
+    """:func:`_run_segments` calling each segment, the cache position a new tensor."""
+    pos = torch.full((1,), cache_pos, dtype=torch.long, device=ids.device)
+    return _run_segments(lambda k, *inputs: segments[k](*inputs), attend, len(segments) - 1, ids, positions, pos)
+
+
+# A persistent stream per device to capture decode segments on.
+_CAPTURE_STREAMS: dict = {}
+# Per device, the graph memory pools that no decode pool holds now, each as
+# (its handle, one graph captured into it). A decode pool's captures take one
+# and give it back when the pool ends, so the next pool's captures reuse its
+# blocks: a pool whose graphs are all gone is reclaimed only by
+# ``empty_cache``, never during a capture, and PyTorch's allocators refuse a
+# capture into it. So a pool comes back with one of its graphs, never
+# replayed again, which the next capture into it drops once it has ended.
+_FREE_MEMORY: dict = {}
+# The fewest decode steps a pool must have left for a capture to pay: on an
+# H100 a pool of 7B steps that captures at its first step beats one run
+# directly once a single replay follows the capture (PERF.md §6).
+GRAPH_MIN_STEPS = 2
+
+
+def _capture_stream(device: torch.device):
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _graph_memory(device: torch.device) -> tuple:
+    """(a graph memory pool of ``device`` that no decode pool holds, the graph
+    that keeps it, or None for a new pool)."""
+    free = _FREE_MEMORY.setdefault(device, [])
+    return free.pop() if free else (torch.cuda.graph_pool_handle(), None)
+
+
+class StepGraphs:
+    """CUDA graphs of one decode pool's step segments (:func:`_step_segments`),
+    captured once and replayed at every later step of the pool; K3 runs
+    between them as ever, launched per layer, into a static buffer that the
+    next segment reads.
+
+    A step whose key differs from the step before (the pool's first; a new
+    cache or mask tensor, batch or row block; another cache dtype; the W8A8
+    switch or the host timers turned) drops the graphs. If this thread has
+    not run a step of the key's shapes yet, the step runs its segments
+    directly on the capture stream, which warms up that stream's libraries
+    and loads the shapes' kernels, and the next step captures; otherwise the
+    step captures at once. A capture takes each segment on that stream into
+    one memory pool that the segments share (and that the device's next
+    decode pool reuses, :func:`_graph_memory`), and replays it at once;
+    every later step copies its token ids, positions and cache position
+    into the static inputs and replays. With fewer than ``GRAPH_MIN_STEPS`` steps left in the pool's budget a step
+    that would capture runs directly instead. The captured segments are kept
+    while their graphs live: a graph reads what their closures hold (the
+    rope frequencies) at the addresses it was captured with. The counts a
+    segment makes while it is captured (W8A8's quantizations, K4's launches)
+    are added again at each replay, since a replay runs no Python.
+    :meth:`close` drops the graphs, the segments and the buffers, and gives
+    the memory pool back.
+    """
+
+    def __init__(self, device: torch.device, steps: int | None = None) -> None:
+        self.device = device
+        self.left = steps  # the pool's decode steps not yet run; None where unbounded
+        self.key = self.pool = self.keeper = None
+        self.captured = []
+        self.close()
+
+    @staticmethod
+    def engages(model: Qwen2VLModel, device: torch.device) -> bool:
+        """On a CUDA device, with the whole model there (a model group's gloo
+        all-reduces cannot be captured)."""
+        return device.type == "cuda" and (model.tp is None or model.tp.size == 1)
+
+    def close(self) -> None:
+        keeper = self.captured[-1][0] if self.captured else self.keeper
+        self.captured = []  # per segment: (graph, its static outputs, the counts its capture made)
+        self.segments = self.inputs = self.attn = None
+        if self.pool is not None and keeper is not None:
+            _FREE_MEMORY[self.device].append((self.pool, keeper))
+        self.pool = self.keeper = None
+
+    def step(self, key, segments, attend, token_ids, position_ids, cache_pos: int, layers: int):
+        """(the step's logits, whether they came from graphs captured at an
+        earlier step). ``key`` is (the cache's and mask's addresses, the
+        step's shapes and switches); ``segments()`` builds the step's
+        segments; ``attend(i, q, out=None)`` launches layer ``i``'s K3."""
+        left = self.left
+        if left is not None:
+            self.left -= 1
+        if key != self.key:
+            self.close()
+            self.key = key
+        if not self.captured:
+            warm = _warm_shapes()
+            if key[1:] not in warm:
+                warm.add(key[1:])
+                with self._warm_up():
+                    return _run_direct(segments(), attend, token_ids, position_ids, cache_pos), False
+            if left is not None and left < GRAPH_MIN_STEPS:
+                return _run_direct(segments(), attend, token_ids, position_ids, cache_pos), False
+        if self.inputs is None:
+            self.inputs = (torch.empty_like(token_ids),
+                           torch.empty(position_ids.shape, dtype=position_ids.dtype, device=self.device),
+                           torch.empty(1, dtype=torch.long, device=self.device))
+        ids, positions, pos = self.inputs
+        ids.copy_(token_ids)
+        positions.copy_(position_ids)
+        pos.fill_(cache_pos)
+        replay = bool(self.captured)
+        if replay:
+            run = self._replay
+        else:
+            _hostprof.count("decode_graph_captures")
+            self.segments = segments()
+            run = self._capture_and_run
+        return _run_segments(run, self._into_static(attend), layers, ids, positions, pos), replay
+
+    def _into_static(self, attend):
+        def into(i, q):
+            if self.attn is None:
+                self.attn = torch.empty_like(q)
+            return attend(i, q, out=self.attn)
+
+        return into
+
+    def _capture_and_run(self, k: int, *inputs) -> tuple:
+        with _hostprof.tally() as counts:
+            graph, outputs = self._capture(self.segments[k], inputs)
+        graph.replay()
+        self.captured.append((graph, outputs, counts))
+        return outputs
+
+    def _replay(self, k: int, *inputs) -> tuple:
+        graph, outputs, counts = self.captured[k]
+        graph.replay()
+        for store, name, n in counts:
+            _hostprof.add(store, name, n)
+        return outputs
+
+    def _capture(self, fn, inputs):
+        """(the graph of ``fn(*inputs)``, its static outputs). The device is
+        never synchronized during a capture (``capture_lock``), and other
+        threads may launch work meanwhile (``thread_local``)."""
+        if self.pool is None:
+            self.pool, self.keeper = _graph_memory(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with capture_lock, torch.cuda.stream(_capture_stream(self.device)):
+            graph.capture_begin(self.pool, capture_error_mode="thread_local")
+            try:
+                outputs = fn(*inputs)
+            finally:
+                graph.capture_end()
+        self.keeper = None  # the new graph keeps the pool now
+        return graph, outputs
+
+    @contextmanager
+    def _warm_up(self):
+        stream, current = _capture_stream(self.device), torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            yield
+        current.wait_stream(stream)
+
+
+# The decode pool's graphs of this thread while :func:`_decode_loop` runs,
+# and the step shapes this thread has run directly on the capture stream.
+_pool = threading.local()
+
+
+def _warm_shapes() -> set:
+    if not hasattr(_pool, "warm"):
+        _pool.warm = set()
+    return _pool.warm
+
+
+@contextmanager
+def _pool_graphs(model: Qwen2VLModel, device: torch.device, steps: int | None = None):
+    """This thread's decode steps inside the block (at most ``steps``, where
+    given) run from one :class:`StepGraphs` where they engage (yielded; None
+    where not); the graphs are dropped and their memory pool given back as
+    the block ends."""
+    graphs = StepGraphs(device, steps) if StepGraphs.engages(model, device) else None
+    _pool.graphs = graphs
+    try:
+        yield graphs
+    finally:
+        _pool.graphs = None
+        if graphs is not None:
+            graphs.close()
+
+
 @torch.inference_mode()
 def decode_step(
     model: Qwen2VLModel,
@@ -1017,12 +1293,18 @@ def decode_step(
     (:func:`row_invariant`), and otherwise (W8A8, K4) on at least
     ``REDUCE_ROWS`` rows, for the norms' reductions.
 
+    The step is the segments of :func:`_step_segments` with each layer's K3
+    between them. Inside :func:`_decode_loop` on a CUDA device they replay
+    the pool's :class:`StepGraphs` (the logits are then a static tensor that
+    the next step overwrites); elsewhere, and on the CPU and under tensor
+    parallelism always, they run directly.
+
     With the host timers on (:mod:`~lmms_owc_tpu_torch.utils._hostprof`) it
-    counts ``decode_rows``, the batch's rows, and ``decode_rows_computed``, the
-    rows the decoder layers' products run on after the row blocks' padding;
-    the head's rows are not counted.
+    counts ``decode_rows``, the batch's rows, ``decode_rows_computed``, the
+    rows the decoder layers' products run on after the row blocks' padding
+    (the head's rows are not counted), and ``decode_graph_steps``, one where
+    the step replayed graphs captured at an earlier step (zero otherwise).
     """
-    c = model.config
     cache_k, cache_v, *scales = cache
     b = token_ids.shape[0]
     layer_rows = head_rows = rows
@@ -1037,30 +1319,25 @@ def decode_step(
     if _hostprof.ENABLED:
         _hostprof.count("decode_rows", b)
         _hostprof.count("decode_rows_computed", b if layer_rows is None else -(-b // layer_rows) * layer_rows)
-    x = embed_tokens(model, token_ids)[:, None, :]
-    cos, sin = mrope_cos_sin(position_ids, c)
-    for i, layer in enumerate(model.layers):
-        q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), layer_rows, x)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if scales:
-            (kq, k_sc), (vq, v_sc) = _quantize_kv(k[:, :, 0]), _quantize_kv(v[:, :, 0])
-            cache_k[i, :, :, cache_pos] = kq
-            cache_v[i, :, :, cache_pos] = vq
-            scales[0][i, :, :, cache_pos] = k_sc
-            scales[1][i, :, :, cache_pos] = v_sc
-        else:
-            cache_k[i, :, :, cache_pos] = k[:, :, 0]
-            cache_v[i, :, :, cache_pos] = v[:, :, 0]
-        attn = gqa_decode_attention(q[:, :, 0], cache_k, cache_v, i, kv_mask, *scales)
 
-        def post(t, a):
-            t = t + layer.o(a)
-            return t + layer.mlp(t)
+    def attend(i, q, **out):
+        return gqa_decode_attention(q, cache_k, cache_v, i, kv_mask, *scales, **out)
 
-        x = _row_blocks(post, layer_rows, x, attn.reshape(b, 1, -1))
-    # The vocabulary gather takes the batch's rows only, not a row block's padding.
-    logits = _row_blocks(lambda t: _local_head_logits(model, model.final_norm(t)), head_rows, x[:, 0])
+    def segments():
+        return _step_segments(model, cache, layer_rows, head_rows)
+
+    graphs = getattr(_pool, "graphs", None)
+    if graphs is None:
+        logits, replayed = _run_direct(segments(), attend, token_ids, position_ids, cache_pos), False
+    else:
+        layer0 = model.layers[0]
+        key = (tuple(t.data_ptr() for t in (*cache, kv_mask)),
+               tuple((t.shape, t.dtype) for t in (*cache, kv_mask)), b, rows, model.dtype,
+               type(layer0.q), type(model.lm_head), _layers._INT8_ACTIVATIONS, _hostprof.ENABLED)
+        logits, replayed = graphs.step(key, segments, attend, token_ids, position_ids, cache_pos,
+                                       len(model.layers))
+    if _hostprof.ENABLED:
+        _hostprof.count("decode_graph_steps", int(replayed))
     return _gather_vocab(model, logits)
 
 
@@ -1112,6 +1389,9 @@ def _decode_loop(
     :func:`decode_step` call, the sampling and the token bookkeeping), its
     ``decode_stop_check`` span the host blocked on ``done.all()`` until the
     device has caught up, and ``decode_steps`` counts the steps.
+
+    The steps share one :class:`StepGraphs` where it engages
+    (:func:`_pool_graphs`), dropped when the loop ends.
     """
     c = model.config
     b = logits.shape[0]
@@ -1125,18 +1405,19 @@ def _decode_loop(
         return token, done | torch.isin(token, eos_ids)
 
     token, done = keep(0, logits, done)
-    for step in range(max_new_tokens - 1):
-        with hostprof("decode_stop_check"):
-            stop = bool(done.all())
-        if stop:
-            break
-        with hostprof("decode_issue"):
-            if _hostprof.ENABLED:
-                _hostprof.count("decode_steps")
-            pos = (next_positions + step)[None, :, None].expand(3, b, 1)
-            kv_mask[:, prompt_len + step] = 1
-            logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask, decode_rows)
-            token, done = keep(step + 1, logits, done)
+    with _pool_graphs(model, logits.device, max_new_tokens - 1):
+        for step in range(max_new_tokens - 1):
+            with hostprof("decode_stop_check"):
+                stop = bool(done.all())
+            if stop:
+                break
+            with hostprof("decode_issue"):
+                if _hostprof.ENABLED:
+                    _hostprof.count("decode_steps")
+                pos = (next_positions + step)[None, :, None].expand(3, b, 1)
+                kv_mask[:, prompt_len + step] = 1
+                logits = decode_step(model, token, pos, cache, prompt_len + step, kv_mask, decode_rows)
+                token, done = keep(step + 1, logits, done)
     return tokens
 
 

@@ -50,6 +50,7 @@ import torch
 
 from lmms_owc_tpu_torch.nn.layers import apply_rope
 from lmms_owc_tpu_torch.ops import _build
+from lmms_owc_tpu_torch.utils import _hostprof
 
 __all__ = [
     "attention_reference",
@@ -393,9 +394,9 @@ def _launch_flash(
     )
     code = lib.owc_flash_attention(ctypes.byref(args), _stream_handle(q.device))
     _raise_on_error(code, name)
-    launch_counts[name] += 1
+    _hostprof.add(launch_counts, name)
     if mask is not None:
-        launch_counts["flash_attention_tensor_mask"] += 1
+        _hostprof.add(launch_counts, "flash_attention_tensor_mask")
 
 
 def flash_takes_hopper(
@@ -454,11 +455,13 @@ def _launch_decode(
     v_scale: torch.Tensor | None,
     scale: float,
     splits: int = _DECODE_PLAN_SPLITS,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Check the operands, launch the decode kernel with the split plan of the
-    cache length, and count it (the int8 cache under ``gqa_decode_attention_int8``).
-    ``splits`` (up to 16) overrides the plan's most splits for a measurement;
-    the wrappers keep the plan's 8."""
+    cache length into ``out`` (a new tensor where None), and count it (the
+    int8 cache under ``gqa_decode_attention_int8``). ``splits`` (up to 16)
+    overrides the plan's most splits for a measurement; the wrappers keep the
+    plan's 8."""
     b, h, d = q.shape
     int8 = cache_k.dtype == torch.int8
     lib = _build.load_library()
@@ -495,7 +498,10 @@ def _launch_decode(
     if kv_mask.shape != (b, s):
         raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != [{b}, {s}]")
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"out: expected a contiguous {tuple(q.shape)} {q.dtype} tensor on {q.device}")
     plan = decode_split_plan(s, splits)
     workspace = None
     if decode_needs_workspace(dtype == torch.bfloat16, d, h // kvh, s, plan):
@@ -510,7 +516,7 @@ def _launch_decode(
     code = lib.owc_gqa_decode_attention(ctypes.byref(args), _stream_handle(q.device))
     name = "gqa_decode_attention_int8" if int8 else "gqa_decode_attention"
     _raise_on_error(code, name)
-    launch_counts[name] += 1
+    _hostprof.add(launch_counts, name)
     return out
 
 
@@ -742,6 +748,7 @@ def gqa_decode_attention(
     v_scale: torch.Tensor | None = None,
     *,
     scale: float | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Single-token GQA attention against layer ``layer_idx`` of a stacked cache.
 
@@ -754,7 +761,9 @@ def gqa_decode_attention(
         k_scale, v_scale: [L, B, KVH, S] f32 per-position dequant scales of an
             int8 cache (the JAX package's [L, B, KVH, 8, S] without the TPU
             sublane replication); required with an int8 cache.
-    Returns: [B, H, D] in q.dtype.
+        out: a contiguous [B, H, D] tensor in q.dtype to write the result
+            into (a CUDA graph's static input), or None for a new one.
+    Returns: [B, H, D] in q.dtype (``out`` where given).
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -762,7 +771,8 @@ def gqa_decode_attention(
     if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("an int8 cache takes k_scale and v_scale, a float cache neither")
     if q.device.type == "cpu":
-        return gqa_decode_attention_plain(
+        result = gqa_decode_attention_plain(
             q, cache_k, cache_v, layer_idx, kv_mask, k_scale, v_scale, scale=scale
         )
-    return _launch_decode(q, cache_k, cache_v, layer_idx, kv_mask, k_scale, v_scale, scale)
+        return result if out is None else out.copy_(result)
+    return _launch_decode(q, cache_k, cache_v, layer_idx, kv_mask, k_scale, v_scale, scale, out=out)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from lmms_owc_tpu_torch.ops import _build
+from lmms_owc_tpu_torch.utils import _hostprof
 
 __all__ = [
     "int4_matmul",
@@ -161,5 +162,5 @@ def _launch_int4(x2: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> tor
     code = lib.owc_int4_matmul(ctypes.byref(args), _stream_handle(x2.device))
     if code != 0:
         raise RuntimeError(f"int4_matmul: CUDA kernel launch failed with cudaError {code}")
-    launch_counts["int4_matmul"] += 1
+    _hostprof.add(launch_counts, "int4_matmul")
     return out

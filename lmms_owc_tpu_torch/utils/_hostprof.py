@@ -20,6 +20,11 @@ reads that window's counts. Call sites in hot loops test ``ENABLED`` first.
 not tracing: always on, it tells the tests and the smoke which kernels a path
 launched.)
 
+Both stores take their adds through :func:`add`, which also notes each add in
+the adding thread's open :func:`tally`: a CUDA graph runs no Python when it
+replays, so the decode step records the counts its capture made and adds
+them again on every replay (``nn/qwen2_vl.py StepGraphs``).
+
 Usage::
 
     with hostprof("detok"):
@@ -77,15 +82,35 @@ def hostprof_dump(label: str = "") -> None:
 
 counters: dict[str, int] = defaultdict(int)
 _counter_lock = threading.Lock()
+_tallies = threading.local()
+
+
+def add(store: dict[str, int], name: str, n: int = 1) -> None:
+    """Add ``n`` to ``store[name]`` and note the add in this thread's open
+    :func:`tally`, if any. The adapters' prep worker counts beside the main
+    thread, so the add holds a lock."""
+    with _counter_lock:
+        store[name] += n
+    log = getattr(_tallies, "log", None)
+    if log is not None:
+        log.append((store, name, n))
+
+
+@contextmanager
+def tally():
+    """Yields the list of ``(store, name, n)`` that :func:`add` makes on this
+    thread inside the block (another thread's adds are not in it)."""
+    _tallies.log = log = []
+    try:
+        yield log
+    finally:
+        _tallies.log = None
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``; no-op when disabled. The adapters'
-    prep worker counts beside the main thread, so the add holds a lock."""
-    if not ENABLED:
-        return
-    with _counter_lock:
-        counters[name] += n
+    """Add ``n`` to the counter ``name``; no-op when disabled."""
+    if ENABLED:
+        add(counters, name, n)
 
 
 def counters_reset() -> None:

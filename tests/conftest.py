@@ -43,6 +43,7 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: mark test as slow (needs --run-slow)")
+    config.addinivalue_line("markers", "card: needs an NVIDIA GPU; skipped where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

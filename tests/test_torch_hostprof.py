@@ -145,6 +145,7 @@ def test_pooled_qwen2_vl_timers_change_no_output(monkeypatch, capsys, case):
         "decode_rows_computed": computed * steps,
         "prefill_tokens": sum(int(m.sum()) for m in prefill_masks),
         "prefill_slots": sum(m.numel() for m in prefill_masks),
+        "decode_graph_steps": 0,  # the CPU runs the step's segments directly
     }
     assert len(prefill_masks) == 2 and want_counters["prefill_tokens"] < want_counters["prefill_slots"]
     if w8a8:
@@ -153,6 +154,45 @@ def test_pooled_qwen2_vl_timers_change_no_output(monkeypatch, capsys, case):
         assert counters["w8a8_quantize"] > 7 * layers * forwards  # and the tower's
         want_counters["w8a8_quantize"] = counters["w8a8_quantize"]
     assert counters == want_counters
+
+
+@pytest.mark.parametrize("case", list(POOLED_CASES))
+def test_graph_replays_add_the_counts_of_their_capture(monkeypatch, case):
+    """The pooled run of the test above with the timers on, its decode steps
+    replayed from stand-in CUDA graphs (captured at the second step of the
+    pool, replayed from the third): every counter equals the direct run's,
+    the quantizations a capture counted coming back at each replay and the
+    tower's, counted on the prep worker's thread, never taken for the
+    capture's; beside them, the replayed steps and the capture."""
+    from tests.test_torch_decode_graphs import RecordingGraphs
+
+    kwargs, rows = POOLED_CASES[case]
+    try:
+        model, requests = _tiny_qwen(**kwargs)
+        model.decode_rows = rows
+        monkeypatch.setenv("LMMS_OWC_DECODE_POOL", "2")
+        monkeypatch.setenv("LMMS_OWC_SORT_BY_VISION", "0")
+        monkeypatch.setattr(_hostprof, "ENABLED", True)
+        runs = []
+        for graphs in (False, True):
+            with monkeypatch.context() as m:
+                if graphs:
+                    RecordingGraphs.made = []
+                    m.setattr(tq, "StepGraphs", RecordingGraphs)
+                    m.setattr(tq._pool, "warm", set(), raising=False)
+                _hostprof.counters_reset()
+                runs.append((_tokens(model, requests), dict(_hostprof.counters)))
+    finally:
+        tl.set_int8_activations(False)
+    ((want_texts, want_tokens), direct), ((texts, tokens), graphed) = runs
+    assert texts == want_texts
+    np.testing.assert_array_equal(tokens, want_tokens)
+    steps = direct["decode_steps"]
+    assert steps >= 3 and direct.pop("decode_graph_steps") == 0 and "decode_graph_captures" not in direct
+    assert graphed.pop("decode_graph_steps") == steps - 2 and graphed.pop("decode_graph_captures") == 1
+    assert graphed == direct
+    (made,) = RecordingGraphs.made
+    assert made.replays == (steps - 1) * (len(model.model.layers) + 1)
 
 
 def test_counters_only_while_enabled(monkeypatch):
