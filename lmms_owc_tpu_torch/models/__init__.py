@@ -12,6 +12,7 @@ from lmms_owc_tpu_torch.models import (  # noqa: F401  (register the adapters)
     idefics2,
     instructblip,
     internvl2,
+    kimi_vl,
     llava_hf,
     llava_onevision,
     phi3v,
@@ -25,6 +26,7 @@ def _model_types() -> dict:
     from lmms_owc_tpu_torch.models.idefics2 import Idefics2
     from lmms_owc_tpu_torch.models.instructblip import InstructBlip
     from lmms_owc_tpu_torch.models.internvl2 import InternVL2
+    from lmms_owc_tpu_torch.models.kimi_vl import KimiVL
     from lmms_owc_tpu_torch.models.llava_hf import LlavaHf
     from lmms_owc_tpu_torch.models.qwen2_vl import Qwen2VL
 
@@ -32,6 +34,7 @@ def _model_types() -> dict:
         "idefics2": Idefics2,
         "instructblip": InstructBlip,
         "internvl2": InternVL2,
+        "kimi_vl": KimiVL,
         "llava": LlavaHf,
         "qwen2-vl": Qwen2VL,
     }

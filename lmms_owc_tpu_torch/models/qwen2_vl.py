@@ -275,6 +275,7 @@ class Qwen2VL(Model):
     """Qwen2-VL on the PyTorch/CUDA stack."""
 
     supports_mesh = True
+    presets = PRESET_CONFIGS
 
     def __init__(
         self,
@@ -309,8 +310,8 @@ class Qwen2VL(Model):
         the decoder and the Qwen2-VL tower are sharded over the model group as
         each module is drawn or loaded (:mod:`lmms_owc_tpu_torch.parallel.sharding`;
         the Qwen2.5-VL tower stays whole)."""
-        if preset not in PRESET_CONFIGS:
-            raise ValueError(f"unknown preset {preset!r}; available: {sorted(PRESET_CONFIGS)}")
+        if preset not in self.presets:
+            raise ValueError(f"unknown preset {preset!r}; available: {sorted(self.presets)}")
         self.preset = preset
         self.pretrained = pretrained
         self.random_init = random_init or pretrained is None
@@ -829,7 +830,6 @@ class Qwen2VL(Model):
         cache_len = l_max + pad_to_bucket(max_new_tokens, GEN_LEN_BUCKETS)
         total_rows = sum(len(rows) for rows, _ in prepared_list)
         kv_mask = torch.zeros((total_rows, cache_len), dtype=torch.int32, device=dev)
-        kv_int8 = qvl.kv_cache_int8_enabled(dev)
         cache: tuple = ()
         logits_all, next_all = [], []
         row_offset = 0
@@ -842,25 +842,14 @@ class Qwen2VL(Model):
                     embeds, position_ids, attention_mask, next_pos, _ = self._build_batch_inputs(rows, vision_flat)
                     mask = torch.from_numpy(attention_mask.astype(np.int32)).to(dev)
                 with hostprof("prefill_dispatch"):
-                    logits, ks, vs = qvl.prefill_logits(
+                    logits, *kv = qvl.prefill_logits(
                         self.model, embeds, torch.from_numpy(position_ids).to(dev), mask
                     )
-                if not cache:
-                    shape = (ks.shape[0], total_rows, ks.shape[2], cache_len, ks.shape[4])
-                    kv_dtype = torch.int8 if kv_int8 else ks.dtype
-                    cache = (torch.zeros(shape, dtype=kv_dtype, device=dev),
-                             torch.zeros(shape, dtype=kv_dtype, device=dev))
-                    if kv_int8:
-                        cache += (torch.zeros(shape[:4], dtype=torch.float32, device=dev),
-                                  torch.zeros(shape[:4], dtype=torch.float32, device=dev))
+                if qvl.kv_int8_cache(self.model, dev):
+                    kv = qvl.quantize_kv_cache(*kv)
                 front = l_max - bucket_len
-                if kv_int8:
-                    kq, vq, sk, sv = qvl.quantize_kv_cache(ks, vs)
-                    del ks, vs
-                    qvl.write_pool_chunk(cache[0], cache[1], kq, vq, row_offset, front)
-                    qvl.write_pool_scales(cache[2], cache[3], sk, sv, row_offset, front)
-                else:
-                    qvl.write_pool_chunk(cache[0], cache[1], ks, vs, row_offset, front)
+                cache = qvl.write_pool(cache, kv, total_rows, cache_len, row_offset, front)
+                del kv
                 kv_mask[row_offset : row_offset + len(rows), front : front + bucket_len] = mask
                 logits_all.append(logits)
                 next_all.append(next_pos)

@@ -233,7 +233,7 @@ class JudgeModel:
             l_max = max(p[0] for p in prepared)
             cache_len = l_max + MAX_NEW_TOKENS
             cache_len += (-cache_len) % 32
-            kv_int8 = qvl.kv_cache_int8_enabled(dev)
+            kv_int8 = qvl.kv_int8_cache(self.model, dev)
             total_rows = sum(p[1].shape[0] for p in prepared)
             kv_mask = torch.zeros((total_rows, cache_len), dtype=torch.int32, device=dev)
             cache: tuple = ()
@@ -242,23 +242,13 @@ class JudgeModel:
             for p in prepared:
                 bucket = p[0]
                 embeds, position_ids, mask, next_pos = self._inputs(p)
-                logits, ks, vs = qvl.prefill_logits(self.model, embeds, position_ids, mask)
-                if not cache:
-                    shape = (ks.shape[0], total_rows, ks.shape[2], cache_len, ks.shape[4])
-                    kv_dtype = torch.int8 if kv_int8 else ks.dtype
-                    cache = (torch.zeros(shape, dtype=kv_dtype, device=dev), torch.zeros(shape, dtype=kv_dtype, device=dev))
-                    if kv_int8:
-                        cache += (torch.zeros(shape[:4], dtype=torch.float32, device=dev),
-                                  torch.zeros(shape[:4], dtype=torch.float32, device=dev))
-                front = l_max - bucket
+                logits, *kv = qvl.prefill_logits(self.model, embeds, position_ids, mask)
                 if kv_int8:
                     # Quantize BEFORE the pool write: the bf16 pool never exists.
-                    kq, vq, sk, sv = qvl.quantize_kv_cache(ks, vs)
-                    del ks, vs
-                    qvl.write_pool_chunk(cache[0], cache[1], kq, vq, row_offset, front)
-                    qvl.write_pool_scales(cache[2], cache[3], sk, sv, row_offset, front)
-                else:
-                    qvl.write_pool_chunk(cache[0], cache[1], ks, vs, row_offset, front)
+                    kv = qvl.quantize_kv_cache(*kv)
+                front = l_max - bucket
+                cache = qvl.write_pool(cache, kv, total_rows, cache_len, row_offset, front)
+                del kv
                 n_rows = mask.shape[0]
                 kv_mask[row_offset : row_offset + n_rows, front : front + bucket] = mask
                 logits_all.append(logits)

@@ -73,6 +73,7 @@ __all__ = [
     "greedy_generate",
     "init_params",
     "kv_cache_int8_enabled",
+    "kv_int8_cache",
     "load_hf_weights",
     "mrope_cos_sin",
     "params_from_jax",
@@ -82,8 +83,8 @@ __all__ = [
     "rope_inv_freq",
     "score_continuation",
     "vision_rope_cos_sin",
-    "write_pool_chunk",
-    "write_pool_scales",
+    "write_pool",
+    "write_pool_rows",
 ]
 
 
@@ -385,11 +386,59 @@ class DecoderLayer(nn.Module):
         self.up = Linear(h, c.intermediate_size, False, dtype, device)
         self.down = Linear(c.intermediate_size, h, False, dtype, device)
 
+    def products(self) -> tuple:
+        """The products a decode step runs over the batch's rows (``decode_step``'s row blocks)."""
+        return (self.q, self.k, self.v, self.o, self.gate, self.up, self.down)
+
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
         """Gated MLP on the post-attention norm (``mlp_swiglu`` through the modules,
         so int8/int4 projections take their own dense)."""
         h = self.post_ln(x)
         return self.down(torch.nn.functional.silu(self.gate(h)) * self.up(h))
+
+    def prefill_attention(self, x, cos, sin, attention_mask, keep, config) -> torch.Tensor:
+        """The attention block's output (o-projected) over the left-padded
+        prompt x [B, L, hidden]; ``keep(k, v)`` receives the rotated K and V,
+        [B, KVH, L, D], the layer's share of the cache."""
+        b, l, _ = x.shape
+        q, k, v = _qkv(self, self.input_ln(x), config)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if keep is not None:
+            keep(k, v)
+        # The padding mask is one contiguous run per row, so the kernel reads
+        # it as (start, end) scalars.
+        attn = flash_attention(q, k, v, causal=True, kv_mask=attention_mask, kv_mask_contiguous=True)
+        return self.o(attn.transpose(1, 2).reshape(b, l, -1))
+
+    def step_query(self, i, x, cos, sin, pos, cache, rows, config) -> torch.Tensor:
+        """A decode step's query [B, H, D] of layer ``i`` (x [B, 1, hidden]),
+        its new K and V (quantized per vector for an int8 cache, with their
+        scales) written IN PLACE at the cache position ``pos``."""
+        cache_k, cache_v, *scales = cache
+        q, k, v = _row_blocks(lambda t: _qkv(self, self.input_ln(t), config), rows, x)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        writes = [(cache_k, k), (cache_v, v)]
+        if scales:
+            (kq, k_sc), (vq, v_sc) = _quantize_kv(k), _quantize_kv(v)
+            writes = [(cache_k, kq), (cache_v, vq), (scales[0], k_sc), (scales[1], v_sc)]
+        for dst, src in writes:
+            dst[i].index_copy_(2, pos, src.to(dst.dtype))
+        return q[:, :, 0]
+
+    def step_attention(self, i, q, cache, kv_mask, **out) -> torch.Tensor:
+        """Layer ``i``'s decode attention (K3) over the cache."""
+        cache_k, cache_v, *scales = cache
+        return gqa_decode_attention(q, cache_k, cache_v, i, kv_mask, *scales, **out)
+
+    def step_post(self, x, attn, rows) -> torch.Tensor:
+        """The o-projection, residual and MLP of a decode step after the attention."""
+
+        def post(t, a):
+            t = t + self.o(a)
+            return t + self.mlp(t)
+
+        return _row_blocks(post, rows, x, attn.reshape(x.shape[0], 1, -1))
 
 
 class Qwen2VLModel(nn.Module):
@@ -445,6 +494,22 @@ class Qwen2VLModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed_tokens.device
+
+    def rope_inv_freq(self, device: torch.device) -> torch.Tensor:
+        return rope_inv_freq(self.config, device)
+
+    def rope_tables(self, position_ids: torch.Tensor, inv_freq: torch.Tensor | None = None):
+        """cos, sin [B, L, head_dim/2] of ``position_ids`` [3, B, L] (:func:`mrope_cos_sin`)."""
+        return mrope_cos_sin(position_ids, self.config, inv_freq)
+
+    # The int8 KV cache (``LMMS_OWC_KV_INT8``, :func:`kv_int8_cache`) quantizes K and V.
+    cache_quantizes = True
+
+    def cache_shapes(self, batch: int, cache_len: int) -> tuple:
+        """The shapes of the decode cache's tensors: K and V, each [L, B, KVH, S, D]."""
+        c = self.config
+        shape = (c.num_layers, batch, self.kv_heads, cache_len, c.head_dim)
+        return shape, shape
 
     def hf_tensor(self, state, name: str) -> torch.Tensor:
         """The HF checkpoint tensor of this model's parameter ``name``, found
@@ -824,22 +889,14 @@ def _decoder_forward(
 ) -> torch.Tensor:
     """Causal decoder over the full left-padded sequence -> hidden states
     [B, L, hidden] before the final norm (a per-position op the callers apply
-    where they need it). ``keep_kv(layer, k, v)`` receives each layer's
-    rotated K and V, [B, KVH, L, D]."""
-    c = model.config
-    b, l, _ = input_embeds.shape
-    cos, sin = mrope_cos_sin(position_ids, c)
+    where they need it). ``keep_kv(layer, *tensors)`` receives each layer's
+    share of the cache (rotated K and V, [B, KVH, L, D]; a Kimi-VL layer's
+    latent, :meth:`~lmms_owc_tpu_torch.nn.kimi_vl.KimiDecoderLayer.prefill_attention`)."""
+    cos, sin = model.rope_tables(position_ids)
     x = input_embeds
     for i, layer in enumerate(model.layers):
-        q, k, v = _qkv(layer, layer.input_ln(x), c)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if keep_kv is not None:
-            keep_kv(i, k, v)
-        # The padding mask is one contiguous run per row, so the kernel reads
-        # it as (start, end) scalars.
-        attn = flash_attention(q, k, v, causal=True, kv_mask=attention_mask, kv_mask_contiguous=True)
-        x = x + layer.o(attn.transpose(1, 2).reshape(b, l, -1))
+        keep = None if keep_kv is None else (lambda *kv, i=i: keep_kv(i, *kv))
+        x = x + layer.prefill_attention(x, cos, sin, attention_mask, keep, model.config)
         x = x + layer.mlp(x)
     return x
 
@@ -859,22 +916,21 @@ def prefill(
         position_ids: [3, B, L] M-RoPE positions.
         attention_mask: [B, L] 1 = real token (one contiguous run per row).
         cache_len: cache capacity (>= L + max_new_tokens).
-    Returns: (logits [B, vocab] f32 at the last position, (cache_k, cache_v), each
-        [num_layers, B, KVH, cache_len, D] with positions >= L zero).
+    Returns: (logits [B, vocab] f32 at the last position, the cache: (cache_k,
+        cache_v), each [num_layers, B, KVH, cache_len, D], or the model's own
+        tensors (``model.cache_shapes``), with positions >= L zero).
     """
-    c = model.config
     b, l, _ = input_embeds.shape
-    shape = (c.num_layers, b, model.kv_heads, cache_len, c.head_dim)
-    cache_k = torch.zeros(shape, dtype=input_embeds.dtype, device=input_embeds.device)
-    cache_v = torch.zeros_like(cache_k)
+    cache = tuple(torch.zeros(shape, dtype=input_embeds.dtype, device=input_embeds.device)
+                  for shape in model.cache_shapes(b, cache_len))
 
-    def keep(i, k, v):
-        cache_k[i, :, :, :l] = k
-        cache_v[i, :, :, :l] = v
+    def keep(i, *kv):
+        for dst, src in zip(cache, kv):
+            dst[i, :, :, :l] = src
 
     x = _decoder_forward(model, input_embeds, position_ids, attention_mask, keep)
     x = model.final_norm(x[:, -1])  # left-padded: the last position is the newest token
-    return _head_logits(model, x), (cache_k, cache_v)
+    return _head_logits(model, x), cache
 
 
 @torch.inference_mode()
@@ -916,10 +972,11 @@ def prefill_logits(
     position_ids: torch.Tensor,
     attention_mask: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill for the decode pool: last-position logits and the UNPADDED KV,
-    each [num_layers, B, KVH, L, D]; :func:`write_pool_chunk` places it."""
-    logits, (ks, vs) = prefill(model, input_embeds, position_ids, attention_mask, input_embeds.shape[1])
-    return logits, ks, vs
+    """Prefill for the decode pool: last-position logits and the UNPADDED
+    cache's tensors (K and V, each [num_layers, B, KVH, L, D]; one latent
+    tensor for Kimi-VL); :func:`write_pool_rows` places each."""
+    logits, cache = prefill(model, input_embeds, position_ids, attention_mask, input_embeds.shape[1])
+    return (logits, *cache)
 
 
 # ------------------------------------------------------------- int8 cache, pool
@@ -939,6 +996,18 @@ def kv_cache_int8_enabled(device: torch.device | str | None = None) -> bool:
     return torch.device(device).type == "cuda" if device is not None else torch.cuda.is_available()
 
 
+def kv_int8_cache(model, device: torch.device | str | None = None) -> bool:
+    """Whether ``model``'s decode cache goes int8: :func:`kv_cache_int8_enabled`
+    where the model's cache quantizes (``cache_quantizes``); asked of a cache
+    that does not (Kimi-VL's latent cache), a ValueError."""
+    if not kv_cache_int8_enabled(device):
+        return False
+    if not model.cache_quantizes:
+        raise ValueError(f"LMMS_OWC_KV_INT8 asks for an int8 KV cache, which {type(model).__name__}'s "
+                         "decode cache does not take")
+    return True
+
+
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-vector symmetric int8 over the trailing head_dim axis: (q int8 [..., D],
     scale f32 [...]) with x ~= q * scale; all-zero vectors get scale 1e-6/127."""
@@ -956,30 +1025,29 @@ def quantize_kv_cache(
     return kq, vq, sk, sv
 
 
-def write_pool_chunk(
-    cache_k: torch.Tensor, cache_v: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-    row_offset: int, front: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write one chunk's prefill KV ([L, B_i, KVH, L_i, D], left-padded prompts)
-    into the preallocated pool IN PLACE: rows from ``row_offset``, the sequence
-    axis FRONT-padded by ``front`` to the pool's common prompt bucket (masked
-    off by the caller's kv_mask like ordinary left padding). Peak memory is the
-    pool plus one chunk. Returns the pool tensors."""
-    b, l = ks.shape[1], ks.shape[3]
-    cache_k[:, row_offset : row_offset + b, :, front : front + l] = ks
-    cache_v[:, row_offset : row_offset + b, :, front : front + l] = vs
-    return cache_k, cache_v
+def write_pool(pool: tuple, chunk: tuple, rows: int, cache_len: int, row_offset: int, front: int) -> tuple:
+    """One chunk's prefill cache (:func:`prefill_logits`' tensors of
+    left-padded prompts, or their int8 form and scales from
+    :func:`quantize_kv_cache`) into the decode pool of ``rows`` rows and
+    ``cache_len`` positions IN PLACE, made at the first chunk (``pool``
+    empty) in the chunk's dtypes: rows from ``row_offset``, the sequence
+    axis FRONT-padded by ``front`` to the pool's common prompt bucket
+    (masked off by the caller's kv_mask like ordinary left padding), each
+    tensor by :func:`write_pool_rows`. Peak memory is the pool plus one
+    chunk. Returns the pool."""
+    if not pool:
+        pool = tuple(torch.zeros((t.shape[0], rows, t.shape[2], cache_len, *t.shape[4:]), dtype=t.dtype,
+                                 device=t.device) for t in chunk)
+    for dst, src in zip(pool, chunk):
+        write_pool_rows(dst, src, row_offset, front)
+    return pool
 
 
-def write_pool_scales(
-    scale_k: torch.Tensor, scale_v: torch.Tensor, sk: torch.Tensor, sv: torch.Tensor,
-    row_offset: int, front: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scale-pool companion of :func:`write_pool_chunk` for an int8 pool: one
-    chunk's [L, B_i, KVH, S_i] scales, written in place at the same offsets.
-    The token axis is axis 3 of the scales as of the cache (the JAX package's
-    scales carry a TPU sublane axis before it), so this is the same write."""
-    return write_pool_chunk(scale_k, scale_v, sk, sv, row_offset, front)
+def write_pool_rows(pool: torch.Tensor, chunk: torch.Tensor, row_offset: int, front: int) -> None:
+    """One tensor of :func:`write_pool`: ``chunk`` [L, B_i, heads, L_i, ...]
+    into ``pool`` IN PLACE, rows from ``row_offset``, positions from ``front``."""
+    b, l = chunk.shape[1], chunk.shape[3]
+    pool[:, row_offset : row_offset + b, :, front : front + l] = chunk
 
 
 # torch's CUDA reduction over the last dim (RMSNorm's mean of squares) sizes
@@ -1010,61 +1078,41 @@ def _row_blocks(fn, rows: int | None, *xs: torch.Tensor):
 
 
 def _step_segments(model: Qwen2VLModel, cache: tuple, layer_rows: int | None, head_rows: int | None) -> list:
-    """A decode step's work between its K3 launches, as ``L + 1`` functions of
-    tensors that return tuples of tensors. Segment 0 takes (token ids [B],
-    positions [3, B, 1], cache position) to (x, cos, sin, layer 0's query);
-    segment ``i`` (``0 < i < L``) takes (x, cos, sin, cache position, layer
-    ``i - 1``'s attention) to (x, layer ``i``'s query): layer ``i - 1``'s
-    o-projection, residual and MLP, then layer ``i``'s norm, q/k/v and rope;
-    segment ``L`` takes (x, the last layer's attention) to (this rank's
-    logits,). Each layer's new K and V (quantized per vector for an int8
-    cache, with their scales) are written IN PLACE at the cache position, a
-    one-element device tensor, so one capture of a segment serves every step.
-    ``layer_rows`` and ``head_rows`` are :func:`_row_blocks`' for the layers'
-    products and for the head."""
-    c = model.config
-    cache_k, cache_v, *scales = cache
-    inv_freq = rope_inv_freq(c, cache_k.device)
-
-    def query(i, x, cos, sin, pos):
-        layer = model.layers[i]
-        q, k, v = _row_blocks(lambda t: _qkv(layer, layer.input_ln(t), c), layer_rows, x)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        writes = [(cache_k, k), (cache_v, v)]
-        if scales:
-            (kq, k_sc), (vq, v_sc) = _quantize_kv(k), _quantize_kv(v)
-            writes = [(cache_k, kq), (cache_v, vq), (scales[0], k_sc), (scales[1], v_sc)]
-        for dst, src in writes:
-            dst[i].index_copy_(2, pos, src.to(dst.dtype))
-        return q[:, :, 0]
-
-    def residual(i, x, attn):
-        layer = model.layers[i]
-
-        def post(t, a):
-            t = t + layer.o(a)
-            return t + layer.mlp(t)
-
-        return _row_blocks(post, layer_rows, x, attn.reshape(x.shape[0], 1, -1))
+    """A decode step's work between its attention launches (each layer's
+    ``step_attention``), as ``L + 1`` functions of tensors that return
+    tuples of tensors. Segment 0 takes
+    (token ids [B], positions [3, B, 1], cache position) to (x, cos, sin,
+    layer 0's query); segment ``i`` (``0 < i < L``) takes (x, cos, sin, cache
+    position, layer ``i - 1``'s attention) to (x, layer ``i``'s query): layer
+    ``i - 1``'s post-attention work (``step_post``: the o-projection,
+    residual and MLP), then layer ``i``'s query (``step_query``: norm,
+    projections, rope, and the cache write); segment ``L`` takes (x, the last
+    layer's attention) to (this rank's logits,). Each layer writes its share
+    of the cache IN PLACE at the cache position, a one-element device tensor,
+    so one capture of a segment serves every step. ``layer_rows`` and
+    ``head_rows`` are :func:`_row_blocks`' for the layers' products and for
+    the head."""
+    layers, c = model.layers, model.config
+    inv_freq = model.rope_inv_freq(cache[0].device)
 
     def first(ids, positions, pos):
         x = embed_tokens(model, ids)[:, None, :]
-        cos, sin = mrope_cos_sin(positions, c, inv_freq)
-        return x, cos, sin, query(0, x, cos, sin, pos)
+        cos, sin = model.rope_tables(positions, inv_freq)
+        return x, cos, sin, layers[0].step_query(0, x, cos, sin, pos, cache, layer_rows, c)
 
     def middle(i):
         def segment(x, cos, sin, pos, attn):
-            x = residual(i - 1, x, attn)
-            return x, query(i, x, cos, sin, pos)
+            x = layers[i - 1].step_post(x, attn, layer_rows)
+            return x, layers[i].step_query(i, x, cos, sin, pos, cache, layer_rows, c)
 
         return segment
 
     def last(x, attn):
-        x = residual(len(model.layers) - 1, x, attn)
+        x = layers[-1].step_post(x, attn, layer_rows)
         # The vocabulary gather takes the batch's rows only, not a row block's padding.
         return (_row_blocks(lambda t: _local_head_logits(model, model.final_norm(t)), head_rows, x[:, 0]),)
 
-    return [first, *(middle(i) for i in range(1, len(model.layers))), last]
+    return [first, *(middle(i) for i in range(1, len(layers))), last]
 
 
 def _run_segments(run, attend, layers: int, ids, positions, pos) -> torch.Tensor:
@@ -1114,9 +1162,9 @@ def _graph_memory(device: torch.device) -> tuple:
 
 class StepGraphs:
     """CUDA graphs of one decode pool's step segments (:func:`_step_segments`),
-    captured once and replayed at every later step of the pool; K3 runs
-    between them as ever, launched per layer, into a static buffer that the
-    next segment reads.
+    captured once and replayed at every later step of the pool; each
+    layer's attention (K3, or Kimi-VL's MLA decode) runs between them,
+    launched per layer, into a static buffer that the next segment reads.
 
     A step whose key differs from the step before (the pool's first; a new
     cache or mask tensor, batch or row block; another cache dtype; the W8A8
@@ -1148,8 +1196,10 @@ class StepGraphs:
     @staticmethod
     def engages(model: Qwen2VLModel, device: torch.device) -> bool:
         """On a CUDA device, with the whole model there (a model group's gloo
-        all-reduces cannot be captured)."""
-        return device.type == "cuda" and (model.tp is None or model.tp.size == 1)
+        all-reduces cannot be captured), where the model's step reads nothing
+        on the host (``capturable``: Kimi-VL's routed product in bf16)."""
+        return (device.type == "cuda" and (model.tp is None or model.tp.size == 1)
+                and getattr(model, "capturable", True))
 
     def close(self) -> None:
         keeper = self.captured[-1][0] if self.captured else self.keeper
@@ -1163,7 +1213,8 @@ class StepGraphs:
         """(the step's logits, whether they came from graphs captured at an
         earlier step). ``key`` is (the cache's and mask's addresses, the
         step's shapes and switches); ``segments()`` builds the step's
-        segments; ``attend(i, q, out=None)`` launches layer ``i``'s K3."""
+        segments; ``attend(i, q, out=None)`` launches layer ``i``'s attention
+        (``step_attention``: K3, or Kimi-VL's MLA decode)."""
         left = self.left
         if left is not None:
             self.left -= 1
@@ -1196,9 +1247,14 @@ class StepGraphs:
         return _run_segments(run, self._into_static(attend), layers, ids, positions, pos), replay
 
     def _into_static(self, attend):
+        """``attend`` writing into one static buffer that the next segment
+        reads: the first call's output, whose shape is the layer's own (an
+        MLA output is narrower than its query)."""
+
         def into(i, q):
             if self.attn is None:
-                self.attn = torch.empty_like(q)
+                self.attn = attend(i, q).contiguous()
+                return self.attn
             return attend(i, q, out=self.attn)
 
         return into
@@ -1282,9 +1338,11 @@ def decode_step(
     """One decode step: token_ids [B], position_ids [3, B, 1] -> logits [B, vocab] f32.
 
     ``cache`` is (cache_k, cache_v), each [num_layers, B, KVH, S, D], or the
-    int8 form (k_q, v_q, k_scale, v_scale) of :func:`quantize_kv_cache`. The new
-    token's K and V (quantized per vector for an int8 cache, with their scales)
-    are point-written IN PLACE at ``cache_pos``; the caller's cache tensors
+    int8 form (k_q, v_q, k_scale, v_scale) of :func:`quantize_kv_cache`, or
+    the model's own (Kimi-VL: one latent tensor [num_layers, B, 1, S, 576]).
+    Each layer's share of the new token's cache entry (``step_query``: K and
+    V, quantized per vector for an int8 cache, with their scales) is
+    point-written IN PLACE at ``cache_pos``; the caller's cache tensors
     hold the update afterwards. ``kv_mask`` [B, S] must already mark
     ``cache_pos`` valid. With ``rows``, a row's logits do not depend on the
     batch: the layers (everything but the attention, which is per row
@@ -1293,7 +1351,8 @@ def decode_step(
     (:func:`row_invariant`), and otherwise (W8A8, K4) on at least
     ``REDUCE_ROWS`` rows, for the norms' reductions.
 
-    The step is the segments of :func:`_step_segments` with each layer's K3
+    The step is the segments of :func:`_step_segments` with each layer's
+    attention (``step_attention``: K3, or Kimi-VL's MLA decode) launched
     between them. Inside :func:`_decode_loop` on a CUDA device they replay
     the pool's :class:`StepGraphs` (the logits are then a static tensor that
     the next step overwrites); elsewhere, and on the CPU and under tensor
@@ -1305,13 +1364,12 @@ def decode_step(
     (the head's rows are not counted), and ``decode_graph_steps``, one where
     the step replayed graphs captured at an earlier step (zero otherwise).
     """
-    cache_k, cache_v, *scales = cache
     b = token_ids.shape[0]
+    layer0 = model.layers[0]
     layer_rows = head_rows = rows
     if rows is not None:
-        layer0, head = model.layers[0], model.lm_head
-        if all(row_invariant(lin, b) for lin in (layer0.q, layer0.k, layer0.v, layer0.o,
-                                                 layer0.gate, layer0.up, layer0.down)):
+        head = model.lm_head
+        if all(row_invariant(lin, b) for lin in layer0.products()):
             layer_rows = max(b, REDUCE_ROWS)
         # An int8 head multiplies in bf16 (``_head_logits``) even under W8A8.
         if isinstance(head, Int4Linear) and row_invariant(head, b):
@@ -1321,7 +1379,7 @@ def decode_step(
         _hostprof.count("decode_rows_computed", b if layer_rows is None else -(-b // layer_rows) * layer_rows)
 
     def attend(i, q, **out):
-        return gqa_decode_attention(q, cache_k, cache_v, i, kv_mask, *scales, **out)
+        return model.layers[i].step_attention(i, q, cache, kv_mask, **out)
 
     def segments():
         return _step_segments(model, cache, layer_rows, head_rows)
@@ -1330,10 +1388,10 @@ def decode_step(
     if graphs is None:
         logits, replayed = _run_direct(segments(), attend, token_ids, position_ids, cache_pos), False
     else:
-        layer0 = model.layers[0]
         key = (tuple(t.data_ptr() for t in (*cache, kv_mask)),
                tuple((t.shape, t.dtype) for t in (*cache, kv_mask)), b, rows, model.dtype,
-               type(layer0.q), type(model.lm_head), _layers._INT8_ACTIVATIONS, _hostprof.ENABLED)
+               tuple(type(lin) for lin in layer0.products()), type(model.lm_head), _layers._INT8_ACTIVATIONS,
+               _hostprof.ENABLED)
         logits, replayed = graphs.step(key, segments, attend, token_ids, position_ids, cache_pos,
                                        len(model.layers))
     if _hostprof.ENABLED:
@@ -1456,7 +1514,7 @@ def greedy_generate(
     l = input_embeds.shape[1]
     with phase("prefill"):
         logits, cache = prefill(model, input_embeds, position_ids, attention_mask, cache_len)
-        if kv_cache_int8_enabled(input_embeds.device):
+        if kv_int8_cache(model, input_embeds.device):
             cache = quantize_kv_cache(*cache)  # the decode-resident cache goes int8
     with phase("decode"):
         kv_mask = torch.zeros(
@@ -1487,14 +1545,14 @@ def decode_pool(
 ) -> torch.Tensor:
     """Decode-until-EOS over a pooled cache (``LMMS_OWC_DECODE_POOL`` serving).
 
-    ``cache`` comes from :func:`write_pool_chunk` (and :func:`write_pool_scales`
-    for an int8 pool) and is updated in place; a float pool is quantized here
+    ``cache`` comes from :func:`write_pool` (int8 with its scales for an
+    int8 pool) and is updated in place; a float pool is quantized here
     when the int8 cache is on. ``prompt_len`` is the pool's common prompt
     bucket, the cache position of the first generated token; ``kv_mask``
     [B, S] marks the pool's valid prompt positions and is updated in place.
     ``decode_rows`` is :func:`greedy_generate`'s. Returns [B, max_new_tokens] tokens.
     """
-    if kv_cache_int8_enabled(logits0.device) and len(cache) == 2:
+    if kv_int8_cache(model, logits0.device) and len(cache) == 2:
         cache = quantize_kv_cache(*cache)
     return _decode_loop(
         model, logits0, cache, kv_mask, next_positions, max_new_tokens, prompt_len, eos_ids,

@@ -90,10 +90,15 @@ def test_write_pool_chunk_and_scales_match_jax():
     ks, vs = rng.randn(2, 2, 2, 7, 8).astype(np.float32), rng.randn(2, 2, 2, 7, 8).astype(np.float32)
     ref = jq.write_pool_chunk(jnp.asarray(pool_k), jnp.asarray(pool_v), jnp.asarray(ks), jnp.asarray(vs),
                               jnp.asarray(3, jnp.int32), jnp.asarray(4, jnp.int32))
-    got = tq.write_pool_chunk(torch.from_numpy(pool_k.copy()), torch.from_numpy(pool_v.copy()),
-                              torch.from_numpy(ks), torch.from_numpy(vs), 3, 4)
+    got = tq.write_pool((torch.from_numpy(pool_k.copy()), torch.from_numpy(pool_v.copy())),
+                        (torch.from_numpy(ks), torch.from_numpy(vs)), 5, 12, 3, 4)
     for g, w in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # A first chunk makes the pool: zeros but its own rows and positions, in its dtype.
+    made = tq.write_pool((), (torch.from_numpy(ks).bfloat16(),), 5, 12, 3, 4)
+    assert made[0].shape == shape and made[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(made[0][:, 3:5, :, 4:11].float().numpy(), torch.from_numpy(ks).bfloat16().float().numpy())
+    assert float(made[0].float().abs().sum()) == float(made[0][:, 3:5, :, 4:11].float().abs().sum())
 
     sshape = shape[:4]
     pool_sk, pool_sv = rng.rand(*sshape).astype(np.float32), rng.rand(*sshape).astype(np.float32)
@@ -104,8 +109,8 @@ def test_write_pool_chunk_and_scales_match_jax():
 
     ref = jq.write_pool_scales(rep8(pool_sk), rep8(pool_sv), rep8(sk), rep8(sv),
                                jnp.asarray(1, jnp.int32), jnp.asarray(5, jnp.int32))
-    got = tq.write_pool_scales(torch.from_numpy(pool_sk.copy()), torch.from_numpy(pool_sv.copy()),
-                               torch.from_numpy(sk), torch.from_numpy(sv), 1, 5)
+    got = tq.write_pool((torch.from_numpy(pool_sk.copy()), torch.from_numpy(pool_sv.copy())),
+                        (torch.from_numpy(sk), torch.from_numpy(sv)), 5, 12, 1, 5)
     for g, w in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:, :, :, 0, :])
 

@@ -2,8 +2,8 @@
 
 Every name the JAX registry holds is registered in the port, and
 ``custom-model`` dispatches an arbitrary checkpoint to the adapter of its
-``model_type`` as the JAX one does: the same five families, the same error
-for an unknown type, and, for ``model_type=llava`` on the tiny LLaVA
+``model_type`` as the JAX one does: the same five families (and Kimi-VL,
+which only the port has), the same error for an unknown type, and, for ``model_type=llava`` on the tiny LLaVA
 checkpoint of ``tests/test_torch_llava.py`` (the one of
 ``tests/test_checkpoint_matrix.py`` has a pad id of 0, which the LLaVA
 adapters read as 32001, past its 512-token vocabulary: the port refuses it),
@@ -42,9 +42,11 @@ def test_presets_match_jax(family):
 
 
 def test_custom_model_families_match_jax():
+    """The JAX package's five families, and Kimi-VL, which only the port has."""
     got, want = models._model_types(), jax_models._model_types()
-    assert sorted(got) == sorted(want) == ["idefics2", "instructblip", "internvl2", "llava", "qwen2-vl"]
-    assert {k: v.__name__ for k, v in got.items()} == {k: v.__name__ for k, v in want.items()}
+    assert sorted(want) == ["idefics2", "instructblip", "internvl2", "llava", "qwen2-vl"]
+    assert sorted(got) == sorted([*want, "kimi_vl"])
+    assert {k: v.__name__ for k, v in got.items() if k in want} == {k: v.__name__ for k, v in want.items()}
     assert all(cls.__module__.startswith("lmms_owc_tpu_torch.models.") for cls in got.values())
 
 
@@ -53,7 +55,9 @@ def test_custom_model_dispatch_error():
         get_model("custom-model", model_type="nonexistent", model_name_or_path="/x")
     with pytest.raises(ValueError, match="not found") as want:
         jax_models.get_model("custom-model", model_type="nonexistent", model_name_or_path="/x")
-    assert str(got.value) == str(want.value)
+    # The same message, naming the port's families (Kimi-VL's too).
+    families = str(sorted(jax_models._model_types())), str(sorted(models._model_types()))
+    assert "'kimi_vl'" in str(got.value) and str(got.value) == str(want.value).replace(*families)
 
 
 def test_custom_model_llava_serves_the_checkpoint(tmp_path, monkeypatch):
